@@ -1,0 +1,57 @@
+"""Carry parameters between the JAX package and the port as numpy arrays.
+
+The port keeps the JAX parameter paths and layouts unchanged (weights
+(d_in, d_out), stacked over layers with a leading L dim), so the bridge is a
+leaf-by-leaf copy: nothing is transposed.  Neither side's module is
+imported; the caller converts the JAX pytree to numpy first
+(``jax.tree.map(np.asarray, params)``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _expected_shapes(cfg) -> dict:
+    d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+    hd, nh, nkv, ff = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
+    if cfg.mlp_kind == "swiglu":
+        mlp["wg"] = (n, d, ff)
+    shapes = {"embed": (v, d), "final_norm": (d,),
+              "layers": {"ln1": (n, d), "ln2": (n, d),
+                         "attn": {"wq": (n, d, nh * hd), "wk": (n, d, nkv * hd),
+                                  "wv": (n, d, nkv * hd), "wo": (n, nh * hd, d)},
+                         "mlp": mlp}}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, v)
+    return shapes
+
+
+def _convert(tree, shapes, fn, path=""):
+    if set(tree) != set(shapes):
+        raise ValueError(f"parameter keys at '{path or '/'}' are {sorted(tree)}, "
+                         f"expected {sorted(shapes)}")
+    out = {}
+    for k, want in shapes.items():
+        p = f"{path}/{k}"
+        if isinstance(want, dict):
+            out[k] = _convert(tree[k], want, fn, p)
+        elif tuple(tree[k].shape) != want:
+            raise ValueError(f"{p}: shape {tuple(tree[k].shape)} != {want}")
+        else:
+            out[k] = fn(tree[k])
+    return out
+
+
+def params_from_jax(np_params, cfg, device) -> dict:
+    """The port's parameters from the JAX ``model_init`` pytree given as
+    numpy arrays (dense decoder)."""
+    return _convert(np_params, _expected_shapes(cfg),
+                    lambda a: torch.from_numpy(np.array(a)).to(device))
+
+
+def params_to_numpy(params, cfg) -> dict:
+    """The port's parameters as a numpy pytree in the JAX layout."""
+    return _convert(params, _expected_shapes(cfg),
+                    lambda t: t.detach().cpu().numpy())

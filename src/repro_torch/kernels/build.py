@@ -1,0 +1,84 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes).  The library's file name carries a hash of the sources and flags,
+so a build runs again only when they change.  Builds land in ``_build/``
+beside this file (listed in ``.gitignore``).  A failed build raises with the
+compiler's output; ``nvcc``'s ``-Xptxas -v`` report (registers, shared
+memory, spills per kernel) is kept in ``<library>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; the "
+                       "CUDA kernels are built from source at first use")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` unless it is built already; returns the
+    library's path.  Raises RuntimeError with nvcc's output if it fails."""
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    lib = _library_path(name)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, check=False)
+    lib.with_name(lib.name + ".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA kernel build failed: nvcc {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for the built ``name`` (empty if not built)."""
+    lib = _library_path(name)
+    log = lib.with_name(lib.name + ".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _loaded[name] = lib
+    return lib

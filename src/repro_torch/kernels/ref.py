@@ -1,0 +1,27 @@
+"""Plain PyTorch oracles for the port's kernels (counterpart of
+``repro/kernels/ref.py``): small, obviously-right definitions of what each
+kernel computes, used by the CPU path and held against the kernels on the
+card."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,Tq,H,hd); k,v: (B,Tk,H,hd) — dense softmax attention in f32,
+    returned in ``q.dtype``.  Masks as the JAX oracle: causal is aligned
+    top-left (query i sees keys j <= i) and ``window`` keeps keys j > i - w."""
+    tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    qpos = torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -1,0 +1,82 @@
+"""Model API (port of the transformer branch of ``repro/models/api.py``).
+
+``build_model(cfg, device=)`` returns a ``ModelApi`` whose members are plain
+functions over the parameter dict; the serving engine consumes models only
+through it.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; asking for CUDA where there is none raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf_mod
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if it is CUDA and no card is
+    visible (never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() "
+                           f"is False; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def masked_nll_sum(logits, labels):
+    """Summed token NLL in f32 (labels < 0 masked)."""
+    logits = logits.float()
+    mask = labels >= 0
+    labels = labels.clamp(min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def cross_entropy(logits, labels, n_valid_vocab: int):
+    """Mean token NLL in f32; labels < 0 are masked out."""
+    mask = labels >= 0
+    return masked_nll_sum(logits, labels) / mask.sum().clamp(min=1)
+
+
+@dataclasses.dataclass
+class ModelApi:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable                    # seed -> params
+    loss_fn: Callable                 # (params, batch, pctx) -> (loss, metrics)
+    prefill: Optional[Callable]       # (params, batch, pctx, capacity, window) -> (logits, cache)
+    decode_fn: Optional[Callable]     # (params, cache, batch, pctx, window) -> (logits, cache)
+
+
+def build_model(cfg: ModelConfig, *, device="cuda") -> ModelApi:
+    dev = resolve_device(device)
+    tf_mod.check_supported(cfg)
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tf_mod.model_init(gen, cfg, device=dev)
+
+    def loss_fn(params, batch, pctx=None):
+        fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
+        logits, aux = tf_mod.forward(cfg, params, fwd_batch, mode="train", pctx=pctx)
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        return loss + aux, {"loss": loss, "aux": aux}
+
+    def prefill(params, batch, pctx=None, capacity: int = 0, window=None):
+        fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
+        logits, cache, _ = tf_mod.forward(cfg, params, fwd_batch, mode="prefill",
+                                          window_override=window, pctx=pctx,
+                                          cache_capacity=capacity)
+        return logits, cache
+
+    def decode_fn(params, cache, batch, pctx=None, window=None):
+        return tf_mod.decode_step(cfg, params, cache, batch,
+                                  window_override=window, pctx=pctx)
+
+    return ModelApi(cfg, dev, init, loss_fn, prefill, decode_fn)

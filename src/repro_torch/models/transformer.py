@@ -1,0 +1,206 @@
+"""Dense decoder stack (port of the dense path of ``repro/models/transformer.py``).
+
+Parameters are a nested dict with the JAX package's paths and layouts,
+stacked over layers (leading L dim on every leaf of ``params["layers"]``);
+the JAX layer scan becomes a Python loop over per-layer views.  Entry points:
+
+    forward(mode="train")    (B,S) tokens -> (B,S,V) logits
+    forward(mode="prefill")  also fills a linear KV cache of given capacity
+    decode_step              t tokens against the cache (scalar ``pos``)
+
+Attention goes through ``kernels.flash_attention`` (the CUDA kernel on the
+card, its plain twin on the CPU).  Configs and modes this slice does not
+port raise ``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import layers as L
+
+TRAINING = "ROADMAP.md Queue 1 item 2 (the training slice)"
+SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
+FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
+MULTI_DEVICE = "ROADMAP.md Queue 1 items 5-8 (multi-device runtimes)"
+
+
+def unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet: {item}")
+
+
+def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
+    """Raise NotImplementedError for any config or mode outside the dense,
+    full-attention, single-device decoder this slice ports."""
+    if pctx is not None:
+        raise unported("a ParallelCtx (mesh execution)", MULTI_DEVICE)
+    if window or cfg.sliding_window:
+        raise unported(f"sliding-window attention ({cfg.name})", SERVING_EXT)
+    for flag, what, item in (
+            (cfg.is_moe, "MoE", FAMILIES), (cfg.rwkv, "RWKV", FAMILIES),
+            (cfg.family == "hybrid", "the hybrid SSM block", FAMILIES),
+            (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
+            (cfg.n_prefix_embeds, "prefix embeddings (VLM)", FAMILIES),
+            (cfg.attn_logit_softcap, "attention logit softcap", FAMILIES),
+            (cfg.family == "cnn", "the cnn family", FAMILIES),
+            (cfg.family == "rnn", "the LSTM language model and its lstm_cell kernel",
+             TRAINING)):
+        if flag:
+            raise unported(f"{what} ({cfg.name})", item)
+
+
+# ---------------------------------------------------------------------------
+# init and cache
+# ---------------------------------------------------------------------------
+
+def model_init(gen: torch.Generator, cfg, *, device=None):
+    """Random parameters at the JAX init's scales, drawn from ``gen``
+    (a generator on ``device``)."""
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    kw = dict(dtype=dtype, device=device)
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
+    params = {"embed": L.embed_init(gen, v, d, **kw), "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, d, v, **kw)
+    params["layers"] = {
+        "ln1": ones(n, d), "ln2": ones(n, d),
+        "attn": {"wq": L.dense_init(gen, d, nh * hd, lead=(n,), **kw),
+                 "wk": L.dense_init(gen, d, nkv * hd, lead=(n,), **kw),
+                 "wv": L.dense_init(gen, d, nkv * hd, lead=(n,), **kw),
+                 "wo": L.dense_init(gen, nh * hd, d, lead=(n,), **kw)},
+        "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, lead=(n,), **kw),
+    }
+    return params
+
+
+def make_cache(cfg, batch: int, capacity: int, *, dtype=None, device=None):
+    """Linear decode cache stacked over layers: k, v (L, B, cap, KV, hd) and
+    the scalar write position ``pos`` (a Python int)."""
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    return {"pos": 0,
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _layer(stacked, i: int):
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None):
+    """Self-attention over x, or (decode) over the cache plus x.
+
+    Decode writes the new roped K/V into the cache at ``pos0`` first and
+    then attends over the view ``cache[:, :pos0 + t]`` with causal=False:
+    the same keys as the JAX path's concat(cache, new) under a kv_mask
+    (the sum runs in another order, so the two agree to round-off, not
+    bitwise).  Returns (out, (k_roped, v))."""
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).view(b, t, nh, hd)
+    k = (x @ p["wk"].to(x.dtype)).view(b, t, nkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).view(b, t, nkv, hd)
+    positions = (pos0 + torch.arange(t, device=x.device)).expand(b, t)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cache_kv is None:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        L.cache_insert_full(cache_kv, k, v, pos0)
+        n = pos0 + t
+        out = flash_attention(q, cache_kv["k"][:, :n], cache_kv["v"][:, :n],
+                              causal=False)
+    return out.reshape(b, t, nh * hd) @ p["wo"].to(x.dtype), (k, v)
+
+
+def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None):
+    """One decoder block.  ``cache`` is this layer's {"k", "v"} view
+    (B, cap, KV, hd): decode reads and updates it in place, prefill fills
+    its first S positions (the rest stays zero, the JAX pad to capacity).
+    Returns (x, cache or None)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=pos0, cache_kv=cache)
+    else:
+        attn_out, (k_new, v_new) = _self_attention(p["attn"], h, cfg, pos0=0)
+        if mode == "prefill":
+            s = k_new.shape[1]
+            cache["k"][:, :s] = k_new
+            cache["v"][:, :s] = v_new
+    x = x + attn_out
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# top-level entry points
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, params, tokens):
+    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    return x * (cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0)
+
+
+def _head(cfg, params, x):
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ w.to(x.dtype)
+    if cfg.vocab_padded != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] += L.NEG_INF
+    return logits
+
+
+def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
+            pctx=None, cache_capacity: int = 0):
+    """batch: dict(tokens (B,S)).  mode "train": returns (logits, aux);
+    mode "prefill": returns (logits, cache, aux) with a cache of
+    ``cache_capacity`` positions (default S)."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode {mode!r}")
+    check_supported(cfg, window=window_override or 0, pctx=pctx)
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    b, s = tokens.shape
+    cache = None
+    if mode == "prefill":
+        cap = cache_capacity or s
+        if cap < s:
+            raise ValueError(f"cache capacity {cap} < prompt length {s}")
+        cache = make_cache(cfg, b, cap, dtype=x.dtype, device=x.device)
+    for i in range(cfg.n_layers):
+        csl = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+        x, _ = block_apply(cfg, _layer(params["layers"], i), x, mode=mode, cache=csl)
+    logits = _head(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "prefill":
+        cache["pos"] = s
+        return logits, cache, aux
+    return logits, aux
+
+
+def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
+    """batch: dict(tokens (B,t)) against a cache with scalar ``pos``.
+    Returns (logits (B,t,V), cache): the K/V tensors are updated in place
+    and the returned dict carries pos + t."""
+    check_supported(cfg, window=window_override or 0, pctx=pctx)
+    pos = cache["pos"]
+    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
+        raise unported("slot mode (per-row cache positions)", SERVING_EXT)
+    pos = int(pos)
+    x = _embed(cfg, params, batch["tokens"])
+    for i in range(cfg.n_layers):
+        csl = {"k": cache["k"][i], "v": cache["v"][i]}
+        x, _ = block_apply(cfg, _layer(params["layers"], i), x, mode="decode",
+                           pos0=pos, cache=csl)
+    logits = _head(cfg, params, x)
+    return logits, {**cache, "pos": pos + batch["tokens"].shape[1]}
