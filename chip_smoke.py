@@ -7,21 +7,39 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA / nvcc
    versions;
-2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc, one
+   process per source, all started together, and print ptxas' registers and
+   spills;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (full-width Llama-3.2-1B prefill and a decode step
-   on a strided cache view) and at edge shapes, fp32 and bf16; time the
-   kernel, the plain version and one PyTorch library call computing the same
-   function (a yardstick the port never calls);
+   main paths' shapes and at edge shapes, fp32 and bf16: flash attention at
+   full-width Llama-3.2-1B prefill and a decode step on a strided cache view;
+   the LSTM cell's forward and pointwise backward at full-width BigLSTM
+   (B 16, d_in 1024, d_h 1024, H 8192) and at shapes where B and H are no
+   tile multiples, and the cell's autograd function (dx, dh, dc, dWx, dWh,
+   db) against autograd of the plain oracle.  Time each kernel, its plain
+   version and one PyTorch library call computing the same function (a
+   yardstick the port never calls): device time per call from
+   torch.profiler (``ms``) and CUDA-event time per call, host gaps included
+   (``call_ms``);
 4. serve full-width, full-depth Llama-3.2-1B from a seeded random init
    through ``ServeEngine.generate`` (4 prompts of 512 tokens, 32 new tokens,
    greedy) with the launch counters set to 0 just before and read just after,
    then profile one prefill and one decode step (torch.profiler: wall time,
    device busy time, idle share, top kernels);
-5. hold the model path against its plain path: the same weights at 2 layers
-   of full width in f32, kernels on the card against the plain versions on
-   the CPU;
-6. print one JSON line of kernels, then the device line.
+5. hold the serving model path against its plain path: the same weights at 2
+   layers of full width in f32, kernels on the card against the plain
+   versions on the CPU;
+6. train full-width, full-depth BigLSTM (1.78 B parameters) from a seeded
+   init through the launcher (``repro_torch.launch.train.main``: 5 steps at
+   B 16, T 64, AdamW over warmup-cosine, clip 1.0) with the launch counters
+   set to 0 just before and read just after (640 forward and 640 backward
+   cell launches); then time steps (ms, tokens/s, peak memory) and profile
+   one;
+7. hold the train step against its plain path: one step at the full LSTM
+   width, 2 layers, f32, vocab cut to 32768, kernels on the card against the
+   plain versions on the CPU (loss and gradient norm within 1e-4 relative,
+   LSTM parameters after the update within 1e-3);
+8. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -34,6 +52,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +60,8 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BATCH, PROMPT, NEW = 4, 512, 32
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
+LSTM_FULL = (TRAIN_B, 1024, 1024, 8192)         # B, d_in, d_h, H of BigLSTM's cell
 
 
 def _phase(name):
@@ -48,6 +69,8 @@ def _phase(name):
 
 
 def time_ms(fn, reps=20, warmup=3):
+    """Milliseconds per call between CUDA events around ``reps`` calls: the
+    device time plus any gap where the device waited for the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -58,6 +81,35 @@ def time_ms(fn, reps=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Device milliseconds per call: the time of the CUDA kernels (and
+    copies) that torch.profiler saw over ``reps`` calls.  Unlike
+    ``time_ms`` it leaves out the host's launch gaps, which for a kernel of
+    a few microseconds are most of a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profiling session now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+
+
+def time_into(row, key, fn):
+    """row[key]: device ms per call; row[key with "call_ms"]: event ms."""
+    row[key] = device_ms(fn)
+    row[key.removesuffix("ms") + "call_ms"] = time_ms(fn)
 
 
 def attention_bound_ms(q, k, v, causal, window):
@@ -91,14 +143,14 @@ def check_attention(fa, case, q, k, v, *, causal, window=0, timed=False):
     if not err < tol or not torch.isfinite(out).all():
         raise AssertionError(f"flash_attention {case}: max abs err {err} >= {tol}")
     if timed:
-        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                       window=window))
-        row["plain_ms"] = time_ms(lambda: fa.flash_attention_ref(
+        time_into(row, "ms", lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                         window=window))
+        time_into(row, "plain_ms", lambda: fa.flash_attention_ref(
             q, k, v, causal=causal, window=window))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        row["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                                 enable_gqa=True))
+        time_into(row, "library_ms", lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=True))
         row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, v, causal, window)
     print(json.dumps(row), flush=True)
     return row
@@ -137,6 +189,156 @@ def phase_kernels(fa):
             rnd(b, tq, h, hd, dtype=dt), rnd(b, tk, hkv, hd, dtype=dt),
             rnd(b, tk, hkv, hd, dtype=dt), causal=causal, window=window))
     return rows
+
+
+def bound_ms(nbytes, flops, dtype):
+    """Least time on the card: the bytes moved (each input read once, each
+    output written once) at the HBM rate, or the FLOPs at the dtype's peak."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _max_err(got, want):
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+def _lstm_row(name, case, dtype, got, want, tol):
+    err = _max_err(got, want)
+    row = {"kernel": name, "shape": case, "dtype": str(dtype).removeprefix("torch."),
+           "max_abs_err": err, "tol": tol}
+    if not err < tol or not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"{name} {case}: max abs err {err} >= {tol} or not finite")
+    return row
+
+
+def lstm_inputs(gen, b, d_in, d_h, hh, dtype):
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return [rnd(b, d_in).to(dtype), rnd(b, d_h).to(dtype), rnd(b, hh, scale=0.5).to(dtype),
+            rnd(d_in, 4, hh, scale=d_in ** -0.5).to(dtype),
+            rnd(d_h, 4, hh, scale=d_h ** -0.5).to(dtype), rnd(4, hh, scale=0.1)]
+
+
+def check_lstm_fwd(lc, args, case, timed=False):
+    """The forward kernel (writing its gates, as in training) against its
+    plain version; timed against the plain version, the bound and PyTorch's
+    own LSTM cell path (two GEMMs and ``_thnn_fused_lstm_cell``:
+    ``torch.lstm_cell`` itself refuses a cell state wider than its recurrent
+    input, and BigLSTM's is 8192 against 1024)."""
+    x, h, c, wx, wh, b = args
+    dt = x.dtype
+    hn, cn, gates = lc.lstm_cell_fwd(*args, want_gates=True)
+    torch.cuda.synchronize()
+    rh, rc, ract = lc.lstm_cell_plain(*args, with_gates=True)
+    row = _lstm_row("lstm_cell_fwd", case, dt, (hn, cn), (rh, rc), TOL[dt])
+    row["gates_max_abs_err"] = float((gates - ract).abs().max())
+    if not row["gates_max_abs_err"] < 1e-4:
+        raise AssertionError(f"lstm_cell_fwd {case}: gates off by {row['gates_max_abs_err']}")
+    if timed:
+        bsz, d_in, d_h, hh = x.shape[0], x.shape[1], h.shape[1], c.shape[1]
+        time_into(row, "ms", lambda: lc.lstm_cell_fwd(*args, want_gates=True))
+        time_into(row, "plain_ms", lambda: lc.lstm_cell_plain(*args, with_gates=True))
+        wx_t = wx.reshape(d_in, 4 * hh).t().contiguous()
+        wh_t = wh.reshape(d_h, 4 * hh).t().contiguous()
+        b_fold = b.clone()
+        b_fold[1] += 1.0                                   # the forget bias, folded in
+        b_fold = b_fold.reshape(-1).to(dt)
+        zero_b = torch.zeros_like(b_fold)
+        lin = torch.nn.functional.linear
+
+        def library():
+            return torch.ops.aten._thnn_fused_lstm_cell(lin(x, wx_t), lin(h, wh_t), c,
+                                                        b_fold, zero_b)
+
+        lh, lcn, _ = library()
+        row["library_max_abs_err"] = _max_err((lh, lcn), (rh, rc))
+        time_into(row, "library_ms", library)
+        row["library"] = "linear x2 + aten._thnn_fused_lstm_cell (torch.lstm_cell's CUDA path)"
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(x, h, c, wx, wh, b, hn, cn, gates), 2.0 * bsz * (d_in + d_h) * 4 * hh, dt)
+    print(json.dumps(row), flush=True)
+    return row, (hn, cn, gates)
+
+
+def check_lstm_bwd(lc, gates, c, c_new, dh, dc, case, timed=False):
+    """The pointwise backward kernel against its plain version; timed against
+    the plain version, the bound and PyTorch's fused LSTM-cell backward
+    (``_thnn_fused_lstm_cell_backward_impl``, which also sums db)."""
+    dt = c.dtype
+    dg, dcp = lc.lstm_cell_bwd_pointwise(gates, c, dh, dc)
+    torch.cuda.synchronize()
+    rg, rcp = lc.lstm_cell_bwd_pointwise_plain(gates, c, dh, dc)
+    row = _lstm_row("lstm_cell_bwd_pointwise", case, dt, (dg, dcp), (rg, rcp), TOL[dt])
+    if timed:
+        bsz, hh = c.shape
+        time_into(row, "ms", lambda: lc.lstm_cell_bwd_pointwise(gates, c, dh, dc))
+        time_into(row, "plain_ms", lambda: lc.lstm_cell_bwd_pointwise_plain(gates, c, dh, dc))
+        workspace = gates.reshape(bsz, 4 * hh).to(dt)
+
+        def library():
+            return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, c_new,
+                                                                      workspace, True)
+
+        lg, lcp, _ = library()
+        row["library_max_abs_err"] = _max_err((lg, lcp), (rg.reshape(bsz, 4 * hh), rcp))
+        time_into(row, "library_ms", library)
+        row["library"] = "aten._thnn_fused_lstm_cell_backward_impl"
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(gates, c, dh, dc, dg, dcp), 20.0 * bsz * hh, torch.float32)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_cell_grads(lc, ref_mod, args):
+    """dx, dh, dc, dWx, dWh, db of ``LSTMCellFunction`` (the two kernels and
+    plain GEMMs) against autograd through the plain oracle, both on the card
+    in f32 with TF32 off; each within 1e-4 of max(1, its largest value)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    d_out = [torch.randn(args[2].shape, generator=gen, device="cuda") for _ in range(2)]
+    ours = [t.clone().requires_grad_() for t in args]
+    refs = [t.clone().requires_grad_() for t in args]
+    got = torch.autograd.grad(lc.lstm_cell(*ours), ours, d_out)
+    want = torch.autograd.grad(ref_mod.lstm_cell_ref(*refs), refs, d_out)
+    errs = {}
+    for name, g, w in zip(("dx", "dh", "dc", "dwx", "dwh", "db"), got, want):
+        errs[name] = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+    print(json.dumps({"lstm_cell_function_grads": "B16 din1024 dh1024 H8192 f32",
+                      "rel_err": errs, "tol": 1e-4}), flush=True)
+    if not max(errs.values()) < 1e-4:
+        raise AssertionError(f"LSTMCellFunction grads disagree with autograd: {errs}")
+    return max(errs.values())
+
+
+def phase_lstm_kernels(lc, ref_mod):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fwd_rows, bwd_rows = [], []
+    for dt in (torch.bfloat16, torch.float32):   # BigLSTM's training cell, full width
+        args = lstm_inputs(gen, *LSTM_FULL, dtype=dt)
+        row, (hn, cn, gates) = check_lstm_fwd(lc, args, "B16 din1024 dh1024 H8192", timed=True)
+        fwd_rows.append(row)
+        dh, dc = (torch.randn(hn.shape, generator=gen, device="cuda").to(dt) for _ in range(2))
+        bwd_rows.append(check_lstm_bwd(lc, gates, args[2], cn, dh, dc, "B16 H8192",
+                                       timed=True))
+    for b, d_in, d_h, hh in [(1, 24, 16, 70), (5, 64, 40, 33), (17, 40, 12, 130),
+                             (3, 16, 8, 1), (1, 1024, 1024, 8192)]:
+        for dt in (torch.float32, torch.bfloat16):
+            args = lstm_inputs(gen, b, d_in, d_h, hh, dtype=dt)
+            row, (hn, cn, gates) = check_lstm_fwd(lc, args, f"B{b} din{d_in} dh{d_h} H{hh}")
+            fwd_rows.append(row)
+            dh = torch.randn(hn.shape, generator=gen, device="cuda").to(dt)
+            bwd_rows.append(check_lstm_bwd(lc, gates, args[2], cn, dh, None,
+                                           f"B{b} H{hh} dc=None"))
+    grads_err = check_cell_grads(lc, ref_mod, lstm_inputs(gen, *LSTM_FULL, dtype=torch.float32))
+    return fwd_rows, bwd_rows, grads_err
 
 
 def phase_serve(fa, api_mod, engine_mod, cfg):
@@ -183,41 +385,46 @@ def phase_serve(fa, api_mod, engine_mod, cfg):
     return launches
 
 
-def phase_profile(api, params, batch):
-    """Where one prefill and one decode step spend their time: wall time on
-    the host clock (ending in a synchronize), device busy time as the sum of
-    the CUDA kernels the profiler saw, and the top kernels by device time."""
+def profile_call(name, fn, reps=3):
+    """Where one call spends its time: wall time on the host clock (ending in
+    a synchronize) unprofiled over ``reps`` calls and profiled over one,
+    device busy time as the sum of the CUDA kernels the profiler saw, the
+    idle share against the unprofiled wall time, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {"profile": name, "unprofiled_wall_ms": unprofiled_ms, "wall_ms": wall_ms,
+           "device_busy_ms": busy, "idle_share": 1 - busy / unprofiled_ms,
+           "kernels": len(kern), "top": [[n[:80], ms] for n, ms in top]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_profile(api, params, batch):
+    """One prefill and one decode step through ``profile_call``."""
     with torch.inference_mode():
         _, cache = api.prefill(params, batch, capacity=PROMPT + NEW + 8)
         step = {"tokens": batch["tokens"][:, -1:]}
-        calls = {"prefill": lambda: api.prefill(params, batch, capacity=PROMPT + NEW + 8),
-                 "decode_step": lambda: api.decode_fn(params, dict(cache), step)}
-        for name, fn in calls.items():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            unprofiled_ms = (time.perf_counter() - t0) * 1e3 / 3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            by_name = {}
-            for e in kern:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            busy = sum(by_name.values())
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            print(json.dumps({"profile": name, "unprofiled_wall_ms": unprofiled_ms,
-                              "wall_ms": wall_ms, "device_busy_ms": busy,
-                              "idle_share": 1 - busy / unprofiled_ms, "kernels": len(kern),
-                              "top": [[n[:80], ms] for n, ms in top]}), flush=True)
+        profile_call("prefill", lambda: api.prefill(params, batch, capacity=PROMPT + NEW + 8))
+        profile_call("decode_step", lambda: api.decode_fn(params, dict(cache), step))
 
 
 def phase_model_vs_plain(api_mod, cfg):
@@ -249,8 +456,118 @@ def phase_model_vs_plain(api_mod, cfg):
 
 
 def _tree_to(tree, device):
-    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
-            for k, v in tree.items()}
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def _lm_batch(seq, batch, epoch=0):
+    """One batch of the launcher's data: the Markov LM over 64 symbols."""
+    from repro_torch.data import make_lm_dataset
+    b = next(make_lm_dataset(vocab=64, seq_len=seq).epoch(epoch, batch))
+    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+
+
+def phase_train(train_launch, lc, fa, api_mod, cfg):
+    """Full-width, full-depth BigLSTM through the launcher, counters set to 0
+    just before and read just after; then step time and a profile of one
+    step, continuing from the trained state."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lc.lstm_cell_fwd.launches = lc.lstm_cell_bwd_pointwise.launches = 0
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    summary = train_launch.main(["--arch", "biglstm", "--steps", str(TRAIN_STEPS),
+                                 "--batch", str(TRAIN_B), "--seq", str(TRAIN_T)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"lstm_cell_fwd": lc.lstm_cell_fwd.launches,
+                "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise.launches,
+                "flash_attention": fa.flash_attention.launches}
+    want = TRAIN_STEPS * cfg.n_layers * TRAIN_T
+    if launches != {"lstm_cell_fwd": want, "lstm_cell_bwd_pointwise": want,
+                    "flash_attention": 0}:
+        raise AssertionError(f"training launched {launches}, want {want} forward and "
+                             f"{want} backward cell kernels")
+    state = summary["state"]
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    losses = summary["history"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or state.step != TRAIN_STEPS \
+            or not all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)):
+        raise AssertionError(f"training gave losses {losses} or non-finite parameters")
+    out = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers, "batch": TRAIN_B,
+           "seq": TRAIN_T, "steps": TRAIN_STEPS, "losses": losses,
+           "launcher_wall_s": wall_s, "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(out), flush=True)
+
+    api = api_mod.build_model(cfg, device="cuda")
+    step_fn = make_train_step(api, adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS)), clip_norm=1.0)
+    batch = {k: v.cuda() for k, v in _lm_batch(TRAIN_T, TRAIN_B, epoch=1).items()}
+    box = [state]
+
+    def one_step():
+        box[0], metrics = step_fn(box[0], batch)
+        return metrics
+
+    prof = profile_call("train_step", one_step, reps=3)
+    timing = {"step_ms": prof["unprofiled_wall_ms"],
+              "tok_per_s": TRAIN_B * TRAIN_T / (prof["unprofiled_wall_ms"] / 1e3),
+              "idle_share": prof["idle_share"],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps({"train_step": timing}), flush=True)
+    del summary, state, box
+    torch.cuda.empty_cache()
+    return launches, out, timing
+
+
+def phase_train_vs_plain(api_mod, cfg):
+    """One train step at the full LSTM width, 2 layers, f32, vocab cut to
+    32768: the card's kernels against the plain versions on the CPU from the
+    same weights and batch."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, vocab_size=32768, dtype="float32")
+    gpu, cpu = (api_mod.build_model(cfg2, device=d) for d in ("cuda", "cpu"))
+    params = gpu.init(1)
+    batch = _lm_batch(8, 4)
+    results = {}
+    for name, api, p, b in (("cuda", gpu, params, {k: v.cuda() for k, v in batch.items()}),
+                            ("cpu", cpu, _tree_to(params, "cpu"), batch)):
+        opt = adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS))
+        step = make_train_step(api, opt, clip_norm=1.0)
+        state, metrics = step(TrainState(params=p, opt_state=opt.init(p), step=0), b)
+        results[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                         [lp[k].cpu() for lp in state.params["lstm"] for k in sorted(lp)])
+    (gl, gn, gp), (cl, cn, cp) = results["cuda"], results["cpu"]
+    out = {"train_vs_plain": {"loss_rel": abs(gl - cl) / abs(cl),
+                              "grad_norm_rel": abs(gn - cn) / abs(cn),
+                              "lstm_params_max_abs": max(float((a - b).abs().max())
+                                                         for a, b in zip(gp, cp)),
+                              "loss": gl, "grad_norm": gn},
+           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "lstm_params_max_abs": 1e-3}}
+    print(json.dumps(out), flush=True)
+    r = out["train_vs_plain"]
+    if not (r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4
+            and r["lstm_params_max_abs"] <= 1e-3):
+        raise AssertionError(f"train step on the card disagrees with its plain path: {r}")
+    return r
+
+
+def _kernel_entry(name, source, replaces, launches, rows, **extra):
+    main_row = rows[0]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], **extra,
+            "shapes": [r for r in rows if "ms" in r]}
 
 
 def main():
@@ -260,6 +577,9 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import ref as ref_mod
+    from repro_torch.launch import train as train_launch
     from repro_torch.models import api as api_mod
     from repro_torch.serve import engine as engine_mod
 
@@ -275,14 +595,16 @@ def main():
 
     _phase("2 build")
     t0 = time.perf_counter()
-    build.build("flash_attention")
-    print(f"built flash_attention in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in build.build_log("flash_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  flash_attention: {line.strip()}")
+    libs = build.build_all()
+    print(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in libs:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {name}: {line.strip()}")
 
     _phase("3 kernels against their plain versions")
     rows = phase_kernels(fa)
+    fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
 
     _phase("4 serve llama3_2_1b, full width and depth")
     cfg = get_config("llama3_2_1b")
@@ -291,19 +613,26 @@ def main():
     _phase("5 model path against its plain path")
     phase_model_vs_plain(api_mod, cfg)
 
-    _phase("6 result")
-    main_row = rows[0]
-    kernels = [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": [r for r in rows if "ms" in r],
-    }]
+    _phase("6 train biglstm, full width and depth")
+    lstm_cfg = get_config("biglstm")
+    train_launches, _, _ = phase_train(train_launch, lc, fa, api_mod, lstm_cfg)
+
+    _phase("7 train step against its plain path")
+    phase_train_vs_plain(api_mod, lstm_cfg)
+
+    _phase("8 result")
+    lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
+    kernels = [
+        _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:33", launches, rows),
+        _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",
+                      train_launches["lstm_cell_fwd"], fwd_rows),
+        _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
+                      "src/repro/kernels/lstm_cell.py:24", train_launches[
+                          "lstm_cell_bwd_pointwise"], bwd_rows,
+                      note="no TPU backward kernel: JAX differentiates the plain cell "
+                           "(src/repro/models/lstm.py:53)"),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

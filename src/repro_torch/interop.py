@@ -1,8 +1,10 @@
 """Carry parameters between the JAX package and the port as numpy arrays.
 
-The port keeps the JAX parameter paths and layouts unchanged (weights
-(d_in, d_out), stacked over layers with a leading L dim), so the bridge is a
-leaf-by-leaf copy: nothing is transposed.  Neither side's module is
+The port keeps the JAX parameter paths and layouts unchanged, so the bridge
+is a leaf-by-leaf copy: nothing is transposed.  The dense decoder stacks its
+layers with a leading L dim; BigLSTM keeps ``params["lstm"]`` as a list of
+per-layer dicts (wx (d, 4H), wh (d_proj or H, 4H), b (4H,), and wp (H, d_proj)
+when d_proj > 0).  Neither side's module is
 imported; the caller converts the JAX pytree to numpy first
 (``jax.tree.map(np.asarray, params)``).
 """
@@ -13,6 +15,8 @@ import torch
 
 
 def _expected_shapes(cfg) -> dict:
+    if cfg.family == "rnn":
+        return _lstm_shapes(cfg)
     d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     hd, nh, nkv, ff = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
@@ -28,14 +32,28 @@ def _expected_shapes(cfg) -> dict:
     return shapes
 
 
+def _lstm_shapes(cfg) -> dict:
+    if cfg.encoder_layers:
+        raise ValueError(f"{cfg.name}: only BigLSTM's layout is carried over")
+    d, v, dh = cfg.d_model, cfg.vocab_padded, cfg.d_ff
+    layer = {"wx": (d, 4 * dh), "wh": (d, 4 * dh), "b": (4 * dh,), "wp": (dh, d)}
+    return {"embed": (v, d), "lstm": [dict(layer) for _ in range(cfg.n_layers)],
+            "head": (d, v)}
+
+
 def _convert(tree, shapes, fn, path=""):
+    if isinstance(shapes, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+            raise ValueError(f"{path}: expected a list of {len(shapes)} layers")
+        return [_convert(t, s, fn, f"{path}/{i}") for i, (t, s) in
+                enumerate(zip(tree, shapes))]
     if set(tree) != set(shapes):
         raise ValueError(f"parameter keys at '{path or '/'}' are {sorted(tree)}, "
                          f"expected {sorted(shapes)}")
     out = {}
     for k, want in shapes.items():
         p = f"{path}/{k}"
-        if isinstance(want, dict):
+        if isinstance(want, (dict, list)):
             out[k] = _convert(tree[k], want, fn, p)
         elif tuple(tree[k].shape) != want:
             raise ValueError(f"{p}: shape {tuple(tree[k].shape)} != {want}")
@@ -45,8 +63,8 @@ def _convert(tree, shapes, fn, path=""):
 
 
 def params_from_jax(np_params, cfg, device) -> dict:
-    """The port's parameters from the JAX ``model_init`` pytree given as
-    numpy arrays (dense decoder)."""
+    """The port's parameters from the JAX init's pytree given as numpy arrays
+    (dense decoder or BigLSTM, by ``cfg.family``)."""
     return _convert(np_params, _expected_shapes(cfg),
                     lambda a: torch.from_numpy(np.array(a)).to(device))
 

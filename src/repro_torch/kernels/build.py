@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes).  The library's file name carries a hash of the sources and flags,
-so a build runs again only when they change.  Builds land in ``_build/``
+so a build runs again only when they change; ``build_all`` starts one
+nvcc for each source at once.  Builds land in ``_build/``
 beside this file (listed in ``.gitignore``).  A failed build raises with the
 compiler's output; ``nvcc``'s ``-Xptxas -v`` report (registers, shared
 memory, spills per kernel) is kept in ``<library>.log``.
@@ -15,8 +16,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -66,6 +68,19 @@ def build(name: str) -> Path:
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, lib)
     return lib
+
+
+def sources() -> List[str]:
+    """Names of the kernels in ``csrc/`` (one ``<name>.cu`` each)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every kernel of ``csrc/``, one nvcc for each source, all started
+    together; returns {name: library path}.  Raises as ``build`` does."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def build_log(name: str) -> str:

@@ -75,7 +75,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                                     or v.requires_grad):
         raise NotImplementedError(
             "the flash-attention backward kernel is not ported yet "
-            "(ROADMAP.md Queue 1 item 2, the training slice)")
+            "(ROADMAP.md Queue 1 item 2b, flash-attention backward kernel + "
+            "Llama training)")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(), *v.stride(),
                                     *out.stride())

@@ -25,3 +25,17 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def lstm_cell_ref(x, h, c, wx, wh, b):
+    """x: (B, d_in); h: (B, H_in); c: (B, H); wx: (d_in, 4, H); wh: (H_in, 4, H).
+
+    Gate order (i, f, g, o); forget bias +1 (as ``models/lstm.py``).  Computed
+    in f32 (f64 for f64 inputs); returns (h', c') in h's and c's dtypes."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    gates = torch.einsum("bd,dgh->bgh", x.to(ct), wx.to(ct)) \
+        + torch.einsum("bd,dgh->bgh", h.to(ct), wh.to(ct)) + b.to(ct)
+    i, f, g, o = gates[:, 0], gates[:, 1], gates[:, 2], gates[:, 3]
+    c_new = torch.sigmoid(f + 1.0) * c.to(ct) + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype)

@@ -1,8 +1,10 @@
-"""Model API (port of the transformer branch of ``repro/models/api.py``).
+"""Model API (port of the transformer and BigLSTM branches of
+``repro/models/api.py``).
 
 ``build_model(cfg, device=)`` returns a ``ModelApi`` whose members are plain
-functions over the parameter dict; the serving engine consumes models only
-through it.  Entry points run on ``cuda`` unless the caller passes
+functions over the parameter dict; the serving engine and the train step
+consume models only through it.  BigLSTM has a loss and no serving path (as
+in JAX); GNMT and the cnn family raise NotImplementedError.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import transformer as tf_mod
 
 
@@ -56,6 +59,8 @@ class ModelApi:
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> ModelApi:
     dev = resolve_device(device)
+    if cfg.family == "rnn":
+        return _build_lstm(cfg, dev)
     tf_mod.check_supported(cfg)
 
     def init(seed: int = 0):
@@ -80,3 +85,18 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> ModelApi:
                                   window_override=window, pctx=pctx)
 
     return ModelApi(cfg, dev, init, loss_fn, prefill, decode_fn)
+
+
+def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
+    lstm_mod.check_supported(cfg)
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return lstm_mod.biglstm_init(gen, cfg, device=dev)
+
+    def loss_fn(params, batch, pctx=None):
+        logits = lstm_mod.biglstm_forward(cfg, params, batch, pctx=pctx)
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        return loss, {"loss": loss}
+
+    return ModelApi(cfg, dev, init, loss_fn, None, None)

@@ -1,0 +1,205 @@
+"""BigLSTM (port of the BigLSTM half of ``repro/models/lstm.py``): embedding
+1024, 2 LSTM layers of hidden 8192 with a 1024 projection, a big softmax.
+
+Parameters keep the JAX paths and layouts: ``params["lstm"]`` is a list of
+per-layer dicts with wx (d_in, 4H), wh (d_proj or H, 4H), b (4H,) f32 and,
+when d_proj > 0, wp (H, d_proj).  Every cell step runs on the CUDA kernel of
+``kernels.lstm_cell`` (its plain twin on the CPU); the projection is a plain
+GEMM.  The JAX ``lax.scan`` over time becomes a Python loop.
+
+A layer's weights are cast to the activation dtype once per forward, outside
+the time loop (the JAX cell casts on every call and XLA hoists it).  Under
+autograd a layer runs as one ``_LSTMLayer`` function: the forward kernel
+writes each step's gates, the backward walks the steps in reverse with the
+pointwise kernel and forms the weight gradients once over all steps (one
+GEMM per weight, accumulated in f32 inside the GEMM) instead of T GEMMs
+summed in the activation dtype.
+
+Not ported here (they raise NotImplementedError naming their ROADMAP item):
+the tensor-MP ``lstm_layer_overlapped``, the pipelined forward and GNMT.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import lstm_cell as K
+from repro_torch.models import layers as L
+
+FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
+PIPELINE = "ROADMAP.md Queue 1 item 6 (pipeline runtime)"
+TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
+
+
+def unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet: {item}")
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError for an rnn config this slice does not run:
+    GNMT, the encoder-decoder LSTM."""
+    if cfg.encoder_layers:
+        raise unported(f"GNMT, the encoder-decoder LSTM ({cfg.name})", FAMILIES)
+
+
+def lstm_cell_init(gen: torch.Generator, d_in: int, d_h: int, d_proj: int = 0, *,
+                   dtype=torch.float32, device=None):
+    p = {"wx": L.dense_init(gen, d_in, 4 * d_h, dtype=dtype, device=device),
+         "wh": L.dense_init(gen, d_proj or d_h, 4 * d_h, dtype=dtype, device=device),
+         "b": torch.zeros((4 * d_h,), dtype=torch.float32, device=device)}
+    if d_proj:
+        p["wp"] = L.dense_init(gen, d_h, d_proj, dtype=dtype, device=device)
+    return p
+
+
+def _cell_weights(p, dtype):
+    """(wx (d_in, 4, H), wh (d_h, 4, H), b (4, H) f32, wp or None), the
+    matrices cast to ``dtype``: gate-major views of the (d, 4H) weights."""
+    d_h = p["wx"].shape[1] // 4
+    wx = p["wx"].to(dtype).view(-1, 4, d_h)
+    wh = p["wh"].to(dtype).view(-1, 4, d_h)
+    b = p["b"].float().view(4, d_h)
+    wp = p["wp"].to(dtype) if "wp" in p else None
+    return wx, wh, b, wp
+
+
+def lstm_cell(p, x, state):
+    """x: (B, d_in); state: (h, c).  Returns (new_state, output): the cell
+    step on the kernel, then the projection ``out @ wp`` as a plain GEMM."""
+    h, c = state
+    wx, wh, b, wp = _cell_weights(p, x.dtype)
+    out, c = K.lstm_cell(x, h, c, wx, wh, b)
+    if wp is not None:
+        out = out @ wp
+    return (out, c), out
+
+
+class _LSTMLayer(torch.autograd.Function):
+    """A whole layer over time: ys (B, T, d_out), h_T, c_T from xs (B, T, d_in),
+    the initial state and the layer's cast weights."""
+
+    @staticmethod
+    def forward(ctx, xs, h0, c0, wx, wh, b, wp):
+        bsz, t_len, _ = xs.shape
+        d_h = c0.shape[1]
+        d_out = h0.shape[1]
+        dev, dt = xs.device, xs.dtype
+        ctx.set_materialize_grads(False)
+        gates = torch.empty((t_len, bsz, 4, d_h), dtype=K.compute_dtype(dt), device=dev)
+        cs = torch.empty((t_len + 1, bsz, d_h), dtype=dt, device=dev)   # c_0 .. c_T
+        hs = torch.empty((t_len + 1, bsz, d_out), dtype=dt, device=dev)  # h_0 .. h_T
+        raw = torch.empty((t_len, bsz, d_h), dtype=dt, device=dev) if wp is not None else None
+        cs[0] = c0
+        hs[0] = h0
+        for t in range(t_len):
+            h_out = raw[t] if wp is not None else hs[t + 1]
+            K.lstm_cell_fwd(xs[:, t], hs[t], cs[t], wx, wh, b, want_gates=True,
+                            h_out=h_out, c_out=cs[t + 1], gates_out=gates[t])
+            if wp is not None:
+                torch.mm(raw[t], wp, out=hs[t + 1])
+        ctx.save_for_backward(xs, hs, cs, gates, raw, wx, wh, wp)
+        ctx.b_dtype = b.dtype
+        return hs[1:].transpose(0, 1).contiguous(), hs[t_len].clone(), cs[t_len].clone()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dys, dh_t, dc_t):
+        xs, hs, cs, gates, raw, wx, wh, wp = ctx.saved_tensors
+        t_len, bsz, d_h = cs.shape[0] - 1, cs.shape[1], cs.shape[2]
+        d_in, d_out = xs.shape[2], hs.shape[2]
+        dt, dev = xs.dtype, xs.device
+        dgates = torch.empty((t_len, bsz, 4, d_h), dtype=dt, device=dev)
+        dys_t = (dys.transpose(0, 1) if dys is not None
+                 else torch.zeros((t_len, bsz, d_out), dtype=dt, device=dev))
+        dy_total = torch.empty((t_len, bsz, d_out), dtype=dt, device=dev) \
+            if wp is not None else None
+        dh = dh_t if dh_t is not None else torch.zeros((bsz, d_out), dtype=dt, device=dev)
+        dc = dc_t.contiguous() if dc_t is not None else None
+        wh2t = wh.view(d_out, 4 * d_h).t()
+        for t in reversed(range(t_len)):
+            gy = dys_t[t] + dh                                  # dL/dh_t
+            if wp is not None:
+                dy_total[t] = gy
+                d_raw = gy @ wp.t()
+            else:
+                d_raw = gy.contiguous()
+            _, dc = K.lstm_cell_bwd_pointwise(gates[t], cs[t], d_raw, dc,
+                                              dgates_out=dgates[t])
+            dh = dgates[t].view(bsz, 4 * d_h) @ wh2t
+        n = t_len * bsz
+        dg2 = dgates.view(n, 4 * d_h)
+        x_rows = xs.transpose(0, 1).reshape(n, d_in)
+        dwx, dwh, db = K.weight_grads(x_rows, hs[:-1].reshape(n, d_out), dgates.view(n, 4, d_h),
+                                      ctx.b_dtype)
+        dxs = (dg2 @ wx.view(d_in, 4 * d_h).t()).view(t_len, bsz, d_in).transpose(0, 1)
+        dwp = None
+        if wp is not None:
+            dwp = raw.reshape(n, d_h).t() @ dy_total.view(n, d_out)
+        return dxs, dh, dc, dwx, dwh, db, dwp
+
+
+def lstm_layer(p, xs, state=None):
+    """xs: (B, T, d_in) -> (ys (B, T, d_out), (h, c)): a loop over time."""
+    bsz = xs.shape[0]
+    d_h = p["wx"].shape[1] // 4
+    d_out = p["wp"].shape[1] if "wp" in p else d_h
+    if state is None:
+        state = (torch.zeros((bsz, d_out), dtype=xs.dtype, device=xs.device),
+                 torch.zeros((bsz, d_h), dtype=xs.dtype, device=xs.device))
+    h, c = state
+    wx, wh, b, wp = _cell_weights(p, xs.dtype)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xs, h, c, wx, wh, b, wp)):
+        ys, h, c = _LSTMLayer.apply(xs, h, c, wx, wh, b, wp)
+        return ys, (h, c)
+    ys = []
+    for t in range(xs.shape[1]):
+        out, c, _ = K.lstm_cell_fwd(xs[:, t], h, c, wx, wh, b)
+        h = out @ wp if wp is not None else out
+        ys.append(h)
+    return torch.stack(ys, dim=1), (h, c)
+
+
+def lstm_layer_overlapped(*args, **kwargs):
+    raise unported("the overlapped tensor-MP LSTM layer", TENSOR_MP)
+
+
+def gnmt_init(*args, **kwargs):
+    raise unported("GNMT (the encoder-decoder LSTM)", FAMILIES)
+
+
+def gnmt_forward(*args, **kwargs):
+    raise unported("GNMT (the encoder-decoder LSTM)", FAMILIES)
+
+
+# ---------------------------------------------------------------------------
+# BigLSTM
+# ---------------------------------------------------------------------------
+
+def biglstm_init(gen: torch.Generator, cfg, *, device=None):
+    """Random parameters at the JAX init's scales, drawn from ``gen``."""
+    dtype = getattr(torch, cfg.param_dtype)
+    d, v, dh = cfg.d_model, cfg.vocab_padded, cfg.d_ff
+    return {
+        "embed": L.embed_init(gen, v, d, dtype=dtype, device=device),
+        "lstm": [lstm_cell_init(gen, d, dh, d, dtype=dtype, device=device)
+                 for _ in range(cfg.n_layers)],
+        "head": L.dense_init(gen, d, v, dtype=dtype, device=device),
+    }
+
+
+def biglstm_forward(cfg, params, batch, pctx=None):
+    """batch: dict(tokens (B, T)) -> logits (B, T, V_padded): embedding, a
+    residual stack of LSTM layers, the softmax projection (padded vocab
+    columns are not masked, as in JAX)."""
+    if pctx is not None:
+        raise unported("a ParallelCtx (mesh execution)", TENSOR_MP)
+    dt = getattr(torch, cfg.dtype)
+    x = params["embed"][batch["tokens"]].to(dt)
+    for lp in params["lstm"]:
+        y, _ = lstm_layer(lp, x)
+        x = x + y
+    return x @ params["head"].to(dt)
+
+
+def biglstm_forward_pipeline(*args, **kwargs):
+    raise unported("the pipelined BigLSTM forward", PIPELINE)

@@ -19,7 +19,6 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
-TRAINING = "ROADMAP.md Queue 1 item 2 (the training slice)"
 SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
 MULTI_DEVICE = "ROADMAP.md Queue 1 items 5-8 (multi-device runtimes)"
@@ -42,11 +41,12 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
             (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
             (cfg.n_prefix_embeds, "prefix embeddings (VLM)", FAMILIES),
             (cfg.attn_logit_softcap, "attention logit softcap", FAMILIES),
-            (cfg.family == "cnn", "the cnn family", FAMILIES),
-            (cfg.family == "rnn", "the LSTM language model and its lstm_cell kernel",
-             TRAINING)):
+            (cfg.family == "cnn", "the cnn family", FAMILIES)):
         if flag:
             raise unported(f"{what} ({cfg.name})", item)
+    if cfg.family == "rnn":
+        raise ValueError(f"{cfg.name} is an LSTM model: models.lstm runs it, not the "
+                         f"transformer stack")
 
 
 # ---------------------------------------------------------------------------

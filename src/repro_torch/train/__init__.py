@@ -1,0 +1,6 @@
+"""Training: the train step and the loop (single device)."""
+from repro_torch.train.loop import LoopConfig, train_loop
+from repro_torch.train.steps import TrainState, init_train_state, make_train_step
+
+__all__ = ["LoopConfig", "train_loop", "TrainState", "init_train_state",
+           "make_train_step"]

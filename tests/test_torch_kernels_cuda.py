@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version on the card.
+"""The CUDA kernels (flash attention, the LSTM cell's forward and pointwise
+backward) against their plain versions on the card.
 
 Needs a CUDA device and nvcc (the kernel has no CPU mode): every test here
 carries the ``cuda`` marker and skips without a card.  Run on the card with
@@ -12,6 +13,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import lstm_cell as TLC
+from repro_torch.kernels.ref import lstm_cell_ref
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 
@@ -91,3 +94,106 @@ def test_build_is_cached_by_source_hash(cuda_device):
     again = build.build("flash_attention")
     assert again == first and again.stat().st_mtime_ns == mtime
     assert "registers" in build.build_log("flash_attention")
+
+
+# B, d_in, d_h (the recurrent input), H: edge shapes where B and H are no
+# tile multiples (B = 1, H % 4 != 0, B > 16), and BigLSTM's full width
+LSTM_SHAPES = [(1, 24, 16, 70), (5, 64, 40, 33), (17, 40, 12, 130), (3, 16, 8, 1),
+               (16, 1024, 1024, 8192)]
+
+
+def _lstm_inputs(seed, b, d_in, d_h, hh, device, dtype):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * scale).astype(np.float32)).to(device)
+    x, h, c = f(b, d_in), f(b, d_h), f(b, hh, scale=0.5)
+    wx, wh = f(d_in, 4, hh, scale=d_in ** -0.5), f(d_h, 4, hh, scale=d_h ** -0.5)
+    return [t.to(dtype) for t in (x, h, c, wx, wh)] + [f(4, hh, scale=0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,d_in,d_h,hh", LSTM_SHAPES)
+def test_lstm_fwd_kernel_matches_plain_on_card(cuda_device, dtype, tol, b, d_in, d_h, hh):
+    args = _lstm_inputs(b + hh, b, d_in, d_h, hh, cuda_device, dtype)
+    before = TLC.lstm_cell_fwd.launches
+    hn, cn, gates = TLC.lstm_cell_fwd(*args, want_gates=True)
+    torch.cuda.synchronize()
+    assert TLC.lstm_cell_fwd.launches == before + 1
+    rh, rc, ract = TLC.lstm_cell_plain(*args, with_gates=True)
+    assert hn.dtype == cn.dtype == dtype and gates.dtype == torch.float32
+    for got, want in ((hn, rh), (cn, rc)):
+        assert float((got.float() - want.float()).abs().max()) < tol
+    assert float((gates - ract).abs().max()) < F32_TOL * (100 if dtype == torch.bfloat16
+                                                          else 1)
+    hn2, cn2, none = TLC.lstm_cell_fwd(*args)           # inference: no gates written
+    assert none is None and torch.equal(hn2, hn) and torch.equal(cn2, cn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,hh", [(1, 70), (17, 130), (16, 8192)])
+@pytest.mark.parametrize("with_dc", [True, False])
+def test_lstm_bwd_pointwise_kernel_matches_plain_on_card(cuda_device, dtype, tol, b, hh,
+                                                         with_dc):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * hh)
+    gates = torch.rand((b, 4, hh), generator=gen, device=cuda_device)
+    gates[:, 2] = gates[:, 2] * 2 - 1                      # tanh(g) in (-1, 1)
+    c, dh, dc = (torch.randn((b, hh), generator=gen, device=cuda_device).to(dtype)
+                 for _ in range(3))
+    dc = dc if with_dc else None
+    before = TLC.lstm_cell_bwd_pointwise.launches
+    dg, dcp = TLC.lstm_cell_bwd_pointwise(gates, c, dh, dc)
+    torch.cuda.synchronize()
+    assert TLC.lstm_cell_bwd_pointwise.launches == before + 1
+    rg, rc = TLC.lstm_cell_bwd_pointwise_plain(gates, c, dh, dc)
+    assert dg.dtype == dcp.dtype == dtype
+    assert float((dg.float() - rg.float()).abs().max()) < tol
+    assert float((dcp.float() - rc.float()).abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d_in,d_h,hh", [(5, 64, 40, 33), (16, 1024, 1024, 8192)])
+def test_lstm_cell_function_grads_match_autograd_of_ref_on_card(cuda_device, b, d_in,
+                                                                 d_h, hh):
+    """dx, dh, dc, dWx, dWh, db of the kernels' autograd function against
+    autograd through the plain oracle, both on the card in f32 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _lstm_inputs(7, b, d_in, d_h, hh, cuda_device, torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    dh_out, dc_out = (torch.randn((b, hh), generator=gen, device=cuda_device)
+                      for _ in range(2))
+    ours = [t.clone().requires_grad_() for t in args]
+    ref = [t.clone().requires_grad_() for t in args]
+    hn, cn = TLC.lstm_cell(*ours)
+    rh, rc = lstm_cell_ref(*ref)
+    got = torch.autograd.grad((hn, cn), ours, (dh_out, dc_out))
+    want = torch.autograd.grad((rh, rc), ref, (dh_out, dc_out))
+    for name, g, w in zip(("x", "h", "c", "wx", "wh", "b"), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) < 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, h, c, wx, wh, b = _lstm_inputs(0, 2, 8, 8, 16, cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        TLC.lstm_cell_fwd(x.half(), h.half(), c.half(), wx.half(), wh.half(), b)
+    with pytest.raises(TypeError):
+        TLC.lstm_cell_fwd(x, h, c, wx, wh, b.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        TLC.lstm_cell_fwd(x, h.cpu(), c, wx, wh, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        TLC.lstm_cell_fwd(x, h, c, wx.transpose(0, 2).contiguous().transpose(0, 2), wh, b)
+    out = TLC.lstm_cell_fwd(torch.cat([x, x], 1)[:, :8], h, c, wx, wh, b)   # row view
+    assert torch.equal(out[0], TLC.lstm_cell_fwd(x, h, c, wx, wh, b)[0])
+
+
+@pytest.mark.cuda
+def test_build_all_builds_every_source(cuda_device):
+    libs = build.build_all()
+    assert set(libs) == {"flash_attention", "lstm_cell"}
+    assert all(p.exists() for p in libs.values())
+    assert "registers" in build.build_log("lstm_cell")

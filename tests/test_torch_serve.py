@@ -184,7 +184,7 @@ def test_capacity_check(models):
 def test_unported_modes_raise(models, case):
     tapi, tparams, tcfg = models["tapi"], models["tparams"], models["tcfg"]
     tok = torch.from_numpy(models["tokens"]).long()
-    item = "ROADMAP.md Queue 1 item 2" if case == "biglstm" else "ROADMAP.md Queue 1"
+    item = "ROADMAP.md Queue 1 item 6" if case == "biglstm" else "ROADMAP.md Queue 1"
     with pytest.raises(NotImplementedError, match=item):
         if case == "window":
             tapi.prefill(tparams, {"tokens": tok}, window=4)
@@ -202,7 +202,9 @@ def test_unported_modes_raise(models, case):
         elif case == "pctx":
             tapi.prefill(tparams, {"tokens": tok}, pctx=object())
         else:
-            t_build_model(t_get_config("biglstm"), device="cpu")
+            from repro_torch.models import lstm as lstm_mod
+            lstm_mod.biglstm_forward_pipeline(t_get_config("biglstm"), None, {"tokens": tok},
+                                              mesh=None, axis="model", n_micro=2)
     assert tcfg.n_kv_heads == 2
 
 

@@ -1,0 +1,318 @@
+"""The training slice as a whole: the port against the JAX package from the
+same init, carried across with ``repro_torch.interop.params_from_jax``.
+
+Reduced BigLSTM (2 layers, d_model 256, hidden 512 with a 256 projection,
+vocab 1024, fp32): logits, loss and every gradient against JAX
+``value_and_grad`` of ``build_model(...).loss_fn`` within 1e-4; five
+launcher-equivalent train steps (B 4, T 16, ``adamw(warmup_cosine)``, clip
+1.0, the launcher's Markov-LM batches) with per-step losses within 1e-4
+relative, with and without the §4.2 accumulation; three steps of reduced
+llama3_2_1b the same way.  Losses, not parameters, are held after several
+steps: Adam turns a tiny gradient difference near 0 into a full-size update
+of the other sign.  Also the data pipeline's batches and resume arithmetic,
+the loop, and the launcher on the CPU.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import optim as JO
+from repro.configs import get_config as j_get_config
+from repro.data import DataPipeline as JDataPipeline
+from repro.data import make_lm_dataset as j_make_lm_dataset
+from repro.models.api import build_model as j_build_model
+from repro.parallel.plan import ParallelPlan
+from repro.train import steps as JS
+from repro_torch import optim as TO
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.data import DataPipeline, make_lm_dataset
+from repro_torch.interop import params_from_jax, params_to_numpy
+from repro_torch.launch import train as TL
+from repro_torch.models.api import build_model as t_build_model
+from repro_torch.train import LoopConfig, TrainState, make_train_step, train_loop
+from repro_torch.tree import tree_leaves
+
+TOL = 1e-4
+B, T = 4, 16
+
+
+def _batches(n, seq=T, batch=B):
+    data = j_make_lm_dataset(vocab=64, seq_len=seq)
+    out = []
+    for b in data.epoch(0, batch):
+        out.append({"tokens": b["tokens"].astype(np.int32),
+                    "labels": b["labels"].astype(np.int32)})
+        if len(out) == n:
+            return out
+
+
+def _tb(batch):
+    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+
+
+def _setup(arch):
+    jcfg, tcfg = j_get_config(arch).reduced(), t_get_config(arch).reduced()
+    japi = j_build_model(jcfg, remat=False)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jparams)
+    tapi = t_build_model(tcfg, device="cpu")
+    return jcfg, tcfg, japi, jparams, np_params, tapi
+
+
+@pytest.fixture(scope="module")
+def biglstm():
+    return _setup("biglstm")
+
+
+def _err(a, b):
+    a = a.detach().double().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return float(np.abs(a - np.asarray(b, np.float64)).max())
+
+
+def test_biglstm_params_round_trip(biglstm):
+    _, tcfg, _, _, np_params, _ = biglstm
+    tparams = params_from_jax(np_params, tcfg, "cpu")
+    assert isinstance(tparams["lstm"], list) and len(tparams["lstm"]) == 2
+    back = params_to_numpy(tparams, tcfg)
+    flat_j = jax.tree_util.tree_leaves_with_path(np_params)
+    flat_t = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_j) == len(flat_t) == 10
+    for path, leaf in flat_j:
+        assert np.array_equal(leaf, flat_t[path])
+    with pytest.raises(ValueError, match="lstm"):
+        params_from_jax({**np_params, "lstm": np_params["lstm"][:1]}, tcfg, "cpu")
+
+
+def test_port_init_matches_jax_shapes(biglstm):
+    _, tcfg, _, _, np_params, tapi = biglstm
+    ours = tapi.init(0)
+    assert [tuple(t.shape) for t in tree_leaves(ours)] == \
+        [a.shape for a in jax.tree.leaves(np_params)]
+    assert ours["lstm"][0]["b"].dtype == torch.float32
+
+
+def test_biglstm_logits_loss_grads_match_jax(biglstm):
+    from repro.models import lstm as JM
+    from repro_torch.models import lstm as TM
+
+    jcfg, tcfg, japi, jparams, np_params, tapi = biglstm
+    batch = _batches(1)[0]
+    jlogits = JM.biglstm_forward(jcfg, jparams, {"tokens": jnp.asarray(batch["tokens"])})
+    tparams = params_from_jax(np_params, tcfg, "cpu")
+    with torch.no_grad():
+        tlogits = TM.biglstm_forward(tcfg, tparams, _tb(batch))
+    assert tlogits.shape == (B, T, tcfg.vocab_padded)
+    assert _err(tlogits, jlogits) < TOL
+
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(japi.loss_fn, has_aux=True))(
+        jparams, jax.tree.map(jnp.asarray, batch))
+    leaves = [t.requires_grad_() for t in tree_leaves(tparams)]
+    tloss, metrics = tapi.loss_fn(tparams, _tb(batch))
+    tgrads = torch.autograd.grad(tloss, leaves)
+    tloss = tloss.detach()
+    assert abs(float(tloss) - float(jloss)) < TOL * abs(float(jloss))
+    assert float(metrics["loss"]) == float(tloss)
+    for g, w in zip(tgrads, jax.tree.leaves(jgrads)):
+        assert g.shape == w.shape
+        assert _err(g, w) < TOL
+
+
+def _jax_losses(japi, jparams, batches, plan=ParallelPlan()):
+    opt = JO.adamw(JO.warmup_cosine(3e-3, 20, len(batches)))
+    step = jax.jit(JS.make_train_step(japi, opt, plan=plan))
+    state = JS.TrainState(params=jparams, opt_state=opt.init(jparams),
+                          step=jnp.zeros((), jnp.int32))
+    out = []
+    for b in batches:
+        state, m = step(state, jax.tree.map(jnp.asarray, b))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def _port_losses(tapi, tparams, batches, microbatches=1):
+    opt = TO.adamw(TO.warmup_cosine(3e-3, 20, len(batches)))
+    step = make_train_step(tapi, opt, microbatches=microbatches)
+    state = TrainState(params=tparams, opt_state=opt.init(tparams), step=0)
+    out = []
+    for b in batches:
+        state, m = step(state, _tb(b))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    assert state.step == len(batches) and not state.in_update
+    return out
+
+
+def _assert_steps_close(got, want):
+    for (tl, tn), (jl, jn) in zip(got, want):
+        assert abs(tl - jl) <= TOL * abs(jl), (got, want)
+        assert abs(tn - jn) <= TOL * abs(jn), (got, want)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_biglstm_train_steps_match_jax(biglstm, accum):
+    _, tcfg, japi, jparams, np_params, tapi = biglstm
+    batches = _batches(5)
+    want = _jax_losses(japi, jparams, batches, ParallelPlan(microbatches=accum))
+    got = _port_losses(tapi, params_from_jax(np_params, tcfg, "cpu"), batches, accum)
+    _assert_steps_close(got, want)
+    assert got[-1][0] < got[0][0]
+
+
+def test_llama_train_steps_match_jax():
+    """The model-independent train step on the dense decoder (attention
+    through the flash wrapper's plain twin on the CPU)."""
+    jcfg, tcfg, japi, jparams, np_params, tapi = _setup("llama3_2_1b")
+    batches = _batches(3)
+    want = _jax_losses(japi, jparams, batches)
+    got = _port_losses(tapi, params_from_jax(np_params, tcfg, "cpu"), batches)
+    _assert_steps_close(got, want)
+
+
+def test_data_pipeline_matches_jax():
+    jdata, tdata = j_make_lm_dataset(vocab=64, seq_len=8), make_lm_dataset(vocab=64,
+                                                                           seq_len=8)
+    assert jdata.entropy == tdata.entropy
+
+    def fn(data):
+        return lambda e: data.epoch(e, 16)
+
+    jp = JDataPipeline(fn(jdata), steps_per_epoch=jdata.steps_per_epoch(16))
+    tp = DataPipeline(fn(tdata), steps_per_epoch=tdata.steps_per_epoch(16))
+    walk_j = JDataPipeline(fn(jdata), prefetch=0)
+    walk_t = DataPipeline(fn(tdata), prefetch=0)
+    for step in (0, 5, 256, 300):
+        assert tp.locate(step) == jp.locate(step) == walk_t.locate(step) \
+            == walk_j.locate(step)
+    for e, skip in ((0, 0), (0, 250), (1, 3)):
+        got = list(tp.epoch(e, skip=skip))
+        want = list(jp.epoch(e, skip=skip))
+        assert len(got) == len(want) > 0
+        for g, w in zip(got[:4] + got[-2:], want[:4] + want[-2:]):
+            assert g.keys() == w.keys()
+            for k in g:
+                assert g[k].dtype == torch.int64
+                assert np.array_equal(g[k].numpy(), np.asarray(w[k]))
+
+
+def test_data_pipeline_raises_dataset_errors_and_stops_its_producer():
+    def broken(e):
+        yield {"tokens": np.zeros((1, 2), np.int32)}
+        raise KeyError("dataset broke")
+
+    with pytest.raises(KeyError, match="dataset broke"):
+        list(DataPipeline(broken).epoch(0))
+    calls = []
+
+    def endless(e):
+        while True:
+            calls.append(1)
+            yield {"tokens": np.zeros((1, 2), np.int32)}
+
+    it = DataPipeline(endless).epoch(0)
+    next(it)
+    it.close()                       # the consumer stops early
+    import time
+    time.sleep(0.05)
+    n = len(calls)
+    time.sleep(0.05)
+    assert len(calls) == n <= 4      # the producer stopped with it
+
+
+def _toy_step(losses, fail_at=(), in_update_fail=False):
+    calls = []
+
+    def step(state, batch):
+        calls.append(state.step)
+        if state.step in fail_at and calls.count(state.step) == 1:
+            if in_update_fail:
+                state.in_update = True
+            raise RuntimeError("injected")
+        return (TrainState(state.params, state.opt_state, state.step + 1),
+                {"loss": torch.tensor(losses[state.step])})
+
+    return step, calls
+
+
+def _toy_pipeline():
+    return DataPipeline(lambda e: iter([{"tokens": np.zeros((1, 2))}] * 4),
+                        steps_per_epoch=4)
+
+
+def test_loop_retries_target_loss_and_logging():
+    step, calls = _toy_step([5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.1], fail_at=(2,))
+    logs = []
+    out = train_loop(step, TrainState({}, (), 0), _toy_pipeline(),
+                     LoopConfig(total_steps=7, log_every=3, max_retries=1,
+                                retry_backoff_s=0.0, target_loss=1.0),
+                     log_fn=logs.append)
+    assert out["steps"] == 5 and out["converged"] and out["retries"] == 1
+    assert out["history"] == [5.0, 4.0, 3.0, 2.0, 1.0] and out["epochs"] == 1
+    assert calls == [0, 1, 2, 2, 3, 4]
+    assert any("retry 1/1" in m for m in logs) and any(m.startswith("step      3")
+                                                       for m in logs)
+
+
+def test_loop_does_not_retry_a_step_that_failed_in_the_update():
+    step, _ = _toy_step([1.0] * 4, fail_at=(1,), in_update_fail=True)
+    with pytest.raises(RuntimeError, match="injected"):
+        train_loop(step, TrainState({}, (), 0), _toy_pipeline(),
+                   LoopConfig(total_steps=3, max_retries=3, retry_backoff_s=0.0))
+
+
+@pytest.mark.parametrize("kw", [{"ckpt_dir": "ck"}, {"watchdog_timeout_s": 1.0}])
+def test_loop_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+        train_loop(None, TrainState({}, (), 0), _toy_pipeline(),
+                   LoopConfig(total_steps=1, **kw))
+
+
+def test_train_step_refuses_multi_device_arguments(biglstm):
+    tapi = biglstm[5]
+    for kw in ({"mesh": object()}, {"plan": object()}, {"pctx": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 items 5-8"):
+            make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), **kw)
+
+
+@pytest.mark.parametrize("spec,item", [("auto", "item 4"), ("dp=2,mp=1", "item 5"),
+                                       ("pipe=2,micro=4", "item 6"), ("dp=1,mp=2", "item 7"),
+                                       ("dp=1,cp=2", "item 8"), ("dp=1,zz=3", "items 5-8")])
+def test_parallel_specs_other_than_single_device_raise(spec, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+        TL.parse_parallel(spec)
+
+
+def test_parallel_spec_accum():
+    assert TL.parse_parallel("dp=1,mp=1") == 1
+    assert TL.parse_parallel("dp=1,mp=1,accum=4") == 4
+
+
+def test_dense_decoder_training_on_the_card_raises():
+    cfg = t_get_config("llama3_2_1b")
+    with pytest.raises(NotImplementedError, match="flash-attention backward"):
+        TL.check_trainable(cfg, torch.device("cuda"))
+    TL.check_trainable(cfg, torch.device("cpu"))
+    TL.check_trainable(t_get_config("biglstm"), torch.device("cuda"))
+
+
+def test_gnmt_and_biglstm_serving_are_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        t_build_model(t_get_config("gnmt"), device="cpu")
+    api = t_build_model(dataclasses.replace(t_get_config("biglstm")), device="cpu")
+    assert api.prefill is None and api.decode_fn is None
+
+
+def test_launch_train_cli_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "biglstm",
+         "--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "[data] markov-lm entropy floor = " in proc.stdout
+    assert "[done] steps=3 final_loss=" in proc.stdout
