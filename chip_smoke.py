@@ -16,11 +16,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the LSTM cell's forward and pointwise backward at full-width BigLSTM
    (B 16, d_in 1024, d_h 1024, H 8192) and at shapes where B and H are no
    tile multiples, and the cell's autograd function (dx, dh, dc, dWx, dWh,
-   db) against autograd of the plain oracle.  Time each kernel, its plain
-   version and one PyTorch library call computing the same function (a
-   yardstick the port never calls): device time per call from
-   torch.profiler (``ms``) and CUDA-event time per call, host gaps included
-   (``call_ms``);
+   db) against autograd of the plain oracle; the grouped matmul at
+   full-width Granite-3.0-1B-A400M's four expert products (prefill at
+   capacity 640, decode at C 4) and at edge shapes (odd C, d, F; G, C and d
+   of 1).  Time each kernel, its plain version and one PyTorch library call
+   computing the same function (a yardstick the port never calls): device
+   time per call from torch.profiler (``ms``) and CUDA-event time per call,
+   host gaps included (``call_ms``);
 4. serve full-width, full-depth Llama-3.2-1B from a seeded random init
    through ``ServeEngine.generate`` (4 prompts of 512 tokens, 32 new tokens,
    greedy) with the launch counters set to 0 just before and read just after,
@@ -39,14 +41,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    width, 2 layers, f32, vocab cut to 32768, kernels on the card against the
    plain versions on the CPU (loss and gradient norm within 1e-4 relative,
    LSTM parameters after the update within 1e-3);
-8. print one JSON line of kernels, then the device line.
+8. serve full-width, full-depth Granite-3.0-1B-A400M (MoE, 1.39 B
+   parameters) as phase 4 serves Llama: 2376 gmm and 792 flash-attention
+   launches per ``generate``, then the same profile;
+9. hold the MoE model path against its plain path: 2 layers at full width in
+   f32, prefill and one decode step, logits within 1e-3, and the count of
+   (token, k) routing ids that differ between the card and the CPU;
+10. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -57,11 +68,19 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
+L2_BYTES = 50e6
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BATCH, PROMPT, NEW = 4, 512, 32
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
 LSTM_FULL = (TRAIN_B, 1024, 1024, 8192)         # B, d_in, d_h, H of BigLSTM's cell
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # tests/test_kernels.py::test_gmm_sweep
+# G, C, d, F of full-width Granite-3.0-1B-A400M's expert products: 32 experts,
+# capacity ceil(4 * 512 * 8 / 32 * 1.25) = 640 in prefill, C = 4 (no drop) in decode
+GMM_SERVE = [("prefill wg/wi", (32, 640, 1024, 512)), ("prefill wo", (32, 640, 512, 1024)),
+             ("decode wg/wi", (32, 4, 1024, 512)), ("decode wo", (32, 4, 512, 1024))]
+GMM_EDGE = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (1, 20, 64, 64),
+            (3, 1, 64, 48), (2, 17, 1, 9)]
 
 
 def _phase(name):
@@ -341,7 +360,62 @@ def phase_lstm_kernels(lc, ref_mod):
     return fwd_rows, bwd_rows, grads_err
 
 
-def phase_serve(fa, api_mod, engine_mod, cfg):
+def gmm_inputs(gen, g, c, d, f, dtype):
+    x = torch.randn((g, c, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((g, d, f), generator=gen, device="cuda") * d ** -0.5).to(dtype)
+    return x, w
+
+
+def check_gmm(gm, ref_mod, case, x, w, gen, timed=False):
+    """The grouped matmul against its plain version; timed against the plain
+    version, the bound and ``torch.bmm`` on the same tensors.  The timed
+    calls rotate over enough input sets (more than twice the 50 MB L2) that
+    each finds its weights cold, as each layer of the model does."""
+    out = gm.gmm(x, w)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref_mod.gmm_ref(x, w).float()).abs().max())
+    tol = GMM_TOL[x.dtype]
+    row = {"kernel": "gmm", "shape": f"{case} {tuple(x.shape)}@{tuple(w.shape)}",
+           "dtype": str(x.dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol}
+    if not err < tol or not torch.isfinite(out).all():
+        raise AssertionError(f"gmm {case}: max abs err {err} >= {tol} or not finite")
+    if timed:
+        g, c, d = x.shape
+        f = w.shape[2]
+        n_sets = max(1, math.ceil(2 * L2_BYTES / _nbytes(x, w)))
+        sets = [(x, w)] + [gmm_inputs(gen, g, c, d, f, x.dtype) for _ in range(n_sets - 1)]
+
+        def rotating(fn):
+            cycle = itertools.cycle(sets)
+            return lambda: fn(*next(cycle))
+
+        time_into(row, "ms", rotating(gm.gmm))
+        time_into(row, "plain_ms", rotating(ref_mod.gmm_ref))
+        time_into(row, "library_ms", rotating(torch.bmm))
+        row["library"] = "torch.bmm"
+        row["input_sets"] = n_sets
+        row["bound_ms"], row["bound_by"] = bound_ms(_nbytes(x, w, out), 2.0 * g * c * d * f,
+                                                    x.dtype)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_gmm_kernels(gm, ref_mod):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for case, (g, c, d, f) in GMM_SERVE:   # bf16 timed first: the main path's dtype
+        rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.bfloat16),
+                              gen, timed=True))
+    for case, (g, c, d, f) in GMM_SERVE:
+        rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.float32),
+                              gen))
+    for g, c, d, f in GMM_EDGE:
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(check_gmm(gm, ref_mod, "edge", *gmm_inputs(gen, g, c, d, f, dt), gen))
+    return rows
+
+
+def phase_serve(fa, gm, api_mod, engine_mod, cfg):
     api = api_mod.build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = api.init(0)
@@ -361,12 +435,13 @@ def phase_serve(fa, api_mod, engine_mod, cfg):
     del logits, cache, logits_d
     engine = engine_mod.ServeEngine(api, params)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = gm.gmm.launches = 0
     res = engine.generate(batch, max_new_tokens=NEW)
-    launches = fa.flash_attention.launches
-    want = cfg.n_layers * (1 + NEW)
+    launches = {"flash_attention": fa.flash_attention.launches, "gmm": gm.gmm.launches}
+    calls = cfg.n_layers * (1 + NEW)           # one prefill and NEW decode steps
+    want = {"flash_attention": calls, "gmm": 3 * calls if cfg.is_moe else 0}
     if launches != want:
-        raise AssertionError(f"flash_attention launched {launches} times, want {want}")
+        raise AssertionError(f"generate launched {launches}, want {want}")
     if not torch.isfinite(res.logprobs).all() or res.tokens.shape != (BATCH, NEW) \
             or int(res.tokens.min()) < 0 or int(res.tokens.max()) >= cfg.vocab_size:
         raise AssertionError("generate returned bad tokens or logprobs")
@@ -376,7 +451,7 @@ def phase_serve(fa, api_mod, engine_mod, cfg):
            "tok_per_s": BATCH * NEW / ((res.prefill_ms + res.decode_ms) / 1e3),
            "decode_tok_per_s": BATCH * res.decode_steps / (res.decode_ms / 1e3),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "flash_attention_launches": launches}
+           "launches": launches}
     print(json.dumps(out), flush=True)
     print("first sequence:", res.tokens[0].tolist(), flush=True)
     phase_profile(api, params, batch)
@@ -427,9 +502,40 @@ def phase_profile(api, params, batch):
         profile_call("decode_step", lambda: api.decode_fn(params, dict(cache), step))
 
 
-def phase_model_vs_plain(api_mod, cfg):
+@contextlib.contextmanager
+def recorded_routes(moe_mod):
+    """Collects the (t, k) expert ids of every ``moe._route`` call."""
+    routes, route = [], moe_mod._route
+
+    def recording(*args, **kw):
+        out = route(*args, **kw)
+        routes.append(out[0].cpu())
+        return out
+
+    moe_mod._route = recording
+    try:
+        yield routes
+    finally:
+        moe_mod._route = route
+
+
+def _route_mismatch(card_routes, cpu_routes, shape):
+    """(number of (token, k) ids the card chose that the CPU did not, a
+    (B, T) mask of the tokens routed alike in every layer)."""
+    n_diff, same = 0, torch.ones(shape[0] * shape[1], dtype=torch.bool)
+    for g, c in zip(card_routes, cpu_routes, strict=True):
+        missing = (g[:, :, None] != c[:, None, :]).all(-1)        # (t, k)
+        n_diff += int(missing.sum())
+        same &= ~missing.any(-1)
+    return n_diff, same.view(shape)
+
+
+def phase_model_vs_plain(api_mod, moe_mod, cfg, decode_steps=3):
     """2 layers at full width in f32: the card's kernels against the plain
-    versions on the CPU, same weights and tokens; logits within 1e-3."""
+    versions on the CPU, same weights and tokens; logits within 1e-3.  For
+    an MoE model also count the (token, k) routing ids that differ between
+    the two; where some do, the logits are compared on the tokens routed
+    alike in every layer, and the others are counted."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -438,21 +544,38 @@ def phase_model_vs_plain(api_mod, cfg):
     params_cpu = _tree_to(params, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 48),
                            generator=torch.Generator().manual_seed(1))
-    worst = 0.0
+    worst, n_route_diff, n_tokens_apart = 0.0, 0, 0
+
+    def compare(run_card, run_cpu, shape):
+        nonlocal worst, n_route_diff, n_tokens_apart
+        with recorded_routes(moe_mod) as card_routes:
+            out_g = run_card()
+        with recorded_routes(moe_mod) as cpu_routes:
+            out_c = run_cpu()
+        diff, same = _route_mismatch(card_routes, cpu_routes, shape)
+        n_route_diff += diff
+        n_tokens_apart += int((~same).sum())
+        gap = (out_g[0].cpu() - out_c[0]).abs().amax(-1)          # (B, T)
+        worst = max(worst, float(gap[same].max()))
+        return out_g, out_c
+
     with torch.inference_mode():
-        lg, cg = gpu.prefill(params, {"tokens": tokens.cuda()}, capacity=56)
-        lc, cc = cpu.prefill(params_cpu, {"tokens": tokens}, capacity=56)
-        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        (_, cg), (lc, cc) = compare(
+            lambda: gpu.prefill(params, {"tokens": tokens.cuda()}, capacity=56),
+            lambda: cpu.prefill(params_cpu, {"tokens": tokens}, capacity=56), tokens.shape)
         nxt = lc[:, -1].argmax(-1)[:, None]
-        for _ in range(3):
-            lg, cg = gpu.decode_fn(params, cg, {"tokens": nxt.cuda()})
-            lc, cc = cpu.decode_fn(params_cpu, cc, {"tokens": nxt})
-            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        for _ in range(decode_steps):
+            (_, cg), (lc, cc) = compare(
+                lambda: gpu.decode_fn(params, cg, {"tokens": nxt.cuda()}),
+                lambda: cpu.decode_fn(params_cpu, cc, {"tokens": nxt}), nxt.shape)
             nxt = lc[:, -1].argmax(-1)[:, None]
-    print(json.dumps({"model_vs_plain_max_abs_logit_diff": worst, "tol": 1e-3}), flush=True)
+    out = {"arch": cfg.name, "model_vs_plain_max_abs_logit_diff": worst, "tol": 1e-3}
+    if cfg.is_moe:
+        out.update(routing_ids_differing=n_route_diff, tokens_routed_apart=n_tokens_apart)
+    print(json.dumps(out), flush=True)
     if not worst <= 1e-3:
         raise AssertionError(f"model path disagrees with its plain path: {worst}")
-    return worst
+    return out
 
 
 def _tree_to(tree, device):
@@ -467,7 +590,7 @@ def _lm_batch(seq, batch, epoch=0):
     return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
 
 
-def phase_train(train_launch, lc, fa, api_mod, cfg):
+def phase_train(train_launch, lc, fa, gm, api_mod, cfg):
     """Full-width, full-depth BigLSTM through the launcher, counters set to 0
     just before and read just after; then step time and a profile of one
     step, continuing from the trained state."""
@@ -478,7 +601,7 @@ def phase_train(train_launch, lc, fa, api_mod, cfg):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lc.lstm_cell_fwd.launches = lc.lstm_cell_bwd_pointwise.launches = 0
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = gm.gmm.launches = 0
     t0 = time.perf_counter()
     summary = train_launch.main(["--arch", "biglstm", "--steps", str(TRAIN_STEPS),
                                  "--batch", str(TRAIN_B), "--seq", str(TRAIN_T)])
@@ -486,10 +609,10 @@ def phase_train(train_launch, lc, fa, api_mod, cfg):
     wall_s = time.perf_counter() - t0
     launches = {"lstm_cell_fwd": lc.lstm_cell_fwd.launches,
                 "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise.launches,
-                "flash_attention": fa.flash_attention.launches}
+                "flash_attention": fa.flash_attention.launches, "gmm": gm.gmm.launches}
     want = TRAIN_STEPS * cfg.n_layers * TRAIN_T
     if launches != {"lstm_cell_fwd": want, "lstm_cell_bwd_pointwise": want,
-                    "flash_attention": 0}:
+                    "flash_attention": 0, "gmm": 0}:
         raise AssertionError(f"training launched {launches}, want {want} forward and "
                              f"{want} backward cell kernels")
     state = summary["state"]
@@ -578,9 +701,11 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import ref as ref_mod
     from repro_torch.launch import train as train_launch
     from repro_torch.models import api as api_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import engine as engine_mod
 
     _phase("1 card")
@@ -605,26 +730,38 @@ def main():
     _phase("3 kernels against their plain versions")
     rows = phase_kernels(fa)
     fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
+    gmm_rows = phase_gmm_kernels(gm, ref_mod)
 
     _phase("4 serve llama3_2_1b, full width and depth")
     cfg = get_config("llama3_2_1b")
-    launches = phase_serve(fa, api_mod, engine_mod, cfg)
+    launches = phase_serve(fa, gm, api_mod, engine_mod, cfg)
 
     _phase("5 model path against its plain path")
-    phase_model_vs_plain(api_mod, cfg)
+    phase_model_vs_plain(api_mod, moe_mod, cfg)
 
     _phase("6 train biglstm, full width and depth")
     lstm_cfg = get_config("biglstm")
-    train_launches, _, _ = phase_train(train_launch, lc, fa, api_mod, lstm_cfg)
+    train_launches, _, _ = phase_train(train_launch, lc, fa, gm, api_mod, lstm_cfg)
 
     _phase("7 train step against its plain path")
     phase_train_vs_plain(api_mod, lstm_cfg)
 
-    _phase("8 result")
+    _phase("8 serve granite_moe_1b_a400m, full width and depth")
+    moe_cfg = get_config("granite_moe_1b_a400m")
+    moe_launches = phase_serve(fa, gm, api_mod, engine_mod, moe_cfg)
+
+    _phase("9 MoE model path against its plain path")
+    phase_model_vs_plain(api_mod, moe_mod, moe_cfg, decode_steps=1)
+
+    _phase("10 result")
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                      "src/repro/kernels/flash_attention.py:33", launches, rows),
+                      "src/repro/kernels/flash_attention.py:33",
+                      launches["flash_attention"], rows,
+                      launches_by_path={"serve llama3_2_1b": launches["flash_attention"],
+                                        "serve granite_moe_1b_a400m":
+                                            moe_launches["flash_attention"]}),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",
                       train_launches["lstm_cell_fwd"], fwd_rows),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
@@ -632,6 +769,8 @@ def main():
                           "lstm_cell_bwd_pointwise"], bwd_rows,
                       note="no TPU backward kernel: JAX differentiates the plain cell "
                            "(src/repro/models/lstm.py:53)"),
+        _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                      "src/repro/kernels/moe_gmm.py:23", moe_launches["gmm"], gmm_rows),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Carry parameters between the JAX package and the port as numpy arrays.
 
 The port keeps the JAX parameter paths and layouts unchanged, so the bridge
-is a leaf-by-leaf copy: nothing is transposed.  The dense decoder stacks its
-layers with a leading L dim; BigLSTM keeps ``params["lstm"]`` as a list of
-per-layer dicts (wx (d, 4H), wh (d_proj or H, 4H), b (4H,), and wp (H, d_proj)
+is a leaf-by-leaf copy: nothing is transposed.  The decoder stacks its
+layers with a leading L dim; an MoE layer has ``moe/{router, wi, wg, wo}``
+(and ``moe/shared/{wi, wg, wo}`` with shared experts) in place of ``mlp``.
+BigLSTM keeps ``params["lstm"]`` as a list of per-layer dicts (wx (d, 4H), wh (d_proj or H, 4H), b (4H,), and wp (H, d_proj)
 when d_proj > 0).  Neither side's module is
 imported; the caller converts the JAX pytree to numpy first
 (``jax.tree.map(np.asarray, params)``).
@@ -19,14 +20,22 @@ def _expected_shapes(cfg) -> dict:
         return _lstm_shapes(cfg)
     d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     hd, nh, nkv, ff = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    mlp = {"wi": (n, d, ff), "wo": (n, ff, d)}
-    if cfg.mlp_kind == "swiglu":
-        mlp["wg"] = (n, d, ff)
-    shapes = {"embed": (v, d), "final_norm": (d,),
-              "layers": {"ln1": (n, d), "ln2": (n, d),
-                         "attn": {"wq": (n, d, nh * hd), "wk": (n, d, nkv * hd),
-                                  "wv": (n, d, nkv * hd), "wo": (n, nh * hd, d)},
-                         "mlp": mlp}}
+    layers = {"ln1": (n, d), "ln2": (n, d),
+              "attn": {"wq": (n, d, nh * hd), "wk": (n, d, nkv * hd),
+                       "wv": (n, d, nkv * hd), "wo": (n, nh * hd, d)}}
+    if cfg.is_moe:
+        e, eff = cfg.n_experts, cfg.expert_d_ff
+        layers["moe"] = {"router": (n, d, e), "wi": (n, e, d, eff), "wg": (n, e, d, eff),
+                         "wo": (n, e, eff, d)}
+        if cfg.n_shared_experts:
+            sff = eff * cfg.n_shared_experts
+            layers["moe"]["shared"] = {"wi": (n, d, sff), "wg": (n, d, sff),
+                                       "wo": (n, sff, d)}
+    else:
+        layers["mlp"] = {"wi": (n, d, ff), "wo": (n, ff, d)}
+        if cfg.mlp_kind == "swiglu":
+            layers["mlp"]["wg"] = (n, d, ff)
+    shapes = {"embed": (v, d), "final_norm": (d,), "layers": layers}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, v)
     return shapes
@@ -64,7 +73,7 @@ def _convert(tree, shapes, fn, path=""):
 
 def params_from_jax(np_params, cfg, device) -> dict:
     """The port's parameters from the JAX init's pytree given as numpy arrays
-    (dense decoder or BigLSTM, by ``cfg.family``)."""
+    (dense or MoE decoder, or BigLSTM, by ``cfg``)."""
     return _convert(np_params, _expected_shapes(cfg),
                     lambda a: torch.from_numpy(np.array(a)).to(device))
 

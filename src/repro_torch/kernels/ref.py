@@ -27,6 +27,13 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def gmm_ref(x, w):
+    """Grouped matmul: x (G, C, d) @ w (G, d, F) -> (G, C, F), summed in f32
+    (f64 for f64 inputs) and returned in x's dtype."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return torch.einsum("gcd,gdf->gcf", x.to(ct), w.to(ct)).to(x.dtype)
+
+
 def lstm_cell_ref(x, h, c, wx, wh, b):
     """x: (B, d_in); h: (B, H_in); c: (B, H); wx: (d_in, 4, H); wh: (H_in, 4, H).
 

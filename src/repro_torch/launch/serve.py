@@ -3,9 +3,14 @@ initialise a model from a seed and decode a batch of random prompts::
 
     python -m repro_torch.launch.serve --arch llama3_2_1b \
         --batch 4 --prompt-len 512 --max-new 32
+    python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
+        --batch 4 --prompt-len 512 --max-new 32
+    python -m repro_torch.launch.serve --arch granite_moe_1b_a400m --reduced --device cpu
 
 Runs on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
-Prints prefill ms, decode ms per step and generated tokens per second.
+Prints prefill ms, decode ms per step and generated tokens per second, then
+the launches of each kernel during ``generate`` (``[kernels]``; zero on the
+CPU, where the plain twins run).
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import argparse
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm
 from repro_torch.models.api import build_model
 from repro_torch.serve.engine import ServeEngine
 
@@ -40,7 +47,9 @@ def main(argv=None):
                            generator=gen).to(api.device)
 
     engine = ServeEngine(api, params, temperature=args.temperature, seed=args.seed)
+    n_fa, n_gmm = fa.flash_attention.launches, moe_gmm.gmm.launches
     res = engine.generate({"tokens": tokens}, max_new_tokens=args.max_new)
+    n_fa, n_gmm = fa.flash_attention.launches - n_fa, moe_gmm.gmm.launches - n_gmm
     toks = args.batch * args.max_new
     step_ms = res.decode_ms / max(res.decode_steps, 1)
     total_s = (res.prefill_ms + res.decode_ms) / 1e3
@@ -49,6 +58,7 @@ def main(argv=None):
           f"prefill {res.prefill_ms:.3f} ms  decode {step_ms:.3f} ms/step  "
           f"{toks / total_s:.1f} tok/s")
     print("first sequence:", res.tokens[0].tolist())
+    print(f"[kernels] flash_attention={n_fa} gmm={n_gmm}")
     return res
 
 

@@ -12,8 +12,9 @@ kernel (``[kernels]``; zero on the CPU, where the plain twins run).  Runs
 on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
 ``--parallel`` takes only ``dp=1,mp=1`` with an optional ``accum=N`` (the
 §4.2 delayed-gradient accumulation); every other spec raises
-NotImplementedError naming its ROADMAP item.  On the card only BigLSTM trains: the dense decoder needs the
-flash-attention backward kernel.
+NotImplementedError naming its ROADMAP item.  On the card only BigLSTM
+trains: the dense decoder needs the flash-attention backward kernel, and an
+MoE decoder the gmm backward too.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataPipeline, make_lm_dataset
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
+from repro_torch.kernels import moe_gmm
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.train.loop import LoopConfig, train_loop
@@ -61,12 +63,17 @@ def parse_parallel(spec: str) -> int:
 
 
 def check_trainable(cfg, device: torch.device) -> None:
-    """On the card only the LSTM family trains: the dense decoder's attention
-    has no backward kernel yet."""
-    if device.type == "cuda" and cfg.family != "rnn":
+    """On the card only the LSTM family trains: the decoder's attention and
+    the MoE layer's grouped matmuls have no backward kernels yet."""
+    if device.type != "cuda" or cfg.family == "rnn":
+        return
+    if cfg.is_moe:
         raise NotImplementedError(
-            f"training {cfg.name} on the card needs the flash-attention backward "
-            f"kernel, not ported yet: {FLASH_BWD}")
+            f"training {cfg.name} on the card needs the gmm backward kernel, not "
+            f"ported yet: {moe_gmm.MOE_TRAIN}")
+    raise NotImplementedError(
+        f"training {cfg.name} on the card needs the flash-attention backward "
+        f"kernel, not ported yet: {FLASH_BWD}")
 
 
 def main(argv=None):
@@ -108,7 +115,7 @@ def main(argv=None):
           f"(floor {data.entropy:.4f})")
     print(f"[kernels] lstm_cell_fwd={lc.lstm_cell_fwd.launches} "
           f"lstm_cell_bwd_pointwise={lc.lstm_cell_bwd_pointwise.launches} "
-          f"flash_attention={fa.flash_attention.launches}")
+          f"flash_attention={fa.flash_attention.launches} gmm={moe_gmm.gmm.launches}")
     return summary
 
 

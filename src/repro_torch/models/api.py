@@ -1,9 +1,9 @@
 """Model API (port of the transformer and BigLSTM branches of
 ``repro/models/api.py``).
 
-``build_model(cfg, device=)`` returns a ``ModelApi`` whose members are plain
-functions over the parameter dict; the serving engine and the train step
-consume models only through it.  BigLSTM has a loss and no serving path (as
+``build_model(cfg, device=, capacity_factor=1.25)`` returns a ``ModelApi``
+whose members are plain functions over the parameter dict; the serving
+engine and the train step consume models only through it.  BigLSTM has a loss and no serving path (as
 in JAX); GNMT and the cnn family raise NotImplementedError.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises.
 """
@@ -57,7 +57,9 @@ class ModelApi:
     decode_fn: Optional[Callable]     # (params, cache, batch, pctx, window) -> (logits, cache)
 
 
-def build_model(cfg: ModelConfig, *, device="cuda") -> ModelApi:
+def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> ModelApi:
+    """``capacity_factor`` bounds the tokens per expert of an MoE model in
+    train and prefill (None: no drop); decode never drops."""
     dev = resolve_device(device)
     if cfg.family == "rnn":
         return _build_lstm(cfg, dev)
@@ -69,15 +71,18 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> ModelApi:
 
     def loss_fn(params, batch, pctx=None):
         fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
-        logits, aux = tf_mod.forward(cfg, params, fwd_batch, mode="train", pctx=pctx)
+        logits, aux = tf_mod.forward(cfg, params, fwd_batch, mode="train", pctx=pctx,
+                                     capacity_factor=capacity_factor)
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        # aux: the blocks' router_aux_loss-weighted load-balance losses
         return loss + aux, {"loss": loss, "aux": aux}
 
     def prefill(params, batch, pctx=None, capacity: int = 0, window=None):
         fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
         logits, cache, _ = tf_mod.forward(cfg, params, fwd_batch, mode="prefill",
                                           window_override=window, pctx=pctx,
-                                          cache_capacity=capacity)
+                                          cache_capacity=capacity,
+                                          capacity_factor=capacity_factor)
         return logits, cache
 
     def decode_fn(params, cache, batch, pctx=None, window=None):

@@ -1,4 +1,4 @@
-"""Dense decoder stack (port of the dense path of ``repro/models/transformer.py``).
+"""Decoder stack (port of the dense and MoE paths of ``repro/models/transformer.py``).
 
 Parameters are a nested dict with the JAX package's paths and layouts,
 stacked over layers (leading L dim on every leaf of ``params["layers"]``);
@@ -8,9 +8,10 @@ the JAX layer scan becomes a Python loop over per-layer views.  Entry points:
     forward(mode="prefill")  also fills a linear KV cache of given capacity
     decode_step              t tokens against the cache (scalar ``pos``)
 
-Attention goes through ``kernels.flash_attention`` (the CUDA kernel on the
-card, its plain twin on the CPU).  Configs and modes this slice does not
-port raise ``NotImplementedError`` naming their ROADMAP.md item.
+Attention goes through ``kernels.flash_attention`` and the MoE layer's
+expert products through ``kernels.moe_gmm`` (the CUDA kernels on the card,
+their plain twins on the CPU).  Configs and modes the port does not run yet
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -18,10 +19,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
 MULTI_DEVICE = "ROADMAP.md Queue 1 items 5-8 (multi-device runtimes)"
+RWKV_SERVING = "ROADMAP.md Queue 1 item 13 (RWKV6-7B serving through wkv6)"
 
 
 def unported(what: str, item: str):
@@ -29,14 +32,14 @@ def unported(what: str, item: str):
 
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
-    """Raise NotImplementedError for any config or mode outside the dense,
-    full-attention, single-device decoder this slice ports."""
+    """Raise NotImplementedError for any config or mode outside the dense or
+    MoE, full-attention, single-device decoder the port runs."""
     if pctx is not None:
         raise unported("a ParallelCtx (mesh execution)", MULTI_DEVICE)
     if window or cfg.sliding_window:
         raise unported(f"sliding-window attention ({cfg.name})", SERVING_EXT)
     for flag, what, item in (
-            (cfg.is_moe, "MoE", FAMILIES), (cfg.rwkv, "RWKV", FAMILIES),
+            (cfg.rwkv, "RWKV", RWKV_SERVING),
             (cfg.family == "hybrid", "the hybrid SSM block", FAMILIES),
             (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
             (cfg.n_prefix_embeds, "prefix embeddings (VLM)", FAMILIES),
@@ -71,8 +74,11 @@ def model_init(gen: torch.Generator, cfg, *, device=None):
                  "wk": L.dense_init(gen, d, nkv * hd, lead=(n,), **kw),
                  "wv": L.dense_init(gen, d, nkv * hd, lead=(n,), **kw),
                  "wo": L.dense_init(gen, nh * hd, d, lead=(n,), **kw)},
-        "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, lead=(n,), **kw),
     }
+    if cfg.is_moe:
+        params["layers"]["moe"] = moe_mod.moe_init(gen, cfg, lead=(n,), **kw)
+    else:
+        params["layers"]["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, lead=(n,), **kw)
     return params
 
 
@@ -122,11 +128,15 @@ def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None):
     return out.reshape(b, t, nh * hd) @ p["wo"].to(x.dtype), (k, v)
 
 
-def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None):
+def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None,
+                capacity_factor=1.25):
     """One decoder block.  ``cache`` is this layer's {"k", "v"} view
     (B, cap, KV, hd): decode reads and updates it in place, prefill fills
     its first S positions (the rest stays zero, the JAX pad to capacity).
-    Returns (x, cache or None)."""
+    An MoE block drops tokens beyond ``capacity_factor`` in train and
+    prefill and none in decode.  Returns (x, cache or None, aux): aux is
+    ``cfg.router_aux_loss`` times the router's load-balance loss, None for a
+    dense block."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
         attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=pos0, cache_kv=cache)
@@ -138,8 +148,13 @@ def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None):
             cache["v"][:, :s] = v_new
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
-    return x, cache
+    if not cfg.is_moe:
+        return x + L.mlp_apply(p["mlp"], h2, cfg.mlp_kind), cache, None
+    # decode batches are tiny: the no-drop capacity makes cached decoding
+    # agree with the teacher-forced forward
+    cf = None if mode == "decode" else capacity_factor
+    mlp_out, moe_aux = moe_mod.moe_ffn(p["moe"], h2, cfg, capacity_factor=cf)
+    return x + mlp_out, cache, cfg.router_aux_loss * moe_aux
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +176,11 @@ def _head(cfg, params, x):
 
 
 def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
-            pctx=None, cache_capacity: int = 0):
+            pctx=None, cache_capacity: int = 0, capacity_factor=1.25):
     """batch: dict(tokens (B,S)).  mode "train": returns (logits, aux);
     mode "prefill": returns (logits, cache, aux) with a cache of
-    ``cache_capacity`` positions (default S)."""
+    ``cache_capacity`` positions (default S).  aux is the blocks' summed
+    router aux loss (0 for a dense model)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}")
     check_supported(cfg, window=window_override or 0, pctx=pctx)
@@ -177,11 +193,14 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
         if cap < s:
             raise ValueError(f"cache capacity {cap} < prompt length {s}")
         cache = make_cache(cfg, b, cap, dtype=x.dtype, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         csl = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-        x, _ = block_apply(cfg, _layer(params["layers"], i), x, mode=mode, cache=csl)
+        x, _, a = block_apply(cfg, _layer(params["layers"], i), x, mode=mode, cache=csl,
+                              capacity_factor=capacity_factor)
+        if a is not None:
+            aux = aux + a
     logits = _head(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "prefill":
         cache["pos"] = s
         return logits, cache, aux
@@ -200,7 +219,7 @@ def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
     x = _embed(cfg, params, batch["tokens"])
     for i in range(cfg.n_layers):
         csl = {"k": cache["k"][i], "v": cache["v"][i]}
-        x, _ = block_apply(cfg, _layer(params["layers"], i), x, mode="decode",
-                           pos0=pos, cache=csl)
+        x, _, _ = block_apply(cfg, _layer(params["layers"], i), x, mode="decode",
+                              pos0=pos, cache=csl)
     logits = _head(cfg, params, x)
     return logits, {**cache, "pos": pos + batch["tokens"].shape[1]}

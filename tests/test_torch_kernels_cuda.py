@@ -1,11 +1,12 @@
 """The CUDA kernels (flash attention, the LSTM cell's forward and pointwise
-backward) against their plain versions on the card.
+backward, the grouped matmul) against their plain versions on the card.
 
 Needs a CUDA device and nvcc (the kernel has no CPU mode): every test here
 carries the ``cuda`` marker and skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.  This file
 imports no JAX, so it runs where only PyTorch is installed.  Tolerances are
-those of tests/test_kernels.py: 2e-5 at fp32, 2e-2 at bf16.
+those of tests/test_kernels.py: 2e-5 at fp32, 2e-2 at bf16 (gmm: 1e-4 and
+5e-2, as test_gmm_sweep).
 """
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import lstm_cell as TLC
-from repro_torch.kernels.ref import lstm_cell_ref
+from repro_torch.kernels import moe_gmm as TGM
+from repro_torch.kernels.ref import gmm_ref, lstm_cell_ref
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 
@@ -194,6 +196,64 @@ def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.cuda
 def test_build_all_builds_every_source(cuda_device):
     libs = build.build_all()
-    assert set(libs) == {"flash_attention", "lstm_cell"}
+    assert set(libs) == {"flash_attention", "lstm_cell", "moe_gmm"}
     assert all(p.exists() for p in libs.values())
     assert "registers" in build.build_log("lstm_cell")
+
+
+# G, C, d, F: the JAX sweep's odd shapes, G = 1, C = 1, d = 1, d and F % 4 != 0,
+# and Granite-3.0-1B-A400M's prefill (capacity 640) and decode (C = 4) products
+GMM_SHAPES = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (1, 20, 64, 64),
+              (3, 1, 64, 48), (2, 17, 1, 9), (32, 640, 1024, 512), (32, 640, 512, 1024),
+              (32, 4, 1024, 512), (32, 4, 512, 1024)]
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _gmm_inputs(seed, g, c, d, f, device, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((g, c, d)).astype(np.float32)
+    w = (rng.standard_normal((g, d, f)) / np.sqrt(d)).astype(np.float32)
+    return (torch.from_numpy(a).to(device, dtype) for a in (x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,c,d,f", GMM_SHAPES)
+def test_gmm_kernel_matches_plain_on_card(cuda_device, dtype, g, c, d, f):
+    x, w = _gmm_inputs(g * c + d * f, g, c, d, f, cuda_device, dtype)
+    before = TGM.gmm.launches
+    out = TGM.gmm(x, w)
+    torch.cuda.synchronize()
+    assert TGM.gmm.launches == before + 1
+    assert out.shape == (g, c, f) and out.dtype == dtype
+    assert float((out.float() - gmm_ref(x, w).float()).abs().max()) < GMM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_reads_misaligned_rows(cuda_device, dtype):
+    """d and F multiples of 4 on bases one element off: the kernel's scalar
+    loads, not its 4-wide ones."""
+    g, c, d, f = 3, 9, 64, 32
+    x, w = _gmm_inputs(5, g, c, d, f, cuda_device, dtype)
+    xs = torch.empty(1 + x.numel(), device=cuda_device, dtype=dtype)
+    ws = torch.empty(1 + w.numel(), device=cuda_device, dtype=dtype)
+    xm, wm = xs[1:].view(g, c, d), ws[1:].view(g, d, f)
+    xm.copy_(x)
+    wm.copy_(w)
+    assert torch.equal(TGM.gmm(xm, wm), TGM.gmm(x, w))
+
+
+@pytest.mark.cuda
+def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, w = _gmm_inputs(0, 2, 3, 8, 4, cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        TGM.gmm(x.half(), w.half())
+    with pytest.raises(TypeError):
+        TGM.gmm(x, w.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        TGM.gmm(x, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        TGM.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TGM.gmm(x.requires_grad_(), w)
