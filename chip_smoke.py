@@ -19,10 +19,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    db) against autograd of the plain oracle; the grouped matmul at
    full-width Granite-3.0-1B-A400M's four expert products (prefill at
    capacity 640, decode at C 4) and at edge shapes (odd C, d, F; G, C and d
-   of 1).  Time each kernel, its plain version and one PyTorch library call
-   computing the same function (a yardstick the port never calls): device
-   time per call from torch.profiler (``ms``) and CUDA-event time per call,
-   host gaps included (``call_ms``);
+   of 1); the RWKV6 WKV recurrence at full-width RWKV6-7B prefill (B 4, T
+   512, H 64, hd 64, r, k, v in bf16 and f32) and a decode step (T 1, from a
+   non-zero state, in place), and at edge shapes (T 1, 7, 33, 130; hd 32;
+   B 1, H 1), outputs and final state.  Time each kernel, its plain version
+   and one PyTorch library call computing the same function where there is
+   one (a yardstick the port never calls): device time per call from
+   torch.profiler (``ms``) and CUDA-event time per call, host gaps included
+   (``call_ms``);
 4. serve full-width, full-depth Llama-3.2-1B from a seeded random init
    through ``ServeEngine.generate`` (4 prompts of 512 tokens, 32 new tokens,
    greedy) with the launch counters set to 0 just before and read just after,
@@ -47,7 +51,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 9. hold the MoE model path against its plain path: 2 layers at full width in
    f32, prefill and one decode step, logits within 1e-3, and the count of
    (token, k) routing ids that differ between the card and the CPU;
-10. print one JSON line of kernels, then the device line.
+10. serve full-width, full-depth RWKV6-7B (7.53 B parameters, 30.1 GB in
+   f32) as phase 4 serves Llama: 1056 wkv6 launches per ``generate`` (32
+   layers, one prefill and 32 decode steps), then the same profile, and
+   free its weights;
+11. hold the RWKV model path against its plain path: 2 layers at full width
+   in f32, prefill and 3 decode steps, logits within 1e-3 and the cache's
+   WKV state within 1e-4 of its largest entry;
+12. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -81,6 +92,13 @@ GMM_SERVE = [("prefill wg/wi", (32, 640, 1024, 512)), ("prefill wo", (32, 640, 5
              ("decode wg/wi", (32, 4, 1024, 512)), ("decode wo", (32, 4, 512, 1024))]
 GMM_EDGE = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (1, 20, 64, 64),
             (3, 1, 64, 48), (2, 17, 1, 9)]
+# tests/test_kernels.py::test_wkv6_sweep's tolerance, on the error over max(1,
+# the largest reference value): the kernel adds the same f32 terms as the
+# plain scan in another order (FMAs, the row sum split four ways)
+WKV_TOL = 2e-4
+# B, T, H, hd of full-width RWKV6-7B's WKV: prefill of 4 x 512 tokens, a decode step
+WKV_SERVE = [("prefill", (BATCH, PROMPT, 64, 64)), ("decode", (BATCH, 1, 64, 64))]
+WKV_EDGE = [(1, 1, 1, 32), (2, 7, 3, 64), (2, 130, 2, 32), (1, 33, 2, 64), (1, 7, 1, 64)]
 
 
 def _phase(name):
@@ -125,10 +143,10 @@ def device_ms(fn, reps=20, warmup=3):
     raise RuntimeError("torch.profiler recorded no device time in three sessions")
 
 
-def time_into(row, key, fn):
+def time_into(row, key, fn, reps=20):
     """row[key]: device ms per call; row[key with "call_ms"]: event ms."""
-    row[key] = device_ms(fn)
-    row[key.removesuffix("ms") + "call_ms"] = time_ms(fn)
+    row[key] = device_ms(fn, reps)
+    row[key.removesuffix("ms") + "call_ms"] = time_ms(fn, reps)
 
 
 def attention_bound_ms(q, k, v, causal, window):
@@ -415,7 +433,80 @@ def phase_gmm_kernels(gm, ref_mod):
     return rows
 
 
-def phase_serve(fa, gm, api_mod, engine_mod, cfg):
+def wkv_inputs(gen, b, t, h, hd, dtype, state):
+    """r, k, v, w, u as tests/test_kernels.py::test_wkv6_sweep draws them (r,
+    k, v in ``dtype``) and, if ``state``, a non-zero initial state."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.5
+
+    r, k, v = (rnd(b, t, h, hd).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(b, t, h, hd) - 2))
+    u = rnd(h, hd) * 0.2
+    return r, k, v, w, u, (rnd(b, h, hd, hd) * 4 if state else None)
+
+
+def check_wkv(wk, ref_mod, case, inputs, gen, timed=False):
+    """The WKV kernel against its plain version, outputs and final state; a
+    given state is written in place.  Timed calls rotate over enough input
+    sets (more than twice the 50 MB L2) that each finds its state and
+    inputs cold, as each layer does."""
+    r, k, v, w, u, s0 = inputs
+    state = None if s0 is None else s0.clone()
+    out, s = wk.wkv6(r, k, v, w, u, state)
+    torch.cuda.synchronize()
+    want_out, want_s = ref_mod.wkv6_ref(r, k, v, w, u, s0)
+    errs = [float((g - x).abs().max()) for g, x in ((out, want_out), (s, want_s))]
+    rel = max(e / max(1.0, float(x.abs().max())) for e, x in zip(errs, (want_out, want_s)))
+    b, t, h, hd = r.shape
+    row = {"kernel": "wkv6", "shape": f"{case} B{b} T{t} H{h} hd{hd}"
+           + (" from a state, in place" if s0 is not None else ""),
+           "dtype": str(r.dtype).removeprefix("torch."), "max_abs_err": max(errs),
+           "state_max_abs_err": errs[1], "rel_err": rel, "tol": WKV_TOL}
+    if not rel < WKV_TOL or not torch.isfinite(out).all() or \
+            (state is not None and s is not state):
+        raise AssertionError(f"wkv6 {case}: error {rel} over max(1, |ref|) >= {WKV_TOL}, "
+                             f"not finite, or the state was not written in place")
+    if timed:
+        n_sets = max(1, math.ceil(2 * L2_BYTES / _nbytes(*inputs, out)))
+        sets = [inputs] + [wkv_inputs(gen, b, t, h, hd, r.dtype, s0 is not None)
+                           for _ in range(n_sets - 1)]
+
+        def rotating(fn):
+            cycle = itertools.cycle(sets)
+            return lambda: fn(*next(cycle))
+
+        time_into(row, "ms", rotating(wk.wkv6))
+        # the plain scan launches ~7 small kernels a token: fewer calls
+        time_into(row, "plain_ms", rotating(ref_mod.wkv6_ref), reps=5)
+        row["library_ms"] = None
+        row["library"] = "none: no single PyTorch call computes the WKV recurrence"
+        row["input_sets"] = n_sets
+        # r, k, v, w, u (and the initial state) read once, out and the final
+        # state written once; one FMA for the output and one for the state
+        # update per (token, head, row, column), in f32
+        row["bound_ms"], row["bound_by"] = bound_ms(_nbytes(*inputs, out, s),
+                                                    4.0 * b * t * h * hd * hd, torch.float32)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_wkv_kernels(wk, ref_mod):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []   # bf16 timed first: the main path's dtype
+    for case, shape in WKV_SERVE:
+        rows.append(check_wkv(wk, ref_mod, case, wkv_inputs(gen, *shape, bf, case == "decode"),
+                              gen, timed=True))
+    for case, shape in WKV_SERVE:
+        rows.append(check_wkv(wk, ref_mod, case, wkv_inputs(gen, *shape, f32, case == "decode"),
+                              gen))
+    for shape in WKV_EDGE:
+        for dt, state in ((f32, False), (bf, True)):
+            rows.append(check_wkv(wk, ref_mod, "edge", wkv_inputs(gen, *shape, dt, state), gen))
+    return rows
+
+
+def phase_serve(counters, api_mod, engine_mod, cfg):
     api = api_mod.build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = api.init(0)
@@ -435,11 +526,13 @@ def phase_serve(fa, gm, api_mod, engine_mod, cfg):
     del logits, cache, logits_d
     engine = engine_mod.ServeEngine(api, params)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = gm.gmm.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     res = engine.generate(batch, max_new_tokens=NEW)
-    launches = {"flash_attention": fa.flash_attention.launches, "gmm": gm.gmm.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     calls = cfg.n_layers * (1 + NEW)           # one prefill and NEW decode steps
-    want = {"flash_attention": calls, "gmm": 3 * calls if cfg.is_moe else 0}
+    want = {"flash_attention": 0 if cfg.rwkv else calls,
+            "gmm": 3 * calls if cfg.is_moe else 0, "wkv6": calls if cfg.rwkv else 0}
     if launches != want:
         raise AssertionError(f"generate launched {launches}, want {want}")
     if not torch.isfinite(res.logprobs).all() or res.tokens.shape != (BATCH, NEW) \
@@ -535,7 +628,9 @@ def phase_model_vs_plain(api_mod, moe_mod, cfg, decode_steps=3):
     versions on the CPU, same weights and tokens; logits within 1e-3.  For
     an MoE model also count the (token, k) routing ids that differ between
     the two; where some do, the logits are compared on the tokens routed
-    alike in every layer, and the others are counted."""
+    alike in every layer, and the others are counted.  For an RWKV model
+    also hold the cache's WKV state after prefill and after the last decode
+    step within 1e-4 of its largest entry."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -544,7 +639,7 @@ def phase_model_vs_plain(api_mod, moe_mod, cfg, decode_steps=3):
     params_cpu = _tree_to(params, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 48),
                            generator=torch.Generator().manual_seed(1))
-    worst, n_route_diff, n_tokens_apart = 0.0, 0, 0
+    worst, n_route_diff, n_tokens_apart, state_rel = 0.0, 0, 0, 0.0
 
     def compare(run_card, run_cpu, shape):
         nonlocal worst, n_route_diff, n_tokens_apart
@@ -559,22 +654,35 @@ def phase_model_vs_plain(api_mod, moe_mod, cfg, decode_steps=3):
         worst = max(worst, float(gap[same].max()))
         return out_g, out_c
 
+    def compare_state(cache_card, cache_cpu):
+        nonlocal state_rel
+        want = cache_cpu["wkv_S"]
+        gap = float((cache_card["wkv_S"].cpu() - want).abs().max())
+        state_rel = max(state_rel, gap / float(want.abs().max()))
+
     with torch.inference_mode():
         (_, cg), (lc, cc) = compare(
             lambda: gpu.prefill(params, {"tokens": tokens.cuda()}, capacity=56),
             lambda: cpu.prefill(params_cpu, {"tokens": tokens}, capacity=56), tokens.shape)
+        if cfg.rwkv:
+            compare_state(cg, cc)
         nxt = lc[:, -1].argmax(-1)[:, None]
         for _ in range(decode_steps):
             (_, cg), (lc, cc) = compare(
                 lambda: gpu.decode_fn(params, cg, {"tokens": nxt.cuda()}),
                 lambda: cpu.decode_fn(params_cpu, cc, {"tokens": nxt}), nxt.shape)
             nxt = lc[:, -1].argmax(-1)[:, None]
+        if cfg.rwkv:
+            compare_state(cg, cc)
     out = {"arch": cfg.name, "model_vs_plain_max_abs_logit_diff": worst, "tol": 1e-3}
     if cfg.is_moe:
         out.update(routing_ids_differing=n_route_diff, tokens_routed_apart=n_tokens_apart)
+    if cfg.rwkv:
+        out.update(wkv_state_rel_diff=state_rel, wkv_state_tol=1e-4)
     print(json.dumps(out), flush=True)
-    if not worst <= 1e-3:
-        raise AssertionError(f"model path disagrees with its plain path: {worst}")
+    if not worst <= 1e-3 or not state_rel <= 1e-4:
+        raise AssertionError(f"model path disagrees with its plain path: logits {worst}, "
+                             f"WKV state {state_rel}")
     return out
 
 
@@ -590,7 +698,7 @@ def _lm_batch(seq, batch, epoch=0):
     return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
 
 
-def phase_train(train_launch, lc, fa, gm, api_mod, cfg):
+def phase_train(train_launch, lc, counters, api_mod, cfg):
     """Full-width, full-depth BigLSTM through the launcher, counters set to 0
     just before and read just after; then step time and a profile of one
     step, continuing from the trained state."""
@@ -601,7 +709,8 @@ def phase_train(train_launch, lc, fa, gm, api_mod, cfg):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lc.lstm_cell_fwd.launches = lc.lstm_cell_bwd_pointwise.launches = 0
-    fa.flash_attention.launches = gm.gmm.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     summary = train_launch.main(["--arch", "biglstm", "--steps", str(TRAIN_STEPS),
                                  "--batch", str(TRAIN_B), "--seq", str(TRAIN_T)])
@@ -609,10 +718,10 @@ def phase_train(train_launch, lc, fa, gm, api_mod, cfg):
     wall_s = time.perf_counter() - t0
     launches = {"lstm_cell_fwd": lc.lstm_cell_fwd.launches,
                 "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise.launches,
-                "flash_attention": fa.flash_attention.launches, "gmm": gm.gmm.launches}
+                **{name: fn.launches for name, fn in counters.items()}}
     want = TRAIN_STEPS * cfg.n_layers * TRAIN_T
     if launches != {"lstm_cell_fwd": want, "lstm_cell_bwd_pointwise": want,
-                    "flash_attention": 0, "gmm": 0}:
+                    **{name: 0 for name in counters}}:
         raise AssertionError(f"training launched {launches}, want {want} forward and "
                              f"{want} backward cell kernels")
     state = summary["state"]
@@ -703,6 +812,7 @@ def main():
     from repro_torch.kernels import lstm_cell as lc
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import ref as ref_mod
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.launch import train as train_launch
     from repro_torch.models import api as api_mod
     from repro_torch.models import moe as moe_mod
@@ -731,29 +841,38 @@ def main():
     rows = phase_kernels(fa)
     fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
     gmm_rows = phase_gmm_kernels(gm, ref_mod)
+    wkv_rows = phase_wkv_kernels(wk, ref_mod)
+    counters = {"flash_attention": fa.flash_attention, "gmm": gm.gmm, "wkv6": wk.wkv6}
 
     _phase("4 serve llama3_2_1b, full width and depth")
     cfg = get_config("llama3_2_1b")
-    launches = phase_serve(fa, gm, api_mod, engine_mod, cfg)
+    launches = phase_serve(counters, api_mod, engine_mod, cfg)
 
     _phase("5 model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, cfg)
 
     _phase("6 train biglstm, full width and depth")
     lstm_cfg = get_config("biglstm")
-    train_launches, _, _ = phase_train(train_launch, lc, fa, gm, api_mod, lstm_cfg)
+    train_launches, _, _ = phase_train(train_launch, lc, counters, api_mod, lstm_cfg)
 
     _phase("7 train step against its plain path")
     phase_train_vs_plain(api_mod, lstm_cfg)
 
     _phase("8 serve granite_moe_1b_a400m, full width and depth")
     moe_cfg = get_config("granite_moe_1b_a400m")
-    moe_launches = phase_serve(fa, gm, api_mod, engine_mod, moe_cfg)
+    moe_launches = phase_serve(counters, api_mod, engine_mod, moe_cfg)
 
     _phase("9 MoE model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, moe_cfg, decode_steps=1)
 
-    _phase("10 result")
+    _phase("10 serve rwkv6_7b, full width and depth")
+    rwkv_cfg = get_config("rwkv6_7b")
+    rwkv_launches = phase_serve(counters, api_mod, engine_mod, rwkv_cfg)
+
+    _phase("11 RWKV model path against its plain path")
+    phase_model_vs_plain(api_mod, moe_mod, rwkv_cfg)
+
+    _phase("12 result")
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -771,6 +890,9 @@ def main():
                            "(src/repro/models/lstm.py:53)"),
         _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
                       "src/repro/kernels/moe_gmm.py:23", moe_launches["gmm"], gmm_rows),
+        _kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+                      "src/repro/kernels/rwkv_scan.py:25", rwkv_launches["wkv6"], wkv_rows,
+                      library=wkv_rows[0]["library"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

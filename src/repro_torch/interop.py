@@ -3,7 +3,9 @@
 The port keeps the JAX parameter paths and layouts unchanged, so the bridge
 is a leaf-by-leaf copy: nothing is transposed.  The decoder stacks its
 layers with a leading L dim; an MoE layer has ``moe/{router, wi, wg, wo}``
-(and ``moe/shared/{wi, wg, wo}`` with shared experts) in place of ``mlp``.
+(and ``moe/shared/{wi, wg, wo}`` with shared experts) in place of ``mlp``;
+an RWKV layer has ``ln1``, ``ln2``, ``tm/{mu_r, mu_k, mu_v, mu_w, mu_g, wr,
+wk, wv, wg, wo, w0, wa1, wa2, u, ln_x}`` and ``cm/{mu_k, mu_r, wk, wv, wr}``.
 BigLSTM keeps ``params["lstm"]`` as a list of per-layer dicts (wx (d, 4H), wh (d_proj or H, 4H), b (4H,), and wp (H, d_proj)
 when d_proj > 0).  Neither side's module is
 imported; the caller converts the JAX pytree to numpy first
@@ -14,11 +16,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.rwkv import heads, lora_rank
+
 
 def _expected_shapes(cfg) -> dict:
     if cfg.family == "rnn":
         return _lstm_shapes(cfg)
-    d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+    d, v = cfg.d_model, cfg.vocab_padded
+    layers = _rwkv_shapes(cfg) if cfg.rwkv else _decoder_shapes(cfg)
+    shapes = {"embed": (v, d), "final_norm": (d,), "layers": layers}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, v)
+    return shapes
+
+
+def _decoder_shapes(cfg) -> dict:
+    d, n = cfg.d_model, cfg.n_layers
     hd, nh, nkv, ff = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     layers = {"ln1": (n, d), "ln2": (n, d),
               "attn": {"wq": (n, d, nh * hd), "wk": (n, d, nkv * hd),
@@ -35,10 +48,19 @@ def _expected_shapes(cfg) -> dict:
         layers["mlp"] = {"wi": (n, d, ff), "wo": (n, ff, d)}
         if cfg.mlp_kind == "swiglu":
             layers["mlp"]["wg"] = (n, d, ff)
-    shapes = {"embed": (v, d), "final_norm": (d,), "layers": layers}
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, v)
-    return shapes
+    return layers
+
+
+def _rwkv_shapes(cfg) -> dict:
+    d, n, ff = cfg.d_model, cfg.n_layers, cfg.d_ff
+    n_heads, hd = heads(cfg)
+    lora = lora_rank(cfg)
+    vec = (n, d)
+    tm = {f"mu_{c}": vec for c in "rkvwg"}
+    tm.update({w: (n, d, d) for w in ("wr", "wk", "wv", "wg", "wo")})
+    tm.update(w0=vec, wa1=(n, d, lora), wa2=(n, lora, d), u=(n, n_heads, hd), ln_x=vec)
+    cm = {"mu_k": vec, "mu_r": vec, "wk": (n, d, ff), "wv": (n, ff, d), "wr": (n, d, d)}
+    return {"ln1": vec, "ln2": vec, "tm": tm, "cm": cm}
 
 
 def _lstm_shapes(cfg) -> dict:
@@ -73,7 +95,7 @@ def _convert(tree, shapes, fn, path=""):
 
 def params_from_jax(np_params, cfg, device) -> dict:
     """The port's parameters from the JAX init's pytree given as numpy arrays
-    (dense or MoE decoder, or BigLSTM, by ``cfg``)."""
+    (dense, MoE or RWKV decoder, or BigLSTM, by ``cfg``)."""
     return _convert(np_params, _expected_shapes(cfg),
                     lambda a: torch.from_numpy(np.array(a)).to(device))
 

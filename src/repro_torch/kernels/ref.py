@@ -46,3 +46,28 @@ def lstm_cell_ref(x, h, c, wx, wh, b):
     c_new = torch.sigmoid(f + 1.0) * c.to(ct) + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, state=None):
+    """Sequential RWKV6 WKV recurrence.  r, k, v, w: (B, T, H, hd); u: (H, hd);
+    ``state``: the initial (B, H, hd, hd) state, zeros when None, laid out
+    S[key_dim, value_dim].  Per token, with kv = k_t^T v_t:
+
+        o_t = r_t (S + diag(u) kv),    S <- diag(w_t) S + kv
+
+    Computed in f32 (f64 for f64 inputs); returns (out (B, T, H, hd),
+    S_final) in that dtype.  ``state`` is read, never written."""
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    b, t, h, hd = r.shape
+    r, k, v, w = (x.to(ct) for x in (r, k, v, w))
+    bonus = u.to(ct)[None, :, :, None]
+    if state is None:
+        s = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device)
+    else:
+        s = state.to(ct)
+    outs = []
+    for i in range(t):
+        kv = k[:, i, :, :, None] * v[:, i, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, i], s + bonus * kv))
+        s = w[:, i, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s

@@ -5,6 +5,8 @@ initialise a model from a seed and decode a batch of random prompts::
         --batch 4 --prompt-len 512 --max-new 32
     python -m repro_torch.launch.serve --arch granite_moe_1b_a400m \
         --batch 4 --prompt-len 512 --max-new 32
+    python -m repro_torch.launch.serve --arch rwkv6_7b \
+        --batch 4 --prompt-len 512 --max-new 32
     python -m repro_torch.launch.serve --arch granite_moe_1b_a400m --reduced --device cpu
 
 Runs on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
@@ -21,6 +23,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm
+from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.api import build_model
 from repro_torch.serve.engine import ServeEngine
 
@@ -47,9 +50,11 @@ def main(argv=None):
                            generator=gen).to(api.device)
 
     engine = ServeEngine(api, params, temperature=args.temperature, seed=args.seed)
-    n_fa, n_gmm = fa.flash_attention.launches, moe_gmm.gmm.launches
+    counters = {"flash_attention": fa.flash_attention, "gmm": moe_gmm.gmm, "wkv6": wk.wkv6}
+    before = {name: fn.launches for name, fn in counters.items()}
     res = engine.generate({"tokens": tokens}, max_new_tokens=args.max_new)
-    n_fa, n_gmm = fa.flash_attention.launches - n_fa, moe_gmm.gmm.launches - n_gmm
+    launched = " ".join(f"{name}={fn.launches - before[name]}"
+                        for name, fn in counters.items())
     toks = args.batch * args.max_new
     step_ms = res.decode_ms / max(res.decode_steps, 1)
     total_s = (res.prefill_ms + res.decode_ms) / 1e3
@@ -58,7 +63,7 @@ def main(argv=None):
           f"prefill {res.prefill_ms:.3f} ms  decode {step_ms:.3f} ms/step  "
           f"{toks / total_s:.1f} tok/s")
     print("first sequence:", res.tokens[0].tolist())
-    print(f"[kernels] flash_attention={n_fa} gmm={n_gmm}")
+    print(f"[kernels] {launched}")
     return res
 
 

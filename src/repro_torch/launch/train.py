@@ -13,8 +13,9 @@ on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
 ``--parallel`` takes only ``dp=1,mp=1`` with an optional ``accum=N`` (the
 §4.2 delayed-gradient accumulation); every other spec raises
 NotImplementedError naming its ROADMAP item.  On the card only BigLSTM
-trains: the dense decoder needs the flash-attention backward kernel, and an
-MoE decoder the gmm backward too.
+trains: the dense decoder needs the flash-attention backward kernel, an MoE
+decoder the gmm backward too, and RWKV a wkv backward.  On the CPU every
+decoder trains through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.data import DataPipeline, make_lm_dataset
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import moe_gmm
+from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.train.loop import LoopConfig, train_loop
@@ -63,10 +65,15 @@ def parse_parallel(spec: str) -> int:
 
 
 def check_trainable(cfg, device: torch.device) -> None:
-    """On the card only the LSTM family trains: the decoder's attention and
-    the MoE layer's grouped matmuls have no backward kernels yet."""
+    """On the card only the LSTM family trains: the decoder's attention, the
+    MoE layer's grouped matmuls and the RWKV recurrence have no backward
+    kernels yet."""
     if device.type != "cuda" or cfg.family == "rnn":
         return
+    if cfg.rwkv:
+        raise NotImplementedError(
+            f"training {cfg.name} on the card needs the wkv6 backward kernel, not "
+            f"ported yet: {wk.RWKV_TRAIN}")
     if cfg.is_moe:
         raise NotImplementedError(
             f"training {cfg.name} on the card needs the gmm backward kernel, not "
@@ -115,7 +122,8 @@ def main(argv=None):
           f"(floor {data.entropy:.4f})")
     print(f"[kernels] lstm_cell_fwd={lc.lstm_cell_fwd.launches} "
           f"lstm_cell_bwd_pointwise={lc.lstm_cell_bwd_pointwise.launches} "
-          f"flash_attention={fa.flash_attention.launches} gmm={moe_gmm.gmm.launches}")
+          f"flash_attention={fa.flash_attention.launches} gmm={moe_gmm.gmm.launches} "
+          f"wkv6={wk.wkv6.launches}")
     return summary
 
 

@@ -3,9 +3,12 @@
 
 ``build_model(cfg, device=, capacity_factor=1.25)`` returns a ``ModelApi``
 whose members are plain functions over the parameter dict; the serving
-engine and the train step consume models only through it.  BigLSTM has a loss and no serving path (as
-in JAX); GNMT and the cnn family raise NotImplementedError.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; asking for CUDA where there is none raises.
+engine and the train step consume models only through it.  The dense, MoE
+and RWKV decoders go through ``models/transformer.py`` (RWKV's cache holds
+its recurrent state); BigLSTM has a loss and no serving path (as in JAX);
+GNMT and the cnn family raise NotImplementedError.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA where
+there is none raises.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Decoder stack (port of the dense and MoE paths of ``repro/models/transformer.py``).
+"""Decoder stack (port of the dense, MoE and RWKV paths of
+``repro/models/transformer.py``).
 
 Parameters are a nested dict with the JAX package's paths and layouts,
 stacked over layers (leading L dim on every leaf of ``params["layers"]``);
@@ -8,10 +9,13 @@ the JAX layer scan becomes a Python loop over per-layer views.  Entry points:
     forward(mode="prefill")  also fills a linear KV cache of given capacity
     decode_step              t tokens against the cache (scalar ``pos``)
 
-Attention goes through ``kernels.flash_attention`` and the MoE layer's
-expert products through ``kernels.moe_gmm`` (the CUDA kernels on the card,
-their plain twins on the CPU).  Configs and modes the port does not run yet
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+An RWKV config stacks ``models/rwkv.py`` blocks instead: its cache holds
+the recurrent state (``wkv_S``, ``tm_x``, ``cm_x``), not K/V, and ignores
+the capacity.  Attention goes through ``kernels.flash_attention``, the MoE
+layer's expert products through ``kernels.moe_gmm`` and the RWKV recurrence
+through ``kernels.wkv6`` (the CUDA kernels on the card, their plain twins on
+the CPU).  Configs and modes the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -20,11 +24,11 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 
 SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
 MULTI_DEVICE = "ROADMAP.md Queue 1 items 5-8 (multi-device runtimes)"
-RWKV_SERVING = "ROADMAP.md Queue 1 item 13 (RWKV6-7B serving through wkv6)"
 
 
 def unported(what: str, item: str):
@@ -32,14 +36,13 @@ def unported(what: str, item: str):
 
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
-    """Raise NotImplementedError for any config or mode outside the dense or
-    MoE, full-attention, single-device decoder the port runs."""
+    """Raise NotImplementedError for any config or mode outside the dense,
+    MoE or RWKV, full-attention, single-device decoder the port runs."""
     if pctx is not None:
         raise unported("a ParallelCtx (mesh execution)", MULTI_DEVICE)
     if window or cfg.sliding_window:
         raise unported(f"sliding-window attention ({cfg.name})", SERVING_EXT)
     for flag, what, item in (
-            (cfg.rwkv, "RWKV", RWKV_SERVING),
             (cfg.family == "hybrid", "the hybrid SSM block", FAMILIES),
             (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
             (cfg.n_prefix_embeds, "prefix embeddings (VLM)", FAMILIES),
@@ -68,6 +71,9 @@ def model_init(gen: torch.Generator, cfg, *, device=None):
     params = {"embed": L.embed_init(gen, v, d, **kw), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, d, v, **kw)
+    if cfg.rwkv:
+        params["layers"] = rwkv_mod.rwkv_layer_init(gen, cfg, lead=(n,), **kw)
+        return params
     params["layers"] = {
         "ln1": ones(n, d), "ln2": ones(n, d),
         "attn": {"wq": L.dense_init(gen, d, nh * hd, lead=(n,), **kw),
@@ -84,9 +90,20 @@ def model_init(gen: torch.Generator, cfg, *, device=None):
 
 def make_cache(cfg, batch: int, capacity: int, *, dtype=None, device=None):
     """Linear decode cache stacked over layers: k, v (L, B, cap, KV, hd) and
-    the scalar write position ``pos`` (a Python int)."""
+    the scalar write position ``pos`` (a Python int).  An RWKV cache holds
+    the recurrent state instead, for any capacity: wkv_S (L, B, H, hd, hd)
+    f32 and the last normed inputs of the time and channel mixes, tm_x and
+    cm_x (L, B, d), all zeros."""
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    if cfg.rwkv:
+        h, hd = rwkv_mod.heads(cfg)
+        x_shape = (cfg.n_layers, batch, cfg.d_model)
+        return {"pos": 0,
+                "wkv_S": torch.zeros((cfg.n_layers, batch, h, hd, hd),
+                                     dtype=torch.float32, device=device),
+                "tm_x": torch.zeros(x_shape, dtype=dtype, device=device),
+                "cm_x": torch.zeros(x_shape, dtype=dtype, device=device)}
     shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
     return {"pos": 0,
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -96,6 +113,11 @@ def make_cache(cfg, batch: int, capacity: int, *, dtype=None, device=None):
 def _layer(stacked, i: int):
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in stacked.items()}
+
+
+def _cache_layer(cache, i: int):
+    """Layer i's views of every stacked tensor of the cache (not ``pos``)."""
+    return {k: v[i] for k, v in cache.items() if k != "pos"}
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +158,12 @@ def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None,
     An MoE block drops tokens beyond ``capacity_factor`` in train and
     prefill and none in decode.  Returns (x, cache or None, aux): aux is
     ``cfg.router_aux_loss`` times the router's load-balance loss, None for a
-    dense block."""
+    dense block.  An RWKV block's ``cache`` is this layer's {"wkv_S",
+    "tm_x", "cm_x"} view: train starts from zero state and has none, prefill
+    starts from the zero cache and writes its final state there, decode
+    reads and updates it in place."""
+    if cfg.rwkv:
+        return _rwkv_block(cfg, p, x, cache), cache, None
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
         attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=pos0, cache_kv=cache)
@@ -155,6 +182,23 @@ def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None,
     cf = None if mode == "decode" else capacity_factor
     mlp_out, moe_aux = moe_mod.moe_ffn(p["moe"], h2, cfg, capacity_factor=cf)
     return x + mlp_out, cache, cfg.router_aux_loss * moe_aux
+
+
+def _rwkv_block(cfg, p, x, cache):
+    if cache is None:
+        zero = x.new_zeros((x.shape[0], x.shape[-1]))
+        tm_last, cm_last, state = zero, zero, None
+    else:
+        tm_last, cm_last, state = cache["tm_x"], cache["cm_x"], cache["wkv_S"]
+    tm_out, tm_x, _ = rwkv_mod.rwkv_time_mix(
+        p["tm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), tm_last, state, cfg)
+    x = x + tm_out
+    cm_out, cm_x = rwkv_mod.rwkv_channel_mix(
+        p["cm"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cm_last)
+    if cache is not None:      # the state went into wkv_S in place
+        cache["tm_x"].copy_(tm_x)
+        cache["cm_x"].copy_(cm_x)
+    return x + cm_out
 
 
 # ---------------------------------------------------------------------------
@@ -190,12 +234,12 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     cache = None
     if mode == "prefill":
         cap = cache_capacity or s
-        if cap < s:
+        if cap < s and not cfg.rwkv:
             raise ValueError(f"cache capacity {cap} < prompt length {s}")
         cache = make_cache(cfg, b, cap, dtype=x.dtype, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        csl = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+        csl = None if cache is None else _cache_layer(cache, i)
         x, _, a = block_apply(cfg, _layer(params["layers"], i), x, mode=mode, cache=csl,
                               capacity_factor=capacity_factor)
         if a is not None:
@@ -209,8 +253,8 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
 
 def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
     """batch: dict(tokens (B,t)) against a cache with scalar ``pos``.
-    Returns (logits (B,t,V), cache): the K/V tensors are updated in place
-    and the returned dict carries pos + t."""
+    Returns (logits (B,t,V), cache): the K/V (or RWKV state) tensors are
+    updated in place and the returned dict carries pos + t."""
     check_supported(cfg, window=window_override or 0, pctx=pctx)
     pos = cache["pos"]
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
@@ -218,7 +262,7 @@ def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
     pos = int(pos)
     x = _embed(cfg, params, batch["tokens"])
     for i in range(cfg.n_layers):
-        csl = {"k": cache["k"][i], "v": cache["v"][i]}
+        csl = _cache_layer(cache, i)
         x, _, _ = block_apply(cfg, _layer(params["layers"], i), x, mode="decode",
                               pos0=pos, cache=csl)
     logits = _head(cfg, params, x)

@@ -1,7 +1,8 @@
 """Static-batch serving engine (port of ``repro/serve/engine.py:ServeEngine``).
 
-One prefill fills a linear KV cache, then one decode step per generated
-token.  Greedy when temperature == 0, else temperature sampling from a
+One prefill fills a linear KV cache (an RWKV model's recurrent state),
+then one decode step per generated token.  Greedy when temperature == 0,
+else temperature sampling from a
 ``torch.Generator`` seeded per call from (engine seed, call counter), so
 keyless calls differ from each other and a fixed seed replays.  Rows that
 emit ``eos_id`` / a stop token are frozen (pad tokens, 0.0 logprobs) and the
@@ -71,7 +72,8 @@ class ServeEngine:
         b, s = tokens.shape
         cfg = self.api.cfg
         cap = (s + max_new_tokens + 8) if capacity is None else capacity
-        if cap < s + max_new_tokens:
+        # an RWKV cache carries recurrent state, not positions: no capacity
+        if not cfg.rwkv and cap < s + max_new_tokens:
             raise ValueError(
                 f"KV cache capacity {cap} cannot hold prompt ({s}) + "
                 f"max_new_tokens ({max_new_tokens}) = {s + max_new_tokens} "

@@ -1,12 +1,14 @@
 """The CUDA kernels (flash attention, the LSTM cell's forward and pointwise
-backward, the grouped matmul) against their plain versions on the card.
+backward, the grouped matmul, the RWKV6 WKV recurrence) against their plain
+versions on the card.
 
 Needs a CUDA device and nvcc (the kernel has no CPU mode): every test here
 carries the ``cuda`` marker and skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.  This file
 imports no JAX, so it runs where only PyTorch is installed.  Tolerances are
 those of tests/test_kernels.py: 2e-5 at fp32, 2e-2 at bf16 (gmm: 1e-4 and
-5e-2, as test_gmm_sweep).
+5e-2, as test_gmm_sweep; wkv6: 2e-4 of max(1, the largest reference value),
+as test_wkv6_sweep).
 """
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import lstm_cell as TLC
 from repro_torch.kernels import moe_gmm as TGM
-from repro_torch.kernels.ref import gmm_ref, lstm_cell_ref
+from repro_torch.kernels import wkv6 as TWK
+from repro_torch.kernels.ref import gmm_ref, lstm_cell_ref, wkv6_ref
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 
@@ -196,7 +199,7 @@ def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.cuda
 def test_build_all_builds_every_source(cuda_device):
     libs = build.build_all()
-    assert set(libs) == {"flash_attention", "lstm_cell", "moe_gmm"}
+    assert set(libs) == {"flash_attention", "lstm_cell", "moe_gmm", "wkv6"}
     assert all(p.exists() for p in libs.values())
     assert "registers" in build.build_log("lstm_cell")
 
@@ -257,3 +260,90 @@ def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         TGM.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(NotImplementedError, match="item 14"):
         TGM.gmm(x.requires_grad_(), w)
+
+
+# B, T, H, hd: RWKV6-7B's prefill (B 4, T 512, H 64, hd 64) and decode step
+# (T 1), and edge shapes: T 1, 7, 33 and 130 (no multiple of the kernel's
+# 16- or 32-token chunk), hd 32, B 1, H 1
+WKV_SHAPES = [(4, 512, 64, 64), (4, 1, 64, 64), (2, 7, 3, 64), (2, 130, 2, 32),
+              (1, 1, 1, 32), (1, 33, 2, 64), (3, 16, 1, 64)]
+WKV_TOL = 2e-4
+
+
+def _wkv_inputs(seed, b, t, h, hd, device, dtype, state=True):
+    """r, k, v, w, u as tests/test_kernels.py::test_wkv6_sweep draws them,
+    r, k, v in ``dtype``, and a non-zero initial state."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s):
+        return torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32)).to(device)
+
+    r, k, v = (f(b, t, h, hd).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(f(b, t, h, hd) - 2))
+    u = f(h, hd) * 0.2
+    s0 = f(b, h, hd, hd) * 4 if state else None
+    return r, k, v, w, u, s0
+
+
+def _wkv_err(got, want):
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd", WKV_SHAPES)
+@pytest.mark.parametrize("from_state", [False, True])
+def test_wkv6_kernel_matches_plain_on_card(cuda_device, dtype, b, t, h, hd, from_state):
+    r, k, v, w, u, s0 = _wkv_inputs(b * t + hd, b, t, h, hd, cuda_device, dtype,
+                                    state=from_state)
+    want_out, want_s = wkv6_ref(r, k, v, w, u, s0)
+    state = None if s0 is None else s0.clone()
+    before = TWK.wkv6.launches
+    out, s = TWK.wkv6(r, k, v, w, u, state)
+    torch.cuda.synchronize()
+    assert TWK.wkv6.launches == before + 1
+    assert out.dtype == s.dtype == torch.float32 and out.shape == (b, t, h, hd)
+    assert _wkv_err(out, want_out) < WKV_TOL and _wkv_err(s, want_s) < WKV_TOL
+    if from_state:
+        assert s is state
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_in_place_equals_out_of_place(cuda_device):
+    """The state written over the initial state (the decode cache) equals the
+    state of a run from zeros continued out of place, token by token."""
+    r, k, v, w, u, _ = _wkv_inputs(9, 4, 40, 8, 64, cuda_device, torch.bfloat16)
+    out_all, s_all = TWK.wkv6(r, k, v, w, u)                  # new state tensor
+    state = torch.zeros_like(s_all)
+    ptr = state.data_ptr()
+    outs = [TWK.wkv6(r[:, :30].contiguous(), k[:, :30].contiguous(), v[:, :30].contiguous(),
+                     w[:, :30].contiguous(), u, state)[0]]
+    for i in range(30, 40):
+        sl = slice(i, i + 1)
+        o, s = TWK.wkv6(r[:, sl].contiguous(), k[:, sl].contiguous(), v[:, sl].contiguous(),
+                        w[:, sl].contiguous(), u, state)
+        assert s is state and s.data_ptr() == ptr
+        outs.append(o)
+    assert _wkv_err(torch.cat(outs, 1), out_all) < WKV_TOL
+    assert _wkv_err(state, s_all) < WKV_TOL
+
+
+@pytest.mark.cuda
+def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    r, k, v, w, u, s0 = _wkv_inputs(0, 2, 5, 2, 64, cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        TWK.wkv6(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(TypeError):
+        TWK.wkv6(r, k.bfloat16(), v, w, u)
+    with pytest.raises(TypeError):
+        TWK.wkv6(r, k, v, w.bfloat16(), u)
+    with pytest.raises(TypeError):
+        TWK.wkv6(r, k, v, w, u, s0.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        TWK.wkv6(r, k, v, w, u.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        TWK.wkv6(r, k, v, w, u, s0.transpose(2, 3))
+    with pytest.raises(ValueError, match="head_dim"):
+        TWK.wkv6(*(x[..., :48].contiguous() for x in (r, k, v, w, u)))
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TWK.wkv6(r.requires_grad_(), k, v, w, u)

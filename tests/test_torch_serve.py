@@ -179,18 +179,24 @@ def test_capacity_check(models):
         eng.generate(tok, max_new_tokens=NEW, capacity=S + NEW - 1)
 
 
-@pytest.mark.parametrize("case", ["window", "moe", "hybrid", "slot_pos",
+@pytest.mark.parametrize("case", ["window", "moe", "encdec", "hybrid", "slot_pos",
                                   "prompt_lens", "pctx", "biglstm"])
 def test_unported_modes_raise(models, case):
     tapi, tparams, tcfg = models["tapi"], models["tparams"], models["tcfg"]
     tok = torch.from_numpy(models["tokens"]).long()
     item = {"biglstm": "ROADMAP.md Queue 1 item 6",
-            "moe": "ROADMAP.md Queue 1 item 13"}.get(case, "ROADMAP.md Queue 1")
+            "moe": "ROADMAP.md Queue 1 item 15",
+            "encdec": "ROADMAP.md Queue 1 item 11"}.get(case, "ROADMAP.md Queue 1")
     with pytest.raises(NotImplementedError, match=item):
         if case == "window":
             tapi.prefill(tparams, {"tokens": tok}, window=4)
-        elif case == "moe":     # MoE serves now; RWKV6 is the next family
-            t_build_model(t_get_config("rwkv6_7b").reduced(), device="cpu")
+        elif case == "moe":     # MoE serves on one device; expert parallelism does not
+            from repro_torch.models import moe as moe_mod
+            moe_mod.moe_ffn(None, torch.zeros(B, S, 8),
+                            t_get_config("granite_moe_1b_a400m").reduced(),
+                            model_axis="model")
+        elif case == "encdec":  # every TPU kernel's family serves; whisper does not
+            t_build_model(t_get_config("whisper_large_v3").reduced(), device="cpu")
         elif case == "hybrid":
             t_build_model(t_get_config("hymba_1_5b").reduced(), device="cpu")
         elif case == "slot_pos":
