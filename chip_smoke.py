@@ -11,8 +11,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    process per source, all started together, and print ptxas' registers and
    spills;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at edge shapes, fp32 and bf16: flash attention at
-   full-width Llama-3.2-1B prefill and a decode step on a strided cache view;
+   main paths' shapes and at edge shapes, fp32 and bf16, each row naming the
+   kernel variant it launched (FMA, tensor-core prefill or decode tile):
+   flash attention at full-width Llama-3.2-1B and Granite-3.0-1B-A400M
+   prefill and a decode step on a strided cache view, and bf16 rows whose
+   rows cannot take 16-byte copies;
    the LSTM cell's forward and pointwise backward at full-width BigLSTM
    (B 16, d_in 1024, d_h 1024, H 8192) and at shapes where B and H are no
    tile multiples, and the cell's autograd function (dx, dh, dc, dWx, dWh,
@@ -29,9 +32,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``call_ms``);
 4. serve full-width, full-depth Llama-3.2-1B from a seeded random init
    through ``ServeEngine.generate`` (4 prompts of 512 tokens, 32 new tokens,
-   greedy) with the launch counters set to 0 just before and read just after,
-   then profile one prefill and one decode step (torch.profiler: wall time,
-   device busy time, idle share, top kernels);
+   greedy) with the launch counters set to 0 just before and read just after
+   (every bf16 flash launch on a tensor-core variant), then profile one
+   prefill and one decode step (torch.profiler: wall time, device busy time,
+   idle share, top kernels; no more kernels a decode step than in PR 14);
 5. hold the serving model path against its plain path: the same weights at 2
    layers of full width in f32, kernels on the card against the plain
    versions on the CPU;
@@ -47,7 +51,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    LSTM parameters after the update within 1e-3);
 8. serve full-width, full-depth Granite-3.0-1B-A400M (MoE, 1.39 B
    parameters) as phase 4 serves Llama: 2376 gmm and 792 flash-attention
-   launches per ``generate``, then the same profile;
+   launches per ``generate``, all on the tensor-core variants, then the same
+   profile;
 9. hold the MoE model path against its plain path: 2 layers at full width in
    f32, prefill and one decode step, logits within 1e-3, and the count of
    (token, k) routing ids that differ between the card and the CPU;
@@ -99,6 +104,11 @@ WKV_TOL = 2e-4
 # B, T, H, hd of full-width RWKV6-7B's WKV: prefill of 4 x 512 tokens, a decode step
 WKV_SERVE = [("prefill", (BATCH, PROMPT, 64, 64)), ("decode", (BATCH, 1, 64, 64))]
 WKV_EDGE = [(1, 1, 1, 32), (2, 7, 3, 64), (2, 130, 2, 32), (1, 33, 2, 64), (1, 7, 1, 64)]
+# kernels a decode step on PR 14's tree (PERF.md section 5): Llama and
+# Granite the same in four profiles of one step, RWKV the most a PR 14
+# profile saw.  A single profile may see fewer: torch.profiler drops events
+# now and then, never adds them.
+PR14_DECODE_KERNELS = {"llama3.2-1b": 1262, "granite-moe-1b-a400m": 3254, "rwkv6-7b": 2955}
 
 
 def _phase(name):
@@ -168,15 +178,30 @@ def attention_bound_ms(q, k, v, causal, window):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def launched_variant(fn, call):
+    """``call()``'s result and the one variant of ``fn`` whose launch counter
+    it moved (each launch adds one to ``fn.launches`` and to its variant's)."""
+    before = dict(fn.variant_launches)
+    out = call()
+    moved = {n: c - before[n] for n, c in fn.variant_launches.items() if c != before[n]}
+    if len(moved) != 1 or list(moved.values()) != [1]:
+        raise AssertionError(f"one call moved the variant counters by {moved}")
+    return out, next(iter(moved))
+
+
 def check_attention(fa, case, q, k, v, *, causal, window=0, timed=False):
     """Kernel against plain version on the same inputs; optionally timed."""
-    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    out, variant = launched_variant(fa.flash_attention, lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window))
     torch.cuda.synchronize()
     ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
     err = float((out.float() - ref.float()).abs().max())
     tol = TOL[q.dtype]
-    row = {"shape": case, "dtype": str(q.dtype).removeprefix("torch."),
+    row = {"shape": case, "dtype": str(q.dtype).removeprefix("torch."), "variant": variant,
            "max_abs_err": err, "tol": tol}
+    if variant != fa.flash_variant(q, k, v):
+        raise AssertionError(f"flash_attention {case}: launched {variant}, "
+                             f"flash_variant says {fa.flash_variant(q, k, v)}")
     if not err < tol or not torch.isfinite(out).all():
         raise AssertionError(f"flash_attention {case}: max abs err {err} >= {tol}")
     if timed:
@@ -202,17 +227,25 @@ def phase_kernels(fa):
 
     bf = torch.bfloat16
     rows = []
-    # prefill at full Llama-3.2-1B width: 32 query heads over 8 KV heads
-    q, k, v = rnd(BATCH, PROMPT, 32, 64, dtype=bf), rnd(BATCH, PROMPT, 8, 64, dtype=bf), \
-        rnd(BATCH, PROMPT, 8, 64, dtype=bf)
-    rows.append(check_attention(fa, "prefill B4 T512 H32/8 hd64 causal", q, k, v,
-                                causal=True, timed=True))
-    # decode: one query against the valid prefix, a strided view of the cache
-    cap, n = PROMPT + NEW + 8, PROMPT + 1
-    kc, vc = rnd(BATCH, cap, 8, 64, dtype=bf), rnd(BATCH, cap, 8, 64, dtype=bf)
-    rows.append(check_attention(fa, "decode B4 Tq1 Tk513(view of 552) H32/8 hd64",
-                                rnd(BATCH, 1, 32, 64, dtype=bf), kc[:, :n], vc[:, :n],
-                                causal=False, timed=True))
+    # prefill and a decode step at full width: Llama-3.2-1B's 32 query heads
+    # over 8 KV heads, then Granite-3.0-1B-A400M's 16 over 8 (both hd 64)
+    for h in (32, 16):
+        q, k, v = rnd(BATCH, PROMPT, h, 64, dtype=bf), rnd(BATCH, PROMPT, 8, 64, dtype=bf), \
+            rnd(BATCH, PROMPT, 8, 64, dtype=bf)
+        rows.append(check_attention(fa, f"prefill B4 T512 H{h}/8 hd64 causal", q, k, v,
+                                    causal=True, timed=True))
+        # decode: one query against the valid prefix, a strided view of the cache
+        cap, n = PROMPT + NEW + 8, PROMPT + 1
+        kc, vc = rnd(BATCH, cap, 8, 64, dtype=bf), rnd(BATCH, cap, 8, 64, dtype=bf)
+        rows.append(check_attention(fa, f"decode B4 Tq1 Tk513(view of 552) H{h}/8 hd64",
+                                    rnd(BATCH, 1, h, 64, dtype=bf), kc[:, :n], vc[:, :n],
+                                    causal=False, timed=True))
+    # bf16 rows that cannot take 16-byte async copies (q's base 2 bytes off):
+    # the FMA kernel at Llama's prefill shape
+    qm = torch.empty(1 + q.numel(), dtype=bf, device=dev)[1:].view(BATCH, PROMPT, 16, 64)
+    qm.copy_(q)
+    rows.append(check_attention(fa, "prefill B4 T512 H16/8 hd64 causal, q misaligned", qm, k, v,
+                                causal=True))
     # edge shapes (tests/test_kernels.py), windows, Tq != Tk, head dims, fp32
     f32 = torch.float32
     for b, tq, tk, h, hkv, hd, causal, window, dt in [
@@ -389,12 +422,17 @@ def check_gmm(gm, ref_mod, case, x, w, gen, timed=False):
     version, the bound and ``torch.bmm`` on the same tensors.  The timed
     calls rotate over enough input sets (more than twice the 50 MB L2) that
     each finds its weights cold, as each layer of the model does."""
-    out = gm.gmm(x, w)
+    out, variant = launched_variant(gm.gmm, lambda: gm.gmm(x, w))
     torch.cuda.synchronize()
-    err = float((out.float() - ref_mod.gmm_ref(x, w).float()).abs().max())
+    ref = ref_mod.gmm_ref(x, w)
+    err = float((out.float() - ref.float()).abs().max())
     tol = GMM_TOL[x.dtype]
     row = {"kernel": "gmm", "shape": f"{case} {tuple(x.shape)}@{tuple(w.shape)}",
-           "dtype": str(x.dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol}
+           "dtype": str(x.dtype).removeprefix("torch."), "variant": variant,
+           "max_abs_err": err, "tol": tol}
+    if variant != gm.gmm_variant(x, w):
+        raise AssertionError(f"gmm {case}: launched {variant}, gmm_variant says "
+                             f"{gm.gmm_variant(x, w)}")
     if not err < tol or not torch.isfinite(out).all():
         raise AssertionError(f"gmm {case}: max abs err {err} >= {tol} or not finite")
     if timed:
@@ -427,6 +465,11 @@ def phase_gmm_kernels(gm, ref_mod):
     for case, (g, c, d, f) in GMM_SERVE:
         rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.float32),
                               gen))
+    # bf16 with x's base 2 bytes off: the FMA kernel at the prefill shape
+    x, w = gmm_inputs(gen, *GMM_SERVE[0][1], torch.bfloat16)
+    xm = torch.empty(1 + x.numel(), dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    xm.copy_(x)
+    rows.append(check_gmm(gm, ref_mod, f"{GMM_SERVE[0][0]}, x misaligned", xm, w, gen))
     for g, c, d, f in GMM_EDGE:
         for dt in (torch.float32, torch.bfloat16):
             rows.append(check_gmm(gm, ref_mod, "edge", *gmm_inputs(gen, g, c, d, f, dt), gen))
@@ -506,6 +549,18 @@ def phase_wkv_kernels(wk, ref_mod):
     return rows
 
 
+def reset_counters(counters):
+    for fn in counters.values():
+        fn.launches = 0
+        for name in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[name] = 0
+
+
+def variant_launches(counters):
+    return {name: dict(fn.variant_launches) for name, fn in counters.items()
+            if hasattr(fn, "variant_launches")}
+
+
 def phase_serve(counters, api_mod, engine_mod, cfg):
     api = api_mod.build_model(cfg, device="cuda")
     t0 = time.perf_counter()
@@ -526,15 +581,26 @@ def phase_serve(counters, api_mod, engine_mod, cfg):
     del logits, cache, logits_d
     engine = engine_mod.ServeEngine(api, params)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     res = engine.generate(batch, max_new_tokens=NEW)
     launches = {name: fn.launches for name, fn in counters.items()}
+    variants = variant_launches(counters)
     calls = cfg.n_layers * (1 + NEW)           # one prefill and NEW decode steps
     want = {"flash_attention": 0 if cfg.rwkv else calls,
             "gmm": 3 * calls if cfg.is_moe else 0, "wkv6": calls if cfg.rwkv else 0}
     if launches != want:
         raise AssertionError(f"generate launched {launches}, want {want}")
+    # every bf16 flash and gmm launch of the serving path runs on the tensor
+    # cores: the prefill tile in prefill, the decode tile in each decode step
+    want_variants = {name: dict.fromkeys(v, 0) for name, v in variants.items()}
+    if not cfg.rwkv:
+        want_variants["flash_attention"].update(tc_prefill=cfg.n_layers,
+                                                tc_decode=cfg.n_layers * NEW)
+    if cfg.is_moe:
+        want_variants["gmm"].update(tc_prefill=3 * cfg.n_layers, tc_decode=3 * cfg.n_layers * NEW)
+    if cfg.dtype != "bfloat16" or variants != want_variants:
+        raise AssertionError(f"generate launched the variants {variants} ({cfg.dtype}), "
+                             f"want {want_variants}")
     if not torch.isfinite(res.logprobs).all() or res.tokens.shape != (BATCH, NEW) \
             or int(res.tokens.min()) < 0 or int(res.tokens.max()) >= cfg.vocab_size:
         raise AssertionError("generate returned bad tokens or logprobs")
@@ -544,13 +610,19 @@ def phase_serve(counters, api_mod, engine_mod, cfg):
            "tok_per_s": BATCH * NEW / ((res.prefill_ms + res.decode_ms) / 1e3),
            "decode_tok_per_s": BATCH * res.decode_steps / (res.decode_ms / 1e3),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches}
+           "launches": launches, "variant_launches": variants}
     print(json.dumps(out), flush=True)
     print("first sequence:", res.tokens[0].tolist(), flush=True)
-    phase_profile(api, params, batch)
+    _, decode = phase_profile(api, params, batch)
+    # the split decode tile merges its partials in the same launch: no more
+    # kernels a decode step than PR 14's profile saw (the profiler may drop
+    # events, never add them)
+    if decode["kernels"] > PR14_DECODE_KERNELS[cfg.name]:
+        raise AssertionError(f"{decode['kernels']} kernels a decode step, PR 14 ran "
+                             f"{PR14_DECODE_KERNELS[cfg.name]}")
     del params, engine
     torch.cuda.empty_cache()
-    return launches
+    return launches, variants
 
 
 def profile_call(name, fn, reps=3):
@@ -587,12 +659,14 @@ def profile_call(name, fn, reps=3):
 
 
 def phase_profile(api, params, batch):
-    """One prefill and one decode step through ``profile_call``."""
+    """One prefill and one decode step through ``profile_call``; returns both
+    profiles."""
     with torch.inference_mode():
         _, cache = api.prefill(params, batch, capacity=PROMPT + NEW + 8)
         step = {"tokens": batch["tokens"][:, -1:]}
-        profile_call("prefill", lambda: api.prefill(params, batch, capacity=PROMPT + NEW + 8))
-        profile_call("decode_step", lambda: api.decode_fn(params, dict(cache), step))
+        return (profile_call("prefill",
+                             lambda: api.prefill(params, batch, capacity=PROMPT + NEW + 8)),
+                profile_call("decode_step", lambda: api.decode_fn(params, dict(cache), step)))
 
 
 @contextlib.contextmanager
@@ -709,8 +783,7 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lc.lstm_cell_fwd.launches = lc.lstm_cell_bwd_pointwise.launches = 0
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     t0 = time.perf_counter()
     summary = train_launch.main(["--arch", "biglstm", "--steps", str(TRAIN_STEPS),
                                  "--batch", str(TRAIN_B), "--seq", str(TRAIN_T)])
@@ -846,7 +919,7 @@ def main():
 
     _phase("4 serve llama3_2_1b, full width and depth")
     cfg = get_config("llama3_2_1b")
-    launches = phase_serve(counters, api_mod, engine_mod, cfg)
+    launches, variants = phase_serve(counters, api_mod, engine_mod, cfg)
 
     _phase("5 model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, cfg)
@@ -860,14 +933,14 @@ def main():
 
     _phase("8 serve granite_moe_1b_a400m, full width and depth")
     moe_cfg = get_config("granite_moe_1b_a400m")
-    moe_launches = phase_serve(counters, api_mod, engine_mod, moe_cfg)
+    moe_launches, moe_variants = phase_serve(counters, api_mod, engine_mod, moe_cfg)
 
     _phase("9 MoE model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, moe_cfg, decode_steps=1)
 
     _phase("10 serve rwkv6_7b, full width and depth")
     rwkv_cfg = get_config("rwkv6_7b")
-    rwkv_launches = phase_serve(counters, api_mod, engine_mod, rwkv_cfg)
+    rwkv_launches, _ = phase_serve(counters, api_mod, engine_mod, rwkv_cfg)
 
     _phase("11 RWKV model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, rwkv_cfg)
@@ -880,7 +953,10 @@ def main():
                       launches["flash_attention"], rows,
                       launches_by_path={"serve llama3_2_1b": launches["flash_attention"],
                                         "serve granite_moe_1b_a400m":
-                                            moe_launches["flash_attention"]}),
+                                            moe_launches["flash_attention"]},
+                      variant_launches_by_path={
+                          "serve llama3_2_1b": variants["flash_attention"],
+                          "serve granite_moe_1b_a400m": moe_variants["flash_attention"]}),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",
                       train_launches["lstm_cell_fwd"], fwd_rows),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
@@ -889,7 +965,8 @@ def main():
                       note="no TPU backward kernel: JAX differentiates the plain cell "
                            "(src/repro/models/lstm.py:53)"),
         _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
-                      "src/repro/kernels/moe_gmm.py:23", moe_launches["gmm"], gmm_rows),
+                      "src/repro/kernels/moe_gmm.py:23", moe_launches["gmm"], gmm_rows,
+                      variant_launches=moe_variants["gmm"]),
         _kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv_scan.py:25", rwkv_launches["wkv6"], wkv_rows,
                       library=wkv_rows[0]["library"]),

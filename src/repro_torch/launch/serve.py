@@ -12,7 +12,9 @@ initialise a model from a seed and decode a batch of random prompts::
 Runs on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
 Prints prefill ms, decode ms per step and generated tokens per second, then
 the launches of each kernel during ``generate`` (``[kernels]``; zero on the
-CPU, where the plain twins run).
+CPU, where the plain twins run) and of each variant of the flash-attention
+and grouped-matmul kernels (``[variants]``: FMA, tensor-core prefill and
+decode tiles).
 """
 from __future__ import annotations
 
@@ -52,9 +54,15 @@ def main(argv=None):
     engine = ServeEngine(api, params, temperature=args.temperature, seed=args.seed)
     counters = {"flash_attention": fa.flash_attention, "gmm": moe_gmm.gmm, "wkv6": wk.wkv6}
     before = {name: fn.launches for name, fn in counters.items()}
+    by_variant = {name: dict(fn.variant_launches) for name, fn in counters.items()
+                  if hasattr(fn, "variant_launches")}
     res = engine.generate({"tokens": tokens}, max_new_tokens=args.max_new)
     launched = " ".join(f"{name}={fn.launches - before[name]}"
                         for name, fn in counters.items())
+    variants = "; ".join(
+        f"{name}: " + " ".join(f"{v}={n - by_variant[name][v]}"
+                               for v, n in counters[name].variant_launches.items())
+        for name in by_variant)
     toks = args.batch * args.max_new
     step_ms = res.decode_ms / max(res.decode_steps, 1)
     total_s = (res.prefill_ms + res.decode_ms) / 1e3
@@ -64,6 +72,7 @@ def main(argv=None):
           f"{toks / total_s:.1f} tok/s")
     print("first sequence:", res.tokens[0].tolist())
     print(f"[kernels] {launched}")
+    print(f"[variants] {variants}")
     return res
 
 

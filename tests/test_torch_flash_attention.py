@@ -156,3 +156,91 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.build("flash_attention")
     with pytest.raises(FileNotFoundError):
         build.build("no_such_kernel")
+
+
+def _laid_out(shape, dtype, layout):
+    """A zero tensor of ``shape`` in one of the layouts the kernel meets:
+    contiguous; d-stride 2; rows padded by 4 elements (row strides no
+    multiple of 8); a base 8 or 3 elements into its storage."""
+    b, t, h, hd = shape
+    if layout == "contiguous":
+        return torch.zeros(shape, dtype=dtype)
+    if layout == "d-stride 2":
+        return torch.zeros((b, t, h, 2 * hd), dtype=dtype)[..., ::2]
+    if layout == "rows padded by 4":
+        return torch.zeros((b, t, h, hd + 4), dtype=dtype)[..., :hd]
+    off = {"offset 8": 8, "offset 3": 3}[layout]
+    n = b * t * h * hd
+    return torch.zeros(n + off, dtype=dtype)[off:].view(shape)
+
+
+LAYOUTS = ["contiguous", "d-stride 2", "rows padded by 4", "offset 8", "offset 3"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("h,hkv,tq", [(16, 1, 1), (4, 1, 4), (8, 8, 16),    # rep * Tq = 16
+                                      (8, 8, 17), (1, 1, 17), (32, 8, 5)])  # 17, 17, 20
+def test_variant_choice(dtype, layout, hd, h, hkv, tq):
+    """bf16 rows that take 16-byte async copies go to the tensor cores, the
+    packed decode tile while (H / Hkv) * Tq fits 16 rows; all else to FMA."""
+    q = _laid_out((2, tq, h, hd), dtype, layout)
+    k, v = (_laid_out((2, 9, hkv, hd), dtype, layout) for _ in range(2))
+    aligned = layout in ("contiguous", "offset 8")
+    if dtype == torch.float32 or not aligned:
+        want = "fma"
+    else:
+        want = "tc_decode" if (h // hkv) * tq <= 16 else "tc_prefill"
+    assert TFA.flash_variant(q, k, v) == want
+    # the variant choice never reaches the CPU path: no launch, plain result
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, k, v, causal=False)
+    assert TFA.flash_attention.variant_launches == before
+    assert out.shape == q.shape and out.dtype == dtype
+
+
+def test_variant_choice_one_misaligned_operand():
+    """Any one of q, k, v that cannot take 16-byte copies sends the call to
+    the FMA kernel; a strided cache view stays on the tensor cores."""
+    bf = torch.bfloat16
+    q, k, v = (torch.zeros(s, dtype=bf) for s in ((2, 1, 8, 64), (2, 40, 2, 64), (2, 40, 2, 64)))
+    assert TFA.flash_variant(q, k[:, :17], v[:, :17]) == "tc_decode"
+    assert TFA.flash_variant(q, k, _laid_out(v.shape, bf, "offset 3")) == "fma"
+    assert TFA.flash_variant(_laid_out(q.shape, bf, "offset 3"), k, v) == "fma"
+    assert TFA.flash_variant(q, k.float(), v) == "fma"
+
+
+@pytest.mark.parametrize("b,hkv,n_tiles,n_sm", [(4, 8, 9, 132), (1, 1, 1, 132),
+                                                (64, 8, 100, 132), (1, 2, 63, 132),
+                                                (2, 8, 17, 16), (3, 1, 1000, 132)])
+def test_decode_split_covers_every_tile_once(b, hkv, n_tiles, n_sm):
+    n_split, per = TFA.decode_split(b, hkv, n_tiles, n_sm)
+    assert n_split >= 1 and per >= 1
+    assert (n_split - 1) * per < n_tiles <= n_split * per       # no empty split
+    assert n_split == 1 or b * hkv * n_split <= n_sm + b * hkv   # ~ one block an SM
+    if (b, hkv, n_tiles) == (4, 8, 9):      # Llama / Granite decode at Tk 513
+        assert (n_split, per) == (5, 2)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_combine_partials_matches_attention_ref(seed):
+    """The decode tile's merge of per-split (m, l, acc) over random key
+    splits gives dense attention (the plain version of the kernel's last
+    block), GQA, masks and all-masked splits included."""
+    rng = np.random.default_rng(seed)
+    h, hkv = [(8, 2), (4, 4), (16, 8)][seed % 3]
+    tq, tk = int(rng.integers(1, 6)), int(rng.integers(2, 200))
+    causal, window = bool(seed % 2), int(rng.integers(0, 4)) * (seed > 2)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(seed, 2, tq, tk, h, hkv, 64))
+    cuts = np.sort(rng.choice(np.arange(1, tk), size=min(tk - 1, int(rng.integers(1, 9))),
+                              replace=False))
+    bounds = list(zip([0, *cuts.tolist()], [*cuts.tolist(), tk]))
+    m, l, acc = TFA.attention_partials(q, k, v, bounds, causal=causal, window=window)
+    got = TFA.combine_partials(m, l, acc)
+    want = TFA.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert _err(got.numpy(), want.numpy()) < F32_TOL
+    if hkv == h:
+        jref = np.asarray(JR.attention_ref(q.numpy(), k.numpy(), v.numpy(), causal=causal,
+                                           window=window))
+        assert _err(got.numpy(), jref) < F32_TOL

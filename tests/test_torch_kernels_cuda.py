@@ -1,6 +1,8 @@
 """The CUDA kernels (flash attention, the LSTM cell's forward and pointwise
 backward, the grouped matmul, the RWKV6 WKV recurrence) against their plain
-versions on the card.
+versions on the card; for flash attention and the grouped matmul, each of
+their variants (FMA, tensor-core prefill and decode tiles), asserting which
+variant's launch counter moved.
 
 Needs a CUDA device and nvcc (the kernel has no CPU mode): every test here
 carries the ``cuda`` marker and skips without a card.  Run on the card with
@@ -235,8 +237,10 @@ def test_gmm_kernel_matches_plain_on_card(cuda_device, dtype, g, c, d, f):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gmm_kernel_reads_misaligned_rows(cuda_device, dtype):
-    """d and F multiples of 4 on bases one element off: the kernel's scalar
-    loads, not its 4-wide ones."""
+    """d and F multiples of 4 on bases one element off: the FMA kernel's
+    scalar loads, not its 4-wide ones.  The aligned inputs, put on the same
+    kernel (at bf16 ``gmm`` would take the tensor cores for them), are read
+    4 wide and must give the same bits."""
     g, c, d, f = 3, 9, 64, 32
     x, w = _gmm_inputs(5, g, c, d, f, cuda_device, dtype)
     xs = torch.empty(1 + x.numel(), device=cuda_device, dtype=dtype)
@@ -244,7 +248,10 @@ def test_gmm_kernel_reads_misaligned_rows(cuda_device, dtype):
     xm, wm = xs[1:].view(g, c, d), ws[1:].view(g, d, f)
     xm.copy_(x)
     wm.copy_(w)
-    assert torch.equal(TGM.gmm(xm, wm), TGM.gmm(x, w))
+    assert TGM.gmm_variant(xm, wm) == "fma"
+    out = TGM.gmm(xm, wm)
+    assert torch.equal(out, TGM._launch(x, w, "fma"))
+    assert float((out.float() - gmm_ref(x, w).float()).abs().max()) < GMM_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -347,3 +354,128 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         TWK.wkv6(*(x[..., :48].contiguous() for x in (r, k, v, w, u)))
     with pytest.raises(NotImplementedError, match="item 17"):
         TWK.wkv6(r.requires_grad_(), k, v, w, u)
+
+
+def _moved(fn, before):
+    """The variants whose launch counters moved since ``before``."""
+    return {n: c - before[n] for n, c in fn.variant_launches.items() if c != before[n]}
+
+
+# the tensor-core flash variants: GQA rep 1/2/4/8 against Tq 1, 4, 16, 17
+# (the packed decode tile holds rep * Tq <= 16 rows) and Tk around the kv
+# tile (1, 63, 64, 65) and the serving decode length (513)
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("tq", [1, 4, 16, 17])
+@pytest.mark.parametrize("tk", [1, 63, 64, 65, 513])
+def test_flash_tensor_core_variants_match_plain_on_card(cuda_device, rep, tq, tk):
+    hkv = 2
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(rep * 1000 + tq * 10 + tk, 2, tq, tk, hkv * rep, hkv, 64))
+    causal = tq > 1 and tq <= tk                         # decode steps attend non-causally
+    want = "tc_decode" if rep * tq <= 16 else "tc_prefill"
+    assert TFA.flash_variant(q, k, v) == want
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _moved(TFA.flash_attention, before) == {want: 1}
+    ref = TFA.flash_attention_ref(q, k, v, causal=causal)
+    assert float((out.float() - ref.float()).abs().max()) < BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("tq,window", [(1, 0), (1, 7), (3, 0), (70, 0), (70, 9)])
+def test_flash_tensor_core_variants_on_cache_views_and_windows(cuda_device, hd, tq, window):
+    """The strided view ``cache[:, :n]`` of a longer cache, windows and the
+    head dims, on the decode tile (Tq 1 and 3, rep 4) and the prefill tile."""
+    cap, n, h, hkv = 300, 257, 8, 2
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(hd + tq + window, 2, tq, cap, h, hkv, hd))
+    kv, vv = k[:, :n], v[:, :n]
+    causal = tq > 1
+    want = "tc_decode" if (h // hkv) * tq <= 16 else "tc_prefill"
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, kv, vv, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _moved(TFA.flash_attention, before) == {want: 1}
+    ref = TFA.flash_attention_ref(q, kv.contiguous(), vv.contiguous(), causal=causal,
+                                  window=window)
+    assert float((out.float() - ref.float()).abs().max()) < BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layout,tq", [
+    (torch.float32, "contiguous", 1), (torch.float32, "contiguous", 70),
+    (torch.bfloat16, "d-stride 2", 1), (torch.bfloat16, "d-stride 2", 70),
+    (torch.bfloat16, "offset 3", 1), (torch.bfloat16, "offset 3", 70)])
+def test_flash_fma_variant_on_card(cuda_device, dtype, layout, tq):
+    """f32, and bf16 rows that cannot take 16-byte copies, run the FMA
+    kernel, at its tolerances."""
+    q32, k32, v32 = (torch.from_numpy(a) for a in _qkv(tq, 2, tq, 90, 8, 2, 64))
+
+    def laid(t):
+        if layout == "d-stride 2":
+            out = torch.zeros((*t.shape[:3], 128), dtype=dtype, device=cuda_device)[..., ::2]
+        elif layout == "offset 3":
+            out = torch.zeros(t.numel() + 3, dtype=dtype, device=cuda_device)[3:].view(t.shape)
+        else:
+            out = torch.zeros(t.shape, dtype=dtype, device=cuda_device)
+        out.copy_(t)
+        return out
+
+    q, k, v = laid(q32), laid(k32), laid(v32)
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, k, v, causal=tq > 1)
+    torch.cuda.synchronize()
+    assert _moved(TFA.flash_attention, before) == {"fma": 1}
+    ref = TFA.flash_attention_ref(q, k, v, causal=tq > 1)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert float((out.float() - ref.float()).abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_flash_split_decode_leaves_its_counters_at_zero(cuda_device):
+    """The split decode tile's last block of each (b, hkv) sets its arrival
+    count back to 0, so back-to-back launches agree with each other."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(3, 4, 1, 2000, 32, 8, 64))
+    outs = [TFA.flash_attention(q, k, v, causal=False) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    stream = torch.cuda.current_stream(cuda_device)
+    assert int(TFA._split_counters(q.device, stream, 32).abs().sum()) == 0
+
+
+# C around the decode tile (1, 4, 16 | 17) and prefill tiles (128, 640) against
+# d and F of 8, 520, 1024 and 1032 (multiples of 8, not of the tiles)
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 4, 16, 17, 128, 640])
+@pytest.mark.parametrize("d", [8, 520, 1024, 1032])
+@pytest.mark.parametrize("f", [8, 520, 1024, 1032])
+def test_gmm_tensor_core_variants_match_plain_on_card(cuda_device, c, d, f):
+    x, w = _gmm_inputs(c * d + f, 2, c, d, f, cuda_device, torch.bfloat16)
+    want = "tc_decode" if c <= 16 else "tc_prefill"
+    before = dict(TGM.gmm.variant_launches)
+    out = TGM.gmm(x, w)
+    torch.cuda.synchronize()
+    assert _moved(TGM.gmm, before) == {want: 1}
+    assert float((out.float() - gmm_ref(x, w).float()).abs().max()) < GMM_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,d,f,off", [
+    (torch.float32, 640, 1024, 512, 0), (torch.float32, 4, 512, 1024, 0),
+    (torch.bfloat16, 37, 130, 70, 0), (torch.bfloat16, 4, 1024, 68, 0),
+    (torch.bfloat16, 640, 1024, 512, 1), (torch.bfloat16, 4, 1024, 512, 3)])
+def test_gmm_fma_variant_on_card(cuda_device, dtype, c, d, f, off):
+    """f32, d or F not a multiple of 8, or a base off 16 bytes: the FMA
+    kernel, at its tolerances."""
+    x0, w = _gmm_inputs(c + d, 2, c, d, f, cuda_device, dtype)
+    x = torch.empty(x0.numel() + off, dtype=dtype, device=cuda_device)[off:].view(x0.shape)
+    x.copy_(x0)
+    before = dict(TGM.gmm.variant_launches)
+    out = TGM.gmm(x, w)
+    torch.cuda.synchronize()
+    assert _moved(TGM.gmm, before) == {"fma": 1}
+    assert float((out.float() - gmm_ref(x, w).float()).abs().max()) < GMM_TOL[dtype]

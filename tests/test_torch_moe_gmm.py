@@ -74,3 +74,29 @@ def test_gmm_never_runs_plain_version_off_the_cpu():
         TGM.gmm(x, torch.zeros((2, 4, 5), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         TGM.gmm(x, torch.zeros((2, 4, 5)))
+
+
+def _at_offset(shape, dtype, off):
+    """A contiguous zero tensor of ``shape`` whose base is ``off`` elements
+    into its storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + off, dtype=dtype)[off:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("d,f", [(8, 8), (1024, 512), (1032, 520), (130, 72), (64, 70)])
+@pytest.mark.parametrize("off", [0, 8, 3])
+def test_gmm_variant_choice(dtype, c, d, f, off):
+    """bf16 with d and F multiples of 8 and 16-byte aligned bases goes to the
+    tensor cores, the decode tile for C <= 16; all else to the FMA kernel."""
+    x, w = _at_offset((2, c, d), dtype, off), _at_offset((2, d, f), dtype, 0)
+    if dtype == torch.float32 or d % 8 or f % 8 or off % 8:
+        want = "fma"
+    else:
+        want = "tc_decode" if c <= 16 else "tc_prefill"
+    assert TGM.gmm_variant(x, w) == want
+    assert TGM.gmm_variant(_at_offset(x.shape, dtype, 0), _at_offset(w.shape, dtype, off)) == want
+    before = dict(TGM.gmm.variant_launches)
+    assert TGM.gmm(x, w).shape == (2, c, f)     # the CPU path launches nothing
+    assert TGM.gmm.variant_launches == before
