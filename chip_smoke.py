@@ -12,24 +12,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    spills;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at edge shapes, fp32 and bf16, each row naming the
-   kernel variant it launched (FMA, tensor-core prefill or decode tile):
+   kernel variant it launched; every edge shape runs through the variant
+   the wrapper picks and, where the other variant takes it too, that one
+   forced:
    flash attention at full-width Llama-3.2-1B and Granite-3.0-1B-A400M
    prefill and a decode step on a strided cache view, and bf16 rows whose
    rows cannot take 16-byte copies;
-   the LSTM cell's forward and pointwise backward at full-width BigLSTM
-   (B 16, d_in 1024, d_h 1024, H 8192) and at shapes where B and H are no
-   tile multiples, and the cell's autograd function (dx, dh, dc, dWx, dWh,
-   db) against autograd of the plain oracle; the grouped matmul at
-   full-width Granite-3.0-1B-A400M's four expert products (prefill at
-   capacity 640, decode at C 4) and at edge shapes (odd C, d, F; G, C and d
-   of 1); the RWKV6 WKV recurrence at full-width RWKV6-7B prefill (B 4, T
-   512, H 64, hd 64, r, k, v in bf16 and f32) and a decode step (T 1, from a
-   non-zero state, in place), and at edge shapes (T 1, 7, 33, 130; hd 32;
-   B 1, H 1), outputs and final state.  Time each kernel, its plain version
-   and one PyTorch library call computing the same function where there is
-   one (a yardstick the port never calls): device time per call from
-   torch.profiler (``ms``) and CUDA-event time per call, host gaps included
-   (``call_ms``);
+   the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
+   pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
+   8192) and at shapes where B and H are no tile multiples, h' and c' the
+   same bits with and without the gates, and the cell's autograd function
+   (dx, dh, dc, dWx, dWh, db) against autograd of the plain oracle; the
+   grouped matmul at full-width Granite-3.0-1B-A400M's four expert products
+   (prefill at capacity 640, decode at C 4) and at edge shapes (odd C, d, F;
+   G, C and d of 1); the RWKV6 WKV recurrence (``chunked`` form on the
+   tensor cores and sequential ``scan``) at full-width RWKV6-7B prefill (B
+   4, T 512, H 64, hd 64, r, k, v in bf16 and f32) and a decode step (T 1,
+   from a non-zero state, in place), at edge shapes (T 1, 7, 16, 17, 33,
+   130; hd 32; B 1, H 1) and over long prompts from a state (decays near 1
+   over T 2048 and 8192, strong decays down to 1e-38 over T 2048), outputs
+   and final state.  Time each kernel variant at the main shape, its plain
+   version and one PyTorch library call computing the same function where
+   there is one (a yardstick the port never calls): device time per call
+   from torch.profiler (``ms``) and CUDA-event time per call, host gaps
+   included (``call_ms``);
 4. serve full-width, full-depth Llama-3.2-1B from a seeded random init
    through ``ServeEngine.generate`` (4 prompts of 512 tokens, 32 new tokens,
    greedy) with the launch counters set to 0 just before and read just after
@@ -42,9 +48,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 6. train full-width, full-depth BigLSTM (1.78 B parameters) from a seeded
    init through the launcher (``repro_torch.launch.train.main``: 5 steps at
    B 16, T 64, AdamW over warmup-cosine, clip 1.0) with the launch counters
-   set to 0 just before and read just after (640 forward and 640 backward
-   cell launches); then time steps (ms, tokens/s, peak memory) and profile
-   one;
+   set to 0 just before and read just after (640 forward launches, all on
+   the ``tc`` variant, and 640 backward cell launches); then time steps
+   (ms, tokens/s, peak memory) and profile one;
 7. hold the train step against its plain path: one step at the full LSTM
    width, 2 layers, f32, vocab cut to 32768, kernels on the card against the
    plain versions on the CPU (loss and gradient norm within 1e-4 relative,
@@ -58,8 +64,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (token, k) routing ids that differ between the card and the CPU;
 10. serve full-width, full-depth RWKV6-7B (7.53 B parameters, 30.1 GB in
    f32) as phase 4 serves Llama: 1056 wkv6 launches per ``generate`` (32
-   layers, one prefill and 32 decode steps), then the same profile, and
-   free its weights;
+   layers: 32 ``chunked`` in prefill, 1024 ``scan`` in 32 decode steps),
+   then the same profile, and free its weights;
 11. hold the RWKV model path against its plain path: 2 layers at full width
    in f32, prefill and 3 decode steps, logits within 1e-3 and the cache's
    WKV state within 1e-4 of its largest entry;
@@ -103,7 +109,11 @@ GMM_EDGE = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (1, 20, 64, 64),
 WKV_TOL = 2e-4
 # B, T, H, hd of full-width RWKV6-7B's WKV: prefill of 4 x 512 tokens, a decode step
 WKV_SERVE = [("prefill", (BATCH, PROMPT, 64, 64)), ("decode", (BATCH, 1, 64, 64))]
-WKV_EDGE = [(1, 1, 1, 32), (2, 7, 3, 64), (2, 130, 2, 32), (1, 33, 2, 64), (1, 7, 1, 64)]
+WKV_EDGE = [(1, 1, 1, 32), (2, 7, 3, 64), (2, 130, 2, 32), (1, 33, 2, 64), (1, 7, 1, 64),
+            (2, 16, 3, 64), (1, 17, 2, 32)]
+# T, decays and dtype of the long-prompt rows (B 1, H 2, hd 64, from a state)
+WKV_LONG = [(2048, "near1", torch.bfloat16), (8192, "near1", torch.float32),
+            (2048, "strong", torch.bfloat16)]
 # kernels a decode step on PR 14's tree (PERF.md section 5): Llama and
 # Granite the same in four profiles of one step, RWKV the most a PR 14
 # profile saw.  A single profile may see fewer: torch.profiler drops events
@@ -297,24 +307,42 @@ def lstm_inputs(gen, b, d_in, d_h, hh, dtype):
             rnd(d_h, 4, hh, scale=d_h ** -0.5).to(dtype), rnd(4, hh, scale=0.1)]
 
 
-def check_lstm_fwd(lc, args, case, timed=False):
+def check_lstm_fwd(lc, args, case, timed=False, variant=None):
     """The forward kernel (writing its gates, as in training) against its
-    plain version; timed against the plain version, the bound and PyTorch's
-    own LSTM cell path (two GEMMs and ``_thnn_fused_lstm_cell``:
-    ``torch.lstm_cell`` itself refuses a cell state wider than its recurrent
-    input, and BigLSTM's is 8192 against 1024)."""
+    plain version, through the variant ``lstm_variant`` picks or, when
+    ``variant`` is given, that one forced; h' and c' must come out the same
+    bits without the gates.  Timed against the plain version, the bound
+    and PyTorch's own LSTM cell path (two GEMMs and
+    ``_thnn_fused_lstm_cell``: ``torch.lstm_cell`` itself refuses a cell
+    state wider than its recurrent input, and BigLSTM's is 8192 against
+    1024)."""
     x, h, c, wx, wh, b = args
     dt = x.dtype
-    hn, cn, gates = lc.lstm_cell_fwd(*args, want_gates=True)
+
+    def run(want_gates=True):
+        if variant is None:
+            return lc.lstm_cell_fwd(*args, want_gates=want_gates)
+        bsz, hh = c.shape
+        outs = [torch.empty((bsz, hh), dtype=dt, device=x.device) for _ in range(2)]
+        gates = torch.empty((bsz, 4, hh), device=x.device) if want_gates else None
+        return lc._launch_fwd(*args, *outs, gates, variant)
+
+    (hn, cn, gates), launched = launched_variant(lc.lstm_cell_fwd, run)
     torch.cuda.synchronize()
+    if launched != (variant or lc.lstm_variant(x, h, wx, wh)):
+        raise AssertionError(f"lstm_cell_fwd {case}: launched {launched}")
     rh, rc, ract = lc.lstm_cell_plain(*args, with_gates=True)
     row = _lstm_row("lstm_cell_fwd", case, dt, (hn, cn), (rh, rc), TOL[dt])
+    row["variant"] = launched
     row["gates_max_abs_err"] = float((gates - ract).abs().max())
     if not row["gates_max_abs_err"] < 1e-4:
         raise AssertionError(f"lstm_cell_fwd {case}: gates off by {row['gates_max_abs_err']}")
+    hn2, cn2, _ = run(want_gates=False)
+    if not (torch.equal(hn2, hn) and torch.equal(cn2, cn)):
+        raise AssertionError(f"lstm_cell_fwd {case}: h', c' differ without the gates")
     if timed:
         bsz, d_in, d_h, hh = x.shape[0], x.shape[1], h.shape[1], c.shape[1]
-        time_into(row, "ms", lambda: lc.lstm_cell_fwd(*args, want_gates=True))
+        time_into(row, "ms", run)
         time_into(row, "plain_ms", lambda: lc.lstm_cell_plain(*args, with_gates=True))
         wx_t = wx.reshape(d_in, 4 * hh).t().contiguous()
         wh_t = wh.reshape(d_h, 4 * hh).t().contiguous()
@@ -395,18 +423,32 @@ def phase_lstm_kernels(lc, ref_mod):
         args = lstm_inputs(gen, *LSTM_FULL, dtype=dt)
         row, (hn, cn, gates) = check_lstm_fwd(lc, args, "B16 din1024 dh1024 H8192", timed=True)
         fwd_rows.append(row)
+        if row["variant"] == "tc":   # the FMA kernel on the same bf16 inputs
+            fwd_rows.append(check_lstm_fwd(lc, args, "B16 din1024 dh1024 H8192", timed=True,
+                                           variant="fma")[0])
         dh, dc = (torch.randn(hn.shape, generator=gen, device="cuda").to(dt) for _ in range(2))
         bwd_rows.append(check_lstm_bwd(lc, gates, args[2], cn, dh, dc, "B16 H8192",
                                        timed=True))
+    # edge shapes: B and H no tile multiples, widths that the tensor-core
+    # tile does not take (fma) and that it does (tc, then fma forced)
     for b, d_in, d_h, hh in [(1, 24, 16, 70), (5, 64, 40, 33), (17, 40, 12, 130),
-                             (3, 16, 8, 1), (1, 1024, 1024, 8192)]:
+                             (3, 16, 8, 1), (1, 1024, 1024, 8192), (1, 24, 16, 72),
+                             (5, 64, 40, 72), (17, 40, 16, 136), (33, 128, 64, 264)]:
         for dt in (torch.float32, torch.bfloat16):
             args = lstm_inputs(gen, b, d_in, d_h, hh, dtype=dt)
-            row, (hn, cn, gates) = check_lstm_fwd(lc, args, f"B{b} din{d_in} dh{d_h} H{hh}")
+            case = f"B{b} din{d_in} dh{d_h} H{hh}"
+            row, (hn, cn, gates) = check_lstm_fwd(lc, args, case)
             fwd_rows.append(row)
+            if row["variant"] == "tc":
+                fwd_rows.append(check_lstm_fwd(lc, args, case, variant="fma")[0])
             dh = torch.randn(hn.shape, generator=gen, device="cuda").to(dt)
             bwd_rows.append(check_lstm_bwd(lc, gates, args[2], cn, dh, None,
                                            f"B{b} H{hh} dc=None"))
+    # x one element past a 16-byte boundary: the FMA kernel at bf16
+    x, *rest = lstm_inputs(gen, *LSTM_FULL, dtype=torch.bfloat16)
+    xm = torch.empty(1 + x.numel(), dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    xm.copy_(x)
+    fwd_rows.append(check_lstm_fwd(lc, [xm, *rest], "B16 din1024 dh1024 H8192, x misaligned")[0])
     grads_err = check_cell_grads(lc, ref_mod, lstm_inputs(gen, *LSTM_FULL, dtype=torch.float32))
     return fwd_rows, bwd_rows, grads_err
 
@@ -476,39 +518,54 @@ def phase_gmm_kernels(gm, ref_mod):
     return rows
 
 
-def wkv_inputs(gen, b, t, h, hd, dtype, state):
+def wkv_inputs(gen, b, t, h, hd, dtype, state, decay="sweep"):
     """r, k, v, w, u as tests/test_kernels.py::test_wkv6_sweep draws them (r,
-    k, v in ``dtype``) and, if ``state``, a non-zero initial state."""
+    k, v in ``dtype``) and, if ``state``, a non-zero initial state.
+    ``decay`` "near1" draws w in [0.999, 1), "strong" log-uniform in [1e-38,
+    1e-3] (log w down to -87.5 a token)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda") * 0.5
 
     r, k, v = (rnd(b, t, h, hd).to(dtype) for _ in range(3))
-    w = torch.exp(-torch.exp(rnd(b, t, h, hd) - 2))
+    uni = torch.rand((b, t, h, hd), generator=gen, device="cuda")
+    w = {"sweep": lambda: torch.exp(-torch.exp(rnd(b, t, h, hd) - 2)),
+         "near1": lambda: 1 - uni * 1e-3,
+         "strong": lambda: torch.exp(math.log(1e-38) + uni * (math.log(1e-3) - math.log(1e-38)))
+         }[decay]()
     u = rnd(h, hd) * 0.2
     return r, k, v, w, u, (rnd(b, h, hd, hd) * 4 if state else None)
 
 
-def check_wkv(wk, ref_mod, case, inputs, gen, timed=False):
-    """The WKV kernel against its plain version, outputs and final state; a
-    given state is written in place.  Timed calls rotate over enough input
-    sets (more than twice the 50 MB L2) that each finds its state and
-    inputs cold, as each layer does."""
+def check_wkv(wk, ref_mod, case, inputs, gen, timed=False, variant=None):
+    """The WKV kernel against its plain version, outputs and final state,
+    through the variant ``wkv_variant`` picks or, when ``variant`` is given,
+    that one forced; a given state is written in place.  Timed calls
+    rotate over enough input sets (more than twice the 50 MB L2) that each
+    finds its state and inputs cold, as each layer does."""
     r, k, v, w, u, s0 = inputs
+
+    def run(r, k, v, w, u, s):
+        return wk.wkv6(r, k, v, w, u, s) if variant is None else \
+            wk._launch(r, k, v, w, u, s, variant)
+
     state = None if s0 is None else s0.clone()
-    out, s = wk.wkv6(r, k, v, w, u, state)
+    (out, s), launched = launched_variant(wk.wkv6, lambda: run(r, k, v, w, u, state))
     torch.cuda.synchronize()
+    if launched != (variant or wk.wkv_variant(r, k, v, w)):
+        raise AssertionError(f"wkv6 {case}: launched {launched}")
     want_out, want_s = ref_mod.wkv6_ref(r, k, v, w, u, s0)
     errs = [float((g - x).abs().max()) for g, x in ((out, want_out), (s, want_s))]
     rel = max(e / max(1.0, float(x.abs().max())) for e, x in zip(errs, (want_out, want_s)))
     b, t, h, hd = r.shape
     row = {"kernel": "wkv6", "shape": f"{case} B{b} T{t} H{h} hd{hd}"
            + (" from a state, in place" if s0 is not None else ""),
-           "dtype": str(r.dtype).removeprefix("torch."), "max_abs_err": max(errs),
-           "state_max_abs_err": errs[1], "rel_err": rel, "tol": WKV_TOL}
+           "dtype": str(r.dtype).removeprefix("torch."), "variant": launched,
+           "max_abs_err": max(errs), "state_max_abs_err": errs[1], "rel_err": rel,
+           "tol": WKV_TOL}
     if not rel < WKV_TOL or not torch.isfinite(out).all() or \
             (state is not None and s is not state):
-        raise AssertionError(f"wkv6 {case}: error {rel} over max(1, |ref|) >= {WKV_TOL}, "
-                             f"not finite, or the state was not written in place")
+        raise AssertionError(f"wkv6 {case} ({launched}): error {rel} over max(1, |ref|) >= "
+                             f"{WKV_TOL}, not finite, or the state was not written in place")
     if timed:
         n_sets = max(1, math.ceil(2 * L2_BYTES / _nbytes(*inputs, out)))
         sets = [inputs] + [wkv_inputs(gen, b, t, h, hd, r.dtype, s0 is not None)
@@ -518,7 +575,7 @@ def check_wkv(wk, ref_mod, case, inputs, gen, timed=False):
             cycle = itertools.cycle(sets)
             return lambda: fn(*next(cycle))
 
-        time_into(row, "ms", rotating(wk.wkv6))
+        time_into(row, "ms", rotating(run))
         # the plain scan launches ~7 small kernels a token: fewer calls
         time_into(row, "plain_ms", rotating(ref_mod.wkv6_ref), reps=5)
         row["library_ms"] = None
@@ -538,14 +595,26 @@ def phase_wkv_kernels(wk, ref_mod):
     bf, f32 = torch.bfloat16, torch.float32
     rows = []   # bf16 timed first: the main path's dtype
     for case, shape in WKV_SERVE:
-        rows.append(check_wkv(wk, ref_mod, case, wkv_inputs(gen, *shape, bf, case == "decode"),
-                              gen, timed=True))
+        inputs = wkv_inputs(gen, *shape, bf, case == "decode")
+        rows.append(check_wkv(wk, ref_mod, case, inputs, gen, timed=True))
+        if case == "prefill":   # the scan on the same inputs
+            rows.append(check_wkv(wk, ref_mod, case, inputs, gen, timed=True, variant="scan"))
     for case, shape in WKV_SERVE:
         rows.append(check_wkv(wk, ref_mod, case, wkv_inputs(gen, *shape, f32, case == "decode"),
                               gen))
+    # edge shapes through the variant wkv_variant picks and the other forced
     for shape in WKV_EDGE:
         for dt, state in ((f32, False), (bf, True)):
-            rows.append(check_wkv(wk, ref_mod, "edge", wkv_inputs(gen, *shape, dt, state), gen))
+            inputs = wkv_inputs(gen, *shape, dt, state)
+            picked = wk.wkv_variant(*inputs[:4])
+            rows.append(check_wkv(wk, ref_mod, "edge", inputs, gen))
+            rows += [check_wkv(wk, ref_mod, "edge", inputs, gen, variant=v)
+                     for v in wk.VARIANTS if v != picked]
+    # long prompts from a non-zero state: decays near 1, and strong decays
+    for t, decay, dt in WKV_LONG:
+        inputs = wkv_inputs(gen, 1, t, 2, 64, dt, True, decay=decay)
+        for variant in wk.VARIANTS:
+            rows.append(check_wkv(wk, ref_mod, f"{decay} decays", inputs, gen, variant=variant))
     return rows
 
 
@@ -591,13 +660,16 @@ def phase_serve(counters, api_mod, engine_mod, cfg):
     if launches != want:
         raise AssertionError(f"generate launched {launches}, want {want}")
     # every bf16 flash and gmm launch of the serving path runs on the tensor
-    # cores: the prefill tile in prefill, the decode tile in each decode step
+    # cores: the prefill tile in prefill, the decode tile in each decode step;
+    # wkv6 runs the chunked form in prefill and the scan in decode
     want_variants = {name: dict.fromkeys(v, 0) for name, v in variants.items()}
     if not cfg.rwkv:
         want_variants["flash_attention"].update(tc_prefill=cfg.n_layers,
                                                 tc_decode=cfg.n_layers * NEW)
     if cfg.is_moe:
         want_variants["gmm"].update(tc_prefill=3 * cfg.n_layers, tc_decode=3 * cfg.n_layers * NEW)
+    if cfg.rwkv:   # the chunked form in prefill, the scan in each decode step
+        want_variants["wkv6"].update(chunked=cfg.n_layers, scan=cfg.n_layers * NEW)
     if cfg.dtype != "bfloat16" or variants != want_variants:
         raise AssertionError(f"generate launched the variants {variants} ({cfg.dtype}), "
                              f"want {want_variants}")
@@ -782,8 +854,8 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    lc.lstm_cell_fwd.launches = lc.lstm_cell_bwd_pointwise.launches = 0
-    reset_counters(counters)
+    reset_counters({"lstm_cell_fwd": lc.lstm_cell_fwd,
+                    "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters})
     t0 = time.perf_counter()
     summary = train_launch.main(["--arch", "biglstm", "--steps", str(TRAIN_STEPS),
                                  "--batch", str(TRAIN_B), "--seq", str(TRAIN_T)])
@@ -792,11 +864,16 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
     launches = {"lstm_cell_fwd": lc.lstm_cell_fwd.launches,
                 "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise.launches,
                 **{name: fn.launches for name, fn in counters.items()}}
+    fwd_variants = dict(lc.lstm_cell_fwd.variant_launches)
     want = TRAIN_STEPS * cfg.n_layers * TRAIN_T
     if launches != {"lstm_cell_fwd": want, "lstm_cell_bwd_pointwise": want,
                     **{name: 0 for name in counters}}:
         raise AssertionError(f"training launched {launches}, want {want} forward and "
                              f"{want} backward cell kernels")
+    # every forward launch of the bf16 model runs on the tensor cores
+    if fwd_variants != {"fma": 0, "tc": want}:
+        raise AssertionError(f"training's forward launches took {fwd_variants}, want all "
+                             f"{want} on tc")
     state = summary["state"]
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     losses = summary["history"]
@@ -806,6 +883,7 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
     out = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers, "batch": TRAIN_B,
            "seq": TRAIN_T, "steps": TRAIN_STEPS, "losses": losses,
            "launcher_wall_s": wall_s, "launches": launches,
+           "lstm_cell_fwd_variant_launches": fwd_variants,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps(out), flush=True)
 
@@ -826,7 +904,7 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
     print(json.dumps({"train_step": timing}), flush=True)
     del summary, state, box
     torch.cuda.empty_cache()
-    return launches, out, timing
+    return launches, fwd_variants, timing
 
 
 def phase_train_vs_plain(api_mod, cfg):
@@ -871,7 +949,7 @@ def _kernel_entry(name, source, replaces, launches, rows, **extra):
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"], **extra,
+            "library_ms": main_row["library_ms"], "variant": main_row.get("variant"), **extra,
             "shapes": [r for r in rows if "ms" in r]}
 
 
@@ -926,7 +1004,8 @@ def main():
 
     _phase("6 train biglstm, full width and depth")
     lstm_cfg = get_config("biglstm")
-    train_launches, _, _ = phase_train(train_launch, lc, counters, api_mod, lstm_cfg)
+    train_launches, train_variants, _ = phase_train(train_launch, lc, counters, api_mod,
+                                                    lstm_cfg)
 
     _phase("7 train step against its plain path")
     phase_train_vs_plain(api_mod, lstm_cfg)
@@ -940,7 +1019,7 @@ def main():
 
     _phase("10 serve rwkv6_7b, full width and depth")
     rwkv_cfg = get_config("rwkv6_7b")
-    rwkv_launches, _ = phase_serve(counters, api_mod, engine_mod, rwkv_cfg)
+    rwkv_launches, rwkv_variants = phase_serve(counters, api_mod, engine_mod, rwkv_cfg)
 
     _phase("11 RWKV model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, rwkv_cfg)
@@ -958,7 +1037,8 @@ def main():
                           "serve llama3_2_1b": variants["flash_attention"],
                           "serve granite_moe_1b_a400m": moe_variants["flash_attention"]}),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",
-                      train_launches["lstm_cell_fwd"], fwd_rows),
+                      train_launches["lstm_cell_fwd"], fwd_rows,
+                      variant_launches=train_variants),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
                       "src/repro/kernels/lstm_cell.py:24", train_launches[
                           "lstm_cell_bwd_pointwise"], bwd_rows,
@@ -969,7 +1049,7 @@ def main():
                       variant_launches=moe_variants["gmm"]),
         _kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv_scan.py:25", rwkv_launches["wkv6"], wkv_rows,
-                      library=wkv_rows[0]["library"]),
+                      library=wkv_rows[0]["library"], variant_launches=rwkv_variants["wkv6"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -659,30 +659,10 @@ __global__ void __launch_bounds__(kTcThreads)
 // launch
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxDevices = 64;
-
-// The shared-memory opt-in is a per-device attribute of each kernel
-// instance: set it at the first launch on a device, not on every launch.
-template <auto Kernel>
-cudaError_t opt_in_smem(size_t smem) {
-  static bool set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!set[dev]) {
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    set[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 template <typename T, int HD, int BQ>
 cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, BQ>();
-  cudaError_t err = opt_in_smem<&flash_fwd_kernel<T, HD, BQ>>(smem);
+  cudaError_t err = launch::opt_in_smem<&flash_fwd_kernel<T, HD, BQ>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Tq + BQ - 1) / BQ, p.H, p.B);
   flash_fwd_kernel<T, HD, BQ><<<grid, kThreads, smem, stream>>>(p);
@@ -692,7 +672,7 @@ cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
 template <int HD>
 cudaError_t launch_tc_prefill(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = tc_prefill_smem<HD>();
-  cudaError_t err = opt_in_smem<&flash_tc_prefill_kernel<HD>>(smem);
+  cudaError_t err = launch::opt_in_smem<&flash_tc_prefill_kernel<HD>>(smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (p.Tq + kTcBQ - 1) / kTcBQ;
   if (q_tiles > 65535) return cudaErrorInvalidConfiguration;
@@ -705,7 +685,7 @@ template <int HD>
 cudaError_t launch_tc_decode(const Params& p, int n_split, int tiles_per_split, float* ws,
                              int* counters, cudaStream_t stream) {
   constexpr size_t smem = tc_decode_smem<HD>();
-  cudaError_t err = opt_in_smem<&flash_tc_decode_kernel<HD>>(smem);
+  cudaError_t err = launch::opt_in_smem<&flash_tc_decode_kernel<HD>>(smem);
   if (err != cudaSuccess) return err;
   if ((p.H / p.Hkv) * p.Tq > 16 || n_split < 1 || tiles_per_split < 1 ||
       (n_split > 1 && (ws == nullptr || counters == nullptr)))

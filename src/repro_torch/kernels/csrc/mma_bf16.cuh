@@ -1,5 +1,6 @@
-// Building blocks of the bf16 tensor-core kernels (flash_attention.cu,
-// moe_gmm.cu), in inline PTX for sm_80 and later (built for sm_90a):
+// Building blocks of the hand-written kernels (flash_attention.cu,
+// moe_gmm.cu, lstm_cell.cu, wkv6.cu), in inline PTX for sm_80 and later
+// (built for sm_90a), and the per-device shared-memory opt-in of a launch:
 //
 //   cp.async.cg 16-byte copies global -> shared, zero-filled when the source
 //   row is masked (src-size 0), with commit_group / wait_group;
@@ -16,7 +17,33 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace launch {
+
+constexpr int kMaxDevices = 64;
+
+// The shared-memory opt-in (above 48 KB) is a per-device attribute of each
+// kernel instance: set it at the first launch on a device, not on every
+// launch.
+template <auto Kernel>
+cudaError_t opt_in_smem(size_t smem) {
+  static bool set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!set[dev]) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    set[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace launch
 
 namespace mma {
 

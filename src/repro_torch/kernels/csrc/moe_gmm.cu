@@ -499,30 +499,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(TcParams p) {
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// The shared-memory opt-in is a per-device attribute of each kernel: set it
-// at the first launch on a device, not on every launch.
-template <auto Kernel>
-cudaError_t opt_in_smem(size_t smem) {
-  static bool set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!set[dev]) {
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    set[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 cudaError_t launch_wgmma_prefill(const TcParams& p, int G, cudaStream_t stream) {
   const int64_t c_tiles = (static_cast<int64_t>(p.C) + kWgBM - 1) / kWgBM;
   if (c_tiles > 65535) return cudaErrorInvalidConfiguration;
-  cudaError_t err = opt_in_smem<&gmm_wgmma_kernel>(kWgSmem);
+  cudaError_t err = launch::opt_in_smem<&gmm_wgmma_kernel>(kWgSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.F + kWgBN - 1) / kWgBN, static_cast<unsigned>(c_tiles), G);
   gmm_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(p);
@@ -535,7 +515,7 @@ cudaError_t launch_tc(const TcParams& p, int G, int variant, cudaStream_t stream
   if (G > 65535) return cudaErrorInvalidConfiguration;
   if (variant == 2) {
     if (p.C > 16) return cudaErrorInvalidValue;
-    cudaError_t err = opt_in_smem<&gmm_tc_decode_kernel>(kDSmem);
+    cudaError_t err = launch::opt_in_smem<&gmm_tc_decode_kernel>(kDSmem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.F + kDBN - 1) / kDBN, G);
     gmm_tc_decode_kernel<<<grid, kDThreads, kDSmem, stream>>>(p);

@@ -13,6 +13,12 @@ each with a launch counter (``.launches``) and a plain twin
 (``lstm_cell_plain``, ``lstm_cell_bwd_pointwise_plain``).  On CPU tensors a
 wrapper takes its plain twin; on CUDA tensors it launches its kernel or
 raises.  There is no switch that puts the plain version on a CUDA tensor.
+
+The forward kernel has two variants (``VARIANTS``), each a hand-written
+kernel, chosen here by ``lstm_variant`` from the inputs alone: bf16 with
+d_in, d_h and H multiples of 8 and 16-byte rows and bases runs on the tensor
+cores (``tc``), everything else on the FMA kernel (``fma``).
+``lstm_cell_fwd.variant_launches`` counts each variant's launches.
 """
 from __future__ import annotations
 
@@ -24,6 +30,23 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS_PER_BLOCK = 16        # batch rows of one forward block (csrc kBB)
+VARIANTS = ("fma", "tc")    # the C entry's variant codes 0, 1
+
+
+def lstm_variant(x, h, wx, wh) -> str:
+    """The forward variant ``lstm_cell_fwd`` launches for x (B, d_in) and h
+    (B, d_h) row views and contiguous weights wx (d_in, 4, H), wh (d_h, 4,
+    H): bf16 with d_in, d_h and H multiples of 8, row strides of x and h
+    multiples of 8 elements and all four bases 16-byte aligned runs on the
+    tensor cores; everything else (f32, odd widths, misaligned rows) runs
+    the FMA kernel."""
+    widths = (x.shape[1], h.shape[1], wx.shape[2])
+    rows = x.shape[0] == 1 or (x.stride(0) % 8 == 0 and h.stride(0) % 8 == 0)
+    if not (x.dtype == h.dtype == wx.dtype == wh.dtype == torch.bfloat16) \
+            or any(n % 8 for n in widths) or not rows \
+            or any(t.data_ptr() % 16 for t in (x, h, wx, wh)):
+        return "fma"
+    return "tc"
 
 
 def compute_dtype(dtype):
@@ -149,20 +172,31 @@ def lstm_cell_fwd(x, h, c, wx, wh, b, *, want_gates: bool = False, h_out=None,
                               or gates.dtype != torch.float32):
         raise ValueError(f"lstm_cell gates_out: expected contiguous ({bsz}, 4, {hh}) "
                          f"float32, got {tuple(gates.shape)} {gates.dtype}")
+    return _launch_fwd(x, h, c, wx, wh, b, h_out, c_out, gates, lstm_variant(x, h, wx, wh))
+
+
+def _launch_fwd(x, h, c, wx, wh, b, h_out, c_out, gates, variant: str):
+    """Launch ``variant`` of the forward kernel on CUDA tensors that
+    ``lstm_cell_fwd`` has checked; ``tc`` needs what ``lstm_variant`` asks
+    of it."""
+    bsz, hh = c.shape
     fn = _entries.get("fwd") or _bind()["fwd"]
     with torch.cuda.device(x.device):   # the kernel launches on the current device
         err = fn(x.data_ptr(), x.stride(0), h.data_ptr(), h.stride(0), c.data_ptr(),
                  c.stride(0), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
                  h_out.data_ptr(), h_out.stride(0), c_out.data_ptr(), c_out.stride(0),
-                 gates.data_ptr() if gates is not None else None, _DTYPE_CODE[dt],
-                 bsz, d_in, d_h, hh, torch.cuda.current_stream(x.device).cuda_stream)
+                 gates.data_ptr() if gates is not None else None, _DTYPE_CODE[x.dtype],
+                 bsz, x.shape[1], h.shape[1], hh, VARIANTS.index(variant),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"lstm_cell_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"lstm_cell_fwd kernel launch failed ({variant}): CUDA error {err}")
     lstm_cell_fwd.launches += 1
+    lstm_cell_fwd.variant_launches[variant] += 1
     return h_out, c_out, gates
 
 
 lstm_cell_fwd.launches = 0
+lstm_cell_fwd.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def lstm_cell_bwd_pointwise(gates, c, dh, dc=None, *, dgates_out=None):
@@ -224,7 +258,7 @@ def _bind():
     fwd = lib.repro_lstm_cell_fwd
     fwd.restype = i32
     fwd.argtypes = [vp, i64, vp, i64, vp, i64, vp, vp, vp, vp, i64, vp, i64, vp,
-                    i32, i32, i32, i32, i32, vp]
+                    i32, i32, i32, i32, i32, i32, vp]
     bwd = lib.repro_lstm_cell_bwd_pointwise
     bwd.restype = i32
     bwd.argtypes = [vp] * 6 + [i32, i32, i32, vp]

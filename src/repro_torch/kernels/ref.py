@@ -71,3 +71,45 @@ def wkv6_ref(r, k, v, w, u, state=None):
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, i], s + bonus * kv))
         s = w[:, i, :, :, None] * s + kv
     return torch.stack(outs, dim=1), s
+
+
+def wkv6_chunked_plain(r, k, v, w, u, state=None, *, sub: int = 16):
+    """The chunked arithmetic of the ``chunked`` WKV kernel (``csrc/wkv6.cu``)
+    in plain PyTorch: the same recurrence as ``wkv6_ref``, sub-chunk by
+    sub-chunk of ``sub`` tokens (the last one partial), the state carried
+    between them.  Within a sub-chunk, with every decay a running product of
+    w (no factor above 1, so nothing overflows where the split
+    exp(cum_t) * exp(-cum_s) would):
+
+        out   = (r_t prod_{q<t} w_q) S + sum_{s<=t} P[t, s] v_s
+        P     = sum_i r_t k_s prod_{s<q<t} w_q  (s < t),  sum_i r_t u k_t  (s = t)
+        S    <- diag(prod_q w_q) S + sum_s (k_s prod_{q>s} w_q)^T v_s
+
+    with k_s prod_{s<q<t} w_q built token by token, as the kernel builds it.
+    Computed in f32 (f64 for f64 inputs); returns (out (B, T, H, hd),
+    S_final) in that dtype.  ``state`` is read, never written."""
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    b, t, h, hd = r.shape
+    r, k, v, w = (x.to(ct).transpose(1, 2) for x in (r, k, v, w))   # (B, H, T, hd)
+    bonus = u.to(ct)[None, :, None, :]
+    s = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device) if state is None \
+        else state.to(ct)
+    outs = []
+    for t0 in range(0, t, sub):
+        rc, kc, vc, wc = (x[:, :, t0:t0 + sub] for x in (r, k, v, w))
+        n = rc.shape[2]
+        ones = torch.ones_like(wc[:, :, :1])
+        dec_in = torch.cumprod(torch.cat([ones, wc[:, :, :-1]], 2), 2)         # prod_{q<t}
+        dec_out = torch.cumprod(torch.cat([ones, wc[:, :, 1:].flip(2)], 2), 2).flip(2)
+        p = torch.zeros((b, h, n, n), dtype=ct, device=r.device)
+        f = kc.clone()                        # f[s] = k_s prod_{s<q<t}, built token by token
+        for i in range(n):
+            p[:, :, i, i] = (rc[:, :, i] * bonus[:, :, 0] * kc[:, :, i]).sum(-1)
+            if i > 1:
+                f[:, :, :i - 1] = f[:, :, :i - 1] * wc[:, :, i - 1:i]
+            if i > 0:
+                p[:, :, i, :i] = torch.einsum("bhk,bhsk->bhs", rc[:, :, i], f[:, :, :i])
+        outs.append((rc * dec_in) @ s + p @ vc)
+        total = dec_in[:, :, -1] * wc[:, :, -1]
+        s = total[..., None] * s + (kc * dec_out).transpose(2, 3) @ vc
+    return torch.cat(outs, 2).transpose(1, 2), s

@@ -12,6 +12,14 @@ is returned.  On CUDA tensors it launches the kernel (or raises); on CPU
 tensors it takes the plain version ``ref.wkv6_ref``, with the same in-place
 state write.  There is no switch that puts the plain version on a CUDA
 tensor.
+
+The kernel has two variants (``VARIANTS``), each a hand-written kernel,
+chosen here by ``wkv_variant`` from the inputs alone: a prompt of at least
+``CHUNKED_MIN_T`` tokens with 16-byte aligned r, k, v and w runs the chunked
+form on the tensor cores (``chunked``; its plain twin is
+``ref.wkv6_chunked_plain``), a decode step and short prompts the sequential
+scan (``scan``).  ``wkv6.launches`` counts every launch and
+``wkv6.variant_launches`` each variant's.
 """
 from __future__ import annotations
 
@@ -25,6 +33,18 @@ from repro_torch.kernels.ref import wkv6_ref
 RWKV_TRAIN = "ROADMAP.md Queue 1 item 17 (RWKV training on the card: a wkv backward kernel)"
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("scan", "chunked")   # the C entry's variant codes 0, 1
+CHUNKED_MIN_T = 16               # tokens from which the chunked form runs: one sub-chunk
+
+
+def wkv_variant(r, k, v, w) -> str:
+    """The kernel variant ``wkv6`` launches for contiguous r, k, v, w (B, T,
+    H, hd): T >= ``CHUNKED_MIN_T`` with every base 16-byte aligned runs the
+    chunked form on the tensor cores; a decode step, short T and misaligned
+    bases run the sequential scan."""
+    if r.shape[1] < CHUNKED_MIN_T or any(x.data_ptr() % 16 for x in (r, k, v, w)):
+        return "scan"
+    return "chunked"
 
 
 def _check(r, k, v, w, u, state) -> None:
@@ -71,6 +91,13 @@ def wkv6(r, k, v, w, u, state=None):
         raise ValueError(f"wkv6's kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("wkv6's kernel takes contiguous r, k, v, w, u and state")
+    return _launch(r, k, v, w, u, state, wkv_variant(r, k, v, w))
+
+
+def _launch(r, k, v, w, u, state, variant: str):
+    """Launch ``variant`` of the kernel on CUDA tensors that ``wkv6`` has
+    checked; ``chunked`` needs what ``wkv_variant`` asks of it."""
+    b, t, h, hd = r.shape
     out = torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
     s_out = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device) \
         if state is None else state
@@ -78,15 +105,17 @@ def wkv6(r, k, v, w, u, state=None):
     with torch.cuda.device(r.device):   # the kernel launches on the current device
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                  None if state is None else state.data_ptr(), s_out.data_ptr(),
-                 out.data_ptr(), _DTYPE_CODE[r.dtype], b, t, h, hd,
+                 out.data_ptr(), _DTYPE_CODE[r.dtype], b, t, h, hd, VARIANTS.index(variant),
                  torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"wkv6 kernel launch failed ({variant}): CUDA error {err}")
     wkv6.launches += 1
+    wkv6.variant_launches[variant] += 1
     return out, s_out
 
 
 wkv6.launches = 0
+wkv6.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 _entry = None   # the bound C entry point, once the library is built and loaded
 
@@ -95,6 +124,6 @@ def _bind():
     global _entry
     fn = build.load("wkv6").repro_wkv6
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     _entry = fn
     return fn

@@ -12,9 +12,9 @@ initialise a model from a seed and decode a batch of random prompts::
 Runs on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
 Prints prefill ms, decode ms per step and generated tokens per second, then
 the launches of each kernel during ``generate`` (``[kernels]``; zero on the
-CPU, where the plain twins run) and of each variant of the flash-attention
-and grouped-matmul kernels (``[variants]``: FMA, tensor-core prefill and
-decode tiles).
+CPU, where the plain twins run) and of each variant of the flash-attention,
+grouped-matmul and WKV kernels (``[variants]``: FMA, tensor-core prefill and
+decode tiles; the WKV scan and its chunked form).
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ Feeds the JAX launcher's data (the order-2 Markov LM over min(V, 64)
 symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
 with the global-norm clip at 1.0, from a seeded init, and prints the JAX
 launcher's ``[data]`` and ``[done]`` lines, then the launch count of each
-kernel (``[kernels]``; zero on the CPU, where the plain twins run).  Runs
+kernel (``[kernels]``; zero on the CPU, where the plain twins run) and of
+each variant of the LSTM forward (``[variants]``: FMA, tensor cores).  Runs
 on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
 ``--parallel`` takes only ``dp=1,mp=1`` with an optional ``accum=N`` (the
 §4.2 delayed-gradient accumulation); every other spec raises
@@ -124,6 +125,8 @@ def main(argv=None):
           f"lstm_cell_bwd_pointwise={lc.lstm_cell_bwd_pointwise.launches} "
           f"flash_attention={fa.flash_attention.launches} gmm={moe_gmm.gmm.launches} "
           f"wkv6={wk.wkv6.launches}")
+    print("[variants] lstm_cell_fwd: " + " ".join(
+        f"{v}={n}" for v, n in lc.lstm_cell_fwd.variant_launches.items()))
     return summary
 
 

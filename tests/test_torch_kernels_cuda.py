@@ -1,8 +1,9 @@
 """The CUDA kernels (flash attention, the LSTM cell's forward and pointwise
 backward, the grouped matmul, the RWKV6 WKV recurrence) against their plain
-versions on the card; for flash attention and the grouped matmul, each of
-their variants (FMA, tensor-core prefill and decode tiles), asserting which
-variant's launch counter moved.
+versions on the card; for flash attention, the grouped matmul, the LSTM
+forward (FMA, tensor-core ``tc``) and the WKV recurrence (``scan``,
+``chunked``), each of their variants, asserting which variant's launch
+counter moved.
 
 Needs a CUDA device and nvcc (the kernel has no CPU mode): every test here
 carries the ``cuda`` marker and skips without a card.  Run on the card with
@@ -270,10 +271,11 @@ def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 # B, T, H, hd: RWKV6-7B's prefill (B 4, T 512, H 64, hd 64) and decode step
-# (T 1), and edge shapes: T 1, 7, 33 and 130 (no multiple of the kernel's
-# 16- or 32-token chunk), hd 32, B 1, H 1
+# (T 1), and edge shapes: T 1, 7, 33 and 130 (no multiple of the scan's 16-
+# or 32-token staging chunk or of the chunked form's 16-token sub-chunk), 16
+# and 17 (one sub-chunk, and one past it), hd 32, B 1, H 1
 WKV_SHAPES = [(4, 512, 64, 64), (4, 1, 64, 64), (2, 7, 3, 64), (2, 130, 2, 32),
-              (1, 1, 1, 32), (1, 33, 2, 64), (3, 16, 1, 64)]
+              (1, 1, 1, 32), (1, 33, 2, 64), (3, 16, 1, 64), (2, 17, 2, 32)]
 WKV_TOL = 2e-4
 
 
@@ -305,10 +307,11 @@ def test_wkv6_kernel_matches_plain_on_card(cuda_device, dtype, b, t, h, hd, from
                                     state=from_state)
     want_out, want_s = wkv6_ref(r, k, v, w, u, s0)
     state = None if s0 is None else s0.clone()
-    before = TWK.wkv6.launches
+    before, by_variant = TWK.wkv6.launches, dict(TWK.wkv6.variant_launches)
     out, s = TWK.wkv6(r, k, v, w, u, state)
     torch.cuda.synchronize()
     assert TWK.wkv6.launches == before + 1
+    assert _moved(TWK.wkv6, by_variant) == {TWK.wkv_variant(r, k, v, w): 1}
     assert out.dtype == s.dtype == torch.float32 and out.shape == (b, t, h, hd)
     assert _wkv_err(out, want_out) < WKV_TOL and _wkv_err(s, want_s) < WKV_TOL
     if from_state:
@@ -479,3 +482,114 @@ def test_gmm_fma_variant_on_card(cuda_device, dtype, c, d, f, off):
     torch.cuda.synchronize()
     assert _moved(TGM.gmm, before) == {"fma": 1}
     assert float((out.float() - gmm_ref(x, w).float()).abs().max()) < GMM_TOL[dtype]
+
+
+# the tensor-core LSTM forward: B 1, 5, 16 (one m16 tile) and 17 (two)
+# against widths the tile takes, BigLSTM's among them
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5, 16, 17])
+@pytest.mark.parametrize("d_in,d_h,hh", [(24, 16, 72), (64, 40, 8), (1024, 1024, 8192)])
+def test_lstm_tc_variant_matches_plain_on_card(cuda_device, b, d_in, d_h, hh):
+    args = _lstm_inputs(b * hh + d_in, b, d_in, d_h, hh, cuda_device, torch.bfloat16)
+    assert TLC.lstm_variant(args[0], args[1], args[3], args[4]) == "tc"
+    before = dict(TLC.lstm_cell_fwd.variant_launches)
+    hn, cn, gates = TLC.lstm_cell_fwd(*args, want_gates=True)
+    torch.cuda.synchronize()
+    assert _moved(TLC.lstm_cell_fwd, before) == {"tc": 1}
+    rh, rc, ract = TLC.lstm_cell_plain(*args, with_gates=True)
+    for got, want in ((hn, rh), (cn, rc)):
+        assert float((got.float() - want.float()).abs().max()) < BF16_TOL
+    assert float((gates - ract).abs().max()) < 1e-4
+    hn2, cn2, none = TLC.lstm_cell_fwd(*args)           # inference: no gates written
+    assert none is None and torch.equal(hn2, hn) and torch.equal(cn2, cn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "d_in 20", "d_h 12", "H 36", "x row stride 28",
+                                  "x base 2 bytes off", "wh base 2 bytes off"])
+def test_lstm_fma_variant_takes_what_the_tensor_cores_do_not(cuda_device, case):
+    """f32, widths that are no multiple of 8, rows or bases off 16 bytes:
+    the FMA kernel, at its tolerances."""
+    d_in = 20 if case == "d_in 20" else 24
+    d_h = 12 if case == "d_h 12" else 16
+    hh = 36 if case == "H 36" else 72
+    dt = torch.float32 if case == "f32" else torch.bfloat16
+    x, h, c, wx, wh, b = _lstm_inputs(3, 5, d_in, d_h, hh, cuda_device, dt)
+
+    def moved_off(t, off, cols=None):
+        cols = cols or t.shape[-1]
+        store = torch.zeros(off + t.numel() // t.shape[-1] * cols, dtype=t.dtype,
+                            device=cuda_device)
+        out = store[off:].view(*t.shape[:-1], cols)[..., :t.shape[-1]]
+        out.copy_(t)
+        return out
+
+    if case == "x row stride 28":
+        x = moved_off(x, 0, cols=d_in + 4)
+    elif case == "x base 2 bytes off":
+        x = moved_off(x, 1)
+    elif case == "wh base 2 bytes off":
+        wh = moved_off(wh.reshape(d_h, 4 * hh), 1).view(d_h, 4, hh)
+    assert TLC.lstm_variant(x, h, wx, wh) == "fma"
+    before = dict(TLC.lstm_cell_fwd.variant_launches)
+    hn, cn, _ = TLC.lstm_cell_fwd(x, h, c, wx, wh, b)
+    torch.cuda.synchronize()
+    assert _moved(TLC.lstm_cell_fwd, before) == {"fma": 1}
+    rh, rc = TLC.lstm_cell_plain(x, h, c, wx, wh, b)
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    for got, want in ((hn, rh), (cn, rc)):
+        assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["scan", "chunked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd", WKV_SHAPES)
+def test_wkv6_each_variant_matches_plain_on_card(cuda_device, variant, dtype, b, t, h, hd):
+    """Both variants take every shape: each forced on the edge shapes and
+    the serving shapes, from a state, written in place."""
+    r, k, v, w, u, s0 = _wkv_inputs(b * t + hd + 1, b, t, h, hd, cuda_device, dtype)
+    want_out, want_s = wkv6_ref(r, k, v, w, u, s0)
+    state = s0.clone()
+    before = dict(TWK.wkv6.variant_launches)
+    out, s = TWK._launch(r, k, v, w, u, state, variant)
+    torch.cuda.synchronize()
+    assert _moved(TWK.wkv6, before) == {variant: 1}
+    assert s is state
+    assert _wkv_err(out, want_out) < WKV_TOL and _wkv_err(s, want_s) < WKV_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["scan", "chunked"])
+@pytest.mark.parametrize("t,decay,dtype", [(2048, "near1", torch.bfloat16),
+                                           (8192, "near1", torch.float32),
+                                           (2048, "strong", torch.bfloat16)])
+def test_wkv6_long_prompts_match_plain_on_card(cuda_device, variant, t, decay, dtype):
+    """Decays near 1 (w in [0.999, 1)) over T 2048 and 8192, and strong decays
+    (w log-uniform in [1e-38, 1e-3]) over T 2048, from a non-zero state, at
+    the unchanged tolerance."""
+    r, k, v, _, u, s0 = _wkv_inputs(t, 1, t, 2, 64, cuda_device, dtype)
+    rng = np.random.default_rng(t + len(decay))
+    if decay == "near1":
+        w = 1 - rng.uniform(0, 1e-3, r.shape)
+    else:
+        w = np.exp(rng.uniform(np.log(1e-38), np.log(1e-3), r.shape))
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda_device)
+    want_out, want_s = wkv6_ref(r, k, v, w, u, s0)
+    out, s = TWK._launch(r, k, v, w, u, s0.clone(), variant)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+    assert _wkv_err(out, want_out) < WKV_TOL and _wkv_err(s, want_s) < WKV_TOL
+
+
+@pytest.mark.cuda
+def test_wkv6_misaligned_prompt_takes_the_scan(cuda_device):
+    r, k, v, w, u, s0 = _wkv_inputs(2, 2, 64, 2, 64, cuda_device, torch.bfloat16)
+    rm = torch.empty(1 + r.numel(), dtype=r.dtype, device=cuda_device)[1:].view(r.shape)
+    rm.copy_(r)
+    assert TWK.wkv_variant(r, k, v, w) == "chunked" and TWK.wkv_variant(rm, k, v, w) == "scan"
+    before = dict(TWK.wkv6.variant_launches)
+    out, _ = TWK.wkv6(rm, k, v, w, u)
+    torch.cuda.synchronize()
+    assert _moved(TWK.wkv6, before) == {"scan": 1}
+    assert _wkv_err(out, wkv6_ref(r, k, v, w, u)[0]) < WKV_TOL

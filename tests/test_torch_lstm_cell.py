@@ -8,7 +8,8 @@ float64 ``gradcheck``; the model's cell and layer (``models/lstm.py``)
 against the JAX model's.  Shapes where B and H are no tile multiples.
 Tolerance 1e-5 at fp32 (that of tests/test_kernels.py::test_lstm_cell_sweep).
 The CUDA kernels themselves are held against the plain twins on the card in
-tests/test_torch_kernels_cuda.py.
+tests/test_torch_kernels_cuda.py; here ``lstm_variant``, which picks the
+forward kernel's variant from the inputs alone, is held to its rule.
 """
 import jax
 import jax.numpy as jnp
@@ -200,3 +201,44 @@ def test_unported_lstm_paths_raise():
         TM.biglstm_forward_pipeline()
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         TM.gnmt_forward()
+
+
+def _variant_inputs(dtype, b=4, d_in=16, d_h=24, hh=32, x_offset=0, x_ld=None):
+    """x as a row view (row stride ``x_ld``, base ``x_offset`` elements into
+    its storage), h, wx, wh contiguous."""
+    x_ld = x_ld or d_in
+    store = torch.zeros(x_offset + b * x_ld, dtype=dtype)
+    x = store[x_offset:].view(b, x_ld)[:, :d_in]
+    return (x, torch.zeros(b, d_h, dtype=dtype), torch.zeros(d_in, 4, hh, dtype=dtype),
+            torch.zeros(d_h, 4, hh, dtype=dtype))
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({}, "tc"), ({"b": 1}, "tc"), ({"b": 17}, "tc"),
+    ({"x_ld": 48}, "tc"),                          # a row view xs[:, t] of (B, T, d_in)
+    ({"b": 1, "x_ld": 21}, "tc"),                  # one row: its stride is never used
+    ({"d_in": 20}, "fma"), ({"d_h": 12}, "fma"), ({"hh": 36}, "fma"),
+    ({"x_ld": 20}, "fma"),                         # rows 40 bytes apart
+    ({"x_offset": 4}, "fma"),                      # base 8 bytes off
+    ({"x_offset": 8}, "tc")])
+def test_lstm_variant_takes_the_tensor_cores_on_aligned_bf16(kw, want):
+    assert TLC.lstm_variant(*_variant_inputs(torch.bfloat16, **kw)) == want
+    assert TLC.lstm_variant(*_variant_inputs(torch.float32, **kw)) == "fma"
+
+
+def test_lstm_variant_of_the_models_layer_views():
+    """The layer's per-step views: x = xs[:, t] of (B, T, d_in) and h = hs[t]
+    of (T + 1, B, d_out), at BigLSTM's widths cut in H."""
+    xs = torch.zeros(16, 5, 1024, dtype=torch.bfloat16)
+    hs = torch.zeros(6, 16, 1024, dtype=torch.bfloat16)
+    wx = torch.zeros(1024, 4, 64, dtype=torch.bfloat16)
+    wh = torch.zeros(1024, 4, 64, dtype=torch.bfloat16)
+    assert all(TLC.lstm_variant(xs[:, t], hs[t], wx, wh) == "tc" for t in range(5))
+    assert TLC.VARIANTS == ("fma", "tc")
+
+
+def test_cpu_forward_counts_no_variant():
+    before = dict(TLC.lstm_cell_fwd.variant_launches)
+    TLC.lstm_cell_fwd(*_t(_inputs(4, 2, 8, 8, 16), torch.bfloat16)[:5],
+                      torch.zeros(4, 16))
+    assert TLC.lstm_cell_fwd.variant_launches == before

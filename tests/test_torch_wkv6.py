@@ -14,6 +14,15 @@ On the CPU ``repro_torch.kernels.wkv6.wkv6`` takes its plain version
   einsum's terms, so 1e-5 from zero state and 4e-5 from a given state of
   entries up to ~8 (the same relative error).
 
+``ref.wkv6_chunked_plain``, the plain twin of the ``chunked`` kernel's
+arithmetic (sub-chunks of 16 tokens, decays as running products of w, the
+last sub-chunk partial), is held against ``wkv6_ref`` at any T from zeros
+and from a state (the same f32 sums in another order: the tolerances
+above), against JAX ``wkv_chunked`` and the Pallas kernel where those run
+(T a multiple of their chunk, zero state) at 2e-4, and on strong decays
+(w down to 1e-38), where it stays finite and the split exp(cum) factors
+of ``wkv_chunked`` overflow.  ``wkv_variant`` is held to its rule.
+
 Inputs are drawn with numpy from a seed, as the JAX sweep draws them.  The
 CUDA kernel itself is held against the plain version on the card in
 tests/test_torch_kernels_cuda.py.
@@ -153,3 +162,74 @@ def test_wkv6_never_runs_plain_version_off_the_cpu():
         TWK.wkv6(*(meta(1, 2, 2, 32),) * 4, torch.zeros(2, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
         TWK.wkv6(meta(1, 2, 2, 32, grad=True), *(meta(1, 2, 2, 32),) * 3, meta(2, 32))
+
+
+@pytest.mark.parametrize("t", [1, 7, 63, 64, 65, 130, 512])
+@pytest.mark.parametrize("from_state", [False, True])
+def test_chunked_plain_matches_scan(t, from_state):
+    """The chunked twin against the sequential oracle at any T, the last
+    sub-chunk partial, from zeros and from a state."""
+    b, h, hd = (1, 2, 32) if t == 512 else (2, 3, 32)
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _inputs(t + 11, b, t, h, hd))
+    state = s0 if from_state else None
+    keep = s0.clone()
+    out, s = TR.wkv6_chunked_plain(r, k, v, w, u, state)
+    want_out, want_s = TR.wkv6_ref(r, k, v, w, u, state)
+    tol = STATE_TOL if from_state else SCAN_TOL
+    assert out.shape == (b, t, h, hd) and s.shape == (b, h, hd, hd)
+    assert _err(out, want_out) < tol and _err(s, want_s) < tol
+    assert torch.equal(s0, keep)                  # the twin reads its state, never writes it
+
+
+@pytest.mark.parametrize("t,chunk,hd", [(128, 32, 32), (128, 64, 64), (256, 128, 64)])
+def test_chunked_plain_matches_jax_chunked_and_pallas(t, chunk, hd):
+    r, k, v, w, u, _ = _inputs(t + chunk + hd, 1, t, 2, hd)
+    out, s = TR.wkv6_chunked_plain(*_t(r, k, v, w, u))
+    j_in = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    j_out, j_s = JRW.wkv_chunked(*j_in, chunk=chunk)
+    assert _err(out, j_out) < PALLAS_TOL and _err(s, j_s) < PALLAS_TOL
+    pallas = JWK.wkv6(*j_in, chunk=chunk, interpret=True)
+    assert _err(out, pallas) < PALLAS_TOL
+
+
+def test_chunked_plain_stays_finite_on_strong_decays():
+    """w in [1e-38, 1e-3]: log w down to -87.5 a token.  Every factor of the
+    twin is a product of w's, at most 1, so it stays finite and matches the
+    scan; the split exp(cum_t) * exp(-cum_s) of JAX ``wkv_chunked``
+    overflows within a chunk of such tokens."""
+    rng = np.random.default_rng(12)
+    r, k, v, _, u, s0 = _inputs(12, 2, 64, 2, 32)
+    w = np.exp(rng.uniform(np.log(1e-38), np.log(1e-3), r.shape)).astype(np.float32)
+    for state in (None, torch.from_numpy(s0)):
+        out, s = TR.wkv6_chunked_plain(*_t(r, k, v, w, u), state)
+        want_out, want_s = TR.wkv6_ref(*_t(r, k, v, w, u), state)
+        assert torch.isfinite(out).all() and torch.isfinite(s).all()
+        assert _err(out, want_out) < STATE_TOL and _err(s, want_s) < STATE_TOL
+    j_out, _ = JRW.wkv_chunked(*(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=32)
+    assert not np.isfinite(np.asarray(j_out)).all()
+
+
+@pytest.mark.parametrize("t,offset,want", [(1, 0, "scan"), (15, 0, "scan"), (16, 0, "chunked"),
+                                           (512, 0, "chunked"), (512, 1, "scan"),
+                                           (64, 4, "chunked")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_variant_takes_chunked_from_one_sub_chunk_on_aligned_inputs(t, offset, want, dtype):
+    """Prefill of at least one sub-chunk with 16-byte aligned bases runs the
+    chunked form; a decode step, a short T and a base off 16 bytes run the
+    scan.  ``offset`` shifts r's base by that many elements."""
+    assert TWK.CHUNKED_MIN_T == 16
+    shape = (2, t, 3, 32)
+    store = torch.zeros(int(np.prod(shape)) + offset, dtype=dtype)
+    r = store[offset:].view(shape)
+    k, v = torch.zeros(shape, dtype=dtype), torch.zeros(shape, dtype=dtype)
+    w = torch.ones(shape)
+    aligned = (offset * r.element_size()) % 16 == 0
+    assert TWK.wkv_variant(r, k, v, w) == (want if aligned or want == "scan" else "scan")
+
+
+def test_cpu_path_counts_no_variant():
+    r, k, v, w, u, _ = (torch.from_numpy(a) for a in _inputs(8, 1, 32, 2, 32))
+    before = dict(TWK.wkv6.variant_launches)
+    TWK.wkv6(r, k, v, w, u)
+    assert TWK.wkv6.variant_launches == before
+    assert set(before) == set(TWK.VARIANTS) == {"scan", "chunked"}
