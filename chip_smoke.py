@@ -16,8 +16,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the wrapper picks and, where the other variant takes it too, that one
    forced:
    flash attention at full-width Llama-3.2-1B and Granite-3.0-1B-A400M
-   prefill and a decode step on a strided cache view, and bf16 rows whose
-   rows cannot take 16-byte copies;
+   prefill and a decode step on a strided cache view, over long prompts (T
+   2048 and 8192, causal, Llama's heads), and bf16 rows whose rows cannot
+   take 16-byte copies;
+   the flash-attention backward (tensor-core ``tc`` and FMA kernels) at the
+   Llama training shape (B 4, T 2048, H 32/8, hd 64, causal; bf16 and f32),
+   Granite's heads and edge shapes, with the forward's lse against its plain
+   value, the output the same bits with and without lse, the gradients the
+   same bits on a repeat launch, in f32 within 1e-4 of max(1, |ref|) and in
+   bf16 within FlashAttention-2's rule (at most twice the error of autograd
+   through the plain forward in bf16, plus 1e-3 max|ref|), timed against
+   its plain version, its bound and the backward of
+   ``F.scaled_dot_product_attention``;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
    8192) and at shapes where B and H are no tile multiples, h' and c' the
@@ -69,7 +79,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 11. hold the RWKV model path against its plain path: 2 layers at full width
    in f32, prefill and 3 decode steps, logits within 1e-3 and the cache's
    WKV state within 1e-4 of its largest entry;
-12. print one JSON line of kernels, then the device line.
+12. train full-width, full-depth Llama-3.2-1B (1.50 B parameters) through
+   the launcher (5 steps at B 4, T 2048) with the launch counters set to 0
+   just before and read just after (80 forward launches, all ``tc_prefill``,
+   and 80 backward calls, all ``tc``; the loss falls); then time steps (ms,
+   tokens/s, peak memory) and profile one;
+13. hold the Llama train step against its plain path: 2 layers at full
+   width, f32, vocab cut to 32768, kernels on the card against the plain
+   versions on the CPU (phase 7's limits);
+14. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -95,6 +113,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BATCH, PROMPT, NEW = 4, 512, 32
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
+LLAMA_B, LLAMA_T = 4, 2048                      # the dense decoder's training shape
+BWD_F32_TOL = 1e-4    # f32 backward: sums of up to 2048 terms in another order
+# flash backward rows: B, Tq, Tk, H, Hkv, hd, causal, window (T 1, 4, 17, 130,
+# Tq != Tk both ways, hd 32 and 128, B 1, H = Hkv, windows with rows that see
+# no key, non-causal).  T 1 attends over 33 keys, as a decode step: under the
+# causal mask a single query sees one key, its dq and dk are exactly 0, and
+# the bf16 rule would admit no round-off at all.
+FLASH_BWD_EDGE = [(1, 1, 33, 2, 2, 64, False, 0), (2, 4, 4, 8, 2, 64, True, 0),
+                  (2, 17, 17, 4, 2, 32, True, 0), (2, 130, 130, 8, 2, 128, True, 0),
+                  (1, 100, 260, 4, 4, 64, False, 0), (2, 200, 70, 4, 1, 64, True, 0),
+                  (1, 300, 300, 8, 2, 128, True, 64), (2, 90, 30, 4, 2, 64, False, 16),
+                  (1, 150, 40, 4, 2, 32, True, 8)]
 LSTM_FULL = (TRAIN_B, 1024, 1024, 8192)         # B, d_in, d_h, H of BigLSTM's cell
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # tests/test_kernels.py::test_gmm_sweep
 # G, C, d, F of full-width Granite-3.0-1B-A400M's expert products: 32 experts,
@@ -173,15 +203,7 @@ def attention_bound_ms(q, k, v, causal, window):
     """Least time on the card: q, k, v read once and o written once, against
     4*hd FLOPs for every (query, key) pair the masks keep."""
     b, tq, h, hd = q.shape
-    tk = k.shape[1]
-    qpos = torch.arange(tq)[:, None]
-    kpos = torch.arange(tk)[None, :]
-    keep = torch.ones((tq, tk), dtype=torch.bool)
-    if causal:
-        keep &= kpos <= qpos
-    if window:
-        keep &= kpos > qpos - window
-    flops = 4.0 * b * h * int(keep.sum()) * hd
+    flops = 4.0 * b * h * _keep_pairs(tq, k.shape[1], causal, window) * hd
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -250,6 +272,11 @@ def phase_kernels(fa):
         rows.append(check_attention(fa, f"decode B4 Tq1 Tk513(view of 552) H{h}/8 hd64",
                                     rnd(BATCH, 1, h, 64, dtype=bf), kc[:, :n], vc[:, :n],
                                     causal=False, timed=True))
+    # long prompts on the prefill tile: the training shape, and T 8192
+    for b, t in ((LLAMA_B, LLAMA_T), (1, 8192)):
+        rows.append(check_attention(fa, f"prefill B{b} T{t} H32/8 hd64 causal",
+                                    rnd(b, t, 32, 64, dtype=bf), rnd(b, t, 8, 64, dtype=bf),
+                                    rnd(b, t, 8, 64, dtype=bf), causal=True))
     # bf16 rows that cannot take 16-byte async copies (q's base 2 bytes off):
     # the FMA kernel at Llama's prefill shape
     qm = torch.empty(1 + q.numel(), dtype=bf, device=dev)[1:].view(BATCH, PROMPT, 16, 64)
@@ -268,6 +295,136 @@ def phase_kernels(fa):
             fa, f"B{b} Tq{tq} Tk{tk} H{h}/{hkv} hd{hd} causal={causal} window={window}",
             rnd(b, tq, h, hd, dtype=dt), rnd(b, tk, hkv, hd, dtype=dt),
             rnd(b, tk, hkv, hd, dtype=dt), causal=causal, window=window))
+    return rows
+
+
+def _keep_pairs(tq, tk, causal, window):
+    """The (query, key) pairs the masks keep."""
+    qpos = torch.arange(tq)[:, None]
+    kpos = torch.arange(tk)[None, :]
+    keep = torch.ones((tq, tk), dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    return int(keep.sum())
+
+
+def attention_bwd_bound_ms(q, k, v, causal, window):
+    """Least time on the card for the backward: q, k, v, o, dO and lse read
+    once, dq, dk, dv written once, against 10*hd FLOPs for every kept pair
+    (S recomputed, dP, dV, dK, dQ: five products of 2*hd)."""
+    b, tq, h, hd = q.shape
+    flops = 10.0 * b * h * _keep_pairs(tq, k.shape[1], causal, window) * hd
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * b * h * tq
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _autograd_of_ref(fa, q, k, v, do, causal, window):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_ref(*leaves, causal=causal, window=window)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def check_flash_bwd(fa, case, q, k, v, do, *, causal, window=0, timed=False):
+    """The forward with lse and the backward kernels against their plain
+    versions on the same inputs: lse within 1e-4 of max(1, |ref|) (rows
+    that see no key exactly -1e30), out the same bits with and without lse,
+    the gradients the same bits on a repeat launch, each variant that takes
+    the inputs (the FMA kernels forced on bf16 rows too); optionally timed."""
+    kw = dict(causal=causal, window=window)
+    (out, lse), fwd_variant = launched_variant(fa.flash_attention, lambda: fa._forward(
+        q, k, v, causal, window, want_lse=True))
+    out2, _ = fa._forward(q, k, v, causal, window, want_lse=False, variant=fwd_variant)
+    want_lse = fa.flash_attention_lse_plain(q, k, **kw)
+    dead = want_lse < -1e29
+    lse_err = float((lse - want_lse)[~dead].abs().max()) / max(
+        1.0, float(want_lse[~dead].abs().max()))
+    if fwd_variant == "tc_decode" or not torch.equal(out, out2) or \
+            not torch.equal(lse < -1e29, dead) or not lse_err < BWD_F32_TOL:
+        raise AssertionError(f"flash forward with lse {case}: {fwd_variant}, out bits equal "
+                             f"{torch.equal(out, out2)}, lse error {lse_err}")
+    oracle = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(),
+                                          do.float(), lse, **kw)
+    bf = q.dtype == torch.bfloat16
+    base = _autograd_of_ref(fa, q, k, v, do, causal, window) if bf else None
+    picked = fa.flash_bwd_variant(q, k, v, out, do)
+    rows = []
+    for variant in (picked, "fma") if picked == "tc" else (picked,):
+        grads, launched = launched_variant(fa.flash_attention_bwd, lambda: fa._launch_bwd(
+            q, k, v, out, do, lse, causal, window, variant))
+        again = fa._launch_bwd(q, k, v, out, do, lse, causal, window, variant)
+        torch.cuda.synchronize()
+        errs = [float((g.float() - w).abs().max()) for g, w in zip(grads, oracle)]
+        scale = [max(1.0, float(w.abs().max())) for w in oracle]
+        row = {"kernel": "flash_attention_bwd", "shape": case,
+               "dtype": str(q.dtype).removeprefix("torch."), "variant": launched,
+               "forward_variant": fwd_variant, "max_abs_err": max(errs),
+               "rel_err": {n: e / sc for n, e, sc in zip(("dq", "dk", "dv"), errs, scale)},
+               "lse_rel_err": lse_err}
+        if bf:   # FlashAttention-2's rule against the same f32 oracle
+            limit = [2 * float((bs.float() - w).abs().max()) + 1e-3 * float(w.abs().max())
+                     for bs, w in zip(base, oracle)]
+            row["limit"] = dict(zip(("dq", "dk", "dv"), limit))
+            ok = all(e <= lim for e, lim in zip(errs, limit))
+        else:
+            row["tol"] = BWD_F32_TOL
+            ok = all(e / sc < BWD_F32_TOL for e, sc in zip(errs, scale))
+        same_bits = all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        if launched != variant or not (ok and same_bits and finite):
+            raise AssertionError(f"flash_attention_bwd {case} ({launched}): {row}, same bits "
+                                 f"on a repeat launch {same_bits}, finite {finite}")
+        if timed:
+            time_into(row, "ms", lambda: fa._launch_bwd(q, k, v, out, do, lse, causal, window,
+                                                        variant))
+            time_into(row, "plain_ms", lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, do, lse, **kw), reps=5)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            time_into(row, "library_ms", lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True))
+            row["library"] = ("backward of F.scaled_dot_product_attention(is_causal=True, "
+                              "enable_gqa=True)")
+            time_into(row, "forward_with_lse_ms", lambda: fa._forward(
+                q, k, v, causal, window, want_lse=True))
+            row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(q, k, v, causal, window)
+            del sdpa
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def phase_flash_bwd(fa):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = []
+    # the training shape, bf16 first (the main path's dtype), then Granite's heads
+    for dt in (torch.bfloat16, torch.float32):
+        b, t = LLAMA_B, LLAMA_T
+        rows += check_flash_bwd(fa, f"train B{b} T{t} H32/8 hd64 causal",
+                                rnd(b, t, 32, 64, dtype=dt), rnd(b, t, 8, 64, dtype=dt),
+                                rnd(b, t, 8, 64, dtype=dt), rnd(b, t, 32, 64, dtype=dt),
+                                causal=True, timed=True)
+        torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    rows += check_flash_bwd(fa, "B4 T512 H16/8 hd64 causal", rnd(4, 512, 16, 64, dtype=bf),
+                            rnd(4, 512, 8, 64, dtype=bf), rnd(4, 512, 8, 64, dtype=bf),
+                            rnd(4, 512, 16, 64, dtype=bf), causal=True)
+    for b, tq, tk, h, hkv, hd, causal, window in FLASH_BWD_EDGE:
+        for dt in (torch.float32, torch.bfloat16):
+            rows += check_flash_bwd(
+                fa, f"B{b} Tq{tq} Tk{tk} H{h}/{hkv} hd{hd} causal={causal} window={window}",
+                rnd(b, tq, h, hd, dtype=dt), rnd(b, tk, hkv, hd, dtype=dt),
+                rnd(b, tk, hkv, hd, dtype=dt), rnd(b, tq, h, hd, dtype=dt),
+                causal=causal, window=window)
     return rows
 
 
@@ -655,7 +812,7 @@ def phase_serve(counters, api_mod, engine_mod, cfg):
     launches = {name: fn.launches for name, fn in counters.items()}
     variants = variant_launches(counters)
     calls = cfg.n_layers * (1 + NEW)           # one prefill and NEW decode steps
-    want = {"flash_attention": 0 if cfg.rwkv else calls,
+    want = {"flash_attention": 0 if cfg.rwkv else calls, "flash_attention_bwd": 0,
             "gmm": 3 * calls if cfg.is_moe else 0, "wkv6": calls if cfg.rwkv else 0}
     if launches != want:
         raise AssertionError(f"generate launched {launches}, want {want}")
@@ -848,8 +1005,6 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
     """Full-width, full-depth BigLSTM through the launcher, counters set to 0
     just before and read just after; then step time and a profile of one
     step, continuing from the trained state."""
-    from repro_torch.optim import adamw, warmup_cosine
-    from repro_torch.train import make_train_step
     from repro_torch.tree import tree_leaves
 
     torch.cuda.empty_cache()
@@ -886,25 +1041,83 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
            "lstm_cell_fwd_variant_launches": fwd_variants,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps(out), flush=True)
+    timing = time_train_steps(api_mod, cfg, state, TRAIN_B, TRAIN_T, "train_step")
+    del summary, state
+    torch.cuda.empty_cache()
+    return launches, fwd_variants, timing
+
+
+def time_train_steps(api_mod, cfg, state, batch_size, seq, name):
+    """Step time, tokens/s and peak memory over 3 steps, continuing from
+    ``state`` on a batch of the next epoch, and a profile of one step
+    (``profile_call``)."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
 
     api = api_mod.build_model(cfg, device="cuda")
     step_fn = make_train_step(api, adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS)), clip_norm=1.0)
-    batch = {k: v.cuda() for k, v in _lm_batch(TRAIN_T, TRAIN_B, epoch=1).items()}
+    batch = {k: v.cuda() for k, v in _lm_batch(seq, batch_size, epoch=1).items()}
     box = [state]
 
     def one_step():
         box[0], metrics = step_fn(box[0], batch)
         return metrics
 
-    prof = profile_call("train_step", one_step, reps=3)
+    prof = profile_call(name, one_step, reps=3)
     timing = {"step_ms": prof["unprofiled_wall_ms"],
-              "tok_per_s": TRAIN_B * TRAIN_T / (prof["unprofiled_wall_ms"] / 1e3),
+              "tok_per_s": batch_size * seq / (prof["unprofiled_wall_ms"] / 1e3),
               "idle_share": prof["idle_share"],
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    print(json.dumps({"train_step": timing}), flush=True)
-    del summary, state, box
+    print(json.dumps({name: timing}), flush=True)
+    return timing
+
+
+def phase_train_llama(train_launch, lc, counters, api_mod, cfg):
+    """Full-width, full-depth Llama-3.2-1B through the launcher at B 4, T
+    2048, counters set to 0 just before and read just after: one forward
+    launch (``tc_prefill``, with lse) and one backward call (``tc``) a layer
+    a step, and a falling loss; then step time and a profile of one step."""
+    from repro_torch.tree import tree_leaves
+
     torch.cuda.empty_cache()
-    return launches, fwd_variants, timing
+    torch.cuda.reset_peak_memory_stats()
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
+    reset_counters(every)
+    t0 = time.perf_counter()
+    summary = train_launch.main(["--arch", "llama3_2_1b", "--steps", str(TRAIN_STEPS),
+                                 "--batch", str(LLAMA_B), "--seq", str(LLAMA_T)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in every.items()}
+    variants = variant_launches(every)
+    want = TRAIN_STEPS * cfg.n_layers
+    want_launches = dict.fromkeys(every, 0)
+    want_launches.update(flash_attention=want, flash_attention_bwd=want)
+    want_variants = {name: dict.fromkeys(v, 0) for name, v in variants.items()}
+    want_variants["flash_attention"]["tc_prefill"] = want
+    want_variants["flash_attention_bwd"]["tc"] = want
+    if launches != want_launches or variants != want_variants:
+        raise AssertionError(f"training launched {launches} {variants}, want {want} forward "
+                             f"launches on tc_prefill and {want} backward calls on tc")
+    state = summary["state"]
+    losses = summary["history"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0] or state.step != TRAIN_STEPS or \
+            not all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)):
+        raise AssertionError(f"training gave losses {losses} or non-finite parameters")
+    out = {"arch": cfg.name, "params": sum(p.numel() for p in tree_leaves(state.params)),
+           "layers": cfg.n_layers, "batch": LLAMA_B, "seq": LLAMA_T, "steps": TRAIN_STEPS,
+           "losses": losses, "launcher_wall_s": wall_s, "launches": launches,
+           "variant_launches": {n: variants[n] for n in ("flash_attention",
+                                                         "flash_attention_bwd")},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(out), flush=True)
+    timing = time_train_steps(api_mod, cfg, state, LLAMA_B, LLAMA_T,
+                              f"train_step {cfg.name}")
+    del summary, state
+    torch.cuda.empty_cache()
+    return launches, variants, timing
 
 
 def phase_train_vs_plain(api_mod, cfg):
@@ -940,6 +1153,48 @@ def phase_train_vs_plain(api_mod, cfg):
     if not (r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4
             and r["lstm_params_max_abs"] <= 1e-3):
         raise AssertionError(f"train step on the card disagrees with its plain path: {r}")
+    return r
+
+
+def phase_llama_train_vs_plain(fa, api_mod, cfg):
+    """One Llama train step at full width, 2 layers, f32, vocab cut to 32768,
+    B 2 x T 128: the card's kernels (the FMA forward and backward, f32)
+    against the plain versions on the CPU from the same weights and batch;
+    loss and gradient norm within 1e-4 relative, every parameter after the
+    update within 1e-3."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
+    gpu, cpu = (api_mod.build_model(cfg2, device=d) for d in ("cuda", "cpu"))
+    params = gpu.init(1)
+    batch = _lm_batch(128, 2)
+    bwd_before = dict(fa.flash_attention_bwd.variant_launches)
+    results = {}
+    for name, api, p, b in (("cuda", gpu, params, {k: v.cuda() for k, v in batch.items()}),
+                            ("cpu", cpu, _tree_to(params, "cpu"), batch)):
+        opt = adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS))
+        step = make_train_step(api, opt, clip_norm=1.0)
+        state, metrics = step(TrainState(params=p, opt_state=opt.init(p), step=0), b)
+        results[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                         [t.cpu() for t in tree_leaves(state.params)])
+    bwd_calls = {n: c - bwd_before[n] for n, c in fa.flash_attention_bwd.variant_launches.items()}
+    (gl, gn, gp), (cl, cn, cp) = results["cuda"], results["cpu"]
+    out = {"llama_train_vs_plain": {"loss_rel": abs(gl - cl) / abs(cl),
+                                    "grad_norm_rel": abs(gn - cn) / abs(cn),
+                                    "params_max_abs": max(float((a - b).abs().max())
+                                                          for a, b in zip(gp, cp)),
+                                    "loss": gl, "grad_norm": gn,
+                                    "flash_attention_bwd_calls": bwd_calls},
+           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": 1e-3}}
+    print(json.dumps(out), flush=True)
+    r = out["llama_train_vs_plain"]
+    if bwd_calls != {"fma": cfg2.n_layers, "tc": 0} or not (
+            r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4 and r["params_max_abs"] <= 1e-3):
+        raise AssertionError(f"Llama train step on the card disagrees with its plain path: {r}")
     return r
 
 
@@ -993,7 +1248,9 @@ def main():
     fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
     gmm_rows = phase_gmm_kernels(gm, ref_mod)
     wkv_rows = phase_wkv_kernels(wk, ref_mod)
-    counters = {"flash_attention": fa.flash_attention, "gmm": gm.gmm, "wkv6": wk.wkv6}
+    flash_bwd_rows = phase_flash_bwd(fa)
+    counters = {"flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd, "gmm": gm.gmm, "wkv6": wk.wkv6}
 
     _phase("4 serve llama3_2_1b, full width and depth")
     cfg = get_config("llama3_2_1b")
@@ -1024,7 +1281,14 @@ def main():
     _phase("11 RWKV model path against its plain path")
     phase_model_vs_plain(api_mod, moe_mod, rwkv_cfg)
 
-    _phase("12 result")
+    _phase("12 train llama3_2_1b, full width and depth")
+    llama_launches, llama_variants, _ = phase_train_llama(train_launch, lc, counters, api_mod,
+                                                          cfg)
+
+    _phase("13 Llama train step against its plain path")
+    phase_llama_train_vs_plain(fa, api_mod, cfg)
+
+    _phase("14 result")
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1032,10 +1296,23 @@ def main():
                       launches["flash_attention"], rows,
                       launches_by_path={"serve llama3_2_1b": launches["flash_attention"],
                                         "serve granite_moe_1b_a400m":
-                                            moe_launches["flash_attention"]},
+                                            moe_launches["flash_attention"],
+                                        "train llama3_2_1b": llama_launches["flash_attention"]},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
-                          "serve granite_moe_1b_a400m": moe_variants["flash_attention"]}),
+                          "serve granite_moe_1b_a400m": moe_variants["flash_attention"],
+                          "train llama3_2_1b": llama_variants["flash_attention"]}),
+        _kernel_entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/models/layers.py:160",
+                      llama_launches["flash_attention_bwd"], flash_bwd_rows,
+                      library=flash_bwd_rows[0]["library"],
+                      launches_by_path={
+                          "train llama3_2_1b": llama_launches["flash_attention_bwd"],
+                          "train biglstm": train_launches["flash_attention_bwd"]},
+                      variant_launches_by_path={
+                          "train llama3_2_1b": llama_variants["flash_attention_bwd"]},
+                      note="no TPU kernel: JAX differentiates src/repro/models/layers.py:160 "
+                           "(attention)"),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",
                       train_launches["lstm_cell_fwd"], fwd_rows,
                       variant_launches=train_variants),

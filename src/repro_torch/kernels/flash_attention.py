@@ -1,5 +1,7 @@
-"""Flash attention forward: wrapper of the CUDA kernel ``csrc/flash_attention.cu``
-(the port of ``repro/kernels/flash_attention.py:_flash_kernel``).
+"""Flash attention: wrappers of the CUDA kernels of ``csrc/flash_attention.cu``,
+the forward (the port of ``repro/kernels/flash_attention.py:_flash_kernel``)
+and its backward (no TPU kernel: JAX differentiates
+``repro/models/layers.py:attention``).
 
 ``flash_attention(q, k, v, causal=, window=)`` keeps the JAX signature and
 its (B, T, H, hd) layout, and extends it with grouped-query attention: k and
@@ -17,6 +19,16 @@ decode tile; f32 inputs and other bf16 inputs run the FMA kernel.
 ``flash_attention.variant_launches`` each variant's.  The decode tile splits
 the kv tiles over blocks (``decode_split``) and merges the partial softmax
 sums in the same launch; ``combine_partials`` is that merge in plain PyTorch.
+
+Under autograd (CUDA tensors that need a gradient) ``flash_attention`` runs
+``FlashAttentionFunction``: its forward launches the kernel with the rows'
+log-sum-exp (never on the decode tile), its backward ``flash_attention_bwd``,
+which launches the backward kernels (``BWD_VARIANTS``: bf16 rows that take
+16-byte copies on the tensor cores, the rest on FMA kernels) and counts one
+launch a call in ``flash_attention_bwd.launches`` and
+``.variant_launches``.  Their plain versions are ``flash_attention_lse_plain``
+and ``flash_attention_bwd_plain``.  On CPU tensors autograd runs through
+``flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from repro_torch.kernels.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
 VARIANTS = ("fma", "tc_prefill", "tc_decode")   # the C entry's variant codes 0, 1, 2
+BWD_VARIANTS = ("fma", "tc")                    # the backward entry's codes 0, 1
 DECODE_ROWS = 16     # rows of the decode tile: (H / Hkv) * Tq query rows packed
 KV_TILE = 64         # keys per kv tile of the tensor-core kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +55,65 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _keep_mask(tq: int, tk: int, causal: bool, window: int, device):
+    """(Tq, Tk) bool: the (query, key) pairs the masks keep."""
+    qpos = torch.arange(tq, device=device)[:, None]
+    kpos = torch.arange(tk, device=device)[None, :]
+    keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= kpos <= qpos
+    if window > 0:
+        keep &= kpos > qpos - window
+    return keep
+
+
+def _scores(q, k, causal: bool, window: int):
+    """Scaled scores (B, H, Tq, Tk) in f32 over repeated KV heads, masked to
+    the finite -1e30, and the keep mask."""
+    rep = q.shape[2] // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(q.shape[-1])
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    return torch.where(keep, s, torch.full_like(s, -1e30)), keep
+
+
+def flash_attention_lse_plain(q, k, *, causal: bool = True, window: int = 0):
+    """Plain version of the forward's ``lse``: (B, H, Tq) f32, the
+    log-sum-exp in natural-log units of each row's scaled, masked scores (a
+    row that sees no key has -1e30 + log Tk, which is -1e30 in f32)."""
+    return torch.logsumexp(_scores(q, k, causal, window)[0], dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0):
+    """Plain version of the backward kernels, step by step in f32: P =
+    exp(S - lse) where the masks keep a pair, 1/Tk on every key of a row that
+    sees none (the forward's softmax over the finite -1e30), 0 elsewhere;
+    D = rowsum(dO o O) from O as stored; dV = P^T dO, dP = dO V^T, dS = P o
+    (dP - D) on kept pairs (0 elsewhere), dQ = dS K / sqrt(hd), dK = dS^T Q /
+    sqrt(hd), the query heads of each KV head summed.  Returns (dq, dk, dv)
+    in q's, k's and v's dtypes."""
+    b, tq, h, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    s, keep = _scores(q, k, causal, window)
+    dead = ~keep.any(-1)[:, None]                                  # (Tq, 1)
+    p = torch.where(keep, torch.exp(s - lse[..., None]),
+                    torch.where(dead, 1.0 / tk, 0.0).to(s.dtype))
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)              # (B, H, Tq)
+    kr = torch.repeat_interleave(k, rep, dim=2).float()
+    vr = torch.repeat_interleave(v, rep, dim=2).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = torch.where(keep, p * (dp - delta[..., None]), torch.zeros_like(p))
+    scale = 1.0 / math.sqrt(hd)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dk = dk.view(b, tk, hkv, rep, hd).sum(3)
+    dv = dv.view(b, tk, hkv, rep, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def combine_partials(m, l, acc):
@@ -66,13 +138,7 @@ def attention_partials(q, k, v, bounds, *, causal: bool = True, window: int = 0)
     v = torch.repeat_interleave(v, rep, dim=2).float()
     tq, hd = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k) / math.sqrt(hd)
-    qpos = torch.arange(tq)[:, None, None]        # (Tq, 1, Tk) against (B, Tq, H, Tk)
-    kpos = torch.arange(k.shape[1])[None, None, :]
-    keep = torch.ones((tq, 1, k.shape[1]), dtype=torch.bool)
-    if causal:
-        keep &= kpos <= qpos
-    if window > 0:
-        keep &= kpos > qpos - window
+    keep = _keep_mask(tq, k.shape[1], causal, window, s.device)[:, None, :]   # (Tq, 1, Tk)
     s = torch.where(keep, s, torch.full_like(s, -1e30))
     ms, ls, accs = [], [], []
     for lo, hi in bounds:
@@ -94,17 +160,28 @@ def _rows_take_async_copies(t) -> bool:
     return all(t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
 
 
-def flash_variant(q, k, v) -> str:
+def flash_variant(q, k, v, *, want_lse: bool = False) -> str:
     """The kernel variant ``flash_attention`` launches for these inputs:
     bf16 q, k, v whose rows take 16-byte async copies run on the tensor
     cores, in the packed decode tile when (H / Hkv) * Tq <= 16 query rows
-    fit in one m16 tile, else in the prefill tile; everything else (f32, a
-    d-stride other than 1, a misaligned row) runs the FMA kernel."""
+    fit in one m16 tile and no ``lse`` is wanted, else in the prefill tile;
+    everything else (f32, a d-stride other than 1, a misaligned row) runs
+    the FMA kernel."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or \
             not all(_rows_take_async_copies(t) for t in (q, k, v)):
         return "fma"
     rep = q.shape[2] // k.shape[2]
-    return "tc_decode" if rep * q.shape[1] <= DECODE_ROWS else "tc_prefill"
+    return "tc_decode" if rep * q.shape[1] <= DECODE_ROWS and not want_lse else "tc_prefill"
+
+
+def flash_bwd_variant(q, k, v, o, do) -> str:
+    """The backward kernels ``flash_attention_bwd`` launches: ``tc`` when q,
+    k, v, o and dO are bf16 rows that take 16-byte async copies, else
+    ``fma``."""
+    ts = (q, k, v, o, do)
+    if all(t.dtype == torch.bfloat16 for t in ts) and all(map(_rows_take_async_copies, ts)):
+        return "tc"
+    return "fma"
 
 
 def decode_split(b: int, hkv: int, n_tiles: int, n_sm: int):
@@ -137,15 +214,11 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Tq, H, hd); k, v: (B, Tk, Hkv, hd), any strides.
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
 
-    Returns (B, Tq, H, hd) in q's dtype.  Causal masking is aligned top-left
-    (query i sees keys j <= i, as the TPU kernel's), so a decode step attends
-    with ``causal=False`` over the valid prefix of its cache."""
-    _check(q, k, v, window)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+def _check_cuda(q, k, v) -> None:
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"flash_attention needs q, k, v on one CUDA device "
                          f"(or all on the CPU); got {q.device}, {k.device}, "
@@ -158,15 +231,54 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, Tq, H, hd); k, v: (B, Tk, Hkv, hd), any strides.
+
+    Returns (B, Tq, H, hd) in q's dtype.  Causal masking is aligned top-left
+    (query i sees keys j <= i, as the TPU kernel's), so a decode step attends
+    with ``causal=False`` over the valid prefix of its cache.  Differentiable:
+    on CUDA tensors that need a gradient it runs ``FlashAttentionFunction``."""
+    _check(q, k, v, window)
+    if _on_cpu(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    _check_cuda(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "the flash-attention backward kernel is not ported yet "
-            "(ROADMAP.md Queue 1 item 2b, flash-attention backward kernel + "
-            "Llama training)")
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, want_lse=False)[0]
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its gradient on the card: the forward kernel
+    writes each row's log-sum-exp beside the output, and the backward
+    kernels recompute P from it (nothing of size Tq x Tk is kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _forward(q, k, v, causal, window, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None):
+    """Launch the forward kernel, through the variant ``flash_variant`` picks
+    or, for a test, ``variant`` forced; returns (out, lse or None), lse (B,
+    H, Tq) f32 when ``want_lse``."""
+    b, tq, h, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    variant = flash_variant(q, k, v)
+    variant = variant or flash_variant(q, k, v, want_lse=want_lse)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if want_lse else None
     strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(), *v.stride(),
                                     *out.stride())
     n_split, per, ws, counters = 1, 1, None, None
@@ -182,8 +294,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                 counters = _split_counters(q.device, stream, b * hkv)
         fn = _entry or _bind()
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, tq, tk, h, hkv, hd, strides, int(causal),
-                 int(window), 1.0 / math.sqrt(hd), VARIANTS.index(variant), n_split, per,
+                 None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], b, tq, tk,
+                 h, hkv, hd, strides, int(causal), int(window), 1.0 / math.sqrt(hd),
+                 VARIANTS.index(variant), n_split, per,
                  None if ws is None else ws.data_ptr(),
                  None if counters is None else counters.data_ptr(), stream.cuda_stream)
     if err != 0:
@@ -191,13 +304,69 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                            f"CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` at its output
+    ``o`` and the forward's ``lse`` (B, H, Tq), for the output gradient
+    ``do`` (B, Tq, H, hd); in the inputs' dtypes.  On CUDA tensors it
+    launches the backward kernels (or raises); on CPU tensors it takes the
+    plain version ``flash_attention_bwd_plain``."""
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must have q's "
+                         f"shape {tuple(q.shape)}")
+    b, tq, h, hd = q.shape
+    if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 of shape {(b, h, tq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if _on_cpu(q, k, v, o, do, lse):
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal, window=window)
+    _check_cuda(q, k, v)
+    if not all(t.device == q.device for t in (o, do, lse)):
+        raise ValueError("flash_attention_bwd needs every tensor on q's device")
+    if not all(t.dtype == q.dtype for t in (k, v, o, do)):
+        raise TypeError(f"flash_attention_bwd takes q, k, v, o, dO of one dtype; got "
+                        f"{[t.dtype for t in (q, k, v, o, do)]}")
+    return _launch_bwd(q, k, v, o, do, lse, causal, window, flash_bwd_variant(q, k, v, o, do))
+
+
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: int, variant: str):
+    """Launch the backward kernels of ``variant`` (a test may force ``fma``
+    on inputs that ``tc`` takes); returns (dq, dk, dv)."""
+    b, tq, h, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    lse = lse.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 32)(*(s for t in (q, k, v, o, do, dq, dk, dv)
+                                      for s in t.stride()))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device)
+        fn = _bwd_entry or _bind_bwd()
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 delta.data_ptr(), _DTYPE_CODE[q.dtype], b, tq, tk, h, hkv, hd, strides,
+                 int(causal), int(window), 1.0 / math.sqrt(hd), BWD_VARIANTS.index(variant),
+                 stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed ({variant}): "
+                           f"CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[variant] += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
-_entry = None   # the bound C entry point, once the library is built and loaded
+_entry = None   # the bound C entry points, once the library is built and loaded
+_bwd_entry = None
 # (device index, stream) -> int32 arrival counts of the split decode tile:
 # zeroed once, and set back to 0 by the kernel's last block of each (b, hkv)
 _counters = {}
@@ -226,8 +395,19 @@ def _bind():
     global _entry
     fn = build.load("flash_attention").repro_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
                       ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     _entry = fn
+    return fn
+
+
+def _bind_bwd():
+    global _bwd_entry
+    fn = build.load("flash_attention").repro_flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    _bwd_entry = fn
     return fn

@@ -9,7 +9,12 @@ tree, on the card:
   bf16);
 - the ``chunked`` WKV kernel's ring depth (``csrc/wkv6.cu``,
   ``launch_chunked<T, 64, NS>``) at RWKV6-7B's prefill (B 4, T 512, H 64,
-  hd 64), bf16 and f32 r, k, v.
+  hd 64), bf16 and f32 r, k, v;
+- the flash backward's tensor-core kernels (``csrc/flash_attention.cu``,
+  ``launch_tc_bwd_kv<64, BQ, MIN_BLOCKS>`` and ``launch_tc_bwd_q<64, BKC,
+  MIN_BLOCKS>``: query rows a tile of the dK/dV kernel, keys a tile of the
+  dQ kernel, and the blocks an SM their registers are capped for) at
+  Llama-3.2-1B's training shape (B 4, T 2048, H 32/8, hd 64, causal, bf16).
 
 A harness that ``#include``s each source instantiates the other shapes, so
 the tree keeps one tile; it is built with the kernels' own nvcc flags into
@@ -28,6 +33,7 @@ import subprocess
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import wkv6 as wk
 
@@ -35,6 +41,42 @@ LSTM_TILES = [(32, 4, 64), (32, 3, 64), (32, 5, 64), (32, 6, 32), (16, 4, 64), (
               (16, 8, 32), (64, 3, 64), (64, 4, 64), (64, 5, 64), (64, 6, 32), (64, 8, 32),
               (64, 2, 128), (32, 3, 128)]
 WKV_STAGES = [2, 3, 4, 6]
+FLASH_BWD_KV = [(32, 4), (32, 3), (32, 5), (48, 4), (16, 5), (64, 1)]   # (BQ, MIN_BLOCKS)
+FLASH_BWD_Q = [(64, 4), (64, 3), (64, 5), (48, 4), (32, 4), (64, 1)]    # (BKC, MIN_BLOCKS)
+
+
+def _flash_harness() -> str:
+    kv_cases = "\n".join(f"    case {i}: return launch_tc_bwd_kv<64, {bq}, {mb}>(p, s);"
+                         for i, (bq, mb) in enumerate(FLASH_BWD_KV))
+    q_cases = "\n".join(f"    case {100 + i}: return launch_tc_bwd_q<64, {bk}, {mb}>(p, s);"
+                        for i, (bk, mb) in enumerate(FLASH_BWD_Q))
+    return f'''
+namespace flash {{
+#include "{build.CSRC / 'flash_attention.cu'}"
+// causal, no window, contiguous (B, T, H, 64) q, o, dO, dq and (B, T, Hkv, 64)
+// k, v, dk, dv; lse and delta (B, H, T) as the tree's entry wrote them
+extern "C" int tune_flash_bwd(int cfg, const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, const float* lse, void* dq,
+                              void* dk, void* dv, float* delta, int B, int T, int H, int Hkv,
+                              void* stream) {{
+  BwdParams p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.dq = dq; p.dk = dk; p.dv = dv;
+  p.lse = lse; p.delta = delta;
+  const Strides sh{{int64_t(T) * H * 64, int64_t(H) * 64, 64, 1}};
+  const Strides skv{{int64_t(T) * Hkv * 64, int64_t(Hkv) * 64, 64, 1}};
+  p.sq = p.so = p.sdo = p.sdq = sh;
+  p.sk = p.sv = p.sdk = p.sdv = skv;
+  p.B = B; p.Tq = T; p.Tk = T; p.H = H; p.Hkv = Hkv;
+  p.causal = 1; p.window = 0; p.dead_lo = T; p.sm_scale = 0.125f;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cfg) {{
+{kv_cases}
+{q_cases}
+    default: return -1;
+  }}
+}}
+}}  // namespace flash
+'''
 
 
 def _harness() -> str:
@@ -83,7 +125,7 @@ extern "C" int tune_wkv(int cfg, const void* r, const void* k, const void* v, co
   }}
 }}
 }}  // namespace wkv
-'''
+''' + _flash_harness()
 
 
 def _load() -> ctypes.CDLL:
@@ -98,9 +140,14 @@ def _load() -> ctypes.CDLL:
         raise RuntimeError(f"tuning harness build failed:\n{proc.stdout}")
     dll = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.tune_lstm.restype = dll.tune_wkv.restype = i32
+    dll.tune_lstm.restype = dll.tune_wkv.restype = dll.tune_flash_bwd.restype = i32
     dll.tune_lstm.argtypes = [i32] + [vp] * 9 + [i32] * 4 + [vp]
     dll.tune_wkv.argtypes = [i32] + [vp] * 7 + [i32] * 3 + [vp]
+    dll.tune_flash_bwd.argtypes = [i32] + [vp] * 10 + [i32] * 4 + [vp]
+    dll.repro_flash_attention_bwd.restype = i32
+    dll.repro_flash_attention_bwd.argtypes = ([vp] * 10 + [i32] * 7
+                                              + [ctypes.POINTER(ctypes.c_int64), i32, i32,
+                                                 ctypes.c_float, i32, vp])
     return dll
 
 
@@ -190,6 +237,47 @@ def tune_wkv(dll, stream):
                                                                 "chunked"))}), flush=True)
 
 
+def tune_flash_bwd(dll, stream):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, t, h, hkv = 4, 2048, 32, 8
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, do = rnd(b, t, h, 64), rnd(b, t, h, 64)
+    k, v = rnd(b, t, hkv, 64), rnd(b, t, hkv, 64)
+    out, lse = fa._forward(q, k, v, True, 0, want_lse=True)
+    want = [torch.empty_like(x) for x in (q, k, v)]
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    delta = torch.empty((b, h, t), device="cuda")
+    ptrs = [x.data_ptr() for x in (q, k, v, out, do, lse)]
+    strides = (ctypes.c_int64 * 32)(*(s for x in (q, k, v, out, do, *want) for s in x.stride()))
+
+    def tree():   # the tree's three kernels through this harness's copy of the entry
+        return dll.repro_flash_attention_bwd(*ptrs, *(x.data_ptr() for x in want),
+                                             delta.data_ptr(), 1, b, t, t, h, hkv, 64, strides,
+                                             1, 0, 0.125, 1, stream)
+
+    if tree() != 0:
+        raise RuntimeError("the tree's flash backward failed in the harness")
+    torch.cuda.synchronize()
+    for cfg, kernel, tiles, outs in (
+            [(i, "flash_attention_bwd tc dK/dV", {"query_rows_a_tile": bq, "min_blocks": mb},
+              (1, 2)) for i, (bq, mb) in enumerate(FLASH_BWD_KV)]
+            + [(100 + i, "flash_attention_bwd tc dQ", {"keys_a_tile": bk, "min_blocks": mb},
+                (0,)) for i, (bk, mb) in enumerate(FLASH_BWD_Q)]):
+        def call(cfg=cfg):
+            return dll.tune_flash_bwd(cfg, *ptrs, *(x.data_ptr() for x in grads),
+                                      delta.data_ptr(), b, t, h, hkv, stream)
+
+        err = call()
+        torch.cuda.synchronize()
+        same = err == 0 and all(torch.equal(grads[i], want[i]) for i in outs)
+        print(json.dumps({"kernel": kernel, **tiles, "same_bits_as_tree": same,
+                          "ms": [_ms(call) for _ in range(3)], "tree_bwd_ms": _ms(tree)}),
+              flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("tune: needs a CUDA card")
@@ -199,6 +287,7 @@ def main():
                          capture_output=True, text=True, check=False).stdout.strip(), flush=True)
     tune_lstm(dll, stream)
     tune_wkv(dll, stream)
+    tune_flash_bwd(dll, stream)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Training launcher (single-process port of ``repro/launch/train.py``):
 
     python -m repro_torch.launch.train --arch biglstm --steps 5
+    python -m repro_torch.launch.train --arch llama3_2_1b --batch 4 --seq 2048 --steps 5
     python -m repro_torch.launch.train --arch biglstm --reduced --device cpu --steps 3
     python -m repro_torch.launch.train --arch biglstm --parallel dp=1,mp=1,accum=2
 
@@ -9,14 +10,14 @@ symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
 with the global-norm clip at 1.0, from a seeded init, and prints the JAX
 launcher's ``[data]`` and ``[done]`` lines, then the launch count of each
 kernel (``[kernels]``; zero on the CPU, where the plain twins run) and of
-each variant of the LSTM forward (``[variants]``: FMA, tensor cores).  Runs
-on the card by default; ``--device cpu --reduced`` is the CPU smoke run.
-``--parallel`` takes only ``dp=1,mp=1`` with an optional ``accum=N`` (the
-§4.2 delayed-gradient accumulation); every other spec raises
-NotImplementedError naming its ROADMAP item.  On the card only BigLSTM
-trains: the dense decoder needs the flash-attention backward kernel, an MoE
-decoder the gmm backward too, and RWKV a wkv backward.  On the CPU every
-decoder trains through the kernels' plain versions.
+each variant of the LSTM forward and of the flash-attention forward and
+backward (``[variants]``).  Runs on the card by default; ``--device cpu
+--reduced`` is the CPU smoke run.  ``--parallel`` takes only ``dp=1,mp=1``
+with an optional ``accum=N`` (the §4.2 delayed-gradient accumulation);
+every other spec raises NotImplementedError naming its ROADMAP item.  On the
+card BigLSTM and the dense decoder train; an MoE decoder needs the gmm
+backward kernel and RWKV a wkv backward.  On the CPU every decoder trains
+through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -40,8 +41,6 @@ SPEC_ITEMS = {"dp": "ROADMAP.md Queue 1 item 5 (data parallelism)",
               "pipe": "ROADMAP.md Queue 1 item 6 (pipeline runtime)",
               "mp": "ROADMAP.md Queue 1 item 7 (tensor MP)",
               "cp": "ROADMAP.md Queue 1 item 8 (context parallelism)"}
-FLASH_BWD = ("ROADMAP.md Queue 1 item 2b (flash-attention backward kernel + "
-             "Llama training)")
 
 
 def parse_parallel(spec: str) -> int:
@@ -66,10 +65,10 @@ def parse_parallel(spec: str) -> int:
 
 
 def check_trainable(cfg, device: torch.device) -> None:
-    """On the card only the LSTM family trains: the decoder's attention, the
-    MoE layer's grouped matmuls and the RWKV recurrence have no backward
-    kernels yet."""
-    if device.type != "cuda" or cfg.family == "rnn":
+    """On the card the LSTM family and the dense decoder train; the MoE
+    layer's grouped matmuls and the RWKV recurrence have no backward kernels
+    yet."""
+    if device.type != "cuda":
         return
     if cfg.rwkv:
         raise NotImplementedError(
@@ -79,9 +78,6 @@ def check_trainable(cfg, device: torch.device) -> None:
         raise NotImplementedError(
             f"training {cfg.name} on the card needs the gmm backward kernel, not "
             f"ported yet: {moe_gmm.MOE_TRAIN}")
-    raise NotImplementedError(
-        f"training {cfg.name} on the card needs the flash-attention backward "
-        f"kernel, not ported yet: {FLASH_BWD}")
 
 
 def main(argv=None):
@@ -123,10 +119,12 @@ def main(argv=None):
           f"(floor {data.entropy:.4f})")
     print(f"[kernels] lstm_cell_fwd={lc.lstm_cell_fwd.launches} "
           f"lstm_cell_bwd_pointwise={lc.lstm_cell_bwd_pointwise.launches} "
-          f"flash_attention={fa.flash_attention.launches} gmm={moe_gmm.gmm.launches} "
-          f"wkv6={wk.wkv6.launches}")
-    print("[variants] lstm_cell_fwd: " + " ".join(
-        f"{v}={n}" for v, n in lc.lstm_cell_fwd.variant_launches.items()))
+          f"flash_attention={fa.flash_attention.launches} "
+          f"flash_attention_bwd={fa.flash_attention_bwd.launches} "
+          f"gmm={moe_gmm.gmm.launches} wkv6={wk.wkv6.launches}")
+    print("[variants] " + " | ".join(
+        f"{fn.__name__}: " + " ".join(f"{v}={n}" for v, n in fn.variant_launches.items())
+        for fn in (lc.lstm_cell_fwd, fa.flash_attention, fa.flash_attention_bwd)))
     return summary
 
 

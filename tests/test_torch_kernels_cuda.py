@@ -1,9 +1,9 @@
-"""The CUDA kernels (flash attention, the LSTM cell's forward and pointwise
-backward, the grouped matmul, the RWKV6 WKV recurrence) against their plain
-versions on the card; for flash attention, the grouped matmul, the LSTM
-forward (FMA, tensor-core ``tc``) and the WKV recurrence (``scan``,
-``chunked``), each of their variants, asserting which variant's launch
-counter moved.
+"""The CUDA kernels (flash attention's forward and backward, the LSTM cell's
+forward and pointwise backward, the grouped matmul, the RWKV6 WKV
+recurrence) against their plain versions on the card; for flash attention,
+the grouped matmul, the LSTM forward (FMA, tensor-core ``tc``) and the WKV
+recurrence (``scan``, ``chunked``), each of their variants, asserting which
+variant's launch counter moved.
 
 Needs a CUDA device and nvcc (the kernel has no CPU mode): every test here
 carries the ``cuda`` marker and skips without a card.  Run on the card with
@@ -11,7 +11,11 @@ carries the ``cuda`` marker and skips without a card.  Run on the card with
 imports no JAX, so it runs where only PyTorch is installed.  Tolerances are
 those of tests/test_kernels.py: 2e-5 at fp32, 2e-2 at bf16 (gmm: 1e-4 and
 5e-2, as test_gmm_sweep; wkv6: 2e-4 of max(1, the largest reference value),
-as test_wkv6_sweep).
+as test_wkv6_sweep).  The flash backward (no TPU kernel) is held at 1e-4 of
+max(1, the largest reference value) in f32, sums of up to 2048 terms taken
+in another order, and in bf16 by FlashAttention-2's rule: its error against
+the f32 plain version at most twice that of autograd through the plain
+forward in bf16, plus 1e-3 of the largest reference value.
 """
 import numpy as np
 import pytest
@@ -90,9 +94,14 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                             z(1, 4, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
         TFA.flash_attention(z(1, 4, 2, 64), z(1, 4, 2, 64).cpu(), z(1, 4, 2, 64))
-    with pytest.raises(NotImplementedError, match="backward"):
-        TFA.flash_attention(z(1, 4, 2, 64).requires_grad_(), z(1, 4, 2, 64),
-                            z(1, 4, 2, 64))
+    out = TFA.flash_attention(z(1, 4, 2, 64).requires_grad_(), z(1, 4, 2, 64), z(1, 4, 2, 64))
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    lse = torch.zeros((1, 2, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="lse"):
+        TFA.flash_attention_bwd(*(z(1, 4, 2, 64),) * 5, lse.double())
+    with pytest.raises(TypeError):
+        TFA.flash_attention_bwd(*(z(1, 4, 2, 64),) * 4, z(1, 4, 2, 64, dtype=torch.float32),
+                                lse)
 
 
 @pytest.mark.cuda
@@ -593,3 +602,122 @@ def test_wkv6_misaligned_prompt_takes_the_scan(cuda_device):
     torch.cuda.synchronize()
     assert _moved(TWK.wkv6, before) == {"scan": 1}
     assert _wkv_err(out, wkv6_ref(r, k, v, w, u)[0]) < WKV_TOL
+
+
+# the flash backward: B, Tq, Tk, H, Hkv, hd, causal, window.  T 1, 4, 17 and
+# 130, Tq != Tk both ways, hd 32 and 128, B 1, H = Hkv, windows (with rows
+# that see no key: Tq >= Tk + window), non-causal, and Granite's heads.  T 1
+# attends over 33 keys, as a decode step: causal over one key, dq and dk are
+# exactly 0 and the bf16 rule would admit no round-off at all.
+BWD_CASES = [(1, 1, 33, 2, 2, 64, False, 0), (2, 4, 4, 8, 2, 64, True, 0),
+             (2, 17, 17, 4, 2, 32, True, 0), (2, 130, 130, 8, 2, 128, True, 0),
+             (1, 100, 260, 4, 4, 64, False, 0), (2, 200, 70, 4, 1, 64, True, 0),
+             (1, 300, 300, 8, 2, 128, True, 64), (2, 90, 30, 4, 2, 64, False, 16),
+             (1, 150, 40, 4, 2, 32, True, 8), (2, 256, 256, 16, 8, 64, True, 0)]
+BWD_F32_TOL = 1e-4
+
+
+def _bwd_inputs(seed, b, tq, tk, h, hkv, hd, device, dtype):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, tq, h, hd), (b, tk, hkv, hd), (b, tk, hkv, hd), (b, tq, h, hd))
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dtype)
+            for s in shapes]
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _bf16_within(got, base, oracle):
+    """FlashAttention-2's rule: the error against the f32 oracle at most twice
+    that of the bf16 baseline, plus 1e-3 of the oracle's largest value."""
+    err = float((got.float() - oracle).abs().max())
+    return err <= 2 * float((base.float() - oracle).abs().max()) + 1e-3 * float(oracle.abs().max())
+
+
+def _autograd_of_ref(q, k, v, do, causal, window):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = TFA.flash_attention_ref(*leaves, causal=causal, window=window)
+    return torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,hkv,hd,causal,window", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_on_card(cuda_device, dtype, b, tq, tk, h, hkv, hd,
+                                                causal, window):
+    """lse against its plain value, out the same bits with and without lse,
+    the backward kernels against their plain version (each variant that
+    takes the inputs) and the same bits on a repeat launch."""
+    q, k, v, do = _bwd_inputs(tq * 7 + tk + window, b, tq, tk, h, hkv, hd, cuda_device, dtype)
+    kw = dict(causal=causal, window=window)
+    fwd_variant = TFA.flash_variant(q, k, v, want_lse=True)
+    assert fwd_variant != "tc_decode"
+    out, lse = TFA._forward(q, k, v, causal, window, want_lse=True)
+    out_plain, none = TFA._forward(q, k, v, causal, window, want_lse=False, variant=fwd_variant)
+    assert none is None and torch.equal(out, out_plain)
+    want_lse = TFA.flash_attention_lse_plain(q, k, **kw)
+    dead = want_lse < -1e29
+    assert torch.equal(lse < -1e29, dead)
+    assert _rel(lse[~dead], want_lse[~dead]) < BWD_F32_TOL
+
+    oracle = TFA.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(),
+                                           do.float(), lse, **kw)
+    base = _autograd_of_ref(q, k, v, do, causal, window)
+    picked = TFA.flash_bwd_variant(q, k, v, out, do)
+    assert picked == ("tc" if dtype == torch.bfloat16 else "fma")
+    for variant in (picked, "fma") if picked == "tc" else (picked,):
+        before = dict(TFA.flash_attention_bwd.variant_launches)
+        grads = TFA._launch_bwd(q, k, v, out, do, lse, causal, window, variant)
+        again = TFA._launch_bwd(q, k, v, out, do, lse, causal, window, variant)
+        torch.cuda.synchronize()
+        assert _moved(TFA.flash_attention_bwd, before) == {variant: 2}
+        for name, g, g2, w, bse in zip(("dq", "dk", "dv"), grads, again, oracle, base):
+            assert g.dtype == dtype and torch.isfinite(g).all(), (variant, name)
+            assert torch.equal(g, g2), (variant, name)          # deterministic
+            if dtype == torch.float32:
+                assert _rel(g, w) < BWD_F32_TOL, (variant, name)
+            else:
+                assert _bf16_within(g, bse, w), (variant, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,causal", [(1, 33, False), (2, 2, True), (3, 3, True),
+                                          (4, 4, True), (4, 40, False), (70, 70, True)])
+def test_flash_attention_function_grads_match_autograd_of_plain(cuda_device, dtype, tq, tk,
+                                                                causal):
+    """Under autograd ``flash_attention`` runs the forward with lse (never the
+    decode tile, though rep * Tq <= 16 for T 1-4) and the backward kernels;
+    its gradients against autograd of the plain forward.  T 1 attends over
+    33 keys, as a decode step (see BWD_CASES)."""
+    q, k, v, do = _bwd_inputs(tq + tk, 2, tq, tk, 8, 2, 64, cuda_device, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd_before = dict(TFA.flash_attention.variant_launches)
+    bwd_before = dict(TFA.flash_attention_bwd.variant_launches)
+    out = TFA.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    bf = dtype == torch.bfloat16
+    assert _moved(TFA.flash_attention, fwd_before) == {"tc_prefill" if bf else "fma": 1}
+    assert _moved(TFA.flash_attention_bwd, bwd_before) == {"tc" if bf else "fma": 1}
+    oracle = _autograd_of_ref(q.float(), k.float(), v.float(), do.float(), causal, 0)
+    base = _autograd_of_ref(q, k, v, do, causal, 0)
+    for g, w, bse in zip(got, oracle, base):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _bf16_within(g, bse, w) if bf else _rel(g, w) < BWD_F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(4, 2048), (1, 8192)])
+def test_flash_long_prompts_match_plain_on_card(cuda_device, b, t):
+    """The bf16 prefill tile over long prompts (causal, Llama's 32 query heads
+    over 8 KV heads), at the bf16 tolerance."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(t, b, t, t, 32, 8, 64))
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _moved(TFA.flash_attention, before) == {"tc_prefill": 1}
+    ref = TFA.flash_attention_ref(q, k, v, causal=True)
+    assert float((out.float() - ref.float()).abs().max()) < BF16_TOL
