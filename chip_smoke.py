@@ -98,6 +98,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -119,12 +120,23 @@ BWD_F32_TOL = 1e-4    # f32 backward: sums of up to 2048 terms in another order
 # Tq != Tk both ways, hd 32 and 128, B 1, H = Hkv, windows with rows that see
 # no key, non-causal).  T 1 attends over 33 keys, as a decode step: under the
 # causal mask a single query sees one key, its dq and dk are exactly 0, and
-# the bf16 rule would admit no round-off at all.
+# the bf16 rule would admit no round-off at all.  Then the edges of the bf16
+# kernels' tiles (64 rows a warpgroup, blocks of 128 keys or query rows,
+# streamed tiles of 64): T 63, 65, 127, 129, 191 causal and not, Tq != Tk
+# with the diagonal off a tile edge, hd 128 with rep 8, grids of 2–16 blocks.
 FLASH_BWD_EDGE = [(1, 1, 33, 2, 2, 64, False, 0), (2, 4, 4, 8, 2, 64, True, 0),
                   (2, 17, 17, 4, 2, 32, True, 0), (2, 130, 130, 8, 2, 128, True, 0),
                   (1, 100, 260, 4, 4, 64, False, 0), (2, 200, 70, 4, 1, 64, True, 0),
                   (1, 300, 300, 8, 2, 128, True, 64), (2, 90, 30, 4, 2, 64, False, 16),
-                  (1, 150, 40, 4, 2, 32, True, 8)]
+                  (1, 150, 40, 4, 2, 32, True, 8),
+                  (1, 63, 63, 4, 2, 64, True, 0), (1, 63, 63, 4, 2, 64, False, 0),
+                  (2, 65, 65, 4, 1, 64, True, 0), (2, 65, 65, 4, 1, 64, False, 0),
+                  (1, 127, 127, 8, 2, 32, True, 0), (1, 127, 127, 8, 2, 32, False, 0),
+                  (1, 129, 129, 4, 2, 128, True, 0), (1, 129, 129, 4, 2, 128, False, 0),
+                  (1, 191, 191, 4, 2, 64, True, 0), (1, 191, 191, 4, 2, 64, False, 0),
+                  (1, 191, 129, 4, 2, 64, True, 0), (1, 129, 191, 4, 2, 64, True, 0),
+                  (1, 200, 200, 16, 2, 128, True, 0), (1, 256, 256, 2, 1, 64, True, 0),
+                  (1, 2048, 2048, 1, 1, 64, True, 0)]
 LSTM_FULL = (TRAIN_B, 1024, 1024, 8192)         # B, d_in, d_h, H of BigLSTM's cell
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # tests/test_kernels.py::test_gmm_sweep
 # G, C, d, F of full-width Granite-3.0-1B-A400M's expert products: 32 experts,
@@ -149,6 +161,8 @@ WKV_LONG = [(2048, "near1", torch.bfloat16), (8192, "near1", torch.float32),
 # profile saw.  A single profile may see fewer: torch.profiler drops events
 # now and then, never adds them.
 PR14_DECODE_KERNELS = {"llama3.2-1b": 1262, "granite-moe-1b-a400m": 3254, "rwkv6-7b": 2955}
+# the kernels of csrc/*.cu, by their function names in a profiler's kernel names
+OWN_KERNEL = re.compile(r"\b((?:flash|gmm|lstm|wkv6)\w*_kernel)\b")
 
 
 def _phase(name):
@@ -392,6 +406,12 @@ def check_flash_bwd(fa, case, q, k, v, do, *, causal, window=0, timed=False):
                               "enable_gqa=True)")
             time_into(row, "forward_with_lse_ms", lambda: fa._forward(
                 q, k, v, causal, window, want_lse=True))
+            qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))
+            time_into(row, "forward_library_ms", lambda: torch.nn.functional.
+                      scaled_dot_product_attention(qf, kf, vf, is_causal=causal,
+                                                   enable_gqa=True))
+            row["forward_bound_ms"], row["forward_bound_by"] = attention_bound_ms(
+                q, k, v, causal, window)
             row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(q, k, v, causal, window)
             del sdpa
         print(json.dumps(row), flush=True)
@@ -858,7 +878,8 @@ def profile_call(name, fn, reps=3):
     """Where one call spends its time: wall time on the host clock (ending in
     a synchronize) unprofiled over ``reps`` calls and profiled over one,
     device busy time as the sum of the CUDA kernels the profiler saw, the
-    idle share against the unprofiled wall time, and the top kernels."""
+    idle share against the unprofiled wall time, the top kernels, and the
+    ms of each kernel of csrc/*.cu (summed over its template instances)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -880,9 +901,15 @@ def profile_call(name, fn, reps=3):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    own = {}
+    for n, ms in by_name.items():
+        m = OWN_KERNEL.search(n)
+        if m:
+            own[m.group(1)] = own.get(m.group(1), 0.0) + ms
     out = {"profile": name, "unprofiled_wall_ms": unprofiled_ms, "wall_ms": wall_ms,
            "device_busy_ms": busy, "idle_share": 1 - busy / unprofiled_ms,
-           "kernels": len(kern), "top": [[n[:80], ms] for n, ms in top]}
+           "kernels": len(kern), "top": [[n[:80], ms] for n, ms in top],
+           "own_kernels_ms": own}
     print(json.dumps(out), flush=True)
     return out
 
@@ -1240,7 +1267,8 @@ def main():
     print(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in libs:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "Performance Loss" in line):
                 print(f"  {name}: {line.strip()}")
 
     _phase("3 kernels against their plain versions")

@@ -89,27 +89,58 @@
 // average under the -1e30 mask, which autograd of the plain version gives).
 // Three kernels, each output written by one block in a fixed order, so two
 // launches on the same inputs give the same bits (no atomics):
-// (a) D, one warp a row; (b) dK and dV, one block per (b, hkv, key tile of
-// 64), which walks the H / Hkv query heads of its KV head and their query
-// tiles from the causal diagonal on, so GQA's sum over heads stays in
-// registers; the key tiles launch first to last, the first seeing the most
-// rows under the causal mask; (c) dQ, one block per (b, h, query tile),
-// the last (heaviest) first.  S and dP are computed twice, once in (b) and
+// (a) D, one warp a row (hd / 8 threads a row on the bf16 path); (b) dK
+// and dV, one block per (b, hkv, key tile of 64), which walks the H / Hkv
+// query heads of its KV head and their query tiles from the causal
+// diagonal on, so GQA's sum over heads stays in registers; the key tiles
+// launch first to last, the first seeing the most rows under the causal
+// mask; (c) dQ, one block per (b, h, query tile), the last (heaviest)
+// first.  S and dP are computed twice, once in (b) and
 // once in (c): seven products of 2 hd FLOPs a kept pair instead of five,
-// the price of no atomics.  The bf16 variant runs every product on
-// mma.sync m16n8k16 from ldmatrix (.trans for the P B products), P and dS
-// rounded to bf16 as operands and the sums in f32, K and V (or Q and dO)
-// resident in shared memory and the other pair streaming through a 2-stage
-// cp.async ring (tiles: `BwdTiles`).  f32 inputs, and bf16 rows that cannot take 16-byte copies,
-// run FMA kernels over tiles staged as f32.
+// the price of no atomics.  f32 inputs, and bf16 rows that cannot take
+// 16-byte copies, run FMA kernels over tiles staged as f32.
+//
+// The bf16 variant runs every product on wgmma (Hopper's warpgroup MMA),
+// FlashAttention-3's arrangement.  A block is one warpgroup (the tiles are
+// `WgBwdTiles`, templates timed by kernels/tune.py); it owns 64 keys in (b)
+// and 64 query rows in (c), keeps K and V (or Q and dO) in shared memory,
+// and streams Q and dO (or K and V) in tiles of 64 rows through a ring of
+// 3-4 stages filled by TMA from one thread, each stage an mbarrier; lse and
+// D come by 4-byte cp.async.  Every tile sits in the 128-byte-swizzled
+// layout wgmma reads either way: K-major as the B of S^T = K Q^T and dP^T =
+// V dO^T (both operands from shared memory), MN-major as the B of dV +=
+// P^T dO and dK += dS^T Q, whose A is P and dS rounded to bf16 straight
+// from the accumulator registers.  So each streamed tile is read from
+// shared memory once a warpgroup for each product, and no product goes
+// through ldmatrix.  (c) splits dS into a bf16 high part and the bf16 rest
+// and runs dQ = hi K + lo K: a row's dS sums to 0, and that cancellation
+// magnified a single bf16 rounding of dS past FlashAttention-2's error rule
+// on small rows.  The walk is software-pipelined: once P and dS of a tile
+// are packed, the products of the next tile are issued with the dK, dV (or
+// dQ) products of this one, and the block barrier, which frees a stage for
+// the next copy, and the copy itself run while they do.  Three things keep
+// ptxas from serializing the wgmmas: no branch around one that it cannot
+// prove uniform over the warpgroup (a warpgroup computes a fully masked
+// tile rather than skip it), no plain instruction writing a register that
+// an in-flight wgmma accumulates into (P and dS are packed, never written
+// back into S and dP; the accumulators are zeroed before the first issue),
+// and matrix descriptors built once and moved by an add.
 //
 // Bound of the backward at Llama-3.2-1B's training shape (bf16, B 4, T
 // 2048, H 32/8, hd 64, causal): 10 hd FLOPs a kept pair (five products),
 // 172 GFLOP, take 0.174 ms at 989 TFLOP/s; its ~170 MB (q, k, v, o, dO read
 // once, dq, dk, dv written once) take 0.05 ms at 3.35 TB/s.  It is bound by
-// operations, and the design spends them on the tensor cores; the two
-// recomputed products, mma.sync's ceiling and every warp loading the whole
-// query (or key) tile of its block through ldmatrix are what is left.
+// operations.  What is still left (PERF.md): the two recomputed products
+// and dQ's second (lo) product, nine products of the five's work; each
+// warpgroup runs its P and dS (32 exp2 a thread a tile) while its own
+// tensor work waits, so the overlap comes only from the 2 (b) or 3 (c)
+// blocks an SM that registers allow; the products are m64n64 and short
+// chains; five products need dQ summed across key tiles, by atomics (not
+// the same bits on a repeat launch) or an ordered sum; a producer warp with
+// setmaxnreg and two consumer warpgroups in ping-pong, as FlashAttention-3
+// does, would hide the exp2 and the barrier.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -743,6 +774,7 @@ struct BwdParams {
   int causal, window;
   int dead_lo;  // the first query row that sees no key (Tq when every row sees one)
   float sm_scale;
+  float inv_tk;  // 1 / Tk
 };
 
 // The masks of the forward for one (query, key) pair of the sequence.
@@ -757,7 +789,7 @@ __device__ __forceinline__ bool keeps(const BwdParams& p, int qpos, int kpos) {
 // (the forward's softmax over the finite -1e30 gives such a row uniform
 // weights), 0 elsewhere.
 __device__ __forceinline__ float dropped_p(const BwdParams& p, int qpos, int kpos) {
-  return qpos >= p.dead_lo && qpos < p.Tq && kpos < p.Tk ? 1.f / p.Tk : 0.f;
+  return qpos >= p.dead_lo && qpos < p.Tq && kpos < p.Tk ? p.inv_tk : 0.f;
 }
 
 // (a) D = rowsum(dO o O) in f32, from O as stored: one warp per (b, h, t) row.
@@ -776,6 +808,34 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(BwdParams p, 
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) p.delta[row] = sum;
+}
+
+// (a) for the bf16 tensor-core path, whose rows are 16-byte aligned with
+// d-stride 1: HD / 8 threads a row, 16 bytes of O and of dO each.
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta_tc_kernel(BwdParams p) {
+  constexpr int TPR = HD / 8, RPB = kThreads / TPR;  // threads a row, rows a block
+  const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.Tq;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * RPB + threadIdx.x / TPR;
+  float sum = 0.f;
+  if (row < rows) {
+    const int t = static_cast<int>(row % p.Tq), bh = static_cast<int>(row / p.Tq);
+    const int h = bh % p.H, b = bh / p.H, c = (threadIdx.x % TPR) * 8;
+    const uint4 o = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.o) + b * p.so.b +
+                                                    t * p.so.t + h * p.so.h + c);
+    const uint4 d = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.dout) +
+                                                    b * p.sdo.b + t * p.sdo.t + h * p.sdo.h + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), g = __bfloat1622float2(d2[i]);
+      sum = fmaf(a.x, g.x, fmaf(a.y, g.y, sum));
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && threadIdx.x % TPR == 0) p.delta[row] = sum;
 }
 
 // The query rows [q_lo, q_hi) whose P against the keys [k0, k0 + bk) can be
@@ -986,27 +1046,133 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_q_fma_kernel(BwdParams p) 
   }
 }
 
-// bf16 backward on the tensor cores.  Every product is a warp's m16 rows
-// against n8 tiles of rows staged in shared memory: mm_abt for A B^T (both
-// operands row-major over hd, by ldmatrix), pv_step for P B with P in the
-// accumulator layout, rounded to bf16 as the A fragment, and B by
-// ldmatrix.trans.
-constexpr int kTcBwdBK = 64;  // keys per block of the dK/dV kernel, 16 a warp
-constexpr int kTcBwdBQ = 64;  // query rows per block of the dQ kernel, 16 a warp
+// bf16 backward on wgmma.  Q, dO, K and V tiles live in shared memory in
+// the 128-byte-swizzled layout (mma_bf16.cuh) that wgmma reads both ways: a
+// tile of R rows is HS / 64 atoms of R rows x 64 columns (HS = hd, or 64 for
+// hd 32, whose columns past 32 are zero-filled and add nothing), the chunk
+// of 8 columns c of row r at chunk c ^ (r % 8) of its row.  Read K-major,
+// its rows are the M or N of a product over hd (S^T = K Q^T, S = Q K^T);
+// read MN-major, its rows are the contraction and hd the N (dV += P^T dO,
+// dK += dS^T Q, dQ += dS K).  So each streamed tile feeds two products and
+// is read once a warpgroup for each.
+constexpr int kWgRows = 64;  // rows of one warpgroup's wgmma tile (M)
+constexpr int kWgBwdBQ = 64;  // query rows a streamed tile of the dK/dV kernel
 
-// The tree's tiles: query rows a tile of the dK/dV kernel (kv_rows), keys
-// a tile of the dQ kernel (q_keys), and the blocks an SM each kernel's
-// registers are capped for.  Both kernels are templates over these, and
-// kernels/tune.py times other choices: at Llama-3.2-1B's training shape
-// (hd 64) a cap for 4 blocks an SM was faster for both kernels than none,
-// with 32 rows for dK/dV and 64 keys for dQ (times in PERF.md).  At hd 128
-// the tiles are 32 and uncapped: the dK and dV accumulators alone take 128
-// registers.
 template <int HD>
-struct BwdTiles {
-  static constexpr int kv_rows = 32, kv_min_blocks = HD == 128 ? 1 : 4;
-  static constexpr int q_keys = HD == 128 ? 32 : 64, q_min_blocks = HD == 128 ? 1 : 4;
-};
+__host__ __device__ constexpr int sw_cols() { return HD < 64 ? 64 : HD; }
+
+// Element offset of (r, c) in a swizzled tile of R rows; c a multiple of 8.
+__device__ __forceinline__ int sw_off(int r, int c, int R) {
+  return (c / 64) * R * 64 + r * 64 + ((((c % 64) / 8) ^ (r & 7)) * 8);
+}
+
+// Rows [r0, r0 + R) of one (b, head) of a bf16 (B, T, H, hd) tensor with
+// d-stride 1 into a swizzled tile of HS columns, by cp.async (the tiles a
+// block keeps; the streamed ones come by TMA); rows past `t_end` and
+// columns past HD are zero.  Each of the NT threads copies the same number
+// of 16-byte chunks, so the loop has a constant trip count.
+template <int HD, int R, int NT>
+__device__ __forceinline__ void load_sw(bf16* dst, const bf16* src, int64_t t_stride, int r0,
+                                        int t_end) {
+  constexpr int CH = sw_cols<HD>() / 8, N = R * CH / NT;
+  static_assert(R * CH % NT == 0, "every thread copies N chunks");
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int i = threadIdx.x + k * NT;
+    const int r = i / CH, c = (i % CH) * 8, t = r0 + r;
+    const bool ok = t < t_end && c < HD;
+    mma::cp_async16(dst + sw_off(r, c, R), ok ? src + t * t_stride + c : src, ok);
+  }
+}
+
+// Matrix descriptors are built once a kernel, at element 0 of a tile
+// (mma_bf16.cuh: sw128_desc), and moved by adding an element offset (a
+// multiple of 8) to the start-address field, in 16-byte units.
+__device__ __forceinline__ uint64_t desc_plus(uint64_t d, int elems) {
+  return d + static_cast<uint64_t>(elems >> 3);
+}
+// A tile of R rows read K-major (the LBO is unused): its descriptor at
+// element 0, and the offset of k-step j (hd columns 16 j .. 16 j + 15).
+__device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile) {
+  return mma::sw128_desc(tile, 16, 1024);
+}
+template <int R>
+__host__ __device__ constexpr int kstep_k(int j) { return (j / 4) * R * 64 + (j % 4) * 16; }
+// Read MN-major: N runs over its columns, 64-column atoms R * 128 bytes
+// apart; k-step j is rows 16 j .. 16 j + 15, at element offset 1024 j.
+template <int R>
+__device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile) {
+  return mma::sw128_desc(tile, R * 128, 1024);
+}
+
+// 2^x on the special-function unit (one instruction; ~2 ulp, denormal
+// results flushed to 0): P of the backward, rounded to bf16 for its products.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P and dS of n8 tile j of the dK/dV kernel's S^T and dP^T accumulators
+// (keys x query rows), straight into the bf16 A fragments: an instruction
+// that writes a register wgmma accumulates into, inside the pipelined walk,
+// makes ptxas serialize every wgmma of the kernel.  Columns are query rows
+// (lse and D of column 8 j + 2 t + (e % 2)); n8 tile j is k-step j / 2 of
+// the next products, fragment registers 2 (j % 2) and 2 (j % 2) + 1.
+template <bool MASK, int NA>
+__device__ __forceinline__ void kv_tile_pds(const BwdParams& p, const float (&st)[NA],
+                                            const float (&dpt)[NA], uint32_t (&pa)[NA / 8][4],
+                                            uint32_t (&dsa)[NA / 8][4], int j, const float* ls,
+                                            const float* dl, float scale2, int q0, int krow) {
+  const int t = threadIdx.x % 4;
+  const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+  const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+  const float la = l2.x * kLog2e, lb = l2.y * kLog2e;
+  float pv[4], ds[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    pv[e] = exp2_approx(fmaf(st[4 * j + e], scale2, -((e & 1) ? lb : la)));
+    ds[e] = pv[e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+    if (MASK) {
+      const int qpos = q0 + 8 * j + 2 * t + (e & 1), kpos = krow + 8 * (e >> 1);
+      if (!keeps(p, qpos, kpos)) {
+        pv[e] = dropped_p(p, qpos, kpos);
+        ds[e] = 0.f;
+      }
+    }
+  }
+  pa[j / 2][2 * (j % 2)] = mma::pack_bf16(pv[0], pv[1]);
+  pa[j / 2][2 * (j % 2) + 1] = mma::pack_bf16(pv[2], pv[3]);
+  dsa[j / 2][2 * (j % 2)] = mma::pack_bf16(ds[0], ds[1]);
+  dsa[j / 2][2 * (j % 2) + 1] = mma::pack_bf16(ds[2], ds[3]);
+}
+
+// dS of n8 tile j of the dQ kernel's S and dP accumulators (query rows x
+// keys), straight into bf16 A fragments as above, split in two: dS rounded
+// to bf16 (hi) and the rest, dS - hi, rounded again (lo).  dQ = hi K + lo K
+// keeps dS to about 16 bits: a row's dS sums to 0 over its keys, and the
+// cancellation in dS K magnifies the rounding of a single bf16 dS.
+template <bool MASK, int NA>
+__device__ __forceinline__ void q_tile_ds(const BwdParams& p, const float (&s)[NA],
+                                          const float (&dp)[NA], uint32_t (&hi)[NA / 8][4],
+                                          uint32_t (&lo)[NA / 8][4], int j,
+                                          const float (&lse2)[2], const float (&dl)[2],
+                                          float scale2, int qrow, int k0) {
+  const int t = threadIdx.x % 4;
+  float ds[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ds[e] = exp2_approx(fmaf(s[4 * j + e], scale2, -lse2[e >> 1])) * (dp[4 * j + e] - dl[e >> 1]);
+    if (MASK && !keeps(p, qrow + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1))) ds[e] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t h = mma::pack_bf16(ds[2 * i], ds[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h));
+    hi[j / 2][2 * (j % 2) + i] = h;
+    lo[j / 2][2 * (j % 2) + i] = mma::pack_bf16(ds[2 * i] - hf.x, ds[2 * i + 1] - hf.y);
+  }
+}
 
 // 4-byte async copy, zero-filled when !valid
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
@@ -1015,243 +1181,413 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                "l"(src), "r"(n));
 }
 
-// c = A[a_row0, a_row0 + 16) B[b_row0, b_row0 + 8 NB)^T over hd, both tiles
-// row-major in shared memory at stride row_ld<HD>.
-template <int HD, int NB>
-__device__ __forceinline__ void mm_abt(float (&c)[NB][4], const bf16* a, int a_row0,
-                                       const bf16* bm, int b_row0) {
-  constexpr int LD = row_ld<HD>();
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) c[nb][0] = c[nb][1] = c[nb][2] = c[nb][3] = 0.f;
-  const bf16* abase = a + (a_row0 + lane % 16) * LD + (lane / 16) * 8;
-  const bf16* bbase = bm + (b_row0 + (lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kstep = 0; kstep < HD / 16; ++kstep) {
-    uint32_t af[4];
-    mma::ldmatrix_x4(af, abase + kstep * 16);
-#pragma unroll
-    for (int j = 0; j < NB / 2; ++j) {
-      uint32_t bfr[4];
-      mma::ldmatrix_x4(bfr, bbase + j * 16 * LD + kstep * 16);
-      mma::mma_16816(c[2 * j], af, bfr);
-      mma::mma_16816(c[2 * j + 1], af, bfr + 2);
-    }
+// The dynamic shared memory of a kernel whose tiles need 1024-byte alignment.
+__device__ __forceinline__ bf16* smem_1024(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(raw + ((1024 - (mma::smem_addr(raw) & 1023)) & 1023));
+}
+
+// The tensor maps of the two tiles a walk streams (Q and dO for (b), K and
+// V for (c)), passed as __grid_constant__ kernel parameters.
+struct BwdMaps {
+  CUtensorMap a, b;
+};
+
+// The tensor map of a bf16 (B, T, H, hd) tensor with element strides `s`
+// (d-stride 1): boxes of 64 columns x `rows` rows of one (b, head), written
+// 128-byte swizzled; columns past hd (hd 32) and rows past T are zero.
+// cuTensorMapEncodeTiled is looked up at run time through the CUDA runtime
+// (an entry point of libcuda), so the library links nothing more.
+cudaError_t rows_map(CUtensorMap* map, const void* base, const Strides& s, int B, int T, int H,
+                     int hd, int rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  // a dimension of extent 1 is never stepped: any multiple of 16 bytes will do
+  auto bytes = [](int64_t stride, int extent) {
+    return static_cast<cuuint64_t>(extent > 1 ? stride * 2 : 16);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(s.t, T), bytes(s.h, H), bytes(s.b, B)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD, int BQ>
-constexpr size_t tc_bwd_kv_smem() {
-  return sizeof(bf16) * row_ld<HD>() * (2 * kTcBwdBK + 2 * 2 * BQ) + sizeof(float) * 2 * 2 * BQ;
+// The tree's choices: warpgroups a block (each owns 64 keys of the dK/dV
+// kernel, 64 query rows of the dQ kernel), ring stages, keys a streamed
+// tile of the dQ kernel, and the blocks an SM the registers are capped
+// for.  Both kernels are templates over these; kernels/tune.py times other
+// choices at Llama-3.2-1B's training shape.
+template <int HD>
+struct WgBwdTiles {
+  static constexpr int kv_wgs = 1, kv_stages = 4, kv_min_blocks = 1;
+  static constexpr int q_wgs = 1, q_keys = 64, q_stages = 3, q_min_blocks = HD == 128 ? 1 : 3;
+};
+
+template <int HD, int NWG, int STAGES>
+constexpr size_t wg_bwd_kv_smem() {
+  constexpr int HS = sw_cols<HD>(), BQ = kWgBwdBQ;
+  return 1024 + sizeof(bf16) * HS * (2 * kWgRows * NWG + 2 * STAGES * BQ) +
+         sizeof(float) * 2 * STAGES * BQ;
 }
 
-// (b) dK, dV on the tensor cores: one block of 4 warps per (hkv, b, key
-// tile of 64), warp w owning keys 16w .. 16w + 15, the key tiles launched
-// first to last (the first sees the most query rows under the causal
-// mask).  K and V stay in shared memory; the block walks the H / Hkv query
-// heads and their query tiles, Q, dO, lse and D streaming through a 2-stage
-// cp.async ring.  Per tile, in registers: S^T = K Q^T and dP^T = V dO^T,
-// P = exp2(S^T scale log2 e - lse log2 e), dS = P o (dP - D), then
-// dV += P^T dO and dK += dS^T Q.
-template <int HD, int BQ, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kTcThreads, MIN_BLOCKS) flash_tc_bwd_kv_kernel(BwdParams p) {
-  static_assert(BQ % 16 == 0, "query tile");
-  constexpr int LD = row_ld<HD>();
-  constexpr int NB = BQ / 8, NO = HD / 8, BK = kTcBwdBK;
+// (b) dK, dV on wgmma: one block of NWG warpgroups per (hkv, b, key tile of
+// 64 NWG), warpgroup w owning keys 64 w .. 64 w + 63, the key tiles launched
+// first to last (the first sees the most query rows under the causal mask).
+// K and V stay in shared memory; the block walks the H / Hkv query heads
+// and their query tiles of 64 rows, Q and dO streaming through a
+// STAGES-deep ring that one thread fills by TMA (lse and D by cp.async).
+// Per tile and warpgroup: S^T = K Q^T and dP^T = V dO^T (SS, Q and dO read
+// K-major); P = exp2(S^T scale log2 e - lse log2 e) and dS = P o (dP - D)
+// from those accumulators into bf16 A fragments; then dV += P^T dO and dK
+// += dS^T Q (RS, the same Q and dO tiles read MN-major).  The walk is
+// software-pipelined: once P and dS of tile i are packed, the S^T and dP^T
+// accumulators are free, so the products of tile i + 1 are issued with dV
+// and dK of tile i, and the barrier and the next copies run while they do.
+template <int HD, int NWG, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(128 * NWG, MIN_BLOCKS)
+    flash_wg_bwd_kv_kernel(BwdParams p, const __grid_constant__ BwdMaps maps) {
+  constexpr int HS = sw_cols<HD>(), BQ = kWgBwdBQ, BKV = kWgRows * NWG, NT = 128 * NWG;
+  static_assert(STAGES >= 3 && NT >= 2 * BQ, "ring of a pipelined walk, lse and D copies");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BK * LD;
-  bf16* qs = vs + BK * LD;      // 2 stages of BQ rows
-  bf16* dos = qs + 2 * BQ * LD;  // 2 stages of BQ rows
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // 2 stages of BQ
-  float* del_s = lse_s + 2 * BQ;
+  bf16* ks = smem_1024(smem_raw);
+  bf16* vs = ks + BKV * HS;
+  bf16* ring = vs + BKV * HS;  // STAGES x (Q tile, dO tile)
+  float* lse_s = reinterpret_cast<float*>(ring + STAGES * 2 * BQ * HS);
+  float* del_s = lse_s + STAGES * BQ;
+  __shared__ alignas(8) uint64_t full[STAGES];  // a stage's Q and dO tiles have landed
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BKV;
+  const int kw0 = k0 + kWgRows * wg;  // the warpgroup's first key
   const int rep = p.H / p.Hkv;
   int q_lo, q_hi;
-  kv_tile_rows(p, k0, BK, q_lo, q_hi);
+  kv_tile_rows(p, k0, BKV, q_lo, q_hi);
   const int qt0 = q_lo / BQ, n_qt = (q_hi + BQ - 1) / BQ - qt0;
-  const int n_iter = rep * n_qt;
+  const int n_iter = rep * n_qt;  // tile i: head hk rep + i / n_qt, query tile qt0 + i % n_qt
 
-  auto load_iter = [&](int it) {
-    const int stage = it % 2, h = hk * rep + it / n_qt, q0 = (qt0 + it % n_qt) * BQ;
-    load_rows<HD, kTcThreads>(qs + stage * BQ * LD,
-                              static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.t,
-                              q0, BQ, p.Tq);
-    load_rows<HD, kTcThreads>(dos + stage * BQ * LD,
-                              static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
-                              p.sdo.t, q0, BQ, p.Tq);
-    const int64_t row0 = (static_cast<int64_t>(b) * p.H + h) * p.Tq;
-    for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
-      const int r = i % BQ;
+  auto first_row = [&](int i) { return (qt0 + i % n_qt) * BQ; };
+  auto load_iter = [&](int i) {  // Q, dO by TMA; lse, D by cp.async
+    const int stage = i % STAGES, h = hk * rep + i / n_qt, q0 = first_row(i);
+    if (threadIdx.x == 0) {
+      bf16* qs = ring + stage * 2 * BQ * HS;
+      mma::mbar_expect_tx(&full[stage], 2 * BQ * HS * sizeof(bf16));
+#pragma unroll
+      for (int a = 0; a < HS / 64; ++a) {
+        mma::tma_load_4d(qs + a * BQ * 64, &maps.a, 64 * a, q0, h, b, &full[stage]);
+        mma::tma_load_4d(qs + BQ * HS + a * BQ * 64, &maps.b, 64 * a, q0, h, b, &full[stage]);
+      }
+    }
+    if (threadIdx.x < 2 * BQ) {  // lse and D of the tile's rows
+      const int r = threadIdx.x % BQ;
       const bool ok = q0 + r < p.Tq;
-      const float* src = (i < BQ ? p.lse : p.delta) + row0;
-      cp_async4((i < BQ ? lse_s : del_s) + stage * BQ + r, ok ? src + q0 + r : src, ok);
+      const float* src = (threadIdx.x < BQ ? p.lse : p.delta) +
+                         (static_cast<int64_t>(b) * p.H + h) * p.Tq;
+      cp_async4((threadIdx.x < BQ ? lse_s : del_s) + stage * BQ + r, ok ? src + q0 + r : src,
+                ok);
     }
   };
-  load_rows<HD, kTcThreads>(ks, static_cast<const bf16*>(p.k) + b * p.sk.b + hk * p.sk.h,
-                            p.sk.t, k0, BK, p.Tk);
-  load_rows<HD, kTcThreads>(vs, static_cast<const bf16*>(p.v) + b * p.sv.b + hk * p.sv.h,
-                            p.sv.t, k0, BK, p.Tk);
-  if (n_iter > 0) load_iter(0);
-  mma::cp_async_commit();
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mma::mbar_init(&full[s], 1);
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+  load_sw<HD, BKV, NT>(ks, static_cast<const bf16*>(p.k) + b * p.sk.b + hk * p.sk.h, p.sk.t, k0,
+                       p.Tk);
+  load_sw<HD, BKV, NT>(vs, static_cast<const bf16*>(p.v) + b * p.sv.b + hk * p.sv.h, p.sv.t, k0,
+                       p.Tk);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_iter) load_iter(s);
+    mma::cp_async_commit();
+  }
 
   const float scale2 = p.sm_scale * kLog2e;
-  const int krow0 = warp * 16;
-  const int kpos_g = k0 + krow0 + g;  // the key of a thread's rows g and g + 8: + 8 (e / 2)
-  float dk[NO][4], dv[NO][4];
+  const int krow = kw0 + 16 * warp + g;  // the key of a thread's accumulator rows: + 8 (e / 2)
+  const uint64_t k_desc = desc_kmajor(ks + kWgRows * wg * 64);
+  const uint64_t v_desc = desc_kmajor(vs + kWgRows * wg * 64);
+  const uint64_t ring_k = desc_kmajor(ring), ring_mn = desc_mnmajor<BQ>(ring);
+  float dk[HS / 2], dv[HS / 2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  for (int i = 0; i < HS / 2; ++i) dk[i] = dv[i] = 0.f;
+  // zeroed before the first wgmma is issued: ptxas serializes every wgmma
+  // of a kernel in which another instruction writes an accumulator while
+  // one is in flight, and the compiler would otherwise sink these below it
+  mma::fence_acc(dk);
+  mma::fence_acc(dv);
+  float st[BQ / 2], dpt[BQ / 2];  // S^T, dP^T; each tile's first k-step ignores their values
+  uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];  // P^T, dS^T as bf16 A fragments
 
-  for (int it = 0; it < n_iter; ++it) {
-    mma::cp_async_wait<0>();  // this iteration's tiles (and K, V) have landed
-    // every warp is done with the stage the next load refills
+  auto issue_s_dp = [&](int i) {  // S^T = K Q^T, dP^T = V dO^T: 64 keys x BQ rows
+    const int q_off = (i % STAGES) * 2 * BQ * HS, do_off = q_off + BQ * HS;
+#pragma unroll
+    for (int j = 0; j < HS / 16; ++j)
+      mma::wgmma_ss<BQ, 0>(st, desc_plus(k_desc, kstep_k<BKV>(j)),
+                           desc_plus(ring_k, q_off + kstep_k<BQ>(j)), j > 0);
+#pragma unroll
+    for (int j = 0; j < HS / 16; ++j)
+      mma::wgmma_ss<BQ, 0>(dpt, desc_plus(v_desc, kstep_k<BKV>(j)),
+                           desc_plus(ring_k, do_off + kstep_k<BQ>(j)), j > 0);
+  };
+
+  if (n_iter > 0) {
+    mma::cp_async_wait<STAGES - 2>();  // K, V and tile 0's lse and D have landed,
+    mma::fence_proxy_async();         // K and V visible to wgmma,
+    mma::mbar_wait(&full[0], 0);      // and tile 0's Q and dO
     __syncthreads();
-    if (it + 1 < n_iter) load_iter(it + 1);
-    mma::cp_async_commit();
-    const int stage = it % 2, q0 = (qt0 + it % n_qt) * BQ;
-    const bf16* qt = qs + stage * BQ * LD;
-    const bf16* dot = dos + stage * BQ * LD;
-    const float* ls = lse_s + stage * BQ;
-    const float* dl = del_s + stage * BQ;
-    float st[NB][4], dpt[NB][4];
-    mm_abt<HD, NB>(st, ks, krow0, qt, 0);    // S^T: the warp's 16 keys x BQ rows
-    mm_abt<HD, NB>(dpt, vs, krow0, dot, 0);  // dP^T = V dO^T
-    const bool need_mask = q0 + BQ > p.Tq || k0 + BK > p.Tk || p.window > 0 ||
-                           (p.causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nb * 8 + 2 * t + (e & 1);
-        const int qpos = q0 + c, kpos = kpos_g + 8 * (e >> 1);
-        const bool ok = !need_mask || keeps(p, qpos, kpos);
-        const float pv =
-            ok ? exp2f(st[nb][e] * scale2 - ls[c] * kLog2e) : dropped_p(p, qpos, kpos);
-        st[nb][e] = pv;
-        dpt[nb][e] = ok ? pv * (dpt[nb][e] - dl[c]) : 0.f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      pv_step<HD, NB>(dv, st, kk, dot, kk * 16);  // dV += P^T dO
-      pv_step<HD, NB>(dk, dpt, kk, qt, kk * 16);  // dK += dS^T Q
-    }
+    mma::wgmma_fence();
+    issue_s_dp(0);
+    mma::wgmma_commit();
   }
+  // Every tile is computed by every warpgroup: a branch around a wgmma that
+  // the compiler cannot prove uniform over the warpgroup serializes all of
+  // them, and a warpgroup's keys past Tk or above the causal diagonal give
+  // P = 0 and dS = 0 through the masks (P = 1/Tk for rows that see no key).
+  for (int it = 0; it < n_iter; ++it) {
+    mma::wgmma_wait<0>();  // S^T, dP^T of this tile; dV, dK of the previous one
+    mma::fence_acc(st);
+    mma::fence_acc(dpt);
+    mma::fence_acc(dv);
+    mma::fence_acc(dk);
+    mma::fence_frags(pa);
+    mma::fence_frags(dsa);
+    const int stage = it % STAGES, q0 = first_row(it);
+    {
+      const float* ls = lse_s + stage * BQ;
+      const float* dl = del_s + stage * BQ;
+      const bool need_mask = q0 + BQ > p.Tq || kw0 + kWgRows > p.Tk || p.window > 0 ||
+                             (p.causal && kw0 + kWgRows - 1 > q0);
+      // one branch a tile: the masks' code is a second copy of the loop
+      if (!need_mask) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+          kv_tile_pds<false>(p, st, dpt, pa, dsa, j, ls, dl, scale2, q0, krow);
+      } else {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+          kv_tile_pds<true>(p, st, dpt, pa, dsa, j, ls, dl, scale2, q0, krow);
+      }
+    }
+    if (it + 1 < n_iter) {
+      mma::cp_async_wait<STAGES - 3>();  // the next tile's lse and D
+      mma::mbar_wait(&full[(it + 1) % STAGES], ((it + 1) / STAGES) & 1);  // and Q, dO
+      // lse and D of the next tile are visible, and every warpgroup's
+      // products of the previous tile, whose stage the next load refills,
+      // are done (the wait above)
+      __syncthreads();
+      if (it + STAGES - 1 < n_iter) load_iter(it + STAGES - 1);
+      mma::cp_async_commit();
+    }
+    mma::fence_frags(pa);
+    mma::fence_frags(dsa);
+    mma::fence_acc(dv);
+    mma::fence_acc(dk);
+    mma::wgmma_fence();
+    {
+      const int q_off = stage * 2 * BQ * HS, do_off = q_off + BQ * HS;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dV += P^T dO
+        mma::wgmma_rs<HS, 1>(dv, pa[kk], desc_plus(ring_mn, do_off + 1024 * kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dK += dS^T Q
+        mma::wgmma_rs<HS, 1>(dk, dsa[kk], desc_plus(ring_mn, q_off + 1024 * kk), 1);
+    }
+    if (it + 1 < n_iter) issue_s_dp(it + 1);
+    mma::wgmma_commit();
+  }
+  mma::wgmma_wait<0>();
+  mma::fence_acc(dv);
+  mma::fence_acc(dk);
+  mma::fence_frags(pa);
+  mma::fence_frags(dsa);
   mma::cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int kpos = kpos_g + 8 * i;
+    const int kpos = krow + 8 * i;
     if (kpos >= p.Tk) continue;  // pad keys are dropped
     bf16* dkg = static_cast<bf16*>(p.dk) + b * p.sdk.b + kpos * p.sdk.t + hk * p.sdk.h;
     bf16* dvg = static_cast<bf16*>(p.dv) + b * p.sdv.b + kpos * p.sdv.t + hk * p.sdv.h;
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dkg + j * 8 + 2 * t) = __floats2bfloat162_rn(
-          dk[j][2 * i] * p.sm_scale, dk[j][2 * i + 1] * p.sm_scale);
+          dk[4 * j + 2 * i] * p.sm_scale, dk[4 * j + 2 * i + 1] * p.sm_scale);
       *reinterpret_cast<__nv_bfloat162*>(dvg + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
+          __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
     }
   }
 }
 
-template <int HD, int BKC>
-constexpr size_t tc_bwd_q_smem() {
-  return sizeof(bf16) * row_ld<HD>() * (2 * kTcBwdBQ + 2 * 2 * BKC);
+template <int HD, int NWG, int BK, int STAGES>
+constexpr size_t wg_bwd_q_smem() {
+  return 1024 + sizeof(bf16) * sw_cols<HD>() * (2 * kWgRows * NWG + 2 * STAGES * BK);
 }
 
-// (c) dQ on the tensor cores: one block of 4 warps per (h, b, query tile of
-// 64), 16 rows a warp, the last (heaviest) tile first.  Q and dO stay in
-// shared memory, K and V tiles stream through a 2-stage cp.async ring; per
-// tile S = Q K^T, dP = dO V^T, dS = P o (dP - D) in registers, then
-// dQ += dS K.
-template <int HD, int BKC, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kTcThreads, MIN_BLOCKS) flash_tc_bwd_q_kernel(BwdParams p) {
-  static_assert(BKC % 16 == 0, "key tile");
-  constexpr int LD = row_ld<HD>();
-  constexpr int NB = BKC / 8, NO = HD / 8, BQ = kTcBwdBQ;
+// (c) dQ on wgmma: one block of NWG warpgroups per (h, b, query tile of
+// 64 NWG), warpgroup w owning rows 64 w .. 64 w + 63, the last (heaviest)
+// tile first.  Q and dO stay in shared memory, K and V tiles of BK keys
+// stream through a STAGES-deep ring filled by TMA; per tile and warpgroup S =
+// Q K^T and dP = dO V^T (SS), dS = P o (dP - D) in the accumulators, then
+// dQ += dS K (RS, K read MN-major), pipelined as in (b).
+template <int HD, int NWG, int BK, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(128 * NWG, MIN_BLOCKS)
+    flash_wg_bwd_q_kernel(BwdParams p, const __grid_constant__ BwdMaps maps) {
+  static_assert(STAGES >= 3 && (BK == 64 || BK == 128), "ring of a pipelined walk, key tile");
+  constexpr int HS = sw_cols<HD>(), BQB = kWgRows * NWG, NT = 128 * NWG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + BQ * LD;
-  bf16* ks = dos + BQ * LD;      // 2 stages of BKC rows
-  bf16* vs = ks + 2 * BKC * LD;  // 2 stages of BKC rows
+  bf16* qs = smem_1024(smem_raw);
+  bf16* dos = qs + BQB * HS;
+  bf16* ring = dos + BQB * HS;  // STAGES x (K tile, V tile)
+  __shared__ alignas(8) uint64_t full[STAGES];  // a stage's K and V tiles have landed
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQB;
+  const int qw0 = q0 + kWgRows * wg;  // the warpgroup's first row
   const int hk = h / (p.H / p.Hkv);
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + hk * p.sv.h;
   int tile0, tile1;
-  q_tile_keys(p, q0, BQ, BKC, tile0, tile1);
+  q_tile_keys(p, q0, BQB, BK, tile0, tile1);
   const int n_tiles = max(0, tile1 - tile0);
-  auto load_tile = [&](int i) {
-    const int stage = i % 2, kt0 = (tile0 + i) * BKC;
-    load_rows<HD, kTcThreads>(ks + stage * BKC * LD, kg, p.sk.t, kt0, BKC, p.Tk);
-    load_rows<HD, kTcThreads>(vs + stage * BKC * LD, vg, p.sv.t, kt0, BKC, p.Tk);
+  auto load_tile = [&](int i) {  // K, V by TMA, from one thread
+    if (threadIdx.x != 0) return;
+    const int stage = i % STAGES, kt0 = (tile0 + i) * BK;
+    bf16* kt = ring + stage * 2 * BK * HS;
+    mma::mbar_expect_tx(&full[stage], 2 * BK * HS * sizeof(bf16));
+#pragma unroll
+    for (int a = 0; a < HS / 64; ++a) {
+      mma::tma_load_4d(kt + a * BK * 64, &maps.a, 64 * a, kt0, hk, b, &full[stage]);
+      mma::tma_load_4d(kt + BK * HS + a * BK * 64, &maps.b, 64 * a, kt0, hk, b, &full[stage]);
+    }
   };
-  load_rows<HD, kTcThreads>(qs, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h,
-                            p.sq.t, q0, BQ, p.Tq);
-  load_rows<HD, kTcThreads>(dos, static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
-                            p.sdo.t, q0, BQ, p.Tq);
-  if (n_tiles > 0) load_tile(0);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mma::mbar_init(&full[s], 1);
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+  load_sw<HD, BQB, NT>(qs, static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.t, q0,
+                       p.Tq);
+  load_sw<HD, BQB, NT>(dos, static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
+                       p.sdo.t, q0, p.Tq);
   mma::cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s)
+    if (s < n_tiles) load_tile(s);
 
   const float scale2 = p.sm_scale * kLog2e;
-  const int row0 = warp * 16;
-  const int qpos_g = q0 + row0 + g;  // the rows of a thread: qpos_g + 8 (e / 2)
+  const int qrow = qw0 + 16 * warp + g;  // the row of a thread's accumulator rows: + 8 (e / 2)
   float lse2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qpos = qpos_g + 8 * i;
+    const int qpos = qrow + 8 * i;
     const int64_t row = (static_cast<int64_t>(b) * p.H + h) * p.Tq + qpos;
     lse2[i] = qpos < p.Tq ? p.lse[row] * kLog2e : 0.f;
     dl[i] = qpos < p.Tq ? p.delta[row] : 0.f;
   }
-  float dq[NO][4];
+  const uint64_t q_desc = desc_kmajor(qs + kWgRows * wg * 64);
+  const uint64_t do_desc = desc_kmajor(dos + kWgRows * wg * 64);
+  const uint64_t ring_k = desc_kmajor(ring), ring_mn = desc_mnmajor<BK>(ring);
+  float dq[HS / 2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int i = 0; i < HS / 2; ++i) dq[i] = 0.f;
+  mma::fence_acc(dq);  // before the first wgmma, as in (b)
+  float s[BK / 2], dp[BK / 2];  // each tile's first k-step ignores their values
+  uint32_t dsa[BK / 16][4], dsl[BK / 16][4];  // dS as bf16 A fragments: hi, lo
 
-  for (int i = 0; i < n_tiles; ++i) {
-    mma::cp_async_wait<0>();
+  auto issue_s_dp = [&](int i) {  // S = Q K^T, dP = dO V^T: 64 rows x BK keys
+    const int k_off = (i % STAGES) * 2 * BK * HS, v_off = k_off + BK * HS;
+#pragma unroll
+    for (int j = 0; j < HS / 16; ++j)
+      mma::wgmma_ss<BK, 0>(s, desc_plus(q_desc, kstep_k<BQB>(j)),
+                           desc_plus(ring_k, k_off + kstep_k<BK>(j)), j > 0);
+#pragma unroll
+    for (int j = 0; j < HS / 16; ++j)
+      mma::wgmma_ss<BK, 0>(dp, desc_plus(do_desc, kstep_k<BQB>(j)),
+                           desc_plus(ring_k, v_off + kstep_k<BK>(j)), j > 0);
+  };
+
+  if (n_tiles > 0) {
+    mma::cp_async_wait<0>();       // Q and dO have landed,
+    mma::fence_proxy_async();      // are visible to wgmma,
+    mma::mbar_wait(&full[0], 0);   // and so is tile 0
     __syncthreads();
-    if (i + 1 < n_tiles) load_tile(i + 1);
-    mma::cp_async_commit();
-    const int k0 = (tile0 + i) * BKC;
-    const bf16* kt = ks + (i % 2) * BKC * LD;
-    const bf16* vt = vs + (i % 2) * BKC * LD;
-    float s[NB][4], dp[NB][4];
-    mm_abt<HD, NB>(s, qs, row0, kt, 0);
-    mm_abt<HD, NB>(dp, dos, row0, vt, 0);
-    const bool need_mask = q0 + BQ > p.Tq || k0 + BKC > p.Tk || p.window > 0 ||
-                           (p.causal && k0 + BKC - 1 > q0);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool ok = !need_mask || keeps(p, qpos_g + 8 * r, k0 + nb * 8 + 2 * t + (e & 1));
-        s[nb][e] = ok ? exp2f(s[nb][e] * scale2 - lse2[r]) * (dp[nb][e] - dl[r]) : 0.f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < BKC / 16; ++kk) pv_step<HD, NB>(dq, s, kk, kt, kk * 16);  // dQ += dS K
+    mma::wgmma_fence();
+    issue_s_dp(0);
+    mma::wgmma_commit();
   }
-  mma::cp_async_wait<0>();
+  // every warpgroup computes every tile (see (b)): rows past Tq, or keys
+  // above the diagonal or before the window, give dS = 0 through the masks
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::wgmma_wait<0>();  // S, dP of this tile; dQ of the previous one
+    mma::fence_acc(s);
+    mma::fence_acc(dp);
+    mma::fence_acc(dq);
+    mma::fence_frags(dsa);
+    mma::fence_frags(dsl);
+    const int k0 = (tile0 + i) * BK;
+    {
+      const bool need_mask = qw0 + kWgRows > p.Tq || k0 + BK > p.Tk || p.window > 0 ||
+                             (p.causal && k0 + BK - 1 > qw0);
+      if (!need_mask) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          q_tile_ds<false>(p, s, dp, dsa, dsl, j, lse2, dl, scale2, qrow, k0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          q_tile_ds<true>(p, s, dp, dsa, dsl, j, lse2, dl, scale2, qrow, k0);
+      }
+    }
+    if (i + 1 < n_tiles) {
+      mma::mbar_wait(&full[(i + 1) % STAGES], ((i + 1) / STAGES) & 1);  // the next tile
+      __syncthreads();  // every warpgroup is done with the stage the next load refills
+      if (i + STAGES - 1 < n_tiles) load_tile(i + STAGES - 1);
+    }
+    mma::fence_frags(dsa);
+    mma::fence_frags(dsl);
+    mma::fence_acc(dq);
+    mma::wgmma_fence();
+    {
+      const int k_off = (i % STAGES) * 2 * BK * HS;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {  // dQ += dS K, as hi K + lo K
+        mma::wgmma_rs<HS, 1>(dq, dsa[kk], desc_plus(ring_mn, k_off + 1024 * kk), 1);
+        mma::wgmma_rs<HS, 1>(dq, dsl[kk], desc_plus(ring_mn, k_off + 1024 * kk), 1);
+      }
+    }
+    if (i + 1 < n_tiles) issue_s_dp(i + 1);
+    mma::wgmma_commit();
+  }
+  mma::wgmma_wait<0>();
+  mma::fence_acc(dq);
+  mma::fence_frags(dsa);
+  mma::fence_frags(dsl);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qpos = qpos_g + 8 * i;
+    const int qpos = qrow + 8 * i;
     if (qpos >= p.Tq) continue;
     bf16* dqg = static_cast<bf16*>(p.dq) + b * p.sdq.b + qpos * p.sdq.t + h * p.sdq.h;
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dqg + j * 8 + 2 * t) = __floats2bfloat162_rn(
-          dq[j][2 * i] * p.sm_scale, dq[j][2 * i + 1] * p.sm_scale);
+          dq[4 * j + 2 * i] * p.sm_scale, dq[4 * j + 2 * i + 1] * p.sm_scale);
   }
 }
 
@@ -1328,8 +1664,14 @@ cudaError_t dispatch_hd(int hd, const Params& p, const Launch& L, cudaStream_t s
 
 template <typename T, int HD>
 cudaError_t launch_bwd_fma(const BwdParams& p, cudaStream_t stream) {
+  const int64_t blocks =
+      (static_cast<int64_t>(p.B) * p.H * p.Tq + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   constexpr size_t smem = fma_bwd_smem<HD>();
-  cudaError_t err = launch::opt_in_smem<&flash_bwd_kv_fma_kernel<T, HD>>(smem);
+  err = launch::opt_in_smem<&flash_bwd_kv_fma_kernel<T, HD>>(smem);
   if (err != cudaSuccess) return err;
   err = launch::opt_in_smem<&flash_bwd_q_fma_kernel<T, HD>>(smem);
   if (err != cudaSuccess) return err;
@@ -1342,36 +1684,53 @@ cudaError_t launch_bwd_fma(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int HD, int BQ, int MIN_BLOCKS>
-cudaError_t launch_tc_bwd_kv(const BwdParams& p, cudaStream_t stream) {
-  constexpr size_t smem = tc_bwd_kv_smem<HD, BQ>();
-  cudaError_t err = launch::opt_in_smem<&flash_tc_bwd_kv_kernel<HD, BQ, MIN_BLOCKS>>(smem);
+template <int HD, int NWG, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_wg_bwd_kv(const BwdParams& p, cudaStream_t stream) {
+  constexpr size_t smem = wg_bwd_kv_smem<HD, NWG, STAGES>();
+  cudaError_t err =
+      launch::opt_in_smem<&flash_wg_bwd_kv_kernel<HD, NWG, STAGES, MIN_BLOCKS>>(smem);
   if (err != cudaSuccess) return err;
-  const int k_tiles = (p.Tk + kTcBwdBK - 1) / kTcBwdBK;
+  const int k_tiles = (p.Tk + kWgRows * NWG - 1) / (kWgRows * NWG);
   if (k_tiles > 65535) return cudaErrorInvalidConfiguration;
-  flash_tc_bwd_kv_kernel<HD, BQ, MIN_BLOCKS>
-      <<<dim3(p.Hkv, p.B, k_tiles), kTcThreads, smem, stream>>>(p);
+  BwdMaps maps;
+  err = rows_map(&maps.a, p.q, p.sq, p.B, p.Tq, p.H, HD, kWgBwdBQ);
+  if (err == cudaSuccess) err = rows_map(&maps.b, p.dout, p.sdo, p.B, p.Tq, p.H, HD, kWgBwdBQ);
+  if (err != cudaSuccess) return err;
+  flash_wg_bwd_kv_kernel<HD, NWG, STAGES, MIN_BLOCKS>
+      <<<dim3(p.Hkv, p.B, k_tiles), 128 * NWG, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
-template <int HD, int BKC, int MIN_BLOCKS>
-cudaError_t launch_tc_bwd_q(const BwdParams& p, cudaStream_t stream) {
-  constexpr size_t smem = tc_bwd_q_smem<HD, BKC>();
-  cudaError_t err = launch::opt_in_smem<&flash_tc_bwd_q_kernel<HD, BKC, MIN_BLOCKS>>(smem);
+template <int HD, int NWG, int BK, int STAGES, int MIN_BLOCKS>
+cudaError_t launch_wg_bwd_q(const BwdParams& p, cudaStream_t stream) {
+  constexpr size_t smem = wg_bwd_q_smem<HD, NWG, BK, STAGES>();
+  cudaError_t err =
+      launch::opt_in_smem<&flash_wg_bwd_q_kernel<HD, NWG, BK, STAGES, MIN_BLOCKS>>(smem);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (p.Tq + kTcBwdBQ - 1) / kTcBwdBQ;
+  const int q_tiles = (p.Tq + kWgRows * NWG - 1) / (kWgRows * NWG);
   if (q_tiles > 65535) return cudaErrorInvalidConfiguration;
-  flash_tc_bwd_q_kernel<HD, BKC, MIN_BLOCKS>
-      <<<dim3(p.H, p.B, q_tiles), kTcThreads, smem, stream>>>(p);
+  BwdMaps maps;
+  err = rows_map(&maps.a, p.k, p.sk, p.B, p.Tk, p.Hkv, HD, BK);
+  if (err == cudaSuccess) err = rows_map(&maps.b, p.v, p.sv, p.B, p.Tk, p.Hkv, HD, BK);
+  if (err != cudaSuccess) return err;
+  flash_wg_bwd_q_kernel<HD, NWG, BK, STAGES, MIN_BLOCKS>
+      <<<dim3(p.H, p.B, q_tiles), 128 * NWG, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_bwd_tc(const BwdParams& p, cudaStream_t stream) {
-  using T = BwdTiles<HD>;
-  cudaError_t err = launch_tc_bwd_kv<HD, T::kv_rows, T::kv_min_blocks>(p, stream);
+  using T = WgBwdTiles<HD>;
+  constexpr int rows_a_block = kThreads / (HD / 8);
+  const int64_t blocks =
+      (static_cast<int64_t>(p.B) * p.H * p.Tq + rows_a_block - 1) / rows_a_block;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  flash_bwd_delta_tc_kernel<HD><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_tc_bwd_q<HD, T::q_keys, T::q_min_blocks>(p, stream);
+  err = launch_wg_bwd_kv<HD, T::kv_wgs, T::kv_stages, T::kv_min_blocks>(p, stream);
+  if (err != cudaSuccess) return err;
+  return launch_wg_bwd_q<HD, T::q_wgs, T::q_keys, T::q_stages, T::q_min_blocks>(p, stream);
 }
 
 template <typename T, int HD>
@@ -1379,7 +1738,7 @@ cudaError_t bwd_variant(const BwdParams& p, int variant, cudaStream_t stream) {
   if (variant == 0) return launch_bwd_fma<T, HD>(p, stream);
   if constexpr (std::is_same_v<T, bf16>) {
     if (variant == 1) {
-      const Strides* all[] = {&p.sq, &p.sk, &p.sv, &p.sdo, &p.sdq, &p.sdk, &p.sdv};
+      const Strides* all[] = {&p.sq, &p.sk, &p.sv, &p.so, &p.sdo, &p.sdq, &p.sdk, &p.sdv};
       for (const Strides* s : all)
         if (s->d != 1) return cudaErrorInvalidValue;
       return launch_bwd_tc<HD>(p, stream);
@@ -1390,12 +1749,6 @@ cudaError_t bwd_variant(const BwdParams& p, int variant, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t bwd_dispatch(int hd, const BwdParams& p, int variant, cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.Tq;
-  const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p, hd);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   switch (hd) {
     case 32: return bwd_variant<T, 32>(p, variant, stream);
     case 64: return bwd_variant<T, 64>(p, variant, stream);
@@ -1497,6 +1850,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   const int64_t dead_lo = window > 0 ? static_cast<int64_t>(Tk) + window - 1 : Tq;
   p.dead_lo = dead_lo < Tq ? static_cast<int>(dead_lo) : Tq;
   p.sm_scale = sm_scale;
+  p.inv_tk = 1.f / Tk;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return static_cast<int>(bwd_dispatch<float>(hd, p, variant, s));

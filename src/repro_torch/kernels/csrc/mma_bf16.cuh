@@ -5,7 +5,12 @@
 //   cp.async.cg 16-byte copies global -> shared, zero-filled when the source
 //   row is masked (src-size 0), with commit_group / wait_group;
 //   ldmatrix .x4 (and .trans for a row-major K x N operand);
-//   mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//   mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32;
+//   and for Hopper's warpgroup MMA (sm_90a only): the shared-memory matrix
+//   descriptor of a 128-byte-swizzled tile, wgmma.mma_async m64nNk16 (bf16
+//   in, f32 out) with both operands in shared memory (SS) or A in registers
+//   (RS), and its fences, commit and wait; TMA tile copies (cp.async.bulk.tensor)
+//   completing on mbarriers.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -95,6 +100,205 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: four warps (a warpgroup, threads 128 w .. 128 w + 127) issue one
+// asynchronous product of a 64-row tile.  The f32 accumulator of m64nN is
+// N / 2 floats a thread, in the m16n8k16 C layout of each n8 tile for the
+// warp's 16 rows (warp % 4 owns rows 16 (warp % 4) ..): d[4 j + e] is row
+// g + 8 (e / 2), column 8 j + 2 t + (e % 2).  A register A operand has the
+// m16n8k16 A layout for the same rows, so the bf16-rounded accumulator
+// columns 16 kk .. 16 kk + 15 (d[8 kk .. 8 kk + 7]) are the A fragment of
+// k-step kk with no shuffle.
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+// A tile is stored in atoms of 8 rows x 128 bytes, 1024-byte aligned, the
+// 16-byte chunk c of row r at chunk c ^ (r % 8).  K-major (rows of the M or
+// N dimension, contiguous over K): SBO is the 1024 bytes from one 8-row
+// group to the next, and a k16 step starts 32 bytes further into the row.
+// MN-major (rows of the contraction, contiguous over N in atoms of 64
+// columns): LBO is the stride from one 64-column atom to the next, SBO the
+// 1024 bytes from one group of 8 contraction rows to the next.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define WG_ACC8(i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x N, f32) = A B + (scale_d ? d : 0): A (64 x 16) K-major and B
+// (16 x N) from shared memory; TRANS_B 0 reads B K-major, 1 MN-major.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss shape");
+  if constexpr (N == 64) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 128) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 256) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56), WG_ACC8(64), WG_ACC8(72), WG_ACC8(80), WG_ACC8(88), WG_ACC8(96), WG_ACC8(104), WG_ACC8(112), WG_ACC8(120)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  }
+}
+
+// The same with A (64 x 16, bf16) in registers: a[0..3] the thread's
+// m16n8k16 A fragment of its warp's 16 rows.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs shape");
+  if constexpr (N == 64) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 128) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  }
+}
+#undef WG_ACC8
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups of this warp are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Orders the operand registers of a wgmma around its issue and its wait:
+// code that reads an accumulator is not moved above the wait, and neither
+// an accumulator nor a register A operand is copied, or its register
+// reused, while a wgmma that reads it is pending.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+// Generic-proxy writes to shared memory (cp.async included) made visible to
+// the async proxy, which wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA: one thread copies a tile global -> shared (cp.async.bulk.tensor, the
+// layout and the zero fill out of bounds given by a tensor map made on the
+// host), and its completion is counted in bytes on an mbarrier in shared
+// memory that the consumers wait on by phase parity.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// Makes initialised mbarriers visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also announces `bytes` of copies to come on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// The box of a 4-d tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0, int c1, int c2,
+                                            int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace mma

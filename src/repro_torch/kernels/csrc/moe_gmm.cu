@@ -325,71 +325,9 @@ __global__ void __launch_bounds__(kDThreads) gmm_tc_decode_kernel(TcParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// wgmma (Hopper's warpgroup MMA) for the prefill tile
+// wgmma (Hopper's warpgroup MMA; the helpers are in mma_bf16.cuh) for the
+// prefill tile
 // ---------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint64_t addr = mma::smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// d (64 x 256, f32, the mma.sync C layout per n8 tile) += A B: A (64 x 16)
-// K-major, B (16 x 256) N-major (transposed), both from shared memory.
-#define ACC8(i)                                                                              \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56),
-        ACC8(64), ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)
-      : "l"(da), "l"(db), "r"(1));
-}
-#undef ACC8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed wgmma groups of this warp are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Orders the accumulator registers around a wait: code that reads them is
-// not moved above it, and no copy of them is made while a wgmma is pending.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Generic-proxy writes to shared memory (cp.async included) made visible to
-// the async proxy, which wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // 128 x 256 outputs of one expert a block; 2 warpgroups of 64 rows, each one
 // m64n256k16 wgmma per k16 step; BK 64; a 4-stage cp.async ring whose x and w
@@ -451,7 +389,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(TcParams p) {
 
   for (int kt = 0; kt < n_k; ++kt) {
     mma::cp_async_wait<kWgAhead - 1>();  // tile kt has landed
-    fence_proxy_async();
+    mma::fence_proxy_async();
     // all copies of tile kt are visible, and both warpgroups' wgmma of tile
     // kt - 2, whose stage the next load refills, are done: one barrier a step
     __syncthreads();
@@ -459,23 +397,23 @@ __global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(TcParams p) {
     mma::cp_async_commit();
     const bf16* xs = smem + (kt % kWgStages) * kWgStage;
     const bf16* ws = xs + kWgBM * kWgBK;
-    wgmma_fence();
+    mma::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kWgBK / 16; ++j) {
       // A: this warpgroup's 64 rows, k 16j..16j+15 (32 bytes into each
       // swizzled 128-byte row); 8-row groups 1024 bytes apart
-      const uint64_t da = sw128_desc(xs + wg * 64 * kWgBK + j * 16, 16, 1024);
+      const uint64_t da = mma::sw128_desc(xs + wg * 64 * kWgBK + j * 16, 16, 1024);
       // B: k rows 16j..16j+15 (two 8-row groups 1024 bytes apart), the four
       // 64-column atoms 8 KB apart
-      const uint64_t db = sw128_desc(ws + j * 16 * 64, kWgBK * 64 * 2, 1024);
-      wgmma_m64n256k16(acc, da, db);
+      const uint64_t db = mma::sw128_desc(ws + j * 16 * 64, kWgBK * 64 * 2, 1024);
+      mma::wgmma_ss<256, 1>(acc, da, db, 1);
     }
-    wgmma_commit();
-    wgmma_wait<1>();  // tile kt - 1's group is done; tile kt's may run on
-    fence_acc(acc);
+    mma::wgmma_commit();
+    mma::wgmma_wait<1>();  // tile kt - 1's group is done; tile kt's may run on
+    mma::fence_acc(acc);
   }
-  wgmma_wait<0>();
-  fence_acc(acc);
+  mma::wgmma_wait<0>();
+  mma::fence_acc(acc);
   mma::cp_async_wait<0>();
   __syncthreads();
 

@@ -1,7 +1,9 @@
-"""Time other tile shapes of two tensor-core kernels beside the ones in the
+"""Time other tile shapes of the tensor-core kernels beside the ones in the
 tree, on the card:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune
+    PYTHONPATH=src python -m repro_torch.kernels.tune [lstm] [wkv] [flash_bwd]
+
+(all three when none is named):
 
 - the LSTM forward's ``tc`` tile (``csrc/lstm_cell.cu``, ``launch_tc<BH,
   STAGES, KS>``: hidden units a block, ring stages, contraction rows a
@@ -10,15 +12,18 @@ tree, on the card:
 - the ``chunked`` WKV kernel's ring depth (``csrc/wkv6.cu``,
   ``launch_chunked<T, 64, NS>``) at RWKV6-7B's prefill (B 4, T 512, H 64,
   hd 64), bf16 and f32 r, k, v;
-- the flash backward's tensor-core kernels (``csrc/flash_attention.cu``,
-  ``launch_tc_bwd_kv<64, BQ, MIN_BLOCKS>`` and ``launch_tc_bwd_q<64, BKC,
-  MIN_BLOCKS>``: query rows a tile of the dK/dV kernel, keys a tile of the
-  dQ kernel, and the blocks an SM their registers are capped for) at
-  Llama-3.2-1B's training shape (B 4, T 2048, H 32/8, hd 64, causal, bf16).
+- the flash backward's wgmma kernels (``csrc/flash_attention.cu``,
+  ``launch_wg_bwd_kv<64, WGS, STAGES, MIN_BLOCKS>`` and
+  ``launch_wg_bwd_q<64, WGS, BK, STAGES, MIN_BLOCKS>``: warpgroups a block,
+  ring stages, keys a streamed tile of the dQ kernel, and the blocks an SM
+  their registers are capped for) at Llama-3.2-1B's training shape (B 4,
+  T 2048, H 32/8, hd 64, causal, bf16).
 
 A harness that ``#include``s each source instantiates the other shapes, so
 the tree keeps one tile; it is built with the kernels' own nvcc flags into
-``_build/``.  Each shape must give the tree's output bits; the times are
+``_build/`` (ptxas's report beside it, ``libtune_harness.so.log``), and
+only with the sources of the kernels named.  Each shape must give the
+tree's output bits; the times are
 CUDA-event milliseconds per call (20 calls after 3 warm-up calls, three
 repeats), each beside the tree's kernel timed in the same run.  Prints one
 JSON line per shape.
@@ -29,6 +34,7 @@ import ctypes
 import itertools
 import json
 import subprocess
+import sys
 
 import torch
 
@@ -41,15 +47,18 @@ LSTM_TILES = [(32, 4, 64), (32, 3, 64), (32, 5, 64), (32, 6, 32), (16, 4, 64), (
               (16, 8, 32), (64, 3, 64), (64, 4, 64), (64, 5, 64), (64, 6, 32), (64, 8, 32),
               (64, 2, 128), (32, 3, 128)]
 WKV_STAGES = [2, 3, 4, 6]
-FLASH_BWD_KV = [(32, 4), (32, 3), (32, 5), (48, 4), (16, 5), (64, 1)]   # (BQ, MIN_BLOCKS)
-FLASH_BWD_Q = [(64, 4), (64, 3), (64, 5), (48, 4), (32, 4), (64, 1)]    # (BKC, MIN_BLOCKS)
+# (WGS, STAGES, MIN_BLOCKS) of the dK/dV kernel; the tree's first
+FLASH_BWD_KV = [(1, 4, 1), (1, 3, 1), (1, 4, 3), (2, 4, 1), (2, 3, 1)]
+# (WGS, BK, STAGES, MIN_BLOCKS) of the dQ kernel; the tree's first
+FLASH_BWD_Q = [(1, 64, 3, 3), (1, 64, 3, 1), (1, 64, 4, 2), (2, 64, 3, 1), (1, 128, 3, 1)]
 
 
 def _flash_harness() -> str:
-    kv_cases = "\n".join(f"    case {i}: return launch_tc_bwd_kv<64, {bq}, {mb}>(p, s);"
-                         for i, (bq, mb) in enumerate(FLASH_BWD_KV))
-    q_cases = "\n".join(f"    case {100 + i}: return launch_tc_bwd_q<64, {bk}, {mb}>(p, s);"
-                        for i, (bk, mb) in enumerate(FLASH_BWD_Q))
+    kv_cases = "\n".join(f"    case {i}: return launch_wg_bwd_kv<64, {w}, {st}, {mb}>(p, s);"
+                         for i, (w, st, mb) in enumerate(FLASH_BWD_KV))
+    q_cases = "\n".join(
+        f"    case {100 + i}: return launch_wg_bwd_q<64, {w}, {bk}, {st}, {mb}>(p, s);"
+        for i, (w, bk, st, mb) in enumerate(FLASH_BWD_Q))
     return f'''
 namespace flash {{
 #include "{build.CSRC / 'flash_attention.cu'}"
@@ -67,7 +76,7 @@ extern "C" int tune_flash_bwd(int cfg, const void* q, const void* k, const void*
   p.sq = p.so = p.sdo = p.sdq = sh;
   p.sk = p.sv = p.sdk = p.sdv = skv;
   p.B = B; p.Tq = T; p.Tk = T; p.H = H; p.Hkv = Hkv;
-  p.causal = 1; p.window = 0; p.dead_lo = T; p.sm_scale = 0.125f;
+  p.causal = 1; p.window = 0; p.dead_lo = T; p.sm_scale = 0.125f; p.inv_tk = 1.f / T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cfg) {{
 {kv_cases}
@@ -79,7 +88,7 @@ extern "C" int tune_flash_bwd(int cfg, const void* q, const void* k, const void*
 '''
 
 
-def _harness() -> str:
+def _harness(which) -> str:
     lstm_cases = "\n".join(f"    case {i}: return launch_tc<{bh}, {st}, {ks}>(p, s);"
                            for i, (bh, st, ks) in enumerate(LSTM_TILES))
     wkv_cases = "\n".join(
@@ -87,6 +96,8 @@ def _harness() -> str:
         f"    case {2 * i + 1}: return launch_chunked<__nv_bfloat16, 64, {ns}>(p, s);"
         for i, ns in enumerate(WKV_STAGES))
     return f'''
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,24 +136,28 @@ extern "C" int tune_wkv(int cfg, const void* r, const void* k, const void* v, co
   }}
 }}
 }}  // namespace wkv
-''' + _flash_harness()
+''' + (_flash_harness() if "flash_bwd" in which else "")
 
 
-def _load() -> ctypes.CDLL:
+def _load(which) -> ctypes.CDLL:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.BUILD_DIR / "tune_harness.cu"
-    src.write_text(_harness())
+    src.write_text(_harness(which))
     lib = build.BUILD_DIR / "libtune_harness.so"
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                           check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"tuning harness build failed:\n{proc.stdout}")
+    (lib.with_name(lib.name + ".log")).write_text(proc.stdout)
     dll = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.tune_lstm.restype = dll.tune_wkv.restype = dll.tune_flash_bwd.restype = i32
+    dll.tune_lstm.restype = dll.tune_wkv.restype = i32
     dll.tune_lstm.argtypes = [i32] + [vp] * 9 + [i32] * 4 + [vp]
     dll.tune_wkv.argtypes = [i32] + [vp] * 7 + [i32] * 3 + [vp]
+    if "flash_bwd" not in which:
+        return dll
+    dll.tune_flash_bwd.restype = i32
     dll.tune_flash_bwd.argtypes = [i32] + [vp] * 10 + [i32] * 4 + [vp]
     dll.repro_flash_attention_bwd.restype = i32
     dll.repro_flash_attention_bwd.argtypes = ([vp] * 10 + [i32] * 7
@@ -262,10 +277,12 @@ def tune_flash_bwd(dll, stream):
         raise RuntimeError("the tree's flash backward failed in the harness")
     torch.cuda.synchronize()
     for cfg, kernel, tiles, outs in (
-            [(i, "flash_attention_bwd tc dK/dV", {"query_rows_a_tile": bq, "min_blocks": mb},
-              (1, 2)) for i, (bq, mb) in enumerate(FLASH_BWD_KV)]
-            + [(100 + i, "flash_attention_bwd tc dQ", {"keys_a_tile": bk, "min_blocks": mb},
-                (0,)) for i, (bk, mb) in enumerate(FLASH_BWD_Q)]):
+            [(i, "flash_attention_bwd tc dK/dV",
+              {"warpgroups": w, "stages": st, "min_blocks": mb}, (1, 2))
+             for i, (w, st, mb) in enumerate(FLASH_BWD_KV)]
+            + [(100 + i, "flash_attention_bwd tc dQ",
+                {"warpgroups": w, "keys_a_tile": bk, "stages": st, "min_blocks": mb}, (0,))
+               for i, (w, bk, st, mb) in enumerate(FLASH_BWD_Q)]):
         def call(cfg=cfg):
             return dll.tune_flash_bwd(cfg, *ptrs, *(x.data_ptr() for x in grads),
                                       delta.data_ptr(), b, t, h, hkv, stream)
@@ -278,16 +295,22 @@ def tune_flash_bwd(dll, stream):
               flush=True)
 
 
-def main():
+KERNELS = {"lstm": tune_lstm, "wkv": tune_wkv, "flash_bwd": tune_flash_bwd}
+
+
+def main(argv=None):
+    which = list(sys.argv[1:] if argv is None else argv) or list(KERNELS)
+    unknown = set(which) - set(KERNELS)
+    if unknown:
+        raise SystemExit(f"tune: unknown kernels {sorted(unknown)}; choose from {list(KERNELS)}")
     if not torch.cuda.is_available():
         raise SystemExit("tune: needs a CUDA card")
-    dll = _load()
+    dll = _load(which)
     stream = torch.cuda.current_stream().cuda_stream
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=False).stdout.strip(), flush=True)
-    tune_lstm(dll, stream)
-    tune_wkv(dll, stream)
-    tune_flash_bwd(dll, stream)
+    for name in which:
+        KERNELS[name](dll, stream)
 
 
 if __name__ == "__main__":

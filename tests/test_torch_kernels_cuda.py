@@ -608,12 +608,25 @@ def test_wkv6_misaligned_prompt_takes_the_scan(cuda_device):
 # 130, Tq != Tk both ways, hd 32 and 128, B 1, H = Hkv, windows (with rows
 # that see no key: Tq >= Tk + window), non-causal, and Granite's heads.  T 1
 # attends over 33 keys, as a decode step: causal over one key, dq and dk are
-# exactly 0 and the bf16 rule would admit no round-off at all.
+# exactly 0 and the bf16 rule would admit no round-off at all.  Then the
+# edges of the bf16 kernels' tiles (64 rows a warpgroup, blocks of 128 keys
+# or query rows, streamed tiles of 64): T 63, 65, 127, 129 and 191, causal
+# and not; Tq != Tk with the causal diagonal off a tile edge, both ways; hd
+# 128 with 8 query heads a KV head; and grids of 2 to 16 blocks, most SMs
+# idle (one KV head, T 256, and T 2048 walked by 16 blocks).
 BWD_CASES = [(1, 1, 33, 2, 2, 64, False, 0), (2, 4, 4, 8, 2, 64, True, 0),
              (2, 17, 17, 4, 2, 32, True, 0), (2, 130, 130, 8, 2, 128, True, 0),
              (1, 100, 260, 4, 4, 64, False, 0), (2, 200, 70, 4, 1, 64, True, 0),
              (1, 300, 300, 8, 2, 128, True, 64), (2, 90, 30, 4, 2, 64, False, 16),
-             (1, 150, 40, 4, 2, 32, True, 8), (2, 256, 256, 16, 8, 64, True, 0)]
+             (1, 150, 40, 4, 2, 32, True, 8), (2, 256, 256, 16, 8, 64, True, 0),
+             (1, 63, 63, 4, 2, 64, True, 0), (1, 63, 63, 4, 2, 64, False, 0),
+             (2, 65, 65, 4, 1, 64, True, 0), (2, 65, 65, 4, 1, 64, False, 0),
+             (1, 127, 127, 8, 2, 32, True, 0), (1, 127, 127, 8, 2, 32, False, 0),
+             (1, 129, 129, 4, 2, 128, True, 0), (1, 129, 129, 4, 2, 128, False, 0),
+             (1, 191, 191, 4, 2, 64, True, 0), (1, 191, 191, 4, 2, 64, False, 0),
+             (1, 191, 129, 4, 2, 64, True, 0), (1, 129, 191, 4, 2, 64, True, 0),
+             (1, 200, 200, 16, 2, 128, True, 0), (1, 256, 256, 2, 1, 64, True, 0),
+             (1, 2048, 2048, 1, 1, 64, True, 0)]
 BWD_F32_TOL = 1e-4
 
 
