@@ -87,7 +87,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 13. hold the Llama train step against its plain path: 2 layers at full
    width, f32, vocab cut to 32768, kernels on the card against the plain
    versions on the CPU (phase 7's limits);
-14. print one JSON line of kernels, then the device line.
+14. the planner on the card: measure the card's memory, its HBM rate (a
+   device-to-device copy of 2 GiB), the rate of a bf16 8192^3
+   ``torch.matmul`` and the MFU of phase 12's Llama step, each beside the
+   ``core.comm.HardwareModel`` default; set the planner's step-time and
+   memory models beside phases 6 and 12's measured steps and peaks (findings,
+   not limits); print the best H100 plan of Inception-V3, GNMT, BigLSTM and
+   Llama-3.2-1B at 1, 8, 64, 256 and 1024 cards and each arch's crossover
+   (every speedup finite, every chosen plan within the card's memory); then
+   train full-width BigLSTM through ``--parallel auto --devices 1`` with the
+   launch counters set to 0 just before and read just after (2 steps: 256
+   forward launches, all ``tc``, and 256 backward), and show ``--devices
+   64`` raising NotImplementedError naming the ROADMAP item of the plan the
+   H100 model picks for BigLSTM and for Llama;
+15. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -114,6 +127,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BATCH, PROMPT, NEW = 4, 512, 32
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
+AUTO_STEPS = 2                                  # BigLSTM steps through --parallel auto
 LLAMA_B, LLAMA_T = 4, 2048                      # the dense decoder's training shape
 BWD_F32_TOL = 1e-4    # f32 backward: sums of up to 2048 terms in another order
 # flash backward rows: B, Tq, Tk, H, Hkv, hd, causal, window (T 1, 4, 17, 130,
@@ -1225,6 +1239,127 @@ def phase_llama_train_vs_plain(fa, api_mod, cfg):
     return r
 
 
+def measure_card_constants(hw, llama_cfg, llama_timing):
+    """The card's memory, HBM rate, bf16 matmul rate and the MFU of phase
+    12's Llama step, each beside the ``HardwareModel`` default."""
+    props = torch.cuda.get_device_properties(0)
+    nbytes = 2 * 2**30                   # a 2 GiB copy: read once, written once
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda").fill_(1)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    n = 8192
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((n, n), device="cuda", dtype=torch.bfloat16, generator=gen)
+    b = torch.randn((n, n), device="cuda", dtype=torch.bfloat16, generator=gen)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), reps=10)
+    del a, b
+    torch.cuda.empty_cache()
+    llama_tokens = LLAMA_B * LLAMA_T
+    mfu = (6.0 * llama_cfg.n_active_params() * llama_tokens
+           / (llama_timing["step_ms"] / 1e3 * hw.peak_flops))
+    constants = {
+        "hbm_bytes": {"measured": props.total_memory, "default": hw.hbm_bytes},
+        "hbm_bw": {"measured": 2 * nbytes / (copy_ms / 1e3), "copy_ms": copy_ms,
+                   "default": hw.hbm_bw},
+        "bf16_matmul_flops": {"measured": 2.0 * n ** 3 / (mm_ms / 1e3), "matmul_ms": mm_ms,
+                              "peak_flops_default": hw.peak_flops},
+        "mfu": {"measured": mfu, "default": hw.mfu,
+                "from": f"{llama_cfg.name} step {llama_timing['step_ms']:.2f} ms at "
+                        f"B {LLAMA_B} x T {LLAMA_T}"}}
+    print(json.dumps({"planner_constants": constants}), flush=True)
+    return constants
+
+
+def phase_planner(train_launch, lc, counters, lstm_cfg, llama_cfg, lstm_timing,
+                  llama_timing):
+    """The planner's hardware model and cost models against the card, its
+    H100 plans, and BigLSTM through ``--parallel auto --devices 1``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm, planner
+    from repro_torch.tree import tree_leaves
+
+    hw = comm.HardwareModel()
+    total_memory = measure_card_constants(hw, llama_cfg, llama_timing)["hbm_bytes"][
+        "measured"]
+
+    # the planner's models against the measured steps: findings, not limits
+    model_vs_card = {}
+    for cfg, bsz, seq, timing in ((lstm_cfg, TRAIN_B, TRAIN_T, lstm_timing),
+                                  (llama_cfg, LLAMA_B, LLAMA_T, llama_timing)):
+        step_s = planner.step_time_single(cfg, bsz, seq, hw)
+        mem = planner.per_device_mem_bytes(
+            cfg, mini_batch=bsz, seq_len=seq, remat=False,
+            opt_bytes_per_param=planner.default_opt_bytes_per_param(cfg))
+        model_vs_card[cfg.name] = {
+            "batch": bsz, "seq": seq, "model_step_ms": step_s * 1e3,
+            "measured_step_ms": timing["step_ms"],
+            "measured_over_model": timing["step_ms"] / (step_s * 1e3),
+            "model_mem_gib": mem / 2**30, "measured_peak_gib": timing["peak_mem_gib"],
+            "measured_over_model_mem": timing["peak_mem_gib"] / (mem / 2**30)}
+    print(json.dumps({"planner_model_vs_card": model_vs_card}), flush=True)
+
+    plans, chosen = {}, {}
+    for arch in ("inception_v3", "gnmt", "biglstm", "llama3_2_1b"):
+        cfg = get_config(arch)
+        p = planner.HybridPlanner(cfg, epoch_model=planner.default_epoch_model(cfg))
+        rows = []
+        for devices in (1, 8, 64, 256, 1024):
+            choices = p.choices(devices)
+            if not all(math.isfinite(c.speedup) for c in choices):
+                raise AssertionError(f"{arch} at {devices} cards: a non-finite speedup")
+            best = choices[0]
+            if best.mem_bytes > min(hw.hbm_bytes, total_memory):
+                raise AssertionError(f"{arch} at {devices} cards: the plan needs "
+                                     f"{best.mem_bytes} bytes a card")
+            chosen[(arch, devices)] = best
+            rows.append({"devices": devices, "kind": best.mp_kind,
+                         "pods_dp_mp": f"{best.pods} x {best.dp} x {best.mp}",
+                         "K": best.microbatches, "schedule": best.schedule,
+                         "SU": best.speedup, "SU_M": best.su_m, "SE_N": best.se_n,
+                         "GiB": best.mem_bytes / 2**30})
+        plans[arch] = {"plans": rows, "crossover": p.crossover()}
+    print(json.dumps({"planner_h100_plans": plans}), flush=True)
+
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
+    torch.cuda.empty_cache()
+    reset_counters(every)
+    summary = train_launch.main(["--arch", "biglstm", "--parallel", "auto", "--devices", "1",
+                                 "--steps", str(AUTO_STEPS)])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in every.items()}
+    variants = variant_launches(every)
+    want = AUTO_STEPS * lstm_cfg.n_layers * TRAIN_T
+    want_launches = dict.fromkeys(every, 0)
+    want_launches.update(lstm_cell_fwd=want, lstm_cell_bwd_pointwise=want)
+    if launches != want_launches or variants["lstm_cell_fwd"] != {"fma": 0, "tc": want}:
+        raise AssertionError(f"--parallel auto launched {launches} {variants}, want {want} "
+                             f"forward launches on tc and {want} backward")
+    losses = summary["history"]
+    if len(losses) != AUTO_STEPS or not all(np.isfinite(losses)) or             not all(bool(torch.isfinite(p).all()) for p in tree_leaves(summary["state"].params)):
+        raise AssertionError(f"--parallel auto training gave losses {losses}")
+    del summary
+    torch.cuda.empty_cache()
+    refused = {}
+    for arch in ("biglstm", "llama3_2_1b"):
+        item = train_launch.MP_ITEMS[chosen[(arch, 64)].mp_kind]
+        try:
+            train_launch.main(["--arch", arch, "--parallel", "auto", "--devices", "64",
+                               "--steps", "1"])
+        except NotImplementedError as e:
+            if item not in str(e):
+                raise AssertionError(f"{arch} at 64 cards raised {e!r}, want {item}")
+            refused[arch] = str(e)
+        else:
+            raise AssertionError(f"{arch} at 64 cards trained on one card")
+    out = {"arch": lstm_cfg.name, "devices": 1, "steps": AUTO_STEPS, "losses": losses,
+           "launches": launches, "lstm_cell_fwd_variant_launches": variants["lstm_cell_fwd"],
+           "refused_at_64": refused}
+    print(json.dumps({"parallel_auto": out}), flush=True)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, rows, **extra):
     main_row = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1289,8 +1424,8 @@ def main():
 
     _phase("6 train biglstm, full width and depth")
     lstm_cfg = get_config("biglstm")
-    train_launches, train_variants, _ = phase_train(train_launch, lc, counters, api_mod,
-                                                    lstm_cfg)
+    train_launches, train_variants, lstm_timing = phase_train(train_launch, lc, counters,
+                                                              api_mod, lstm_cfg)
 
     _phase("7 train step against its plain path")
     phase_train_vs_plain(api_mod, lstm_cfg)
@@ -1310,13 +1445,17 @@ def main():
     phase_model_vs_plain(api_mod, moe_mod, rwkv_cfg)
 
     _phase("12 train llama3_2_1b, full width and depth")
-    llama_launches, llama_variants, _ = phase_train_llama(train_launch, lc, counters, api_mod,
-                                                          cfg)
+    llama_launches, llama_variants, llama_timing = phase_train_llama(train_launch, lc,
+                                                                     counters, api_mod, cfg)
 
     _phase("13 Llama train step against its plain path")
     phase_llama_train_vs_plain(fa, api_mod, cfg)
 
-    _phase("14 result")
+    _phase("14 the planner on the card")
+    auto_launches = phase_planner(train_launch, lc, counters, lstm_cfg, cfg, lstm_timing,
+                                  llama_timing)
+
+    _phase("15 result")
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1343,10 +1482,17 @@ def main():
                            "(attention)"),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",
                       train_launches["lstm_cell_fwd"], fwd_rows,
-                      variant_launches=train_variants),
+                      variant_launches=train_variants,
+                      launches_by_path={
+                          "train biglstm": train_launches["lstm_cell_fwd"],
+                          "train biglstm --parallel auto": auto_launches["lstm_cell_fwd"]}),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
                       "src/repro/kernels/lstm_cell.py:24", train_launches[
                           "lstm_cell_bwd_pointwise"], bwd_rows,
+                      launches_by_path={
+                          "train biglstm": train_launches["lstm_cell_bwd_pointwise"],
+                          "train biglstm --parallel auto":
+                              auto_launches["lstm_cell_bwd_pointwise"]},
                       note="no TPU backward kernel: JAX differentiates the plain cell "
                            "(src/repro/models/lstm.py:53)"),
         _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",

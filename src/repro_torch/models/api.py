@@ -108,3 +108,17 @@ def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
         return loss, {"loss": loss}
 
     return ModelApi(cfg, dev, init, loss_fn, None, None)
+
+
+def supports_pipeline(cfg: ModelConfig) -> bool:
+    """Archs whose layer stack a pipeline runtime can partition: BigLSTM's
+    residual LSTM stack and homogeneous decoder-only transformers.  GNMT's
+    encoder/decoder split and the CNN block graph need stage functions the
+    runtime does not model (the planner still *costs* pipeline-MP for GNMT;
+    the launcher then takes the best supported plan).  The runtime is
+    ROADMAP.md Queue 1 item 6."""
+    if cfg.name == "biglstm":
+        return True
+    if cfg.family == "cnn" or cfg.name == "gnmt":
+        return False
+    return not (cfg.encoder_layers or cfg.n_prefix_embeds or cfg.is_moe)

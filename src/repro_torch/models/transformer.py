@@ -55,6 +55,27 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
                          f"transformer stack")
 
 
+def overlapped_arch_supported(cfg) -> bool:
+    """Arch classes whose decoder block the overlap-scheduled collective
+    matmuls can execute: homogeneous dense blocks only (no MoE / SSM / RWKV
+    / enc-dec / VLM prefix / CNN / RNN).  The planner's credit gate
+    (``core.planner.comm_runtime_supported``) reads it, and so will the
+    tensor-MP runtime (ROADMAP.md Queue 1 item 7), so the two cannot drift."""
+    return not (cfg.is_moe or cfg.rwkv
+                or cfg.family in ("hybrid", "ssm", "cnn", "rnn")
+                or cfg.encoder_layers or cfg.n_prefix_embeds)
+
+
+def cp_arch_supported(cfg) -> bool:
+    """The config half of the JAX ``cp_supported``: context-parallel ring
+    attention needs an ``overlapped_arch_supported`` decoder with no logit
+    softcap (the ring's online-softmax merge has no capped variant).  The
+    planner's ``context_mp_supported`` reads it; the ring itself is ROADMAP.md
+    Queue 1 item 8."""
+    return (overlapped_arch_supported(cfg) and not cfg.attn_logit_softcap
+            and cfg.n_heads > 0)
+
+
 # ---------------------------------------------------------------------------
 # init and cache
 # ---------------------------------------------------------------------------

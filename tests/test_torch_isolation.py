@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither ``jax`` nor anything of the JAX
-package ``repro``, and its entry points never fall back from CUDA to the
-CPU."""
+package ``repro`` nor ``networkx`` (which the card's machine lacks), and its
+entry points never fall back from CUDA to the CPU."""
 import ast
 import os
 import pathlib
@@ -24,6 +24,7 @@ def test_every_module_imports_with_jax_blocked():
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['networkx'] = None\n"
             f"for m in {_module_names()!r}:\n"
             "    importlib.import_module(m)\n"
             "print('ok', len(sys.modules))\n")
@@ -46,7 +47,7 @@ def test_no_jax_or_repro_import(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), \
+            assert top not in ("jax", "jaxlib", "repro", "networkx"), \
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {n}"
 
 

@@ -279,17 +279,27 @@ def test_train_step_refuses_multi_device_arguments(biglstm):
             make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), **kw)
 
 
-@pytest.mark.parametrize("spec,item", [("auto", "item 4"), ("dp=2,mp=1", "item 5"),
+def _single_card_accum(spec, devices=1, arch="biglstm"):
+    plan, mp, dp = TL.parse_parallel(spec, devices, t_get_config(arch))
+    return TL.single_card_accum(plan, mp, dp, auto=spec == "auto")
+
+
+@pytest.mark.parametrize("spec,item", [("auto", "item 6"), ("dp=2,mp=1", "item 5"),
                                        ("pipe=2,micro=4", "item 6"), ("dp=1,mp=2", "item 7"),
                                        ("dp=1,cp=2", "item 8"), ("dp=1,zz=3", "items 5-8")])
 def test_parallel_specs_other_than_single_device_raise(spec, item):
+    """An explicit multi-device spec, and the planner's plan for BigLSTM at
+    64 H100s (pipeline MP), raise naming the runtime's ROADMAP item."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        TL.parse_parallel(spec)
+        _single_card_accum(spec, devices=64)
 
 
 def test_parallel_spec_accum():
-    assert TL.parse_parallel("dp=1,mp=1") == 1
-    assert TL.parse_parallel("dp=1,mp=1,accum=4") == 4
+    assert _single_card_accum("dp=1,mp=1") == 1
+    assert _single_card_accum("dp=1,mp=1,accum=4") == 4
+    assert _single_card_accum("auto", devices=1) == 1
+    with pytest.raises(SystemExit, match="cannot parse"):
+        _single_card_accum("dp=1,mp=x")
 
 
 def test_dense_decoder_training_on_the_card_raises():
