@@ -17,11 +17,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    forced:
    flash attention at full-width Llama-3.2-1B and Granite-3.0-1B-A400M
    prefill and a decode step on a strided cache view, over long prompts (T
-   2048 and 8192, causal, Llama's heads), and bf16 rows whose rows cannot
-   take 16-byte copies;
+   2048 and 8192, causal, Llama's heads), bf16 rows whose rows cannot
+   take 16-byte copies, and SmolLM-360M's phase-15 micro-batch (B 2, T 512,
+   15 query heads over 5);
    the flash-attention backward (tensor-core ``tc`` and FMA kernels) at the
    Llama training shape (B 4, T 2048, H 32/8, hd 64, causal; bf16 and f32),
-   Granite's heads and edge shapes, with the forward's lse against its plain
+   Granite's heads, SmolLM-360M's phase-15 micro-batch (B 2, T 512, H
+   15/5) and edge shapes, with the forward's lse against its plain
    value, the output the same bits with and without lse, the gradients the
    same bits on a repeat launch, in f32 within 1e-4 of max(1, |ref|) and in
    bf16 within FlashAttention-2's rule (at most twice the error of autograd
@@ -30,7 +32,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``F.scaled_dot_product_attention``;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
-   8192) and at shapes where B and H are no tile multiples, h' and c' the
+   8192; also at the pipeline's micro-batch rows B 4 and B 1) and at shapes
+   where B and H are no tile multiples, h' and c' the
    same bits with and without the gates, and the cell's autograd function
    (dx, dh, dc, dWx, dWh, db) against autograd of the plain oracle; the
    grouped matmul at full-width Granite-3.0-1B-A400M's four expert products
@@ -97,10 +100,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (every speedup finite, every chosen plan within the card's memory); then
    train full-width BigLSTM through ``--parallel auto --devices 1`` with the
    launch counters set to 0 just before and read just after (2 steps: 256
-   forward launches, all ``tc``, and 256 backward), and show ``--devices
-   64`` raising NotImplementedError naming the ROADMAP item of the plan the
-   H100 model picks for BigLSTM and for Llama;
-15. print one JSON line of kernels, then the device line.
+   forward launches, all ``tc``, and 256 backward), then train it 2 steps
+   through ``--devices 64``: the H100 model's 1f1b 8 x 4 x 2 K16 plan,
+   clamped to 1 DP x 2 stages on 2 ranks that share the card (K 16: 8192
+   forward launches, all ``tc``, and 4096 backward, summed over the ranks),
+   and show Llama's 64-card plan (context parallelism) raising
+   NotImplementedError naming ROADMAP item 8;
+15. DP and pipeline ranks on the card, each run in its own ranks through the
+   launcher (``launch.train``), which share the card (gloo, host-staged
+   messages; their step times are not multi-card step times):
+   (a) full-width, full-depth BigLSTM at ``pipe=2,micro=4,sched=1f1b``, B 16
+   x T 64, 3 steps: the LSTM forward launches summed over the ranks are 2 L
+   T K a step (the forward units and the backward's recompute), all on
+   ``tc``, the pointwise backward L T K, stage 0's store high-water mark 2 =
+   min(K, S); (b) the same at ``sched=gpipe``, stage 0's mark K = 4; (c)
+   full-width, full-depth SmolLM-360M at ``dp=2,pipe=2,micro=2,sched=1f1b``,
+   B 8 x T 512, 3 steps on 4 ranks: 2 L K dp flash-attention forward
+   launches a step, all ``tc_prefill``, and L K dp backward calls, all
+   ``tc``; each rank's peak memory, store mark and step ms beside the
+   planner's per-device memory model, and the LSTM forward's device and
+   event time at the micro-batch rows (B 4 and 1), its weights cold; (d) in
+   phase 7's cell (2 full-width BigLSTM layers, f32, vocab 32768: the FMA
+   LSTM kernel, not ``tc``) one step at ``pipe=2,micro=4,sched=1f1b`` and
+   one at ``dp=2`` with the bucketed sync (``--comm-runtime overlapped``),
+   each held against the single-process step on the card from the same
+   seeded weights: loss and grad norm within 1e-4 relative, parameters
+   within 5e-5 (under one AdamW step);
+16. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -128,6 +154,11 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BATCH, PROMPT, NEW = 4, 512, 32
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
 AUTO_STEPS = 2                                  # BigLSTM steps through --parallel auto
+RANK_STEPS = 3                                  # steps of each phase-15 run
+# phase 15 (d)'s parameters after one step: under the 1.5e-4 that AdamW's
+# first step at lr(0) moves an element, so a skipped or mis-scaled update shows
+RANK_PARAMS_TOL = 5e-5
+SMOL_B, SMOL_T = 8, 512                         # the hybrid SmolLM-360M run's batch
 LLAMA_B, LLAMA_T = 4, 2048                      # the dense decoder's training shape
 BWD_F32_TOL = 1e-4    # f32 backward: sums of up to 2048 terms in another order
 # flash backward rows: B, Tq, Tk, H, Hkv, hd, causal, window (T 1, 4, 17, 130,
@@ -311,14 +342,15 @@ def phase_kernels(fa):
     qm.copy_(q)
     rows.append(check_attention(fa, "prefill B4 T512 H16/8 hd64 causal, q misaligned", qm, k, v,
                                 causal=True))
-    # edge shapes (tests/test_kernels.py), windows, Tq != Tk, head dims, fp32
+    # edge shapes (tests/test_kernels.py), windows, Tq != Tk, head dims, fp32,
+    # and SmolLM-360M's micro-batch in phase 15 (c): 15 query heads over 5
     f32 = torch.float32
     for b, tq, tk, h, hkv, hd, causal, window, dt in [
             (1, 70, 70, 2, 2, 32, True, 0, f32), (2, 130, 130, 2, 2, 32, True, 3, f32),
             (1, 7, 7, 2, 2, 32, False, 0, f32), (1, 1, 1, 2, 2, 32, True, 0, f32),
             (2, 100, 260, 2, 2, 64, False, 0, f32), (2, 40, 100, 4, 2, 64, True, 0, f32),
             (2, 300, 300, 8, 2, 128, True, 64, bf), (2, 256, 256, 32, 8, 64, True, 0, f32),
-            (3, 5, 77, 4, 1, 128, False, 0, bf)]:
+            (3, 5, 77, 4, 1, 128, False, 0, bf), (2, 512, 512, 15, 5, 64, True, 0, bf)]:
         rows.append(check_attention(
             fa, f"B{b} Tq{tq} Tk{tk} H{h}/{hkv} hd{hd} causal={causal} window={window}",
             rnd(b, tq, h, hd, dtype=dt), rnd(b, tk, hkv, hd, dtype=dt),
@@ -452,6 +484,10 @@ def phase_flash_bwd(fa):
     rows += check_flash_bwd(fa, "B4 T512 H16/8 hd64 causal", rnd(4, 512, 16, 64, dtype=bf),
                             rnd(4, 512, 8, 64, dtype=bf), rnd(4, 512, 8, 64, dtype=bf),
                             rnd(4, 512, 16, 64, dtype=bf), causal=True)
+    # SmolLM-360M's micro-batch in phase 15 (c): 15 query heads over 5 (ratio 3)
+    rows += check_flash_bwd(fa, "B2 T512 H15/5 hd64 causal", rnd(2, 512, 15, 64, dtype=bf),
+                            rnd(2, 512, 5, 64, dtype=bf), rnd(2, 512, 5, 64, dtype=bf),
+                            rnd(2, 512, 15, 64, dtype=bf), causal=True)
     for b, tq, tk, h, hkv, hd, causal, window in FLASH_BWD_EDGE:
         for dt in (torch.float32, torch.bfloat16):
             rows += check_flash_bwd(
@@ -623,7 +659,8 @@ def phase_lstm_kernels(lc, ref_mod):
     # edge shapes: B and H no tile multiples, widths that the tensor-core
     # tile does not take (fma) and that it does (tc, then fma forced)
     for b, d_in, d_h, hh in [(1, 24, 16, 70), (5, 64, 40, 33), (17, 40, 12, 130),
-                             (3, 16, 8, 1), (1, 1024, 1024, 8192), (1, 24, 16, 72),
+                             (3, 16, 8, 1), (1, 1024, 1024, 8192), (4, 1024, 1024, 8192),
+                             (1, 24, 16, 72),
                              (5, 64, 40, 72), (17, 40, 16, 136), (33, 128, 64, 264)]:
         for dt in (torch.float32, torch.bfloat16):
             args = lstm_inputs(gen, b, d_in, d_h, hh, dtype=dt)
@@ -1341,23 +1378,200 @@ def phase_planner(train_launch, lc, counters, lstm_cfg, llama_cfg, lstm_timing,
         raise AssertionError(f"--parallel auto training gave losses {losses}")
     del summary
     torch.cuda.empty_cache()
+    # the 64-card plan: 1f1b 8 x 4 x 2 K16, clamped to the one card's ranks
+    best = chosen[("biglstm", 64)]
+    k = best.microbatches
+    if (best.mp_kind, best.schedule, best.mp, k) != ("pipeline", "1f1b", 2, 16):
+        raise AssertionError(f"BigLSTM at 64 cards: the plan is {best}")
+    summary = train_launch.main(["--arch", "biglstm", "--parallel", "auto", "--devices", "64",
+                                 "--steps", str(AUTO_STEPS)])
+    at_64 = check_rank_run(summary, "--devices 64", lstm_cfg, steps=AUTO_STEPS, stages=2,
+                           micro=k, lstm=True, high_water=min(k, 2))
     refused = {}
-    for arch in ("biglstm", "llama3_2_1b"):
-        item = train_launch.MP_ITEMS[chosen[(arch, 64)].mp_kind]
-        try:
-            train_launch.main(["--arch", arch, "--parallel", "auto", "--devices", "64",
-                               "--steps", "1"])
-        except NotImplementedError as e:
-            if item not in str(e):
-                raise AssertionError(f"{arch} at 64 cards raised {e!r}, want {item}")
-            refused[arch] = str(e)
-        else:
-            raise AssertionError(f"{arch} at 64 cards trained on one card")
+    item = "ROADMAP.md Queue 1 item 8"
+    if chosen[("llama3_2_1b", 64)].mp_kind != "context":
+        raise AssertionError(f"Llama at 64 cards: the plan is {chosen[('llama3_2_1b', 64)]}")
+    try:
+        train_launch.main(["--arch", "llama3_2_1b", "--parallel", "auto", "--devices", "64",
+                           "--steps", "1"])
+    except NotImplementedError as e:
+        if item not in str(e):
+            raise AssertionError(f"llama3_2_1b at 64 cards raised {e!r}, want {item}")
+        refused["llama3_2_1b"] = str(e)
+    else:
+        raise AssertionError("llama3_2_1b at 64 cards trained on one card")
     out = {"arch": lstm_cfg.name, "devices": 1, "steps": AUTO_STEPS, "losses": losses,
            "launches": launches, "lstm_cell_fwd_variant_launches": variants["lstm_cell_fwd"],
-           "refused_at_64": refused}
+           "at_64": at_64, "refused_at_64": refused}
     print(json.dumps({"parallel_auto": out}), flush=True)
-    return launches
+    return launches, at_64["launches"]
+
+
+def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_T, lstm,
+                   high_water):
+    """A multi-rank launcher run: the shared-card transport, the kernel
+    launches summed over the ranks (LSTM: 2 L T K forward a step, all on
+    ``tc``, and L T K backward; attention: 2 L K dp forward launches a step,
+    all ``tc_prefill``, and L K dp backward calls, all ``tc``), stage 0's
+    store high-water mark, finite losses.  Returns the run's record."""
+    t = summary["transport"]
+    if (t.backend, t.placement, len(summary["ranks"])) != ("gloo", "shared", dp * stages):
+        raise AssertionError(f"{name}: ran on {t} with {len(summary['ranks'])} ranks")
+    launches, variants = summary["launches"], summary["variants"]
+    want = dict.fromkeys(launches, 0)
+    want_variants = {n: dict.fromkeys(v, 0) for n, v in variants.items()}
+    if lstm:
+        per_step = cfg.n_layers * seq * micro * dp
+        want.update(lstm_cell_fwd=2 * steps * per_step, lstm_cell_bwd_pointwise=steps * per_step)
+        want_variants["lstm_cell_fwd"]["tc"] = 2 * steps * per_step
+    else:
+        per_step = cfg.n_layers * micro * dp
+        want.update(flash_attention=2 * steps * per_step, flash_attention_bwd=steps * per_step)
+        want_variants["flash_attention"]["tc_prefill"] = 2 * steps * per_step
+        want_variants["flash_attention_bwd"]["tc"] = steps * per_step
+    if launches != want or variants != want_variants:
+        raise AssertionError(f"{name} launched {launches} {variants}, want {want} "
+                             f"{want_variants}")
+    marks = [r["store_high_water"] for r in summary["ranks"]]
+    if marks[0] != high_water:
+        raise AssertionError(f"{name}: stage 0's store high-water mark {marks[0]}, want "
+                             f"{high_water}")
+    losses = summary["history"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    return {"run": name, "transport": t.describe(len(summary["ranks"])), "losses": losses,
+            "launches": launches, "variant_launches": variants,
+            "ranks": [{"rank": r["rank"], "data": r["data"], "stage": r["stage"],
+                       "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
+                       "store_high_water": r["store_high_water"],
+                       "step_ms": r["step_ms"],
+                       "median_step_ms_after_first": float(np.median(r["step_ms"][1:]))}
+                      for r in summary["ranks"]]}
+
+
+def phase_ranks(train_launch, lc, lstm_cfg):
+    """Phase 15 (a)-(c): full-width DP and pipeline runs through the
+    launcher on ranks that share the card, beside the planner's memory
+    model and bubble fraction."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner as planner_mod
+    from repro_torch.parallel.pipeline import pipeline_bubble_fraction
+
+    runs = {}
+    for tag, sched, mark in (("a", "1f1b", 2), ("b", "gpipe", 4)):
+        torch.cuda.empty_cache()
+        spec = f"pipe=2,micro=4,sched={sched}"
+        summary = train_launch.main(["--arch", "biglstm", "--parallel", spec, "--batch",
+                                     str(TRAIN_B), "--seq", str(TRAIN_T), "--steps",
+                                     str(RANK_STEPS)])
+        rec = check_rank_run(summary, f"({tag}) biglstm {spec}", lstm_cfg, steps=RANK_STEPS,
+                             stages=2, micro=4, lstm=True, high_water=mark)
+        rec["planner_per_device_mem_gib"] = planner_mod.per_device_mem_bytes(
+            lstm_cfg, mp=2, mp_kind="pipeline", mini_batch=TRAIN_B, seq_len=TRAIN_T,
+            microbatches=4, schedule=sched, remat=False,
+            opt_bytes_per_param=planner_mod.default_opt_bytes_per_param(lstm_cfg)) / 2**30
+        rec["planner_bubble_fraction"] = pipeline_bubble_fraction(4, 2, sched)
+        runs[tag] = rec
+        print(json.dumps({"ranks_" + tag: rec}), flush=True)
+    smol = get_config("smollm_360m")
+    spec = "dp=2,pipe=2,micro=2,sched=1f1b"
+    torch.cuda.empty_cache()
+    summary = train_launch.main(["--arch", "smollm_360m", "--parallel", spec, "--batch",
+                                 str(SMOL_B), "--seq", str(SMOL_T), "--steps", str(RANK_STEPS),
+                                 "--max-local-devices", "4"])
+    rec = check_rank_run(summary, f"(c) smollm_360m {spec}", smol, steps=RANK_STEPS,
+                         stages=2, micro=2, dp=2, seq=SMOL_T, lstm=False, high_water=2)
+    rec["planner_per_device_mem_gib"] = planner_mod.per_device_mem_bytes(
+        smol, mp=2, mp_kind="pipeline", mini_batch=SMOL_B // 2, seq_len=SMOL_T,
+        microbatches=2, schedule="1f1b", remat=False,
+        opt_bytes_per_param=planner_mod.default_opt_bytes_per_param(smol)) / 2**30
+    rec["planner_bubble_fraction"] = pipeline_bubble_fraction(2, 2, "1f1b")
+    runs["c"] = rec
+    print(json.dumps({"ranks_c": rec}), flush=True)
+    # the LSTM forward at the micro-batch rows (B 16 / K 4; the 64-card
+    # plan's K 16 gives 1 row), with gates, beside its byte bound: device ms
+    # and CUDA-event ms (host gaps included) a launch over 200 launches that
+    # rotate over weight sets larger together than twice the 50 MB L2, so
+    # each launch finds its weights cold, as each layer and time step does
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    per_launch = {}
+    for rows in (4, 1):
+        args = lstm_inputs(gen, rows, *LSTM_FULL[1:], dtype=torch.bfloat16)
+        if lc.lstm_variant(*args[:2], *args[3:5]) != "tc":
+            raise AssertionError(f"the LSTM forward at B {rows} would not run on tc")
+        h_new, c_new, gates = lc.lstm_cell_fwd(*args, want_gates=True)
+        x, h, c, wx, wh, b = args
+        nbytes = _nbytes(x, h, c, wx, wh, b, h_new, c_new, gates)
+        bound, by = bound_ms(nbytes, 2.0 * rows * (x.shape[1] + h.shape[1]) * 4 * c.shape[1],
+                             torch.bfloat16)
+        n_sets = max(2, math.ceil(2 * L2_BYTES / nbytes))
+        cycle = itertools.cycle([args] + [
+            lstm_inputs(gen, rows, *LSTM_FULL[1:], dtype=torch.bfloat16)
+            for _ in range(n_sets - 1)])
+        rec = {"input_sets": n_sets, "bound_ms": bound, "bound_by": by}
+        time_into(rec, "ms", lambda: lc.lstm_cell_fwd(*next(cycle), want_gates=True), reps=200)
+        per_launch[f"B{rows}"] = rec
+        del cycle
+    fwd_per_step = 2 * lstm_cfg.n_layers * TRAIN_T * 4
+    runs["lstm_fwd_per_launch"] = per_launch
+    print(json.dumps({"ranks_lstm_fwd": {
+        "per_launch": per_launch, "launches_a_step_at_K4": fwd_per_step,
+        "device_ms_a_step_at_K4": fwd_per_step * per_launch["B4"]["ms"],
+        "bound_ms_a_step_at_K4": fwd_per_step * per_launch["B4"]["bound_ms"]}}), flush=True)
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_ranks_vs_plain(train_launch, api_mod, cfg):
+    """Phase 15 (d): one pipelined step and one DP step (bucketed sync) on
+    ranks sharing the card, each against the single-process step on the
+    card from the same seeded weights (the launcher's seed 0) and batch, in
+    phase 7's cell and within its limits."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, vocab_size=32768, dtype="float32")
+    batch_size, lr = 8, 3e-3
+    api = api_mod.build_model(cfg2, device="cuda")
+    opt = adamw(warmup_cosine(lr, 20, 1))
+    state = init_train_state(api, opt, 0)
+    batch = {k: v.cuda() for k, v in _lm_batch(TRAIN_T, batch_size).items()}
+    state, metrics = make_train_step(api, opt, clip_norm=1.0)(state, batch)
+    ref = (float(metrics["loss"]), float(metrics["grad_norm"]),
+           _tree_to(state.params, "cpu"))
+    del state, metrics, batch
+    torch.cuda.empty_cache()
+    results = {}
+    for name, spec, comm in (("pipe=2,micro=4,sched=1f1b", "pipe=2,micro=4,sched=1f1b", None),
+                             ("dp=2 overlapped", "dp=2,mp=1", "overlapped")):
+        plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
+        plan = dataclasses.replace(plan, dp_axes=("data",),
+                                   comm_runtime=comm or plan.comm_runtime)
+        stages = mp if plan.is_pipeline else 1
+        run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=1, batch=batch_size,
+                                   seq=TRAIN_T, lr=lr, return_params=True)
+        summary = train_launch.run_ranks(run, dp, stages, "cuda")
+        loss, gnorm = summary["history"][0], summary["grad_norms"][0]
+        err = 0.0
+        for r, params in zip(summary["ranks"], summary["rank_params"]):
+            want = (api.pipeline_stage_params(ref[2], stages, 1, r["stage"])
+                    if stages > 1 else ref[2])
+            err = max(err, _max_err(tree_leaves(params), tree_leaves(want)))
+        results[name] = {"loss_rel": abs(loss - ref[0]) / abs(ref[0]),
+                         "grad_norm_rel": abs(gnorm - ref[1]) / abs(ref[1]),
+                         "params_max_abs": err, "loss": loss, "grad_norm": gnorm,
+                         "transport": summary["transport"].describe(dp * stages)}
+    out = {"ranks_vs_single": results, "single": {"loss": ref[0], "grad_norm": ref[1]},
+           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}}
+    print(json.dumps(out), flush=True)
+    for name, r in results.items():
+        if not (r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4
+                and r["params_max_abs"] <= RANK_PARAMS_TOL):
+            raise AssertionError(f"{name} on ranks disagrees with the single-process step: {r}")
+    return results
 
 
 def _kernel_entry(name, source, replaces, launches, rows, **extra):
@@ -1452,10 +1666,14 @@ def main():
     phase_llama_train_vs_plain(fa, api_mod, cfg)
 
     _phase("14 the planner on the card")
-    auto_launches = phase_planner(train_launch, lc, counters, lstm_cfg, cfg, lstm_timing,
-                                  llama_timing)
+    auto_launches, auto64_launches = phase_planner(train_launch, lc, counters, lstm_cfg, cfg,
+                                                   lstm_timing, llama_timing)
 
-    _phase("15 result")
+    _phase("15 DP and pipeline ranks on the card")
+    rank_runs = phase_ranks(train_launch, lc, lstm_cfg)
+    phase_ranks_vs_plain(train_launch, api_mod, lstm_cfg)
+
+    _phase("16 result")
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1464,7 +1682,9 @@ def main():
                       launches_by_path={"serve llama3_2_1b": launches["flash_attention"],
                                         "serve granite_moe_1b_a400m":
                                             moe_launches["flash_attention"],
-                                        "train llama3_2_1b": llama_launches["flash_attention"]},
+                                        "train llama3_2_1b": llama_launches["flash_attention"],
+                                        "train smollm_360m dp=2,pipe=2 (ranks)":
+                                            rank_runs["c"]["launches"]["flash_attention"]},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
                           "serve granite_moe_1b_a400m": moe_variants["flash_attention"],
@@ -1475,7 +1695,9 @@ def main():
                       library=flash_bwd_rows[0]["library"],
                       launches_by_path={
                           "train llama3_2_1b": llama_launches["flash_attention_bwd"],
-                          "train biglstm": train_launches["flash_attention_bwd"]},
+                          "train biglstm": train_launches["flash_attention_bwd"],
+                          "train smollm_360m dp=2,pipe=2 (ranks)":
+                              rank_runs["c"]["launches"]["flash_attention_bwd"]},
                       variant_launches_by_path={
                           "train llama3_2_1b": llama_variants["flash_attention_bwd"]},
                       note="no TPU kernel: JAX differentiates src/repro/models/layers.py:160 "
@@ -1485,14 +1707,26 @@ def main():
                       variant_launches=train_variants,
                       launches_by_path={
                           "train biglstm": train_launches["lstm_cell_fwd"],
-                          "train biglstm --parallel auto": auto_launches["lstm_cell_fwd"]}),
+                          "train biglstm --parallel auto": auto_launches["lstm_cell_fwd"],
+                          "train biglstm --parallel auto --devices 64 (ranks)":
+                              auto64_launches["lstm_cell_fwd"],
+                          "train biglstm pipe=2 1f1b (ranks)":
+                              rank_runs["a"]["launches"]["lstm_cell_fwd"],
+                          "train biglstm pipe=2 gpipe (ranks)":
+                              rank_runs["b"]["launches"]["lstm_cell_fwd"]}),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
                       "src/repro/kernels/lstm_cell.py:24", train_launches[
                           "lstm_cell_bwd_pointwise"], bwd_rows,
                       launches_by_path={
                           "train biglstm": train_launches["lstm_cell_bwd_pointwise"],
                           "train biglstm --parallel auto":
-                              auto_launches["lstm_cell_bwd_pointwise"]},
+                              auto_launches["lstm_cell_bwd_pointwise"],
+                          "train biglstm --parallel auto --devices 64 (ranks)":
+                              auto64_launches["lstm_cell_bwd_pointwise"],
+                          "train biglstm pipe=2 1f1b (ranks)":
+                              rank_runs["a"]["launches"]["lstm_cell_bwd_pointwise"],
+                          "train biglstm pipe=2 gpipe (ranks)":
+                              rank_runs["b"]["launches"]["lstm_cell_bwd_pointwise"]},
                       note="no TPU backward kernel: JAX differentiates the plain cell "
                            "(src/repro/models/lstm.py:53)"),
         _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",

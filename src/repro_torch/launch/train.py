@@ -1,10 +1,13 @@
-"""Training launcher (single-process port of ``repro/launch/train.py``):
+"""Training launcher (port of ``repro/launch/train.py``):
 
     python -m repro_torch.launch.train --arch biglstm --steps 5
     python -m repro_torch.launch.train --arch llama3_2_1b --batch 4 --seq 2048 --steps 5
     python -m repro_torch.launch.train --arch biglstm --reduced --device cpu --steps 3
     python -m repro_torch.launch.train --arch biglstm --parallel dp=1,mp=1,accum=2
-    python -m repro_torch.launch.train --arch biglstm --parallel auto --devices 1
+    python -m repro_torch.launch.train --arch biglstm --parallel pipe=2,micro=4,sched=1f1b
+    python -m repro_torch.launch.train --arch smollm_360m --batch 8 --seq 512 \
+        --parallel dp=2,pipe=2,micro=2,sched=1f1b --max-local-devices 4
+    python -m repro_torch.launch.train --arch biglstm --parallel auto --devices 64
 
 Feeds the JAX launcher's data (the order-2 Markov LM over min(V, 64)
 symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
@@ -17,13 +20,23 @@ backward (``[variants]``).  Runs on the card by default; ``--device cpu
 
 ``--parallel auto`` runs the paper's HybridPlanner (``core.planner``, on the
 H100 ``HardwareModel``) over a budget of ``--devices`` cards (default 256,
-as in JAX) and prints the JAX launcher's ``[planner]`` line.  A winning
-plan with one-way MP trains on this one card, its DP degree clamped to 1
-as the JAX launcher clamps to its local devices; a plan with MP > 1 raises
-NotImplementedError naming the runtime it needs (ROADMAP.md Queue 1 item 6
-pipeline, 7 tensor, 8 context).  Explicit specs take ``dp=1,mp=1`` with an
-optional ``accum=N`` (the §4.2 delayed-gradient accumulation); every other
-spec raises NotImplementedError naming its ROADMAP item.  On the card
+as in JAX) and prints the JAX launcher's ``[planner]`` line.  Explicit specs
+take ``dp=N,mp=1[,accum=A]`` (DP, with the §4.2 accumulation) and
+``pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]`` (DP x pipeline
+MP).  As in JAX, the DP degree is clamped to what ``--max-local-devices``
+affords (default: the cards on ``cuda``, 8 on the CPU) and must divide the
+batch, stages are always realised, and the micro-batch count is clamped to
+divide each replica's rows.  A run of more than one rank starts dp x stages
+``torch.distributed`` ranks (``parallel.dist.spawn_ranks``); where there are
+fewer cards than ranks they share the cards and their messages cross host
+memory, which the ``[dist]`` line says.  Every rank builds the same seeded
+data and takes its DP shard; a pipelined rank holds only its stage's
+parameters.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
+``[kernels]`` / ``[variants]`` counts summed over the ranks; the launcher
+then prints each rank's peak device memory and pipeline store high-water
+mark (``[ranks]``).  Tensor MP raises NotImplementedError naming ROADMAP.md
+Queue 1 item 7, context parallelism item 8, parameters sharded over DP
+(fsdp) item 5's remainder and ``--pipe-runtime ad`` item 6b.  On the card
 BigLSTM and the dense decoder train; an MoE decoder needs the gmm backward
 kernel and RWKV a wkv backward.  On the CPU every decoder trains through
 the kernels' plain versions.
@@ -31,7 +44,10 @@ the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
-from typing import Tuple
+import dataclasses
+import statistics
+import time
+from typing import Dict, Tuple
 
 import torch
 
@@ -42,17 +58,15 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import wkv6 as wk
-from repro_torch.models.api import build_model, supports_pipeline
+from repro_torch.models.api import (build_model, pipeline_applicable, resolve_device,
+                                    supports_pipeline)
 from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.parallel import dist as D
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.train.loop import LoopConfig, train_loop
-from repro_torch.train.steps import init_train_state, make_train_step
+from repro_torch.train.steps import check_plan, init_train_state, make_train_step
+from repro_torch.tree import tree_map
 
-DATA_PARALLEL = "ROADMAP.md Queue 1 item 5 (data parallelism)"
-# the ROADMAP item of the runtime each kind of model parallelism needs
-MP_ITEMS = {"pipeline": "ROADMAP.md Queue 1 item 6 (pipeline runtime)",
-            "tensor": "ROADMAP.md Queue 1 item 7 (tensor MP)",
-            "context": "ROADMAP.md Queue 1 item 8 (context parallelism)"}
 SPEC_KEYS = ("dp", "mp", "accum", "pipe", "micro", "sched", "v", "cp")
 DEFAULT_DEVICES = 256
 
@@ -134,28 +148,28 @@ def parse_parallel(spec: str, devices: int, cfg, comm_runtime: str = "gspmd",
         raise SystemExit(f"[plan] cannot parse --parallel {spec!r}") from None
 
 
-def single_card_accum(plan: ParallelPlan, mp: int, dp_hint: int, *,
-                      auto: bool) -> int:
-    """The accumulation count of a plan this one card runs.  A plan with
-    MP > 1, or one whose parameters shard over DP, raises
-    NotImplementedError naming the runtime it needs; a planner plan's DP
-    degree is clamped to the card (as the JAX launcher clamps to its local
-    devices), an explicit ``dp=`` > 1 raises."""
-    if mp > 1:
-        raise NotImplementedError(
-            f"a {dp_hint}-way DP x {mp}-way {plan.mp_kind} MP plan is not ported "
-            f"to repro_torch yet: {MP_ITEMS[plan.mp_kind]}")
-    if plan.fsdp_axes:
-        raise NotImplementedError(
-            f"a {dp_hint}-way DP plan that shards parameters over DP is not "
-            f"ported to repro_torch yet: {DATA_PARALLEL}")
-    if dp_hint > 1:
-        if not auto:
-            raise NotImplementedError(f"--parallel dp={dp_hint} is not ported to "
-                                      f"repro_torch yet: {DATA_PARALLEL}")
-        print(f"[plan] clamped DP {dp_hint} -> 1 (one card; DP across cards is "
-              f"{DATA_PARALLEL})")
-    return plan.microbatches
+def clamp_dp(dp_hint: int, mp: int, batch: int, max_local: int, what: str) -> int:
+    """Realise as much of the plan's DP degree as the local budget of
+    ``max_local`` ranks affords, as the JAX launcher's ``clamp_dp``: dp must
+    also divide the batch (it is sharded over "data")."""
+    dp_cap = min(max(dp_hint, 1), max(1, max_local // mp))
+    got = max(d for d in range(1, dp_cap + 1) if batch % d == 0)
+    if got < dp_hint:
+        print(f"[plan] clamped DP {dp_hint} -> {got} (local budget {max_local}, {what})")
+    return got
+
+
+def clamp_micro(plan: ParallelPlan, shard_rows: int) -> ParallelPlan:
+    """The planner models micro-batches against its reference batch; the run
+    uses the largest count up to the plan's that divides each replica's
+    ``shard_rows``."""
+    micro = max(k for k in range(1, min(plan.microbatches, shard_rows) + 1)
+                if shard_rows % k == 0)
+    if micro != plan.microbatches:
+        print(f"[plan] clamped micro-batches {plan.microbatches} -> {micro} "
+              f"(rows a replica={shard_rows})")
+        plan = dataclasses.replace(plan, microbatches=micro)
+    return plan
 
 
 def check_trainable(cfg, device: torch.device) -> None:
@@ -174,6 +188,126 @@ def check_trainable(cfg, device: torch.device) -> None:
             f"ported yet: {moe_gmm.MOE_TRAIN}")
 
 
+@dataclasses.dataclass(frozen=True)
+class RankRun:
+    """What a training run needs (pickled to the ranks of a multi-rank run)."""
+    cfg: object
+    plan: ParallelPlan
+    steps: int
+    batch: int
+    seq: int
+    lr: float
+    device: str = "cuda"
+    seed: int = 0
+    return_params: bool = False
+
+
+def _counter_fns():
+    return {"lstm_cell_fwd": lc.lstm_cell_fwd,
+            "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise,
+            "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "gmm": moe_gmm.gmm, "wkv6": wk.wkv6}
+
+
+def _launch_counts() -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
+    fns = _counter_fns()
+    variants = {n: dict(fns[n].variant_launches)
+                for n in ("lstm_cell_fwd", "flash_attention", "flash_attention_bwd")}
+    return {n: fn.launches for n, fn in fns.items()}, variants
+
+
+def _print_counts(launches, variants) -> None:
+    print("[kernels] " + " ".join(f"{n}={c}" for n, c in launches.items()))
+    print("[variants] " + " | ".join(f"{n}: " + " ".join(f"{v}={c}" for v, c in vs.items())
+                                     for n, vs in variants.items()), flush=True)
+
+
+def _train(mesh, run: RankRun) -> dict:
+    """The training run, in one process (``mesh`` None) or as one rank of a
+    DP x pipeline run: its stage (or replica), its DP shard of the same
+    seeded data, the loop; a rank's kernel counts are summed over the
+    ranks.  One process returns the loop's summary with its ``state``."""
+    device = resolve_device(run.device) if mesh is None else mesh.device
+    api = build_model(run.cfg, device=device)
+    lead = mesh is None or mesh.rank == 0
+    data = make_lm_dataset(vocab=min(run.cfg.vocab_size, 64), seq_len=run.seq)
+    if lead:
+        print(f"[data] markov-lm entropy floor = {data.entropy:.4f} nats/token", flush=True)
+    opt = adamw(warmup_cosine(run.lr, 20, run.steps))
+    step_fn = make_train_step(api, opt, clip_norm=1.0, mesh=mesh, plan=run.plan)
+    state = init_train_state(api, opt, run.seed, mesh=mesh, plan=run.plan)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    step_ms, grad_norms, high_water = [], [], [0]
+
+    def timed_step(st, batch):
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = step_fn(st, batch)
+        if cuda:
+            torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        grad_norms.append(float(out[1]["grad_norm"]))
+        high_water[0] = max(high_water[0], int(out[1].get("store_high_water", 0)))
+        return out
+
+    # one process feeds the card; a rank moves its own shard (train.steps)
+    pipeline = DataPipeline(lambda e: data.epoch(e, run.batch),
+                            device=api.device if mesh is None else None,
+                            steps_per_epoch=data.steps_per_epoch(run.batch))
+    summary = train_loop(timed_step, state, pipeline, LoopConfig(total_steps=run.steps),
+                         log_fn=print if lead else (lambda line: None))
+    launches, variants = _launch_counts()
+    if mesh is not None:
+        names = list(launches) + [(n, v) for n, vs in variants.items() for v in vs]
+        counts = torch.tensor(list(launches.values())
+                              + [c for vs in variants.values() for c in vs.values()],
+                              dtype=torch.int64)
+        summed = dict(zip(names, D.all_reduce(mesh, counts).tolist()))
+        launches = {n: summed[n] for n in launches}
+        variants = {n: {v: summed[(n, v)] for v in vs} for n, vs in variants.items()}
+    if lead:
+        print(f"[done] steps={summary['steps']} final_loss={summary['final_loss']:.4f} "
+              f"wall={summary['wall_s']:.1f}s (floor {data.entropy:.4f})")
+        _print_counts(launches, variants)
+    summary.update(launches=launches, variants=variants, grad_norms=grad_norms)
+    if mesh is None:
+        return summary
+    final = summary.pop("state")
+    out = dict(summary, transport=mesh.transport, rank={
+        "rank": mesh.rank, "data": mesh.data_index, "stage": mesh.model_index,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0,
+        "store_high_water": high_water[0], "step_ms": step_ms})
+    if run.return_params:
+        out["params"] = tree_map(lambda t: t.detach().cpu(), final.params)
+    return out
+
+
+def run_ranks(run: RankRun, dp: int, stages: int, device) -> dict:
+    """``run`` on dp x ``stages`` ranks (``parallel.dist.spawn_ranks``);
+    returns rank 0's summary (losses, grad norms, kernel counts summed over
+    the ranks, the ``transport``) with every rank's memory, store and step
+    times (``ranks``) and, with ``run.return_params``, every rank's
+    parameters on the CPU (``rank_params``), and prints the ``[ranks]``
+    line."""
+    results = D.spawn_ranks(_train, dp * stages, device, args=(run,), stages=stages)
+    summary = dict(results[0])
+    summary.pop("params", None)
+    summary["ranks"] = [r["rank"] for r in results]
+    if run.return_params:
+        summary["rank_params"] = [r["params"] for r in results]
+    print("[ranks] " + " | ".join(
+        f"r{r['rank']} (data {r['data']}, stage {r['stage']}): peak "
+        f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, store high-water {r['store_high_water']}, "
+        f"median step after the first {statistics.median(r['step_ms'][1:] or r['step_ms']):.1f}"
+        f" ms"
+        for r in summary["ranks"]), flush=True)
+    return summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -184,14 +318,22 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--parallel", default="dp=1,mp=1",
-                    help="'auto' or dp=1,mp=1[,accum=N] (other specs are not "
-                         "ported yet)")
+                    help="'auto', 'dp=N,mp=1[,accum=A]' or "
+                         "'pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]'")
     ap.add_argument("--devices", type=int, default=0,
                     help=f"planner device budget for --parallel auto (default: "
                          f"{DEFAULT_DEVICES}, as in the JAX launcher)")
-    ap.add_argument("--comm-runtime", choices=["gspmd", "overlapped"], default="gspmd",
-                    help="the collective runtime --parallel auto costs its DP "
-                         "gradient sync and tensor-MP matmuls with")
+    ap.add_argument("--max-local-devices", type=int, default=0,
+                    help="ranks this run may realise: DP is clamped to it, stages are "
+                         "always realised (default: the cards on cuda, 8 on the CPU)")
+    ap.add_argument("--pipe-runtime", choices=["scheduled", "ad"], default=None,
+                    help="pipeline runtime: 'scheduled' (default) hand-executes the "
+                         "fwd+bwd WorkUnit table; 'ad' is not ported (ROADMAP item 6b)")
+    ap.add_argument("--comm-runtime", choices=["gspmd", "overlapped"], default=None,
+                    help="the DP gradient sync: 'overlapped' reduce-scatters and "
+                         "all-gathers bucket by bucket, 'gspmd' (default) all-reduces "
+                         "each leaf; with --parallel auto, the runtime the planner "
+                         "costs")
     ap.add_argument("--context-parallel", action="store_true",
                     help="with --parallel auto, search only context-parallel "
                          "plans; with an explicit spec, mp= is the ring size")
@@ -203,36 +345,50 @@ def main(argv=None):
     if cfg.family == "cnn":
         raise SystemExit(f"[data] {cfg.name}: the train CLI drives the token-LM data "
                          f"pipeline; cnn archs train through benchmarks/fig4_epochs.py")
+    auto = args.parallel == "auto"
     plan, mp, dp_hint = parse_parallel(args.parallel, args.devices or DEFAULT_DEVICES,
-                                       cfg, comm_runtime=args.comm_runtime,
+                                       cfg, comm_runtime=args.comm_runtime or "gspmd",
                                        context_parallel=args.context_parallel)
-    accum = single_card_accum(plan, mp, dp_hint, auto=args.parallel == "auto")
-    api = build_model(cfg, device=args.device)
-    check_trainable(cfg, api.device)
-    print(f"[plan] {plan.describe({'data': 1})} on {api.device}")
-
-    data = make_lm_dataset(vocab=min(cfg.vocab_size, 64), seq_len=args.seq)
-    print(f"[data] markov-lm entropy floor = {data.entropy:.4f} nats/token")
-    opt = adamw(warmup_cosine(args.lr, 20, args.steps))
-    train_step = make_train_step(api, opt, clip_norm=1.0, microbatches=accum)
-    state = init_train_state(api, opt, 0)
-
-    pipeline = DataPipeline(lambda e: data.epoch(e, args.batch), device=api.device,
-                            steps_per_epoch=data.steps_per_epoch(args.batch))
-    summary = train_loop(train_step, state, pipeline, LoopConfig(total_steps=args.steps))
-    print(f"[done] steps={summary['steps']} final_loss="
-          f"{summary['final_loss']:.4f} wall={summary['wall_s']:.1f}s "
-          f"(floor {data.entropy:.4f})")
-    print(f"[kernels] lstm_cell_fwd={lc.lstm_cell_fwd.launches} "
-          f"lstm_cell_bwd_pointwise={lc.lstm_cell_bwd_pointwise.launches} "
-          f"flash_attention={fa.flash_attention.launches} "
-          f"flash_attention_bwd={fa.flash_attention_bwd.launches} "
-          f"gmm={moe_gmm.gmm.launches} wkv6={wk.wkv6.launches}")
-    print("[variants] " + " | ".join(
-        f"{fn.__name__}: " + " ".join(f"{v}={n}" for v, n in fn.variant_launches.items())
-        for fn in (lc.lstm_cell_fwd, fa.flash_attention, fa.flash_attention_bwd)))
-    return summary
-
+    pipeline = plan.is_pipeline and mp > 1
+    if args.pipe_runtime:
+        if not plan.is_pipeline:
+            raise SystemExit("[plan] --pipe-runtime only applies to pipeline plans "
+                             "(--parallel pipe=... or a planner choice with kind=pipeline)")
+        plan = dataclasses.replace(plan, runtime=args.pipe_runtime)
+    if args.comm_runtime:
+        if pipeline and not auto:
+            raise SystemExit("[plan] --comm-runtime applies to DP plans; pipeline stages "
+                             "exchange activations over their own ring (see --pipe-runtime)")
+        if pipeline:
+            print("[plan] note: planner chose a pipeline plan; --comm-runtime does not "
+                  "apply to it")
+        elif not auto:
+            plan = dataclasses.replace(plan, comm_runtime=args.comm_runtime)
+    check_plan(plan, mp)
+    device = resolve_device(args.device)
+    check_trainable(cfg, device)
+    max_local = args.max_local_devices or (torch.cuda.device_count()
+                                           if device.type == "cuda" else 8)
+    if pipeline:
+        if not pipeline_applicable(cfg, mp, plan.virtual_stages):
+            raise SystemExit(
+                f"[plan] {cfg.name}: {mp} pipeline stages (x{max(plan.virtual_stages, 1)} "
+                f"chunks) need a supported arch with n_layers % (stages*v) == 0 "
+                f"(n_layers={cfg.n_layers})")
+        dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"{mp} stages")
+        plan = clamp_micro(plan, args.batch // dp)
+    else:
+        dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"{mp}-way MP") \
+            if dp_hint > 1 else 1
+    stages = mp if pipeline else 1
+    # DP narrows to the local ranks' data axis: drop the planner's pod axis
+    plan = dataclasses.replace(plan, dp_axes=("data",))
+    print(f"[plan] {plan.describe({'data': dp, 'model': stages})} on {device}")
+    run = RankRun(cfg=cfg, plan=plan, steps=args.steps, batch=args.batch, seq=args.seq,
+                  lr=args.lr, device=str(device))
+    if dp * stages > 1:
+        return run_ranks(run, dp, stages, device)
+    return _train(None, run)
 
 if __name__ == "__main__":
     main()

@@ -3,7 +3,12 @@
 
 ``build_model(cfg, device=, capacity_factor=1.25)`` returns a ``ModelApi``
 whose members are plain functions over the parameter dict; the serving
-engine and the train step consume models only through it.  The dense, MoE
+engine and the train step consume models only through it.  An arch the
+scheduled pipeline runtime can partition (``supports_pipeline``) also has
+``init_pipeline_stage`` (one stage's parameters, bit-equal to the matching
+slices of ``init``), ``pipeline_stage_params`` (one stage's part of a whole
+model's parameters) and ``pipeline_value_and_grad_fn`` (one rank's loss and
+gradients through ``parallel.pipeline.pipeline_value_and_grad``).  The dense, MoE
 and RWKV decoders go through ``models/transformer.py`` (RWKV's cache holds
 its recurrent state); BigLSTM has a loss and no serving path (as in JAX);
 GNMT and the cnn family raise NotImplementedError.  Entry points run on
@@ -20,6 +25,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.parallel import dist as D
+from repro_torch.parallel.pipeline import (make_schedule, pipeline_value_and_grad,
+                                           stage_layers)
+from repro_torch.tree import tree_map
 
 
 def resolve_device(device) -> torch.device:
@@ -58,6 +67,13 @@ class ModelApi:
     loss_fn: Callable                 # (params, batch, pctx) -> (loss, metrics)
     prefill: Optional[Callable]       # (params, batch, pctx, capacity, window) -> (logits, cache)
     decode_fn: Optional[Callable]     # (params, cache, batch, pctx, window) -> (logits, cache)
+    # (seed, n_stages, v, stage) -> that stage's parameters
+    init_pipeline_stage: Optional[Callable] = None
+    # (params, n_stages, v, stage) -> that stage's part of a whole model's params
+    pipeline_stage_params: Optional[Callable] = None
+    # (params, batch, *, mesh, n_micro, schedule, virtual_stages)
+    #   -> ((loss, metrics), grads) of this rank
+    pipeline_value_and_grad_fn: Optional[Callable] = None
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> ModelApi:
@@ -92,7 +108,16 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
         return tf_mod.decode_step(cfg, params, cache, batch,
                                   window_override=window, pctx=pctx)
 
-    return ModelApi(cfg, dev, init, loss_fn, prefill, decode_fn)
+    api = ModelApi(cfg, dev, init, loss_fn, prefill, decode_fn)
+    if supports_pipeline(cfg):
+        head_keys = ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")
+        _add_pipeline(api, "layers", tf_mod.pipeline_stage_fn(cfg),
+                      pre_fn=lambda op, tokens: tf_mod._embed(cfg, op, tokens),
+                      head_fn=lambda op, y: tf_mod._head(cfg, op, y),
+                      pre_keys=("embed",), head_keys=head_keys,
+                      init_fn=lambda gen, keep: tf_mod.model_init(gen, cfg, device=dev,
+                                                                  keep=keep))
+    return api
 
 
 def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
@@ -107,7 +132,15 @@ def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         return loss, {"loss": loss}
 
-    return ModelApi(cfg, dev, init, loss_fn, None, None)
+    api = ModelApi(cfg, dev, init, loss_fn, None, None)
+    dt = getattr(torch, cfg.dtype)
+    _add_pipeline(api, "lstm", lstm_mod.biglstm_stage_fn(cfg),
+                  pre_fn=lambda op, tokens: op["embed"][tokens].to(dt),
+                  head_fn=lambda op, y: y @ op["head"].to(y.dtype),
+                  pre_keys=("embed",), head_keys=("head",),
+                  init_fn=lambda gen, keep: lstm_mod.biglstm_init(gen, cfg, device=dev,
+                                                                  keep=keep))
+    return api
 
 
 def supports_pipeline(cfg: ModelConfig) -> bool:
@@ -122,3 +155,118 @@ def supports_pipeline(cfg: ModelConfig) -> bool:
     if cfg.family == "cnn" or cfg.name == "gnmt":
         return False
     return not (cfg.encoder_layers or cfg.n_prefix_embeds or cfg.is_moe)
+
+
+def pipeline_applicable(cfg: ModelConfig, n_stages: int, virtual_stages: int = 1) -> bool:
+    """Can this arch run as ``n_stages`` pipeline stages (each holding
+    ``virtual_stages`` interleaved layer chunks)?"""
+    return (supports_pipeline(cfg) and n_stages > 1
+            and cfg.n_layers % (n_stages * max(virtual_stages, 1)) == 0)
+
+
+def _add_pipeline(api: ModelApi, stage_key: str, stage_fn: Callable, *,
+                  pre_fn: Callable, head_fn: Callable, pre_keys, head_keys,
+                  init_fn: Callable) -> None:
+    """Give ``api`` what the scheduled pipeline runtime needs:
+    ``init_pipeline_stage``, ``pipeline_stage_params`` and
+    ``pipeline_value_and_grad_fn`` (the port of JAX's
+    ``_pipeline_vag_builder``), from ``pre_fn(outer, tokens) -> x`` (the
+    embedding), ``stage_fn(chunk_params, x) -> y`` per WorkUnit and
+    ``head_fn(outer, y_micro) -> logits`` feeding the per-micro NLL.
+
+    Placement differs from JAX's on purpose: JAX replicates the outer
+    parameters on every stage; here ``pre_keys`` live on the first stage's
+    rank and ``head_keys`` on the last's, where their work runs (a tied
+    embedding is in both, and its two gradients are summed over the two,
+    JAX's leaf-wise sum).  The per-micro loss is the summed NLL scaled by
+    the inverse valid-token count of the global batch (summed over the DP
+    group), so the micro-batches' and the replicas' losses sum to the batch
+    mean.  The DP sum of the gradients is the train step's."""
+    cfg = api.cfg
+    tied = stage_key == "layers" and cfg.tie_embeddings
+
+    def keep_for(n_stages: int, v: int, stage: int):
+        """The ``keep`` of the init that holds stage ``stage``'s pieces:
+        its layers (the decoder's stacked leaves cut to them, (v, Lc, ...)),
+        the embedding on the first stage and the head on the last."""
+        layers = stage_layers(cfg.n_layers, n_stages, v, stage)
+        first, last = stage == 0, stage == n_stages - 1
+
+        def keep(path, tree):
+            if path[0] == stage_key:
+                if stage_key == "lstm":          # one dict a layer
+                    return tree if path[1] in layers else None
+                return tree_map(lambda a: a[torch.tensor(layers, device=a.device)].reshape(
+                    (v, -1) + tuple(a.shape[1:])), tree)
+            if (first and path[0] in pre_keys) or (last and path[0] in head_keys):
+                return tree
+            return None
+
+        return keep, layers
+
+    def assemble(kept, layers, v: int):
+        params = {k: t for k, t in kept.items() if k != stage_key and t is not None}
+        stack = kept[stage_key]
+        if stage_key == "lstm":
+            stack = tree_map(lambda a: a.reshape((v, -1) + tuple(a.shape[1:])),
+                             lstm_mod.stack_layer_params([stack[i] for i in layers]))
+        params[stage_key] = stack
+        return params
+
+    def init_pipeline_stage(seed: int, n_stages: int, virtual_stages: int, stage: int):
+        v = max(virtual_stages, 1)
+        keep, layers = keep_for(n_stages, v, stage)
+        gen = torch.Generator(device=api.device).manual_seed(seed)
+        return assemble(init_fn(gen, keep), layers, v)
+
+    def pipeline_stage_params(params, n_stages: int, virtual_stages: int, stage: int):
+        v = max(virtual_stages, 1)
+        keep, layers = keep_for(n_stages, v, stage)
+        kept = {k: ([keep((k, i), lp) for i, lp in enumerate(t)] if k == "lstm"
+                    else keep((k,), t)) for k, t in params.items()}
+        return assemble(kept, layers, v)
+
+    def pipeline_value_and_grad_fn(params, batch, *, mesh, n_micro: int,
+                                   schedule="gpipe", virtual_stages: int = 1):
+        n_stages, stage = mesh.shape["model"], mesh.model_index
+        first, last = stage == 0, stage == n_stages - 1
+        sched = (make_schedule(schedule, n_stages, n_micro, virtual_stages)
+                 if isinstance(schedule, str) else schedule)
+        dev = mesh.device
+        b, t = batch["tokens"].shape
+        if first:
+            pre = {k: params[k].detach().requires_grad_() for k in pre_keys}
+            with torch.enable_grad():
+                x_graph = pre_fn(pre, batch["tokens"].to(dev))
+            x = x_graph.detach()
+        else:
+            x = torch.empty((b, t, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                            device="meta")
+        loss_fn = head = labels = None
+        if last:
+            labels = batch["labels"].to(dev)
+            count = D.all_reduce(mesh, (labels >= 0).sum().float(), "data")
+            inv_count = 1.0 / count.clamp(min=1.0)
+            head = {k: params[k] for k in head_keys}
+
+            def loss_fn(hp, y_m, lbl_m):
+                return masked_nll_sum(head_fn(hp, y_m), lbl_m) * inv_count
+
+        res = pipeline_value_and_grad(mesh, stage_fn, params[stage_key], x,
+                                      loss_fn=loss_fn, loss_params=head, targets=labels,
+                                      n_micro=n_micro, schedule=sched)
+        grads = {stage_key: res.stage_grads}
+        if last:
+            grads.update(res.loss_param_grads)
+        if first:
+            pre_grads = torch.autograd.grad(x_graph, list(pre.values()), grad_outputs=res.dx)
+            for k, g in zip(pre, pre_grads):
+                grads[k] = grads[k] + g if k in grads else g
+        if tied and (first or last):
+            D.all_reduce(mesh, grads["embed"], "ends")
+        return (res.loss, {"loss": res.loss, "store_high_water": res.high_water}), grads
+
+    api.init_pipeline_stage = init_pipeline_stage
+    api.pipeline_stage_params = pipeline_stage_params
+    api.pipeline_value_and_grad_fn = pipeline_value_and_grad_fn
+

@@ -15,8 +15,13 @@ pointwise kernel and forms the weight gradients once over all steps (one
 GEMM per weight, accumulated in f32 inside the GEMM) instead of T GEMMs
 summed in the activation dtype.
 
+``biglstm_stage_fn`` is one pipeline chunk of the residual LSTM stack for
+the scheduled pipeline runtime (``parallel.pipeline``); its parameters are
+the per-layer dicts stacked with a leading layer dim (``stack_layer_params``).
+
 Not ported here (they raise NotImplementedError naming their ROADMAP item):
-the tensor-MP ``lstm_layer_overlapped``, the pipelined forward and GNMT.
+the tensor-MP ``lstm_layer_overlapped``, the forward through the ``ad``
+pipeline runtime and GNMT.
 """
 from __future__ import annotations
 
@@ -24,9 +29,9 @@ import torch
 
 from repro_torch.kernels import lstm_cell as K
 from repro_torch.models import layers as L
+from repro_torch.parallel.pipeline import AD_RUNTIME
 
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
-PIPELINE = "ROADMAP.md Queue 1 item 6 (pipeline runtime)"
 TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
 
 
@@ -175,16 +180,45 @@ def gnmt_forward(*args, **kwargs):
 # BigLSTM
 # ---------------------------------------------------------------------------
 
-def biglstm_init(gen: torch.Generator, cfg, *, device=None):
-    """Random parameters at the JAX init's scales, drawn from ``gen``."""
+def biglstm_init(gen: torch.Generator, cfg, *, device=None, keep=None):
+    """Random parameters at the JAX init's scales, drawn from ``gen``.
+
+    ``keep(path, tree)`` (default: keep all) sees each piece as soon as it is
+    drawn, ``("embed",)``, ``("lstm", i)`` for layer i's dict and
+    ``("head",)``, and returns what to hold of it (None: nothing).  Every
+    piece is drawn either way, so the pieces kept are bit-equal to those of
+    the whole init, and only one unkept piece is held at a time."""
+    keep = keep or (lambda path, tree: tree)
     dtype = getattr(torch, cfg.param_dtype)
     d, v, dh = cfg.d_model, cfg.vocab_padded, cfg.d_ff
-    return {
-        "embed": L.embed_init(gen, v, d, dtype=dtype, device=device),
-        "lstm": [lstm_cell_init(gen, d, dh, d, dtype=dtype, device=device)
-                 for _ in range(cfg.n_layers)],
-        "head": L.dense_init(gen, d, v, dtype=dtype, device=device),
-    }
+    params = {"embed": keep(("embed",), L.embed_init(gen, v, d, dtype=dtype, device=device)),
+              "lstm": [keep(("lstm", i), lstm_cell_init(gen, d, dh, d, dtype=dtype,
+                                                        device=device))
+                       for i in range(cfg.n_layers)]}
+    params["head"] = keep(("head",), L.dense_init(gen, d, v, dtype=dtype, device=device))
+    return params
+
+
+def stack_layer_params(layer_list):
+    """Homogeneous per-layer param dicts -> one stacked (L, ...) tree, the
+    layout ``parallel.pipeline.stack_to_stages`` partitions into stages."""
+    return {k: torch.stack([lp[k] for lp in layer_list]) for k in layer_list[0]}
+
+
+def biglstm_stage_fn(cfg):
+    """One pipeline chunk of BigLSTM's residual LSTM stack as a
+    shape-preserving ``(chunk_params, x) -> y``: chunk_params holds the
+    chunk's layers stacked (Lc, ...), as ``stack_layer_params`` stacks
+    them."""
+
+    def stage_fn(sp, x):
+        per_leaf = {k: torch.unbind(a, 0) for k, a in sp.items()}
+        for i in range(next(iter(sp.values())).shape[0]):
+            y, _ = lstm_layer({k: a[i] for k, a in per_leaf.items()}, x)
+            x = x + y
+        return x
+
+    return stage_fn
 
 
 def biglstm_forward(cfg, params, batch, pctx=None):
@@ -202,4 +236,4 @@ def biglstm_forward(cfg, params, batch, pctx=None):
 
 
 def biglstm_forward_pipeline(*args, **kwargs):
-    raise unported("the pipelined BigLSTM forward", PIPELINE)
+    raise unported("the BigLSTM forward through the ad pipeline runtime", AD_RUNTIME)

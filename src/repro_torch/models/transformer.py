@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.tree import tree_leaves
 
 SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
@@ -80,32 +81,43 @@ def cp_arch_supported(cfg) -> bool:
 # init and cache
 # ---------------------------------------------------------------------------
 
-def model_init(gen: torch.Generator, cfg, *, device=None):
+def model_init(gen: torch.Generator, cfg, *, device=None, keep=None):
     """Random parameters at the JAX init's scales, drawn from ``gen``
-    (a generator on ``device``)."""
+    (a generator on ``device``).
+
+    ``keep(path, tree)`` (default: keep all) sees each piece as soon as it is
+    drawn (``("embed",)``, ``("final_norm",)``, ``("lm_head",)``, then the
+    stacked layer pieces ``("layers", "ln1")``, ``("layers", "attn", "wq")``,
+    ..., ``("layers", "mlp")``) and returns what to hold of it (None:
+    nothing).  Every piece is drawn either way, so the pieces kept are
+    bit-equal to those of the whole init."""
     check_supported(cfg)
+    keep = keep or (lambda path, tree: tree)
     dtype = getattr(torch, cfg.param_dtype)
     d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     kw = dict(dtype=dtype, device=device)
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
-    params = {"embed": L.embed_init(gen, v, d, **kw), "final_norm": ones(d)}
+    params = {"embed": keep(("embed",), L.embed_init(gen, v, d, **kw)),
+              "final_norm": keep(("final_norm",), ones(d))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, d, v, **kw)
+        params["lm_head"] = keep(("lm_head",), L.dense_init(gen, d, v, **kw))
     if cfg.rwkv:
-        params["layers"] = rwkv_mod.rwkv_layer_init(gen, cfg, lead=(n,), **kw)
+        params["layers"] = keep(("layers",), rwkv_mod.rwkv_layer_init(gen, cfg, lead=(n,),
+                                                                      **kw))
         return params
-    params["layers"] = {
-        "ln1": ones(n, d), "ln2": ones(n, d),
-        "attn": {"wq": L.dense_init(gen, d, nh * hd, lead=(n,), **kw),
-                 "wk": L.dense_init(gen, d, nkv * hd, lead=(n,), **kw),
-                 "wv": L.dense_init(gen, d, nkv * hd, lead=(n,), **kw),
-                 "wo": L.dense_init(gen, nh * hd, d, lead=(n,), **kw)},
-    }
+    layers = {"ln1": keep(("layers", "ln1"), ones(n, d)),
+              "ln2": keep(("layers", "ln2"), ones(n, d)), "attn": {}}
+    for name, (d_in, d_out) in (("wq", (d, nh * hd)), ("wk", (d, nkv * hd)),
+                                ("wv", (d, nkv * hd)), ("wo", (nh * hd, d))):
+        layers["attn"][name] = keep(("layers", "attn", name),
+                                    L.dense_init(gen, d_in, d_out, lead=(n,), **kw))
     if cfg.is_moe:
-        params["layers"]["moe"] = moe_mod.moe_init(gen, cfg, lead=(n,), **kw)
+        layers["moe"] = keep(("layers", "moe"), moe_mod.moe_init(gen, cfg, lead=(n,), **kw))
     else:
-        params["layers"]["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, lead=(n,), **kw)
+        layers["mlp"] = keep(("layers", "mlp"),
+                             L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, lead=(n,), **kw))
+    params["layers"] = layers
     return params
 
 
@@ -278,6 +290,21 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
         cache["pos"] = s
         return logits, cache, aux
     return logits, aux
+
+
+def pipeline_stage_fn(cfg):
+    """One pipeline chunk of the decoder stack as a shape-preserving
+    ``(chunk_params, x) -> y``: chunk_params holds the chunk's layers stacked
+    (Lc, ...), as ``params["layers"]`` stacks all L."""
+    check_supported(cfg)
+
+    def stage_fn(sp, x):
+        lc = tree_leaves(sp)[0].shape[0]
+        for lp in _unstack(sp, lc):
+            x, _, _ = block_apply(cfg, lp, x, mode="train")
+        return x
+
+    return stage_fn
 
 
 def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):

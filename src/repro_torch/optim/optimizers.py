@@ -51,21 +51,24 @@ def apply_updates(params, updates):
 
 
 @torch.no_grad()
-def _global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32, on the leaves' device."""
+def sum_of_squares(tree) -> torch.Tensor:
+    """The sum of squares of every leaf, in f32, on the leaves' device."""
     total = None
     for x in tree_leaves(tree):
         v = x.float().reshape(-1)
         s = torch.dot(v, v)
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    return total
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale ``grads`` in place by min(1, max_norm / norm); returns (grads,
-    norm).  The scale stays on the device (no host sync)."""
-    norm = _global_norm(grads)
+    norm).  ``norm`` defaults to the global norm of ``grads``' own leaves; a
+    caller whose leaves are one part of a model (a pipeline stage) passes the
+    whole model's.  The scale stays on the device (no host sync)."""
+    if norm is None:
+        norm = torch.sqrt(sum_of_squares(grads))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     tree_map(lambda g: g.mul_(scale), grads)
     return grads, norm

@@ -1,6 +1,8 @@
-"""Parallelism plans and pipeline schedules (the pure-Python half of
-``repro/parallel``); the multi-card runtimes are ROADMAP.md Queue 1 items
-5-8."""
+"""Parallelism plans, pipeline schedules and the DP and scheduled pipeline
+runtimes on ``torch.distributed`` ranks (port of ``repro/parallel``):
+``plan``, ``pipeline``, ``collectives`` (the DP gradient sync) and ``dist``
+(the rank mesh, its transport and ``spawn_ranks``).  Tensor MP and context
+parallelism are ROADMAP.md Queue 1 items 7 and 8."""
 from repro_torch.parallel.pipeline import (SCHEDULE_KINDS, PipelineSchedule,
                                            make_schedule,
                                            pipeline_activation_residency,

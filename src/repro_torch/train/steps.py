@@ -2,27 +2,56 @@
 
 ``make_train_step(api, optimizer)`` returns ``train_step(state, batch) ->
 (state, metrics)``: the loss and its gradients by autograd, the paper's §4.2
-delayed-gradient accumulation (``microbatches`` > 1 splits the batch,
-accumulates the gradients in f32 and updates once), the global-norm clip and
-the optimizer update.  PyTorch runs eagerly, so there is no jit; the update
+delayed-gradient accumulation (a count > 1, ``plan.microbatches`` or
+without a plan ``microbatches``, splits the batch, accumulates the
+gradients in f32 and updates once), the global-norm clip and the optimizer
+update.  PyTorch runs eagerly, so there is no jit; the update
 writes the state's tensors in place, and the returned state holds the same
 tensors with ``step + 1``.
 
-Single device only: a mesh, a plan or a ParallelCtx raises, naming the
-ROADMAP items of the multi-device runtimes.
+Given a ``parallel.dist.RankMesh`` and a ``ParallelPlan``, the step is one
+rank's part of a DP x pipeline-MP step; ``batch`` is the global batch on
+every rank, and the rank takes its DP shard (rows of its ``data`` index):
+
+- *pipelined* (``plan.is_pipeline`` over a ``model`` axis > 1): the rank
+  holds only its stage's parameters (``init_train_state``) and their
+  optimizer state, and its gradients come from the arch's
+  ``pipeline_value_and_grad_fn`` (the scheduled runtime; the ``ad`` runtime
+  raises, ROADMAP.md Queue 1 item 6b); stage 0 reads the tokens, the last
+  stage the labels;
+- *pure DP*: the rank's shard through autograd;
+- either way the gradients are then summed over the ``data`` group, bucket
+  by bucket (``comm_runtime="overlapped"``) or one all-reduce a leaf
+  (``"gspmd"``).  Pure DP averages them as the shards' mean losses average;
+  a pipelined loss is already scaled by the global token count.  The loss
+  is averaged (pure DP) or summed (pipelined) over DP, as JAX's ``pmean``
+  and ``psum`` do.
+
+The clip sees the global norm: each rank's sum of squares (a tied embedding
+counted once) is summed over the ``model`` group after the DP sync, so the
+clip scale is the single-process one.  Tensor MP and a ``ParallelCtx``
+raise (item 7), context parallelism raises (item 8), and parameters
+sharded over DP raise (item 5's remainder, fsdp).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any
 
 import torch
 
 from repro_torch.models.api import ModelApi
-from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
+                                          sum_of_squares)
+from repro_torch.parallel import dist as D
+from repro_torch.parallel.collectives import (DEFAULT_BUCKET_BYTES, all_reduce_grads,
+                                              bucketed_grad_sync)
+from repro_torch.parallel.pipeline import AD_RUNTIME
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-MULTI_DEVICE = "ROADMAP.md Queue 1 items 5-8 (multi-device runtimes)"
+TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
+CONTEXT = "ROADMAP.md Queue 1 item 8 (context parallelism)"
+FSDP = "ROADMAP.md Queue 1 item 5 (data parallelism: the fsdp plans are its remainder)"
 
 
 @dataclasses.dataclass
@@ -35,21 +64,80 @@ class TrainState:
     in_update: bool = False
 
 
-def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0) -> TrainState:
-    params = api.init(seed)
+def check_plan(plan, model: int) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a plan the
+    port's ranks do not run over a ``model`` axis of that size: tensor MP,
+    context parallelism, parameters sharded over DP, the ``ad`` pipeline
+    runtime."""
+    if plan.fsdp_axes:
+        raise NotImplementedError(f"parameters sharded over DP are not ported to "
+                                  f"repro_torch yet: {FSDP}")
+    if plan.model_axis is None or model == 1:
+        return
+    if plan.mp_kind == "tensor":
+        raise NotImplementedError(f"tensor MP is not ported to repro_torch yet: {TENSOR_MP}")
+    if plan.mp_kind == "context":
+        raise NotImplementedError(f"context parallelism is not ported to repro_torch yet: "
+                                  f"{CONTEXT}")
+    if plan.runtime == "ad":
+        raise NotImplementedError(f"the ad pipeline runtime is not ported to repro_torch "
+                                  f"yet: {AD_RUNTIME}")
+
+
+def _pipelined(plan, mesh) -> bool:
+    return (plan is not None and mesh is not None and plan.is_pipeline
+            and mesh.shape["model"] > 1)
+
+
+def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0, *,
+                     mesh=None, plan=None) -> TrainState:
+    """The seeded init and its optimizer state; a pipelined rank's holds
+    only its stage (``api.init_pipeline_stage``)."""
+    if _pipelined(plan, mesh):
+        params = api.init_pipeline_stage(seed, mesh.shape["model"], plan.virtual_stages,
+                                         mesh.model_index)
+    else:
+        params = api.init(seed)
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
+def _dp_shard(batch, mesh):
+    """The rows of ``batch`` this rank's ``data`` index owns."""
+    dp, d = mesh.shape["data"], mesh.data_index
+    b = next(iter(batch.values())).shape[0]
+    if b % dp:
+        raise ValueError(f"batch {b} does not split over {dp} DP ranks")
+    n = b // dp
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+
+
 def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None,
-                    clip_norm: float = 1.0, pctx=None, microbatches: int = 1):
+                    clip_norm: float = 1.0, pctx=None, microbatches: int = 1,
+                    bucket_bytes=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics hold
-    0-d tensors ``loss`` and, with ``clip_norm``, ``grad_norm``."""
-    if mesh is not None or plan is not None or pctx is not None:
-        raise NotImplementedError(f"a mesh, plan or ParallelCtx is not ported to "
-                                  f"repro_torch yet: {MULTI_DEVICE}")
-    micro = int(microbatches)
+    0-d tensors ``loss`` and, with ``clip_norm``, ``grad_norm`` (and, on a
+    pipelined rank, ``store_high_water``: the peak stashed stage inputs).
+    The §4.2 accumulation count is ``plan.microbatches`` where a plan is
+    given (as in JAX) and ``microbatches`` otherwise."""
+    if pctx is not None:
+        raise NotImplementedError(f"a ParallelCtx (tensor MP) is not ported to repro_torch "
+                                  f"yet: {TENSOR_MP}")
+    if plan is not None:
+        check_plan(plan, mesh.shape["model"] if mesh is not None else 1)
+    pipelined = _pipelined(plan, mesh)
+    if plan is not None and microbatches not in (1, plan.microbatches):
+        raise ValueError(f"microbatches={microbatches} disagrees with the plan's "
+                         f"{plan.microbatches}: a plan carries its own count")
+    # a pipelined plan's microbatches are in-flight micro-batches, not accumulation
+    micro = 1 if pipelined else int(plan.microbatches if plan is not None else microbatches)
     if micro < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    dp = mesh.shape["data"] if mesh is not None else 1
+    comm = plan.comm_runtime if plan is not None else "gspmd"
+    bkt = DEFAULT_BUCKET_BYTES if bucket_bytes is None else bucket_bytes
+    # a tied embedding lives on the first and the last stage: count it once
+    skip_in_norm = ("embed",) if (pipelined and api.cfg.tie_embeddings
+                                  and mesh.model_index == mesh.shape["model"] - 1) else ()
 
     def grads_of(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -62,6 +150,11 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
                 tree_unflatten(params, grads))
 
     def total_grads(params, batch):
+        if pipelined:
+            (loss, metrics), grads = api.pipeline_value_and_grad_fn(
+                params, batch, mesh=mesh, n_micro=max(plan.microbatches, 1),
+                schedule=plan.schedule, virtual_stages=plan.virtual_stages)
+            return loss, metrics, grads
         if micro == 1:
             return grads_of(params, batch)
         # delayed gradient update (paper §4.2): split the per-step batch into
@@ -82,11 +175,36 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         loss = torch.stack(losses).mean()
         return loss, {"loss": loss}, acc
 
+    def synced_grads(params, batch):
+        """The rank's loss and gradients, summed over DP."""
+        if mesh is None:
+            return total_grads(params, batch)
+        batch = _dp_shard(batch, mesh)
+        if not pipelined:
+            batch = {k: v.to(mesh.device) for k, v in batch.items()}
+        loss, metrics, grads = total_grads(params, batch)
+        if dp > 1:
+            if comm == "overlapped":
+                bucketed_grad_sync(grads, mesh, bucket_bytes=bkt)
+            else:
+                all_reduce_grads(grads, mesh)
+            loss = D.all_reduce(mesh, loss.detach().clone(), "data")
+            if not pipelined:       # the mean of the shards' mean losses
+                tree_map(lambda g: g.div_(dp), grads)
+                loss = loss / dp
+            metrics = dict(metrics, loss=loss)
+        return loss, metrics, grads
+
+    def global_norm(grads) -> torch.Tensor:
+        sq = sum_of_squares({k: g for k, g in grads.items() if k not in skip_in_norm})
+        return torch.sqrt(D.all_reduce(mesh, sq, "model"))
+
     def train_step(state: TrainState, batch):
         params = state.params
-        loss, metrics, grads = total_grads(params, batch)
+        loss, metrics, grads = synced_grads(params, batch)
         if clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            norm = global_norm(grads) if pipelined else None
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=norm)
             metrics = dict(metrics, grad_norm=gnorm)
         state.in_update = True
         updates, opt_state = optimizer.update(grads, state.opt_state, params, state.step)

@@ -331,28 +331,34 @@ def test_launcher_auto_trains_one_device_on_cpu(capsys):
 
 
 def test_launcher_auto_clamps_dp_to_the_card(capsys):
+    """The planner's DP degree is clamped to the ranks this run may realise
+    (``--max-local-devices``: the cards on the card's machine), as the JAX
+    launcher clamps it to its local devices; parameters sharded over DP raise
+    naming item 5's remainder."""
     plan, mp, dp = TL.parse_parallel("auto", 8, t_get_config("biglstm"))
     assert mp == 1 and dp == 8 and not plan.fsdp_axes
-    assert TL.single_card_accum(plan, mp, dp, auto=True) == 1
+    assert TL.clamp_dp(dp, mp, 16, 1, f"{mp}-way MP") == 1
     assert "[plan] clamped DP 8 -> 1" in capsys.readouterr().out
+    assert TL.clamp_dp(dp, mp, 16, 8, f"{mp}-way MP") == 8
+    assert TL.clamp_dp(dp, mp, 12, 8, f"{mp}-way MP") == 6      # dp divides the batch
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        TL.single_card_accum(plan, mp, dp, auto=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        TL.single_card_accum(dataclasses.replace(plan, fsdp_axes=("data",)), 1, 8,
-                             auto=True)
+        TL.check_plan(dataclasses.replace(plan, fsdp_axes=("data",)), 1)
 
 
 @pytest.mark.parametrize("arch,item", [("biglstm", "item 6"), ("llama3_2_1b", "item 8"),
                                        ("inception_v3", "item 7")])
 def test_launcher_auto_names_the_item_of_a_multi_card_plan(arch, item):
-    """At 64 H100s the planner picks pipeline MP for BigLSTM and context
-    parallelism for Llama; at 256 tensor MP for Inception-V3 (which the
-    launcher refuses to train for its data format first)."""
+    """At 64 H100s the planner picks pipeline MP for BigLSTM, which trains
+    on ranks through the scheduled runtime and names item 6b only under
+    ``--pipe-runtime ad``; context parallelism for Llama; at 256 tensor MP
+    for Inception-V3 (which the launcher refuses to train for its data
+    format first)."""
     if arch == "inception_v3":
         plan, mp, dp = TL.parse_parallel("auto", 256, t_get_config(arch))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-            TL.single_card_accum(plan, mp, dp, auto=True)
+            TL.check_plan(plan, mp)
         return
+    extra = ["--pipe-runtime", "ad"] if arch == "biglstm" else []
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         TL.main(["--arch", arch, "--reduced", "--device", "cpu", "--parallel", "auto",
-                 "--devices", "64", "--steps", "1", "--batch", "4", "--seq", "16"])
+                 "--devices", "64", "--steps", "1", "--batch", "4", "--seq", "16", *extra])

@@ -273,33 +273,62 @@ def test_loop_unported_options_raise(kw):
 
 
 def test_train_step_refuses_multi_device_arguments(biglstm):
+    """What of a multi-device step is not ported raises naming its ROADMAP
+    item: a ParallelCtx and a tensor-MP plan (item 7), a context-parallel
+    plan (item 8), parameters sharded over DP (item 5's remainder) and the
+    ad pipeline runtime (item 6b).  DP and the scheduled pipeline run on
+    ranks (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py)."""
+    from repro_torch.parallel.plan import ParallelPlan as TPlan
+
     tapi = biglstm[5]
-    for kw in ({"mesh": object()}, {"plan": object()}, {"pctx": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 items 5-8"):
+    mesh = TM_Mesh({"data": 1, "model": 2})
+    for kw, item in (({"pctx": object()}, "item 7"),
+                     ({"mesh": mesh, "plan": TPlan()}, "item 7"),
+                     ({"mesh": mesh, "plan": TPlan(mp_kind="context")}, "item 8"),
+                     ({"plan": TPlan(model_axis=None, fsdp_axes=("data",))}, "item 5"),
+                     ({"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
+                      "item 6b")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
             make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), **kw)
 
 
-def _single_card_accum(spec, devices=1, arch="biglstm"):
+class TM_Mesh:
+    """The axis sizes of a rank mesh, all make_train_step reads before a step."""
+
+    def __init__(self, shape):
+        self.shape = shape
+
+
+def _resolve(spec, devices=1, arch="biglstm", runtime=None):
+    """The plan of ``spec``, checked as the launcher checks it."""
     plan, mp, dp = TL.parse_parallel(spec, devices, t_get_config(arch))
-    return TL.single_card_accum(plan, mp, dp, auto=spec == "auto")
+    if runtime:
+        plan = dataclasses.replace(plan, runtime=runtime)
+    if spec == "dp=2,mp=1":
+        plan = dataclasses.replace(plan, fsdp_axes=("data",))
+    TL.check_plan(plan, mp)
+    return plan, mp, dp
 
 
 @pytest.mark.parametrize("spec,item", [("auto", "item 6"), ("dp=2,mp=1", "item 5"),
                                        ("pipe=2,micro=4", "item 6"), ("dp=1,mp=2", "item 7"),
                                        ("dp=1,cp=2", "item 8"), ("dp=1,zz=3", "items 5-8")])
 def test_parallel_specs_other_than_single_device_raise(spec, item):
-    """An explicit multi-device spec, and the planner's plan for BigLSTM at
-    64 H100s (pipeline MP), raise naming the runtime's ROADMAP item."""
+    """What of each multi-device spec is still unported raises naming its
+    ROADMAP item: the ad pipeline runtime (item 6b) for the planner's BigLSTM
+    plan at 64 H100s and for an explicit pipe= spec, parameters sharded over
+    DP (item 5's remainder) for a dp= spec, tensor MP (7), context
+    parallelism (8) and an unknown key (5-8)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        _single_card_accum(spec, devices=64)
+        _resolve(spec, devices=64, runtime="ad" if item == "item 6" else None)
 
 
 def test_parallel_spec_accum():
-    assert _single_card_accum("dp=1,mp=1") == 1
-    assert _single_card_accum("dp=1,mp=1,accum=4") == 4
-    assert _single_card_accum("auto", devices=1) == 1
+    assert _resolve("dp=1,mp=1")[0].microbatches == 1
+    assert _resolve("dp=1,mp=1,accum=4")[0].microbatches == 4
+    assert _resolve("auto", devices=1)[0].microbatches == 1
     with pytest.raises(SystemExit, match="cannot parse"):
-        _single_card_accum("dp=1,mp=x")
+        _resolve("dp=1,mp=x")
 
 
 def test_dense_decoder_training_on_the_card_raises():
