@@ -32,7 +32,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``F.scaled_dot_product_attention``;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
-   8192; also at the pipeline's micro-batch rows B 4 and B 1) and at shapes
+   8192; also at the pipeline's micro-batch rows B 4 and B 1), at GNMT's
+   cells (B 128, d_in 1024 and 2048, H 1024, x a strided row of the layer
+   input as the decoder's concat gives it; bf16 on ``tc``, f32 on ``fma``,
+   timed against ``torch.lstm_cell``) and at shapes
    where B and H are no tile multiples, h' and c' the
    same bits with and without the gates, and the cell's autograd function
    (dx, dh, dc, dWx, dWh, db) against autograd of the plain oracle; the
@@ -126,7 +129,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    each held against the single-process step on the card from the same
    seeded weights: loss and grad norm within 1e-4 relative, parameters
    within 5e-5 (under one AdamW step);
-16. print one JSON line of kernels, then the device line.
+16. train full-width, full-depth GNMT (4 + 4 LSTM layers of 1024, vocab
+   32000, 170.7 M parameters) through ``models.api.build_model`` +
+   ``train.steps.make_train_step`` (5 steps at B 128, S = T = 50 of
+   ``SyntheticSeq2Seq``, AdamW, clip 1.0) with the launch counters set to 0
+   just before and read just after (2000 forward cell launches, all ``tc``,
+   2000 backward, no other kernel); then time steps (ms, target tokens/s,
+   peak memory) and profile one;
+17. train full-width, full-depth Inception-V3 (11 blocks, 1000 classes) the
+   same way, 5 steps at B 64 x 299 x 299 x 3 of seeded images, every
+   hand-written kernel's counter 0 (its convolutions are cuDNN's, as JAX's
+   are XLA's); then the same timing and profile;
+18. (a) one f32 step of GNMT at full width and 2 + 2 layers (B 16, S = T =
+   50) and of full-depth Inception-V3 (B 4 x 299) on the card against the
+   plain path on the CPU from the same seeded weights (phase 7's limits),
+   TF32 off; (b) the same cells at dp = 2 on 2 ranks sharing the card
+   against the single-process card step (phase 15 (d)'s limits; Inception
+   in f64 there, where no round-off flips the sign of AdamW's first step);
+19. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -183,6 +203,12 @@ FLASH_BWD_EDGE = [(1, 1, 33, 2, 2, 64, False, 0), (2, 4, 4, 8, 2, 64, True, 0),
                   (1, 200, 200, 16, 2, 128, True, 0), (1, 256, 256, 2, 1, 64, True, 0),
                   (1, 2048, 2048, 1, 1, 64, True, 0)]
 LSTM_FULL = (TRAIN_B, 1024, 1024, 8192)         # B, d_in, d_h, H of BigLSTM's cell
+# GNMT: B 128 (the paper's per-GPU mini-batch), S = T = 50 (GNMTv2's length
+# limit); its cells are B 128 x d_in 1024 (2048 for the first decoder
+# layer's [target, zero context] concat) x H 1024, with no projection
+GNMT_B, GNMT_T = 128, 50
+LSTM_GNMT = [(GNMT_B, 1024, 1024, 1024), (GNMT_B, 2048, 1024, 1024)]
+INCEPTION_B, INCEPTION_PX = 64, 299             # the paper's per-GPU mini-batch, config size
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # tests/test_kernels.py::test_gmm_sweep
 # G, C, d, F of full-width Granite-3.0-1B-A400M's expert products: 32 experts,
 # capacity ceil(4 * 512 * 8 / 32 * 1.25) = 640 in prefill, C = 4 (no drop) in decode
@@ -523,13 +549,17 @@ def _lstm_row(name, case, dtype, got, want, tol):
     return row
 
 
-def lstm_inputs(gen, b, d_in, d_h, hh, dtype):
+def lstm_inputs(gen, b, d_in, d_h, hh, dtype, seq=0):
+    """x (B, d_in), h, c, wx, wh, b on the card; with ``seq`` x is the row
+    view ``xs[:, seq // 2]`` of a (B, seq, d_in) layer input, as a layer's
+    time loop reads it (row stride seq * d_in)."""
     dev = torch.device("cuda")
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    return [rnd(b, d_in).to(dtype), rnd(b, d_h).to(dtype), rnd(b, hh, scale=0.5).to(dtype),
+    x = rnd(b, seq, d_in).to(dtype)[:, seq // 2] if seq else rnd(b, d_in).to(dtype)
+    return [x, rnd(b, d_h).to(dtype), rnd(b, hh, scale=0.5).to(dtype),
             rnd(d_in, 4, hh, scale=d_in ** -0.5).to(dtype),
             rnd(d_h, 4, hh, scale=d_h ** -0.5).to(dtype), rnd(4, hh, scale=0.1)]
 
@@ -539,8 +569,9 @@ def check_lstm_fwd(lc, args, case, timed=False, variant=None):
     plain version, through the variant ``lstm_variant`` picks or, when
     ``variant`` is given, that one forced; h' and c' must come out the same
     bits without the gates.  Timed against the plain version, the bound
-    and PyTorch's own LSTM cell path (two GEMMs and
-    ``_thnn_fused_lstm_cell``: ``torch.lstm_cell`` itself refuses a cell
+    and PyTorch's own LSTM cell: ``torch.lstm_cell`` where the cell state
+    is as wide as the recurrent input (GNMT's), else its CUDA path (two
+    GEMMs and ``_thnn_fused_lstm_cell``: ``torch.lstm_cell`` refuses a cell
     state wider than its recurrent input, and BigLSTM's is 8192 against
     1024)."""
     x, h, c, wx, wh, b = args
@@ -579,14 +610,20 @@ def check_lstm_fwd(lc, args, case, timed=False, variant=None):
         zero_b = torch.zeros_like(b_fold)
         lin = torch.nn.functional.linear
 
-        def library():
-            return torch.ops.aten._thnn_fused_lstm_cell(lin(x, wx_t), lin(h, wh_t), c,
-                                                        b_fold, zero_b)
+        if d_h == hh:
+            def library():
+                return torch.lstm_cell(x, (h, c), wx_t, wh_t, b_fold, zero_b)
 
-        lh, lcn, _ = library()
-        row["library_max_abs_err"] = _max_err((lh, lcn), (rh, rc))
+            row["library"] = "torch.lstm_cell"
+        else:
+            def library():
+                return torch.ops.aten._thnn_fused_lstm_cell(lin(x, wx_t), lin(h, wh_t), c,
+                                                            b_fold, zero_b)[:2]
+
+            row["library"] = ("linear x2 + aten._thnn_fused_lstm_cell (torch.lstm_cell's "
+                              "CUDA path)")
+        row["library_max_abs_err"] = _max_err(library(), (rh, rc))
         time_into(row, "library_ms", library)
-        row["library"] = "linear x2 + aten._thnn_fused_lstm_cell (torch.lstm_cell's CUDA path)"
         row["bound_ms"], row["bound_by"] = bound_ms(
             _nbytes(x, h, c, wx, wh, b, hn, cn, gates), 2.0 * bsz * (d_in + d_h) * 4 * hh, dt)
     print(json.dumps(row), flush=True)
@@ -656,6 +693,24 @@ def phase_lstm_kernels(lc, ref_mod):
         dh, dc = (torch.randn(hn.shape, generator=gen, device="cuda").to(dt) for _ in range(2))
         bwd_rows.append(check_lstm_bwd(lc, gates, args[2], cn, dh, dc, "B16 H8192",
                                        timed=True))
+    # GNMT's cells, x a strided row of the layer input: bf16 on tc (then fma
+    # forced), f32 on fma; the weights stay in L2 over the timed calls, as
+    # over a layer's 50 steps
+    for b, d_in, d_h, hh in LSTM_GNMT:
+        case = f"B{b} din{d_in} dh{d_h} H{hh}, x row of (B, {GNMT_T}, {d_in})"
+        for dt in (torch.bfloat16, torch.float32):
+            args = lstm_inputs(gen, b, d_in, d_h, hh, dtype=dt, seq=GNMT_T)
+            row, (hn, cn, gates) = check_lstm_fwd(lc, args, case, timed=True)
+            if row["variant"] != ("tc" if dt == torch.bfloat16 else "fma"):
+                raise AssertionError(f"lstm_cell_fwd {case} {dt} launched {row['variant']}")
+            fwd_rows.append(row)
+            if row["variant"] == "tc":
+                fwd_rows.append(check_lstm_fwd(lc, args, case, timed=True, variant="fma")[0])
+            if d_in == 1024:
+                dh, dc = (torch.randn(hn.shape, generator=gen, device="cuda").to(dt)
+                          for _ in range(2))
+                bwd_rows.append(check_lstm_bwd(lc, gates, args[2], cn, dh, dc,
+                                               f"B{b} H{hh}", timed=True))
     # edge shapes: B and H no tile multiples, widths that the tensor-core
     # tile does not take (fma) and that it does (tc, then fma forced)
     for b, d_in, d_h, hh in [(1, 24, 16, 70), (5, 64, 40, 33), (17, 40, 12, 130),
@@ -1125,16 +1180,17 @@ def phase_train(train_launch, lc, counters, api_mod, cfg):
     return launches, fwd_variants, timing
 
 
-def time_train_steps(api_mod, cfg, state, batch_size, seq, name):
-    """Step time, tokens/s and peak memory over 3 steps, continuing from
-    ``state`` on a batch of the next epoch, and a profile of one step
-    (``profile_call``)."""
+def time_train_steps(api_mod, cfg, state, batch_size, seq, name, batch=None, unit="tok"):
+    """Step time, ``unit``s/s (tokens of the LM batch of the next epoch, or
+    of ``batch``: ``batch_size * seq`` of them) and peak memory over 3 steps
+    continuing from ``state``, after one untimed step, and a profile of one
+    step (``profile_call``)."""
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import make_train_step
 
     api = api_mod.build_model(cfg, device="cuda")
     step_fn = make_train_step(api, adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS)), clip_norm=1.0)
-    batch = {k: v.cuda() for k, v in _lm_batch(seq, batch_size, epoch=1).items()}
+    batch = {k: v.cuda() for k, v in (batch or _lm_batch(seq, batch_size, epoch=1)).items()}
     box = [state]
 
     def one_step():
@@ -1143,8 +1199,8 @@ def time_train_steps(api_mod, cfg, state, batch_size, seq, name):
 
     prof = profile_call(name, one_step, reps=3)
     timing = {"step_ms": prof["unprofiled_wall_ms"],
-              "tok_per_s": batch_size * seq / (prof["unprofiled_wall_ms"] / 1e3),
-              "idle_share": prof["idle_share"],
+              f"{unit}_per_s": batch_size * seq / (prof["unprofiled_wall_ms"] / 1e3),
+              "idle_share": prof["idle_share"], "device_busy_ms": prof["device_busy_ms"],
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps({name: timing}), flush=True)
     return timing
@@ -1574,6 +1630,179 @@ def phase_ranks_vs_plain(train_launch, api_mod, cfg):
     return results
 
 
+def paper_batches(cfg, batch_size, n, seed, *, seq=GNMT_T, px=INCEPTION_PX):
+    """``n`` seeded CPU batches of a paper model: GNMT's source/target pairs
+    in order from ``SyntheticSeq2Seq(vocab, seq, seed)``; Inception's numpy
+    images at ``px`` with labels in [0, classes) (the image dataset takes
+    only sides that are multiples of 8, so not the config's 299)."""
+    if cfg.family == "cnn":
+        rng = np.random.default_rng(seed)
+        return [{"images": torch.from_numpy(
+                     rng.standard_normal((batch_size, px, px, 3), dtype=np.float32)),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, batch_size))}
+                for _ in range(n)]
+    from repro_torch.data import SyntheticSeq2Seq
+    data = SyntheticSeq2Seq(vocab=cfg.vocab_size, seq_len=seq, seed=seed)
+    return [{k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+            for b in itertools.islice(data.epoch(0, batch_size), n)]
+
+
+def phase_train_paper(lc, counters, api_mod, cfg, batch_size):
+    """Full-width, full-depth GNMT (S = T = 50) or Inception-V3 (299 px)
+    through ``build_model`` + ``make_train_step`` (AdamW over warmup-cosine,
+    clip 1.0) from a seeded init, 5 steps, counters set to 0 just before and
+    read just after: GNMT launches the LSTM forward (all ``tc``) and the
+    pointwise backward once a cell step, 2 L T a step, and no other kernel;
+    Inception launches none.  Then step time, target tokens or images a
+    second and peak memory, and a profile of one step."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
+    api = api_mod.build_model(cfg, device="cuda")
+    opt = adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS))
+    state = init_train_state(api, opt, 0)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    seq, unit = (1, "image") if cfg.family == "cnn" else (GNMT_T, "tok")
+    *batches, timed_batch = paper_batches(cfg, batch_size, TRAIN_STEPS + 1, 0)
+    batches = [{k: v.cuda() for k, v in b.items()} for b in batches]
+    step = make_train_step(api, opt, clip_norm=1.0)
+    torch.cuda.synchronize()
+    reset_counters(every)
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in every.items()}
+    variants = variant_launches(every)
+    want = dict.fromkeys(every, 0)
+    want_variants = {name: dict.fromkeys(v, 0) for name, v in variants.items()}
+    if cfg.family == "rnn":
+        cells = TRAIN_STEPS * 2 * cfg.n_layers * seq          # encoder + decoder, S = T
+        want.update(lstm_cell_fwd=cells, lstm_cell_bwd_pointwise=cells)
+        want_variants["lstm_cell_fwd"]["tc"] = cells
+    if launches != want or variants != want_variants:
+        raise AssertionError(f"training {cfg.name} launched {launches} {variants}, want "
+                             f"{want} {want_variants}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            state.step != TRAIN_STEPS or \
+            not all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)):
+        raise AssertionError(f"training {cfg.name} gave losses {losses} or non-finite "
+                             f"parameters")
+    out = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+           "input": {k: list(v.shape) for k, v in batches[0].items()}, "steps": TRAIN_STEPS,
+           "losses": losses, "wall_s_5_steps": wall_s, "launches": launches,
+           "lstm_cell_fwd_variant_launches": variants["lstm_cell_fwd"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(out), flush=True)
+    timing = time_train_steps(api_mod, cfg, state, batch_size, seq, f"train_step {cfg.name}",
+                              batch=timed_batch, unit=unit)
+    del state, batches, step
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+def paper_step(api_mod, cfg, batch, *, params=None, device="cuda", mesh=None, seed=0):
+    """One AdamW step (warmup-cosine, clip 1.0) of a paper model on
+    ``batch`` from ``params`` (default: the seeded init on the device); on
+    the ranks of ``mesh``, pure DP with the bucketed sync, each rank taking
+    its rows.  Returns (loss, grad norm, parameters on the CPU)."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.parallel.plan import ParallelPlan
+    from repro_torch.train import TrainState, make_train_step
+
+    api = api_mod.build_model(cfg, device=mesh.device if mesh else device)
+    params = api.init(seed) if params is None else params
+    opt = adamw(warmup_cosine(3e-3, 20, 1))
+    plan = ParallelPlan(model_axis=None, comm_runtime="overlapped") if mesh else None
+    step = make_train_step(api, opt, mesh=mesh, plan=plan, clip_norm=1.0)
+    if mesh is None:
+        batch = {k: v.to(api.device) for k, v in batch.items()}
+    state, metrics = step(TrainState(params, opt.init(params), 0), batch)
+    return float(metrics["loss"]), float(metrics["grad_norm"]), _tree_to(state.params, "cpu")
+
+
+def _paper_rank(mesh, cells):
+    """Phase 18 (b) on one rank: a dp = 2 step of each cell (TF32 off in
+    this fresh process too)."""
+    from repro_torch.models import api as api_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {name: paper_step(api_mod, cfg, batch, mesh=mesh)
+            for name, (cfg, batch) in cells.items()}
+
+
+def _step_errors(got, want):
+    from repro_torch.tree import tree_leaves
+
+    (gl, gn, gp), (wl, wn, wp) = got, want
+    return {"loss_rel": abs(gl - wl) / abs(wl), "grad_norm_rel": abs(gn - wn) / abs(wn),
+            "params_max_abs": _max_err(tree_leaves(gp), tree_leaves(wp)),
+            "loss": gl, "grad_norm": gn}
+
+
+def phase_paper_vs_plain(api_mod, gnmt_cfg, inc_cfg):
+    """(a) One f32 step of full-width GNMT at 2 + 2 layers (B 16, S = T =
+    50) and of full-depth Inception-V3 (B 4 x 299), the card's kernels and
+    cuDNN against the plain path on the CPU from the same seeded weights:
+    loss and grad norm within 1e-4 relative, parameters within 1e-3 (phase
+    7's limits).  (b) The same cells at dp = 2 on 2 ranks sharing the card
+    against the single-process card step: loss and grad norm within 1e-4
+    relative, parameters within 5e-5 (phase 15 (d)'s limits).  Inception's
+    (b) runs in f64: one AdamW step moves an element by lr(0) * sign(g), and
+    at 299 px enough of its f32 gradients sum to within round-off of zero
+    that the other batch split flips some signs, moving them 2 lr(0) = 3e-4
+    apart (28 of 29.7 M elements on an H100); GNMT's LSTM kernels take
+    f32 and bf16 only, and its f32 step holds.  TF32 is off: cuDNN's TF32
+    convolutions would miss 1e-4."""
+    from repro_torch.parallel import dist as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {"gnmt 2+2 B16": dataclasses.replace(gnmt_cfg, n_layers=2, encoder_layers=2,
+                                               dtype="float32"),
+           "inception_v3 B4 x 299": dataclasses.replace(inc_cfg, dtype="float32")}
+    batches = {name: paper_batches(cfg, 16 if cfg.family == "rnn" else 4, 1, 7)[0]
+               for name, cfg in f32.items()}
+    on_ranks = {name: (dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+                       if cfg.family == "cnn" else cfg, batches[name])
+                for name, cfg in f32.items()}
+    vs_cpu, card = {}, {}
+    for name, cfg in f32.items():
+        params = api_mod.build_model(cfg, device="cuda").init(1)
+        cpu_params = _tree_to(params, "cpu")
+        got = paper_step(api_mod, cfg, batches[name], params=params)
+        want = paper_step(api_mod, cfg, batches[name], params=cpu_params, device="cpu")
+        vs_cpu[name] = _step_errors(got, want)
+        card[name] = paper_step(api_mod, *on_ranks[name])        # seed 0, the ranks' init
+        del params, cpu_params, got, want
+        torch.cuda.empty_cache()
+    ranks = D.spawn_ranks(_paper_rank, 2, "cuda", args=(on_ranks,))
+    dp = {f"{name} dp=2 ({cfg.dtype}), rank {r}": _step_errors(res[name], card[name])
+          for r, res in enumerate(ranks) for name, (cfg, _) in on_ranks.items()}
+    tol_cpu = {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": 1e-3}
+    tol_ranks = {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}
+    print(json.dumps({"paper_vs_plain": vs_cpu, "tol": tol_cpu}), flush=True)
+    print(json.dumps({"paper_ranks_vs_single": dp, "tol": tol_ranks}), flush=True)
+    for results, tol in ((vs_cpu, tol_cpu), (dp, tol_ranks)):
+        for name, r in results.items():
+            if not all(r[k] <= tol[k] for k in tol):
+                raise AssertionError(f"{name} disagrees with its reference: {r}, limits {tol}")
+    return vs_cpu, dp
+
+
+def _by_path(paths, kernel):
+    return {path: launches[kernel] for path, launches in paths.items()}
+
+
 def _kernel_entry(name, source, replaces, launches, rows, **extra):
     main_row = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1673,7 +1902,19 @@ def main():
     rank_runs = phase_ranks(train_launch, lc, lstm_cfg)
     phase_ranks_vs_plain(train_launch, api_mod, lstm_cfg)
 
-    _phase("16 result")
+    _phase("16 train gnmt, full width and depth")
+    gnmt_cfg = get_config("gnmt")
+    gnmt_launches, _ = phase_train_paper(lc, counters, api_mod, gnmt_cfg, GNMT_B)
+
+    _phase("17 train inception_v3, full width and depth")
+    inc_cfg = get_config("inception_v3")
+    inc_launches, _ = phase_train_paper(lc, counters, api_mod, inc_cfg, INCEPTION_B)
+
+    _phase("18 GNMT and Inception-V3 steps against the plain path and on ranks")
+    phase_paper_vs_plain(api_mod, gnmt_cfg, inc_cfg)
+
+    _phase("19 result")
+    paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1684,7 +1925,8 @@ def main():
                                             moe_launches["flash_attention"],
                                         "train llama3_2_1b": llama_launches["flash_attention"],
                                         "train smollm_360m dp=2,pipe=2 (ranks)":
-                                            rank_runs["c"]["launches"]["flash_attention"]},
+                                            rank_runs["c"]["launches"]["flash_attention"],
+                                        **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
                           "serve granite_moe_1b_a400m": moe_variants["flash_attention"],
@@ -1697,7 +1939,8 @@ def main():
                           "train llama3_2_1b": llama_launches["flash_attention_bwd"],
                           "train biglstm": train_launches["flash_attention_bwd"],
                           "train smollm_360m dp=2,pipe=2 (ranks)":
-                              rank_runs["c"]["launches"]["flash_attention_bwd"]},
+                              rank_runs["c"]["launches"]["flash_attention_bwd"],
+                          **_by_path(paper_paths, "flash_attention_bwd")},
                       variant_launches_by_path={
                           "train llama3_2_1b": llama_variants["flash_attention_bwd"]},
                       note="no TPU kernel: JAX differentiates src/repro/models/layers.py:160 "
@@ -1713,7 +1956,8 @@ def main():
                           "train biglstm pipe=2 1f1b (ranks)":
                               rank_runs["a"]["launches"]["lstm_cell_fwd"],
                           "train biglstm pipe=2 gpipe (ranks)":
-                              rank_runs["b"]["launches"]["lstm_cell_fwd"]}),
+                              rank_runs["b"]["launches"]["lstm_cell_fwd"],
+                          **_by_path(paper_paths, "lstm_cell_fwd")}),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
                       "src/repro/kernels/lstm_cell.py:24", train_launches[
                           "lstm_cell_bwd_pointwise"], bwd_rows,
@@ -1726,15 +1970,20 @@ def main():
                           "train biglstm pipe=2 1f1b (ranks)":
                               rank_runs["a"]["launches"]["lstm_cell_bwd_pointwise"],
                           "train biglstm pipe=2 gpipe (ranks)":
-                              rank_runs["b"]["launches"]["lstm_cell_bwd_pointwise"]},
+                              rank_runs["b"]["launches"]["lstm_cell_bwd_pointwise"],
+                          **_by_path(paper_paths, "lstm_cell_bwd_pointwise")},
                       note="no TPU backward kernel: JAX differentiates the plain cell "
                            "(src/repro/models/lstm.py:53)"),
         _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
                       "src/repro/kernels/moe_gmm.py:23", moe_launches["gmm"], gmm_rows,
-                      variant_launches=moe_variants["gmm"]),
+                      variant_launches=moe_variants["gmm"],
+                      launches_by_path={"serve granite_moe_1b_a400m": moe_launches["gmm"],
+                                        **_by_path(paper_paths, "gmm")}),
         _kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv_scan.py:25", rwkv_launches["wkv6"], wkv_rows,
-                      library=wkv_rows[0]["library"], variant_launches=rwkv_variants["wkv6"]),
+                      library=wkv_rows[0]["library"], variant_launches=rwkv_variants["wkv6"],
+                      launches_by_path={"serve rwkv6_7b": rwkv_launches["wkv6"],
+                                        **_by_path(paper_paths, "wkv6")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,13 @@ layers with a leading L dim; an MoE layer has ``moe/{router, wi, wg, wo}``
 (and ``moe/shared/{wi, wg, wo}`` with shared experts) in place of ``mlp``;
 an RWKV layer has ``ln1``, ``ln2``, ``tm/{mu_r, mu_k, mu_v, mu_w, mu_g, wr,
 wk, wv, wg, wo, w0, wa1, wa2, u, ln_x}`` and ``cm/{mu_k, mu_r, wk, wv, wr}``.
-BigLSTM keeps ``params["lstm"]`` as a list of per-layer dicts (wx (d, 4H), wh (d_proj or H, 4H), b (4H,), and wp (H, d_proj)
-when d_proj > 0).  Neither side's module is
+BigLSTM keeps ``params["lstm"]`` as a list of per-layer dicts (wx (d, 4H),
+wh (d_proj or H, 4H), b (4H,), and wp (H, d_proj) when d_proj > 0); GNMT
+has ``src_embed``, ``tgt_embed``, the lists ``enc`` and ``dec`` of such
+dicts without wp (the first decoder layer's wx is (2d, 4d)), ``attn_q`` and
+``head``.  Inception-V3 has ``stem[i]``, ``blocks[b][branch][op]`` (a
+pool-only branch is an empty list), each conv a dict ``{w (kh, kw, cin,
+cout), scale, bias}``, and ``head.fc``.  Neither side's module is
 imported; the caller converts the JAX pytree to numpy first
 (``jax.tree.map(np.asarray, params)``).
 """
@@ -16,10 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import inception as inc_mod
 from repro_torch.models.rwkv import heads, lora_rank
 
 
 def _expected_shapes(cfg) -> dict:
+    if cfg.family == "cnn":
+        return _inception_shapes(cfg)
+    if cfg.name == "gnmt":
+        return _gnmt_shapes(cfg)
     if cfg.family == "rnn":
         return _lstm_shapes(cfg)
     d, v = cfg.d_model, cfg.vocab_padded
@@ -63,9 +73,28 @@ def _rwkv_shapes(cfg) -> dict:
     return {"ln1": vec, "ln2": vec, "tm": tm, "cm": cm}
 
 
+def _gnmt_shapes(cfg) -> dict:
+    d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+
+    def cell(d_in):
+        return {"wx": (d_in, 4 * d), "wh": (d, 4 * d), "b": (4 * d,)}
+
+    return {"src_embed": (v, d), "tgt_embed": (v, d), "enc": [cell(d) for _ in range(n)],
+            "dec": [cell(2 * d if i == 0 else d) for i in range(n)], "attn_q": (d, d),
+            "head": (d, v)}
+
+
+def _inception_shapes(cfg) -> dict:
+    def conv(shape):
+        return {"w": shape, "scale": shape[-1:], "bias": shape[-1:]}
+
+    stem, blocks, cin = inc_mod.conv_shapes(inc_mod.is_reduced(cfg))
+    return {"stem": [conv(s) for s in stem],
+            "blocks": [[[conv(s) for s in ops] for ops in branches] for branches in blocks],
+            "head": {"fc": (cin, cfg.vocab_size)}}
+
+
 def _lstm_shapes(cfg) -> dict:
-    if cfg.encoder_layers:
-        raise ValueError(f"{cfg.name}: only BigLSTM's layout is carried over")
     d, v, dh = cfg.d_model, cfg.vocab_padded, cfg.d_ff
     layer = {"wx": (d, 4 * dh), "wh": (d, 4 * dh), "b": (4 * dh,), "wp": (dh, d)}
     return {"embed": (v, d), "lstm": [dict(layer) for _ in range(cfg.n_layers)],
@@ -75,7 +104,7 @@ def _lstm_shapes(cfg) -> dict:
 def _convert(tree, shapes, fn, path=""):
     if isinstance(shapes, list):
         if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
-            raise ValueError(f"{path}: expected a list of {len(shapes)} layers")
+            raise ValueError(f"{path}: expected a list of {len(shapes)} entries")
         return [_convert(t, s, fn, f"{path}/{i}") for i, (t, s) in
                 enumerate(zip(tree, shapes))]
     if set(tree) != set(shapes):
@@ -95,7 +124,7 @@ def _convert(tree, shapes, fn, path=""):
 
 def params_from_jax(np_params, cfg, device) -> dict:
     """The port's parameters from the JAX init's pytree given as numpy arrays
-    (dense, MoE or RWKV decoder, or BigLSTM, by ``cfg``)."""
+    (dense, MoE or RWKV decoder, BigLSTM, GNMT or Inception-V3, by ``cfg``)."""
     return _convert(np_params, _expected_shapes(cfg),
                     lambda a: torch.from_numpy(np.array(a)).to(device))
 

@@ -39,7 +39,10 @@ Queue 1 item 7, context parallelism item 8, parameters sharded over DP
 (fsdp) item 5's remainder and ``--pipe-runtime ad`` item 6b.  On the card
 BigLSTM and the dense decoder train; an MoE decoder needs the gmm backward
 kernel and RWKV a wkv backward.  On the CPU every decoder trains through
-the kernels' plain versions.
+the kernels' plain versions.  GNMT and Inception-V3 need source/target
+pairs and images, which this launcher (like JAX's) does not feed: it
+refuses them, and they train through ``models.api.build_model`` +
+``train.steps.make_train_step``.
 """
 from __future__ import annotations
 
@@ -173,7 +176,7 @@ def clamp_micro(plan: ParallelPlan, shard_rows: int) -> ParallelPlan:
 
 
 def check_trainable(cfg, device: torch.device) -> None:
-    """On the card the LSTM family and the dense decoder train; the MoE
+    """On the card BigLSTM and the dense decoder train; the MoE
     layer's grouped matmuls and the RWKV recurrence have no backward kernels
     yet."""
     if device.type != "cuda":
@@ -342,9 +345,13 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family == "cnn":
-        raise SystemExit(f"[data] {cfg.name}: the train CLI drives the token-LM data "
-                         f"pipeline; cnn archs train through benchmarks/fig4_epochs.py")
+    if cfg.family == "cnn" or cfg.encoder_layers:
+        # the launcher feeds the token LM only, as JAX's, which refuses cnn
+        # archs and fails on GNMT's source/target pairs with a KeyError
+        raise SystemExit(f"[data] {cfg.name}: the train CLI feeds the token-LM data "
+                         f"pipeline only; {cfg.name} trains through "
+                         f"models.api.build_model + train.steps.make_train_step (as "
+                         f"chip_smoke.py's GNMT and Inception-V3 phases do)")
     auto = args.parallel == "auto"
     plan, mp, dp_hint = parse_parallel(args.parallel, args.devices or DEFAULT_DEVICES,
                                        cfg, comm_runtime=args.comm_runtime or "gspmd",

@@ -1,5 +1,4 @@
-"""Model API (port of the transformer and BigLSTM branches of
-``repro/models/api.py``).
+"""Model API (port of ``repro/models/api.py``).
 
 ``build_model(cfg, device=, capacity_factor=1.25)`` returns a ``ModelApi``
 whose members are plain functions over the parameter dict; the serving
@@ -10,10 +9,10 @@ slices of ``init``), ``pipeline_stage_params`` (one stage's part of a whole
 model's parameters) and ``pipeline_value_and_grad_fn`` (one rank's loss and
 gradients through ``parallel.pipeline.pipeline_value_and_grad``).  The dense, MoE
 and RWKV decoders go through ``models/transformer.py`` (RWKV's cache holds
-its recurrent state); BigLSTM has a loss and no serving path (as in JAX);
-GNMT and the cnn family raise NotImplementedError.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA where
-there is none raises.
+its recurrent state); BigLSTM and GNMT (``models/lstm.py``) and
+Inception-V3 (``models/inception.py``) have a loss and no serving path (as
+in JAX).  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; asking for CUDA where there is none raises.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import inception as inc_mod
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.parallel import dist as D
@@ -80,6 +80,8 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
     """``capacity_factor`` bounds the tokens per expert of an MoE model in
     train and prefill (None: no drop); decode never drops."""
     dev = resolve_device(device)
+    if cfg.family == "cnn":
+        return _build_inception(cfg, dev)
     if cfg.family == "rnn":
         return _build_lstm(cfg, dev)
     tf_mod.check_supported(cfg)
@@ -120,8 +122,33 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
     return api
 
 
+def _build_inception(cfg: ModelConfig, dev: torch.device) -> ModelApi:
+    reduced = inc_mod.is_reduced(cfg)
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return inc_mod.inception_init(gen, cfg, reduced=reduced, device=dev)
+
+    def loss_fn(params, batch, pctx=None):
+        logits = inc_mod.inception_forward(cfg, params, batch, reduced=reduced)
+        loss = cross_entropy(logits[:, None, :], batch["labels"][:, None], cfg.vocab_size)
+        return loss, {"loss": loss}
+
+    return ModelApi(cfg, dev, init, loss_fn, None, None)
+
+
 def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
-    lstm_mod.check_supported(cfg)
+    if cfg.name == "gnmt":
+        def gnmt_init(seed: int = 0):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return lstm_mod.gnmt_init(gen, cfg, device=dev)
+
+        def gnmt_loss(params, batch, pctx=None):
+            logits = lstm_mod.gnmt_forward(cfg, params, batch)
+            loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+            return loss, {"loss": loss}
+
+        return ModelApi(cfg, dev, gnmt_init, gnmt_loss, None, None)
 
     def init(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -148,8 +175,9 @@ def supports_pipeline(cfg: ModelConfig) -> bool:
     residual LSTM stack and homogeneous decoder-only transformers.  GNMT's
     encoder/decoder split and the CNN block graph need stage functions the
     runtime does not model (the planner still *costs* pipeline-MP for GNMT;
-    the launcher then takes the best supported plan).  The runtime is
-    ROADMAP.md Queue 1 item 6."""
+    the launcher then takes the best supported plan), as in JAX.  The
+    scheduled runtime (``parallel.pipeline.pipeline_value_and_grad``) runs
+    the stacks; the ``ad`` runtime is ROADMAP.md Queue 1 item 6b."""
     if cfg.name == "biglstm":
         return True
     if cfg.family == "cnn" or cfg.name == "gnmt":

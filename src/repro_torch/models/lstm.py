@@ -1,9 +1,12 @@
-"""BigLSTM (port of the BigLSTM half of ``repro/models/lstm.py``): embedding
-1024, 2 LSTM layers of hidden 8192 with a 1024 projection, a big softmax.
+"""The paper's RNN models (port of ``repro/models/lstm.py``): BigLSTM
+(embedding 1024, 2 LSTM layers of hidden 8192 with a 1024 projection, a big
+softmax) and GNMT (a residual LSTM encoder, a decoder whose first layer
+drives a Luong attention over the encoder states, a vocab head).
 
-Parameters keep the JAX paths and layouts: ``params["lstm"]`` is a list of
-per-layer dicts with wx (d_in, 4H), wh (d_proj or H, 4H), b (4H,) f32 and,
-when d_proj > 0, wp (H, d_proj).  Every cell step runs on the CUDA kernel of
+Parameters keep the JAX paths and layouts: ``params["lstm"]`` (BigLSTM) and
+``params["enc"]``, ``params["dec"]`` (GNMT) are lists of per-layer dicts
+with wx (d_in, 4H), wh (d_proj or H, 4H), b (4H,) f32 and, when d_proj > 0,
+wp (H, d_proj).  Every cell step runs on the CUDA kernel of
 ``kernels.lstm_cell`` (its plain twin on the CPU); the projection is a plain
 GEMM.  The JAX ``lax.scan`` over time becomes a Python loop.
 
@@ -20,10 +23,12 @@ the scheduled pipeline runtime (``parallel.pipeline``); its parameters are
 the per-layer dicts stacked with a leading layer dim (``stack_layer_params``).
 
 Not ported here (they raise NotImplementedError naming their ROADMAP item):
-the tensor-MP ``lstm_layer_overlapped``, the forward through the ``ad``
-pipeline runtime and GNMT.
+the tensor-MP ``lstm_layer_overlapped`` and the forward through the ``ad``
+pipeline runtime.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,19 +36,11 @@ from repro_torch.kernels import lstm_cell as K
 from repro_torch.models import layers as L
 from repro_torch.parallel.pipeline import AD_RUNTIME
 
-FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
 TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
 
 
 def unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet: {item}")
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for an rnn config this slice does not run:
-    GNMT, the encoder-decoder LSTM."""
-    if cfg.encoder_layers:
-        raise unported(f"GNMT, the encoder-decoder LSTM ({cfg.name})", FAMILIES)
 
 
 def lstm_cell_init(gen: torch.Generator, d_in: int, d_h: int, d_proj: int = 0, *,
@@ -168,12 +165,53 @@ def lstm_layer_overlapped(*args, **kwargs):
     raise unported("the overlapped tensor-MP LSTM layer", TENSOR_MP)
 
 
-def gnmt_init(*args, **kwargs):
-    raise unported("GNMT (the encoder-decoder LSTM)", FAMILIES)
+# ---------------------------------------------------------------------------
+# GNMT
+# ---------------------------------------------------------------------------
+
+def gnmt_init(gen: torch.Generator, cfg, *, device=None):
+    """Random parameters at the JAX init's scales, drawn from ``gen``:
+    ``cfg.n_layers`` encoder and decoder layers of width d_model with no
+    projection, the first decoder layer reading 2 d_model (its input and an
+    attention context)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    d, v, n = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+
+    def cell(d_in):
+        return lstm_cell_init(gen, d_in, d, 0, dtype=dtype, device=device)
+
+    return {"src_embed": L.embed_init(gen, v, d, dtype=dtype, device=device),
+            "tgt_embed": L.embed_init(gen, v, d, dtype=dtype, device=device),
+            "enc": [cell(d) for _ in range(n)],
+            "dec": [cell(2 * d if i == 0 else d) for i in range(n)],
+            "attn_q": L.dense_init(gen, d, d, dtype=dtype, device=device),
+            "head": L.dense_init(gen, d, v, dtype=dtype, device=device)}
 
 
-def gnmt_forward(*args, **kwargs):
-    raise unported("GNMT (the encoder-decoder LSTM)", FAMILIES)
+def gnmt_forward(cfg, params, batch):
+    """batch: dict(src (B, S), tgt (B, T)) -> logits (B, T, V_padded).
+
+    As JAX: the encoder is residual from its second layer on; the first
+    decoder layer reads ``concat([tgt, zeros])``, so the context half of its
+    input is zero; a Luong attention of its output over all S encoder states
+    (one head of d_model, scaled by 1/sqrt(d_model), no source mask) is added
+    to it; the later decoder layers are residual; the head has no final
+    norm.  The attention is plain ops, as JAX's ``einsum``s."""
+    dt = getattr(torch, cfg.dtype)
+    x = params["src_embed"][batch["src"]].to(dt)
+    for i, lp in enumerate(params["enc"]):
+        y, _ = lstm_layer(lp, x)
+        x = y if i == 0 else x + y
+    enc_out = x                                              # (B, S, d)
+    tgt = params["tgt_embed"][batch["tgt"]].to(dt)
+    y0, _ = lstm_layer(params["dec"][0], torch.cat([tgt, torch.zeros_like(tgt)], -1))
+    q = y0 @ params["attn_q"].to(dt)
+    scores = q @ enc_out.transpose(1, 2) / math.sqrt(cfg.d_model)
+    x = y0 + torch.softmax(scores, -1) @ enc_out
+    for lp in params["dec"][1:]:
+        y, _ = lstm_layer(lp, x)
+        x = x + y
+    return x @ params["head"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,14 @@ def unported(what: str, item: str):
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
     """Raise NotImplementedError for any config or mode outside the dense,
-    MoE or RWKV, full-attention, single-device decoder the port runs."""
+    MoE or RWKV, full-attention, single-device decoder the port runs, and
+    ValueError for the CNN and LSTM families, which other modules run."""
+    if cfg.family == "cnn":
+        raise ValueError(f"{cfg.name} is a CNN: models.inception runs it, not the "
+                         f"transformer stack")
+    if cfg.family == "rnn":
+        raise ValueError(f"{cfg.name} is an LSTM model: models.lstm runs it, not the "
+                         f"transformer stack")
     if pctx is not None:
         raise unported("a ParallelCtx (mesh execution)", MULTI_DEVICE)
     if window or cfg.sliding_window:
@@ -47,13 +54,9 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
             (cfg.family == "hybrid", "the hybrid SSM block", FAMILIES),
             (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
             (cfg.n_prefix_embeds, "prefix embeddings (VLM)", FAMILIES),
-            (cfg.attn_logit_softcap, "attention logit softcap", FAMILIES),
-            (cfg.family == "cnn", "the cnn family", FAMILIES)):
+            (cfg.attn_logit_softcap, "attention logit softcap", FAMILIES)):
         if flag:
             raise unported(f"{what} ({cfg.name})", item)
-    if cfg.family == "rnn":
-        raise ValueError(f"{cfg.name} is an LSTM model: models.lstm runs it, not the "
-                         f"transformer stack")
 
 
 def overlapped_arch_supported(cfg) -> bool:

@@ -2,8 +2,9 @@
 against the JAX package's: the cases of ``tests/test_core.py`` go through
 both solvers with the JAX ``HardwareGraph`` values, and give the same
 placement, makespan, lower bound and optimality flag; the port's topological
-order is networkx's on random DAGs; the Inception-V3 DFG comes from JAX's
-``inception_dfg`` as plain dicts."""
+order is networkx's on random DAGs; the Inception-V3 DFG comes from the
+port's ``models.inception.inception_dfg`` (equal to JAX's,
+``tests/test_torch_inception.py``) as plain dicts."""
 import dataclasses
 import random
 
@@ -11,8 +12,8 @@ import networkx as nx
 import pytest
 
 from repro.core import dlplacer as JD
-from repro.models.inception import inception_dfg
 from repro_torch.core import dlplacer as TD
+from repro_torch.models.inception import inception_dfg
 
 
 def _pair(nodes, edges):

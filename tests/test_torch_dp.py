@@ -11,6 +11,9 @@ multi-rank runs, on gloo ranks on the CPU.
   full batch and JAX's single-device step; with the plan's accumulation
   count 2 it runs each rank's shard as 2 micro-batches and equals the
   single-process accumulating step;
+- a dp = 2 step of reduced GNMT and of reduced Inception-V3 (75 px), the
+  bucketed sync splitting every batch key by rows, equals the
+  single-process step on the full batch;
 - ``launch.train.main`` runs ``pipe=2`` and the planner's 64-card BigLSTM
   plan on ranks, and still names ROADMAP items for what is not ported.
 
@@ -116,6 +119,37 @@ def _opt():
     return TO.adamw(TO.warmup_cosine(3e-3, 20, 1))
 
 
+PAPER = ("gnmt", "inception_v3")    # reduced: 2 + 2 LSTM layers; blocks a, b, e
+
+
+def _paper_batch(arch, batch=4):
+    if arch == "gnmt":
+        from repro_torch.data import SyntheticSeq2Seq
+        b = next(SyntheticSeq2Seq(vocab=1024, seq_len=8).epoch(0, batch))
+    else:
+        rng = np.random.default_rng(0)
+        b = {"images": rng.standard_normal((batch, 75, 75, 3)).astype(np.float32),
+             "labels": rng.integers(0, 1000, batch)}
+    return {k: torch.from_numpy(v if v.dtype == np.float32 else v.astype(np.int64))
+            for k, v in b.items()}
+
+
+def _paper_step(arch, mesh=None):
+    """One AdamW step of a reduced paper model from the port's seeded init:
+    on the ranks of ``mesh`` (pure DP, bucketed sync) or in one process."""
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.plan import ParallelPlan
+    from repro_torch.train import TrainState, make_train_step
+
+    api = build_model(t_get_config(arch).reduced(), device="cpu")
+    params = api.init(0)
+    opt = _opt()
+    plan = ParallelPlan(model_axis=None, comm_runtime="overlapped") if mesh else None
+    step = make_train_step(api, opt, mesh=mesh, plan=plan, clip_norm=1.0, bucket_bytes=1 << 16)
+    state, m = step(TrainState(params, opt.init(params), 0), _paper_batch(arch))
+    return float(m["loss"]), float(m["grad_norm"]), state.params
+
+
 def _dp_rank(mesh, np_params):
     from repro_torch.interop import params_from_jax
     from repro_torch.models.api import build_model
@@ -149,6 +183,8 @@ def _dp_rank(mesh, np_params):
                                                             comm_runtime="overlapped"))
     state, m = step(TrainState(params, opt.init(params), 0), _batch())
     out["accum"] = (float(m["loss"]), float(m["grad_norm"]), state.params, rows)
+    for arch in PAPER:
+        out[arch] = _paper_step(arch, mesh)
     return out
 
 
@@ -192,6 +228,16 @@ def dp_steps():
     state, m = make_train_step(api, opt, clip_norm=1.0, microbatches=2)(
         TrainState(full, opt.init(full), 0), batch)
     single["accum"] = (float(m["loss"]), float(m["grad_norm"]), state.params)
+    # on one thread, as each rank runs: the clip's f32 sum of squares over a
+    # leaf of millions takes another order on more threads (2e-5 relative on
+    # reduced Inception's grad norm)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch in PAPER:
+            single[arch] = _paper_step(arch)
+    finally:
+        torch.set_num_threads(threads)
     ranks = D.spawn_ranks(_dp_rank, 2, "cpu", args=(np_params,), threads=1)
     return {"ranks": ranks, "single_process": single, "jax": ref}
 
@@ -219,6 +265,21 @@ def test_dp_train_step_accumulates_the_plans_micro_batches(dp_steps):
     for r in dp_steps["ranks"]:
         rl, rn, rp, rows = r["accum"]
         assert rows == [2, 2], rows
+        assert abs(rl - loss) <= STEP_TOL["loss"] * abs(loss), (rl, loss)
+        assert abs(rn - gnorm) <= STEP_TOL["grad_norm"] * abs(gnorm), (rn, gnorm)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(tree_leaves(rp), tree_leaves(params)))
+        assert err <= STEP_TOL["params"], err
+
+
+@pytest.mark.parametrize("arch", PAPER)
+def test_dp_train_step_of_the_paper_models_matches(dp_steps, arch):
+    """GNMT's source, target and labels, and Inception's images and labels,
+    each split by rows over the 2 ranks: the step equals the single-process
+    step on the full batch."""
+    loss, gnorm, params = dp_steps["single_process"][arch]
+    for r in dp_steps["ranks"]:
+        rl, rn, rp = r[arch]
         assert abs(rl - loss) <= STEP_TOL["loss"] * abs(loss), (rl, loss)
         assert abs(rn - gnorm) <= STEP_TOL["grad_norm"] * abs(gnorm), (rn, gnorm)
         err = max(float((a - b).abs().max())

@@ -551,6 +551,56 @@ def test_lstm_fma_variant_takes_what_the_tensor_cores_do_not(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,stride,padding", [("avg", 1, "SAME"), ("max", 2, "VALID")])
+def test_inception_pools_backward_on_card_match_cpu(cuda_device, kind, stride, padding):
+    """Inception's pools (NHWC, as the model runs them) forward and backward
+    on the card against the CPU in f32: the average pool runs on an NCHW
+    copy, since torch's CUDA avg_pool2d backward over a channels-last input
+    was wrong."""
+    from repro_torch.models import inception as TI
+
+    gen = torch.Generator().manual_seed(5)
+    x, dy = torch.randn(4, 17, 17, 160, generator=gen), torch.randn(4, 17, 17, 160,
+                                                                    generator=gen)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        y = TI.pool(xd, kind, 3, stride, padding)
+        (dx,) = torch.autograd.grad(y, xd, dy.to(dev)[:, :y.shape[1], :y.shape[2]])
+        outs.append((y.cpu(), dx.cpu()))
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) < F32_TOL
+
+
+# GNMT's cells: B 128, H 1024, no projection; x is the time-t row view of the
+# layer's (B, T, d_in) input, d_in 2048 for the first decoder layer's concat
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,variant", [(torch.float32, F32_TOL, "fma"),
+                                               (torch.bfloat16, BF16_TOL, "tc")])
+@pytest.mark.parametrize("d_in", [1024, 2048])
+def test_lstm_cell_at_gnmt_shapes_on_card(cuda_device, dtype, tol, variant, d_in):
+    b, hh, t_len, t = 128, 1024, 50, 7
+    x, h, c, wx, wh, bias = _lstm_inputs(d_in + t, b, d_in, hh, hh, cuda_device, dtype)
+    xs = torch.zeros((b, t_len, d_in), dtype=dtype, device=cuda_device)
+    xs[:, t] = x
+    x = xs[:, t]
+    assert x.stride(0) == t_len * d_in and TLC.lstm_variant(x, h, wx, wh) == variant
+    before = dict(TLC.lstm_cell_fwd.variant_launches)
+    hn, cn, gates = TLC.lstm_cell_fwd(x, h, c, wx, wh, bias, want_gates=True)
+    torch.cuda.synchronize()
+    assert _moved(TLC.lstm_cell_fwd, before) == {variant: 1}
+    rh, rc, ract = TLC.lstm_cell_plain(x, h, c, wx, wh, bias, with_gates=True)
+    for got, want in ((hn, rh), (cn, rc)):
+        assert float((got.float() - want.float()).abs().max()) < tol
+    assert float((gates - ract).abs().max()) < 1e-4
+    dh, dc = (torch.randn((b, hh), device=cuda_device).to(dtype) for _ in range(2))
+    dg, dcp = TLC.lstm_cell_bwd_pointwise(gates, c, dh, dc)
+    rg, rcp = TLC.lstm_cell_bwd_pointwise_plain(gates, c, dh, dc)
+    assert float((dg.float() - rg.float()).abs().max()) < tol
+    assert float((dcp.float() - rcp.float()).abs().max()) < tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["scan", "chunked"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,hd", WKV_SHAPES)

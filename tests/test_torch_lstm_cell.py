@@ -199,8 +199,6 @@ def test_unported_lstm_paths_raise():
         TM.lstm_layer_overlapped()
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         TM.biglstm_forward_pipeline()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        TM.gnmt_forward()
 
 
 def _variant_inputs(dtype, b=4, d_in=16, d_h=24, hh=32, x_offset=0, x_ld=None):
