@@ -30,6 +30,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    through the plain forward in bf16, plus 1e-3 max|ref|), timed against
    its plain version, its bound and the backward of
    ``F.scaled_dot_product_attention``;
+   the two hops of phase 19's context ring (B 2, Tq = Tk 1024, H 32/8, hd
+   64, bf16): the forward with lse on the diagonal block (causal) and on a
+   block wholly in the past (not causal), and the backward of each given
+   the global output and lse of attention over T 2048, each timed against
+   its plain version, its bound and SDPA's call;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
    8192; also at the pipeline's micro-batch rows B 4 and B 1), at GNMT's
@@ -107,8 +112,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    through ``--devices 64``: the H100 model's 1f1b 8 x 4 x 2 K16 plan,
    clamped to 1 DP x 2 stages on 2 ranks that share the card (K 16: 8192
    forward launches, all ``tc``, and 4096 backward, summed over the ranks),
-   and show Llama's 64-card plan (context parallelism) raising
-   NotImplementedError naming ROADMAP item 8;
+   and record Llama's context plans at 8 cards (1 x 4 x 2, which phase 19
+   trains) and at 64 (8 x 1 x 8: a ring of 8 full replicas does not fit the
+   one card);
 15. DP and pipeline ranks on the card, each run in its own ranks through the
    launcher (``launch.train``), which share the card (gloo, host-staged
    messages; their step times are not multi-card step times):
@@ -146,7 +152,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    TF32 off; (b) the same cells at dp = 2 on 2 ranks sharing the card
    against the single-process card step (phase 15 (d)'s limits; Inception
    in f64 there, where no round-off flips the sign of AdamW's first step);
-19. print one JSON line of kernels, then the device line.
+19. Llama-3.2-1B's context plan on ranks sharing the card (gloo,
+   host-staged messages; no step time there is a multi-card step time):
+   (a) full width and depth through ``--parallel auto --devices 8`` at B 2
+   x T 2048, 2 steps: the 8-card plan (context 1 x 4 x 2) clamped to 1 DP x
+   a ring of 2, with the counters set to 0 just before and read just after
+   (96 flash forward launches summed over the ranks, all ``tc_prefill``,
+   and 96 backward calls, all ``tc``: L m (m + 1) / 2 a step), finite
+   losses, each rank's peak beside the planner's memory model; (b)
+   ``ring_attention`` alone on 2 ranks at (a)'s shapes against
+   single-process ``flash_attention`` at T 2048, forward and backward
+   (bf16 within 2e-2 of max(1, |ref|), f32 within 1e-4), and (a)'s
+   gradient sync alone on those ranks, timed; (c) 2 full-width
+   layers in f32, vocab 32768, B 4 x T 512: a ``cp=2`` and a ``dp=2,cp=2``
+   step against the single-process card step (phase 15 (d)'s limits);
+20. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -180,6 +200,11 @@ RANK_STEPS = 3                                  # steps of each phase-15 run
 RANK_PARAMS_TOL = 5e-5
 SMOL_B, SMOL_T = 8, 512                         # the hybrid SmolLM-360M run's batch
 LLAMA_B, LLAMA_T = 4, 2048                      # the dense decoder's training shape
+# phase 19: Llama's 8-card context plan on a ring of 2 ranks sharing the card,
+# B 2 (two ranks' parameters and AdamW state, 22.35 GiB each, and their
+# activations fit the 80 GB card at B 2, not at B 4); its 2-layer f32 cell
+RING_B, RING_T, RING_STEPS = 2, 2048, 2
+RING_CELL_B, RING_CELL_T = 4, 512
 BWD_F32_TOL = 1e-4    # f32 backward: sums of up to 2048 terms in another order
 # flash backward rows: B, Tq, Tk, H, Hkv, hd, causal, window (T 1, 4, 17, 130,
 # Tq != Tk both ways, hd 32 and 128, B 1, H = Hkv, windows with rows that see
@@ -522,6 +547,81 @@ def phase_flash_bwd(fa):
                 rnd(b, tk, hkv, hd, dtype=dt), rnd(b, tq, h, hd, dtype=dt),
                 causal=causal, window=window)
     return rows
+
+
+def phase_ring_hops(fa):
+    """The two kinds of hop of phase 19 (a)'s ring (B 2, T/m = 1024 rows a
+    rank, H 32/8, hd 64, bf16): the forward with lse on the diagonal block
+    (causal) and on a block wholly in the past (not causal), against the
+    plain output (``TOL``) and lse (``BWD_F32_TOL`` of max(1, |ref|)); the
+    backward of both given the *global* output and lse of attention over T
+    2048 (the ring's hop backward), against the plain backward on the same
+    inputs within 2e-2 of max(1, |ref|).  Each timed against its plain
+    version, its bound and SDPA's call at the hop's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bf = torch.bfloat16
+    b, t, h, hkv, hd = RING_B, RING_T, 32, 8, 64
+    n = t // 2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    q, k, v, do = rnd(b, t, h, hd), rnd(b, t, hkv, hd), rnd(b, t, hkv, hd), rnd(b, t, h, hd)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_rows, bwd_rows = [], []
+    # rank 1's queries: its diagonal block (keys n..t) and the past block (keys 0..n)
+    qh, oh, doh = (x[:, n:].contiguous() for x in (q, out, do))
+    lseh = lse[:, :, n:].contiguous()
+    for causal, lo in ((True, n), (False, 0)):
+        kh, vh = k[:, lo:lo + n].contiguous(), v[:, lo:lo + n].contiguous()
+        case = f"ring hop B{b} Tq{n} Tk{n} H{h}/{hkv} hd{hd} causal={causal}"
+        (o_s, lse_s), variant = launched_variant(fa.flash_attention, lambda: fa.flash_attention_lse(
+            qh, kh, vh, causal=causal))
+        want_o = fa.flash_attention_ref(qh, kh, vh, causal=causal)
+        want_lse = fa.flash_attention_lse_plain(qh, kh, causal=causal)
+        err = float((o_s.float() - want_o.float()).abs().max())
+        lse_err = float((lse_s - want_lse).abs().max()) / max(1.0, float(want_lse.abs().max()))
+        row = {"shape": case, "dtype": "bfloat16", "variant": variant, "max_abs_err": err,
+               "tol": TOL[bf], "lse_rel_err": lse_err, "lse_tol": BWD_F32_TOL}
+        if variant != "tc_prefill" or not (err < TOL[bf] and lse_err < BWD_F32_TOL):
+            raise AssertionError(f"flash_attention_lse {case}: {row}")
+        time_into(row, "ms", lambda: fa.flash_attention_lse(qh, kh, vh, causal=causal))
+        time_into(row, "plain_ms", lambda: (fa.flash_attention_ref(qh, kh, vh, causal=causal),
+                                            fa.flash_attention_lse_plain(qh, kh, causal=causal)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (qh, kh, vh))
+        time_into(row, "library_ms", lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
+        flops = 4.0 * b * h * _keep_pairs(n, n, causal, 0) * hd
+        row["bound_ms"], row["bound_by"] = bound_ms(_nbytes(qh, kh, vh, o_s, lse_s), flops, bf)
+        print(json.dumps(row), flush=True)
+        fwd_rows.append(row)
+        # the hop backward, given the global output and lse
+        grads, variant = launched_variant(fa.flash_attention_bwd, lambda: fa.flash_attention_bwd(
+            qh, kh, vh, oh, doh, lseh, causal=causal))
+        torch.cuda.synchronize()
+        oracle = fa.flash_attention_bwd_plain(qh.float(), kh.float(), vh.float(), oh.float(),
+                                              doh.float(), lseh, causal=causal)
+        errs = [float((g.float() - w).abs().max()) for g, w in zip(grads, oracle)]
+        scale = [max(1.0, float(w.abs().max())) for w in oracle]
+        row = {"kernel": "flash_attention_bwd", "shape": case + ", global lse",
+               "dtype": "bfloat16", "variant": variant, "max_abs_err": max(errs),
+               "rel_err": {nm: e / sc for nm, e, sc in zip(("dq", "dk", "dv"), errs, scale)},
+               "tol": TOL[bf]}
+        if variant != "tc" or not all(e / sc < TOL[bf] for e, sc in zip(errs, scale)):
+            raise AssertionError(f"flash_attention_bwd {case}, global lse: {row}")
+        time_into(row, "ms", lambda: fa.flash_attention_bwd(qh, kh, vh, oh, doh, lseh,
+                                                            causal=causal))
+        time_into(row, "plain_ms", lambda: fa.flash_attention_bwd_plain(
+            qh, kh, vh, oh, doh, lseh, causal=causal), reps=5)
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (qh, kh, vh))
+        lib = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
+        time_into(row, "library_ms", lambda: torch.autograd.grad(
+            lib, (ql, kl, vl), doh.transpose(1, 2), retain_graph=True))
+        row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(qh, kh, vh, causal, 0)
+        print(json.dumps(row), flush=True)
+        bwd_rows.append(row)
+        del lib
+    return fwd_rows, bwd_rows
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -1443,33 +1543,34 @@ def phase_planner(train_launch, lc, counters, lstm_cfg, llama_cfg, lstm_timing,
                                  "--steps", str(AUTO_STEPS)])
     at_64 = check_rank_run(summary, "--devices 64", lstm_cfg, steps=AUTO_STEPS, stages=2,
                            micro=k, lstm=True, high_water=min(k, 2))
-    refused = {}
-    item = "ROADMAP.md Queue 1 item 8"
-    if chosen[("llama3_2_1b", 64)].mp_kind != "context":
-        raise AssertionError(f"Llama at 64 cards: the plan is {chosen[('llama3_2_1b', 64)]}")
-    try:
-        train_launch.main(["--arch", "llama3_2_1b", "--parallel", "auto", "--devices", "64",
-                           "--steps", "1"])
-    except NotImplementedError as e:
-        if item not in str(e):
-            raise AssertionError(f"llama3_2_1b at 64 cards raised {e!r}, want {item}")
-        refused["llama3_2_1b"] = str(e)
-    else:
-        raise AssertionError("llama3_2_1b at 64 cards trained on one card")
+    # Llama's context plans: the 8-card ring of 2 trains in phase 19 (a); the
+    # 64-card ring of 8 would hold 8 replicas of the parameters and AdamW
+    # state (22.35 GiB each) on the one card, and is recorded, not run
+    llama_plans = {}
+    for devices, ring in ((8, 2), (64, 8)):
+        c = chosen[("llama3_2_1b", devices)]
+        if (c.mp_kind, c.mp) != ("context", ring):
+            raise AssertionError(f"Llama at {devices} cards: the plan is {c}")
+        llama_plans[devices] = {"kind": c.mp_kind, "pods_dp_mp": f"{c.pods} x {c.dp} x {c.mp}",
+                                "SU": c.speedup, "SU_M": c.su_m, "GiB": c.mem_bytes / 2**30,
+                                "runs": "phase 19 (a), clamped to 1 DP x a ring of 2"
+                                        if devices == 8 else "not run: 8 replicas on one card"}
     out = {"arch": lstm_cfg.name, "devices": 1, "steps": AUTO_STEPS, "losses": losses,
            "launches": launches, "lstm_cell_fwd_variant_launches": variants["lstm_cell_fwd"],
-           "at_64": at_64, "refused_at_64": refused}
+           "at_64": at_64, "llama_context_plans": llama_plans}
     print(json.dumps({"parallel_auto": out}), flush=True)
     return launches, at_64["launches"]
 
 
 def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_T, lstm,
-                   high_water):
+                   high_water, ring=False):
     """A multi-rank launcher run: the shared-card transport, the kernel
     launches summed over the ranks (LSTM: 2 L T K forward a step, all on
     ``tc``, and L T K backward; attention: 2 L K dp forward launches a step,
-    all ``tc_prefill``, and L K dp backward calls, all ``tc``), stage 0's
-    store high-water mark, finite losses.  Returns the run's record."""
+    all ``tc_prefill``, and L K dp backward calls, all ``tc``; on a context
+    ring of m = ``stages`` ranks, L m (m + 1) / 2 dp of each: the hops the
+    causal mask does not skip), stage 0's store high-water mark, finite
+    losses.  Returns the run's record."""
     t = summary["transport"]
     if (t.backend, t.placement, len(summary["ranks"])) != ("gloo", "shared", dp * stages):
         raise AssertionError(f"{name}: ran on {t} with {len(summary['ranks'])} ranks")
@@ -1480,6 +1581,11 @@ def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_
         per_step = cfg.n_layers * seq * micro * dp
         want.update(lstm_cell_fwd=2 * steps * per_step, lstm_cell_bwd_pointwise=steps * per_step)
         want_variants["lstm_cell_fwd"]["tc"] = 2 * steps * per_step
+    elif ring:
+        per_step = cfg.n_layers * stages * (stages + 1) // 2 * dp
+        want.update(flash_attention=steps * per_step, flash_attention_bwd=steps * per_step)
+        want_variants["flash_attention"]["tc_prefill"] = steps * per_step
+        want_variants["flash_attention_bwd"]["tc"] = steps * per_step
     else:
         per_step = cfg.n_layers * micro * dp
         want.update(flash_attention=2 * steps * per_step, flash_attention_bwd=steps * per_step)
@@ -1583,44 +1689,55 @@ def phase_ranks_vs_plain(train_launch, api_mod, cfg):
     ranks sharing the card, each against the single-process step on the
     card from the same seeded weights (the launcher's seed 0) and batch, in
     phase 7's cell and within its limits."""
+    cfg2 = dataclasses.replace(cfg, vocab_size=32768, dtype="float32")
+    return ranks_vs_single(train_launch, api_mod, cfg2, 8, TRAIN_T, [
+        ("pipe=2,micro=4,sched=1f1b", "pipe=2,micro=4,sched=1f1b", None),
+        ("dp=2 overlapped", "dp=2,mp=1", "overlapped")], "ranks_vs_single")
+
+
+def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
+    """One step of each of ``specs`` ((name, --parallel spec, comm runtime or
+    None)) through the launcher's ranks, sharing the card, against the
+    single-process step on the card from the same seeded weights (the
+    launcher's seed 0) and batch: loss and grad norm within 1e-4 relative,
+    every rank's parameters (a pipelined rank's stage) within
+    ``RANK_PARAMS_TOL``; TF32 off.  Prints ``{key: results}``."""
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg2 = dataclasses.replace(cfg, vocab_size=32768, dtype="float32")
-    batch_size, lr = 8, 3e-3
+    lr = 3e-3
     api = api_mod.build_model(cfg2, device="cuda")
     opt = adamw(warmup_cosine(lr, 20, 1))
     state = init_train_state(api, opt, 0)
-    batch = {k: v.cuda() for k, v in _lm_batch(TRAIN_T, batch_size).items()}
+    batch = {k: v.cuda() for k, v in _lm_batch(seq, batch_size).items()}
     state, metrics = make_train_step(api, opt, clip_norm=1.0)(state, batch)
     ref = (float(metrics["loss"]), float(metrics["grad_norm"]),
            _tree_to(state.params, "cpu"))
     del state, metrics, batch
     torch.cuda.empty_cache()
     results = {}
-    for name, spec, comm in (("pipe=2,micro=4,sched=1f1b", "pipe=2,micro=4,sched=1f1b", None),
-                             ("dp=2 overlapped", "dp=2,mp=1", "overlapped")):
+    for name, spec, comm in specs:
         plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
         plan = dataclasses.replace(plan, dp_axes=("data",),
                                    comm_runtime=comm or plan.comm_runtime)
-        stages = mp if plan.is_pipeline else 1
+        stages = mp if plan.is_pipeline or plan.is_context else 1
         run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=1, batch=batch_size,
-                                   seq=TRAIN_T, lr=lr, return_params=True)
+                                   seq=seq, lr=lr, return_params=True)
         summary = train_launch.run_ranks(run, dp, stages, "cuda")
         loss, gnorm = summary["history"][0], summary["grad_norms"][0]
         err = 0.0
         for r, params in zip(summary["ranks"], summary["rank_params"]):
             want = (api.pipeline_stage_params(ref[2], stages, 1, r["stage"])
-                    if stages > 1 else ref[2])
+                    if plan.is_pipeline else ref[2])
             err = max(err, _max_err(tree_leaves(params), tree_leaves(want)))
         results[name] = {"loss_rel": abs(loss - ref[0]) / abs(ref[0]),
                          "grad_norm_rel": abs(gnorm - ref[1]) / abs(ref[1]),
                          "params_max_abs": err, "loss": loss, "grad_norm": gnorm,
                          "transport": summary["transport"].describe(dp * stages)}
-    out = {"ranks_vs_single": results, "single": {"loss": ref[0], "grad_norm": ref[1]},
+    out = {key: results, "single": {"loss": ref[0], "grad_norm": ref[1]},
            "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}}
     print(json.dumps(out), flush=True)
     for name, r in results.items():
@@ -1799,6 +1916,117 @@ def phase_paper_vs_plain(api_mod, gnmt_cfg, inc_cfg):
     return vs_cpu, dp
 
 
+def _ring_inputs(dtype, seed=23):
+    """Phase 19 (b)'s q, k, v, dO at (a)'s shapes (B 2, T 2048, H 32/8, hd
+    64), from a CPU generator: every rank and the single process draw the
+    same."""
+    gen = torch.Generator().manual_seed(seed)
+    b, t = RING_B, RING_T
+    return [torch.randn(shape, generator=gen).to(dtype)
+            for shape in ((b, t, 32, 64), (b, t, 8, 64), (b, t, 8, 64), (b, t, 32, 64))]
+
+
+def _ring_rank(mesh, cfg):
+    """Phase 19 (b) on one rank: its rows of q, k, v, dO through
+    ``ring_attention`` and back, in bf16 and f32; the output rows and dq, dk,
+    dv on the CPU, and this rank's flash launches.  Then the wall time of
+    (a)'s gradient sync alone: one all-reduce a leaf over every rank of
+    ``cfg``'s f32 parameters (through host memory, as in (a)), twice."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.collectives import all_reduce_grads
+    from repro_torch.parallel.context import ring_attention
+
+    j, m = mesh.ring("model")[:2]
+    n = RING_T // m
+    out = {}
+    for layer, dtype in enumerate((torch.bfloat16, torch.float32)):
+        q, k, v, do = (x[:, j * n:(j + 1) * n].to(mesh.device) for x in _ring_inputs(dtype))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        o = ring_attention(*leaves, mesh=mesh, causal=True, layer=layer)
+        grads = torch.autograd.grad(o, leaves, do)
+        out[str(dtype)] = [t.detach().cpu() for t in (o, *grads)]
+    out["launches"] = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    leaves = build_model(cfg, device=mesh.device).init(0)   # the values do not matter
+    out["grad_sync_ms"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_grads(leaves, mesh, axis=None)
+        torch.cuda.synchronize()
+        out["grad_sync_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_context(train_launch, lc, counters, api_mod, cfg):
+    """Phase 19: Llama-3.2-1B's 8-card context plan on ranks sharing the
+    card.  (a) Full width and depth through ``--parallel auto --devices 8``
+    (context 1 x 4 x 2, clamped to 1 DP x a ring of 2 ranks), B 2 x T 2048,
+    2 steps, with the counters set to 0 just before and read just after:
+    L m (m + 1) / 2 flash forward launches a step summed over the ranks, all
+    ``tc_prefill``, and as many backward calls, all ``tc``; finite losses;
+    each rank's peak beside the planner's memory model.  (b)
+    ``ring_attention`` alone on 2 ranks at (a)'s shapes against
+    single-process ``flash_attention`` at T 2048, out and dq, dk, dv: bf16
+    within 2e-2 of max(1, |ref|), f32 within ``BWD_F32_TOL``; and the wall
+    time of (a)'s gradient sync alone on those ranks.  (c) 2
+    full-width layers in f32, vocab 32768, B 4 x T 512: one step at ``cp=2``
+    and one at ``dp=2,cp=2`` (4 ranks) against the single-process card step
+    (phase 15 (d)'s limits)."""
+    from repro_torch.core import planner as planner_mod
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.parallel import dist as D
+
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
+    torch.cuda.empty_cache()
+    reset_counters(every)
+    summary = train_launch.main(["--arch", "llama3_2_1b", "--parallel", "auto", "--devices",
+                                 "8", "--batch", str(RING_B), "--seq", str(RING_T),
+                                 "--steps", str(RING_STEPS)])
+    ring = 2
+    rec = check_rank_run(summary, "(a) llama3_2_1b --parallel auto --devices 8", cfg,
+                         steps=RING_STEPS, stages=ring, micro=1, seq=RING_T, lstm=False,
+                         high_water=0, ring=True)
+    rec["planner_per_device_mem_gib"] = planner_mod.per_device_mem_bytes(
+        cfg, mp=ring, mp_kind="context", mini_batch=RING_B, seq_len=RING_T, remat=False,
+        opt_bytes_per_param=planner_mod.default_opt_bytes_per_param(cfg)) / 2**30
+    rec["batch"], rec["seq"] = RING_B, RING_T
+    print(json.dumps({"context_a": rec}), flush=True)
+    del summary
+    torch.cuda.empty_cache()
+
+    # (b) the ring alone against one process
+    ranks = D.spawn_ranks(_ring_rank, ring, "cuda", args=(cfg,), stages=ring)
+    ring_check = {"launches_a_rank": [r["launches"] for r in ranks],
+                  "grad_sync_ms_a_rank": [r["grad_sync_ms"] for r in ranks]}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.cuda() for x in _ring_inputs(dtype))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        o = fa.flash_attention(*leaves, causal=True)
+        want = [t.detach().float() for t in (o, *torch.autograd.grad(o, leaves, do))]
+        tol = TOL[torch.bfloat16] if dtype == torch.bfloat16 else BWD_F32_TOL
+        errs = {}
+        for i, name in enumerate(("out", "dq", "dk", "dv")):
+            got = torch.cat([r[str(dtype)][i] for r in ranks], dim=1).cuda().float()
+            errs[name] = float((got - want[i]).abs().max()) / max(1.0, float(
+                want[i].abs().max()))
+        ring_check[str(dtype).removeprefix("torch.")] = {"rel_err": errs, "tol": tol}
+        if not all(e <= tol for e in errs.values()):
+            raise AssertionError(f"ring_attention ({dtype}) against one process: {errs}")
+        del q, k, v, do, leaves, o, want
+    print(json.dumps({"context_b": ring_check}), flush=True)
+    torch.cuda.empty_cache()
+
+    # (c) the step on ranks against one process, in f32
+    cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
+    steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T,
+                            [("cp=2", "cp=2", None), ("dp=2,cp=2", "dp=2,cp=2", None)],
+                            "context_c")
+    torch.cuda.empty_cache()
+    return rec, ring_check, steps
+
+
 def _by_path(paths, kernel):
     return {path: launches[kernel] for path, launches in paths.items()}
 
@@ -1855,6 +2083,9 @@ def main():
     gmm_rows = phase_gmm_kernels(gm, ref_mod)
     wkv_rows = phase_wkv_kernels(wk, ref_mod)
     flash_bwd_rows = phase_flash_bwd(fa)
+    hop_fwd_rows, hop_bwd_rows = phase_ring_hops(fa)
+    rows += hop_fwd_rows
+    flash_bwd_rows += hop_bwd_rows
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd, "gmm": gm.gmm, "wkv6": wk.wkv6}
 
@@ -1913,7 +2144,10 @@ def main():
     _phase("18 GNMT and Inception-V3 steps against the plain path and on ranks")
     phase_paper_vs_plain(api_mod, gnmt_cfg, inc_cfg)
 
-    _phase("19 result")
+    _phase("19 Llama's context plan on a ring of ranks")
+    context_run, _, _ = phase_context(train_launch, lc, counters, api_mod, cfg)
+
+    _phase("20 result")
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
@@ -1926,11 +2160,15 @@ def main():
                                         "train llama3_2_1b": llama_launches["flash_attention"],
                                         "train smollm_360m dp=2,pipe=2 (ranks)":
                                             rank_runs["c"]["launches"]["flash_attention"],
+                                        "train llama3_2_1b context ring of 2 (ranks)":
+                                            context_run["launches"]["flash_attention"],
                                         **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
                           "serve granite_moe_1b_a400m": moe_variants["flash_attention"],
-                          "train llama3_2_1b": llama_variants["flash_attention"]}),
+                          "train llama3_2_1b": llama_variants["flash_attention"],
+                          "train llama3_2_1b context ring of 2 (ranks)":
+                              context_run["variant_launches"]["flash_attention"]}),
         _kernel_entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/models/layers.py:160",
                       llama_launches["flash_attention_bwd"], flash_bwd_rows,
@@ -1940,9 +2178,13 @@ def main():
                           "train biglstm": train_launches["flash_attention_bwd"],
                           "train smollm_360m dp=2,pipe=2 (ranks)":
                               rank_runs["c"]["launches"]["flash_attention_bwd"],
+                          "train llama3_2_1b context ring of 2 (ranks)":
+                              context_run["launches"]["flash_attention_bwd"],
                           **_by_path(paper_paths, "flash_attention_bwd")},
                       variant_launches_by_path={
-                          "train llama3_2_1b": llama_variants["flash_attention_bwd"]},
+                          "train llama3_2_1b": llama_variants["flash_attention_bwd"],
+                          "train llama3_2_1b context ring of 2 (ranks)":
+                              context_run["variant_launches"]["flash_attention_bwd"]},
                       note="no TPU kernel: JAX differentiates src/repro/models/layers.py:160 "
                            "(attention)"),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",

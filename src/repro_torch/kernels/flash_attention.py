@@ -28,7 +28,8 @@ which launches the backward kernels (``BWD_VARIANTS``: bf16 rows that take
 launch a call in ``flash_attention_bwd.launches`` and
 ``.variant_launches``.  Their plain versions are ``flash_attention_lse_plain``
 and ``flash_attention_bwd_plain``.  On CPU tensors autograd runs through
-``flash_attention_ref``.
+``flash_attention_ref``.  ``flash_attention_lse`` is that forward alone,
+returning the output and lse (the hop of the context ring).
 """
 from __future__ import annotations
 
@@ -248,6 +249,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, causal, window)
     return _forward(q, k, v, causal, window, want_lse=False)[0]
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True):
+    """The forward and its rows' log-sum-exp: (out (B, Tq, H, hd) in q's
+    dtype, lse (B, H, Tq) f32), the partial softmax a hop of the context
+    ring folds in (``parallel.context``).  On CUDA tensors it launches what
+    ``FlashAttentionFunction.forward`` launches (``tc_prefill`` for bf16
+    rows that take 16-byte copies, else ``fma``), counted in
+    ``flash_attention.launches`` and ``.variant_launches``; on CPU tensors
+    it takes ``flash_attention_ref`` and ``flash_attention_lse_plain``.  Not
+    differentiable: the ring's backward calls ``flash_attention_bwd``."""
+    _check(q, k, v, 0)
+    if _on_cpu(q, k, v):
+        return (flash_attention_ref(q, k, v, causal=causal),
+                flash_attention_lse_plain(q, k, causal=causal))
+    _check_cuda(q, k, v)
+    return _forward(q, k, v, causal, 0, want_lse=True)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

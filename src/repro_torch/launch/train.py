@@ -8,6 +8,9 @@
     python -m repro_torch.launch.train --arch smollm_360m --batch 8 --seq 512 \
         --parallel dp=2,pipe=2,micro=2,sched=1f1b --max-local-devices 4
     python -m repro_torch.launch.train --arch biglstm --parallel auto --devices 64
+    python -m repro_torch.launch.train --arch llama3_2_1b --parallel cp=2 --batch 2 --seq 2048
+    python -m repro_torch.launch.train --arch llama3_2_1b --parallel auto --devices 8 \
+        --batch 2 --seq 2048
 
 Feeds the JAX launcher's data (the order-2 Markov LM over min(V, 64)
 symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
@@ -21,22 +24,27 @@ backward (``[variants]``).  Runs on the card by default; ``--device cpu
 ``--parallel auto`` runs the paper's HybridPlanner (``core.planner``, on the
 H100 ``HardwareModel``) over a budget of ``--devices`` cards (default 256,
 as in JAX) and prints the JAX launcher's ``[planner]`` line.  Explicit specs
-take ``dp=N,mp=1[,accum=A]`` (DP, with the §4.2 accumulation) and
+take ``dp=N,mp=1[,accum=A]`` (DP, with the §4.2 accumulation),
 ``pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]`` (DP x pipeline
-MP).  As in JAX, the DP degree is clamped to what ``--max-local-devices``
-affords (default: the cards on ``cuda``, 8 on the CPU) and must divide the
-batch, stages are always realised, and the micro-batch count is clamped to
-divide each replica's rows.  A run of more than one rank starts dp x stages
-``torch.distributed`` ranks (``parallel.dist.spawn_ranks``); where there are
-fewer cards than ranks they share the cards and their messages cross host
-memory, which the ``[dist]`` line says.  Every rank builds the same seeded
-data and takes its DP shard; a pipelined rank holds only its stage's
-parameters.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
+MP) and ``cp=M[,dp=N,accum=A]`` (DP x a context ring of M ranks).  As in
+JAX, the DP degree is clamped to what ``--max-local-devices`` affords
+(default: the cards on ``cuda``, 8 on the CPU) and must divide the batch,
+stages and rings are always realised, and the micro-batch count is clamped
+to divide each replica's rows.  A context plan needs ``--seq`` divisible by
+the ring and takes no ``--comm-runtime overlapped`` (the ring is its comm
+schedule), as in JAX.  A run of more than one rank starts dp x stages (or
+dp x ring) ``torch.distributed`` ranks (``parallel.dist.spawn_ranks``);
+where there are fewer cards than ranks they share the cards and their
+messages cross host memory, which the ``[dist]`` line says.  Every rank
+builds the same seeded data and takes its DP shard (and a ring rank its
+T/m columns); a pipelined rank holds only its stage's parameters, a ring
+rank all of them.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
 ``[kernels]`` / ``[variants]`` counts summed over the ranks; the launcher
 then prints each rank's peak device memory and pipeline store high-water
-mark (``[ranks]``).  Tensor MP raises NotImplementedError naming ROADMAP.md
-Queue 1 item 7, context parallelism item 8, parameters sharded over DP
-(fsdp) item 5's remainder and ``--pipe-runtime ad`` item 6b.  On the card
+mark (``[ranks]``, each rank's stage or place on the ring).  Tensor MP
+raises NotImplementedError naming ROADMAP.md Queue 1 item 7, parameters
+sharded over DP (fsdp) item 5's remainder and ``--pipe-runtime ad`` item
+6b.  On the card
 BigLSTM and the dense decoder train; an MoE decoder needs the gmm backward
 kernel and RWKV a wkv backward.  On the CPU every decoder trains through
 the kernels' plain versions.  GNMT and Inception-V3 need source/target
@@ -63,6 +71,7 @@ from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.api import (build_model, pipeline_applicable, resolve_device,
                                     supports_pipeline)
+from repro_torch.models.transformer import cp_arch_supported
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.parallel import dist as D
 from repro_torch.parallel.plan import ParallelPlan
@@ -302,8 +311,9 @@ def run_ranks(run: RankRun, dp: int, stages: int, device) -> dict:
     summary["ranks"] = [r["rank"] for r in results]
     if run.return_params:
         summary["rank_params"] = [r["params"] for r in results]
+    place = "ring" if run.plan.is_context else "stage"
     print("[ranks] " + " | ".join(
-        f"r{r['rank']} (data {r['data']}, stage {r['stage']}): peak "
+        f"r{r['rank']} (data {r['data']}, {place} {r['stage']}): peak "
         f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, store high-water {r['store_high_water']}, "
         f"median step after the first {statistics.median(r['step_ms'][1:] or r['step_ms']):.1f}"
         f" ms"
@@ -321,8 +331,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--parallel", default="dp=1,mp=1",
-                    help="'auto', 'dp=N,mp=1[,accum=A]' or "
-                         "'pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]'")
+                    help="'auto', 'dp=N,mp=1[,accum=A]', "
+                         "'pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]' or "
+                         "'cp=M[,dp=N,accum=A]'")
     ap.add_argument("--devices", type=int, default=0,
                     help=f"planner device budget for --parallel auto (default: "
                          f"{DEFAULT_DEVICES}, as in the JAX launcher)")
@@ -357,6 +368,17 @@ def main(argv=None):
                                        cfg, comm_runtime=args.comm_runtime or "gspmd",
                                        context_parallel=args.context_parallel)
     pipeline = plan.is_pipeline and mp > 1
+    context = plan.is_context and mp > 1
+    if context:
+        if args.seq % mp:
+            raise SystemExit(f"[plan] context parallelism shards the sequence: --seq "
+                             f"({args.seq}) must divide by the {mp}-way ring")
+        if args.comm_runtime == "overlapped":
+            raise SystemExit("[plan] --comm-runtime overlapped does not apply to "
+                             "context-parallel plans (the KV ring IS the comm schedule)")
+        if not cp_arch_supported(cfg):
+            raise SystemExit(f"[plan] {cfg.name}: context parallelism needs a homogeneous "
+                             f"dense decoder without logit softcap")
     if args.pipe_runtime:
         if not plan.is_pipeline:
             raise SystemExit("[plan] --pipe-runtime only applies to pipeline plans "
@@ -384,10 +406,12 @@ def main(argv=None):
                 f"(n_layers={cfg.n_layers})")
         dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"{mp} stages")
         plan = clamp_micro(plan, args.batch // dp)
+    elif context:
+        dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"a {mp}-way context ring")
     else:
         dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"{mp}-way MP") \
             if dp_hint > 1 else 1
-    stages = mp if pipeline else 1
+    stages = mp if pipeline or context else 1
     # DP narrows to the local ranks' data axis: drop the planner's pod axis
     plan = dataclasses.replace(plan, dp_axes=("data",))
     print(f"[plan] {plan.describe({'data': dp, 'model': stages})} on {device}")

@@ -59,6 +59,13 @@ def cross_entropy(logits, labels, n_valid_vocab: int):
     return masked_nll_sum(logits, labels) / mask.sum().clamp(min=1)
 
 
+def global_label_count(labels, mesh):
+    """The labels >= 0 over every rank of ``mesh`` (at least 1), as f32: the
+    divisor that makes the ranks' loss shares sum to the global masked mean."""
+    n = (labels >= 0).sum().to(torch.float32).reshape(1)
+    return D.all_reduce(mesh, n)[0].clamp(min=1)
+
+
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
@@ -94,7 +101,11 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
         fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
         logits, aux = tf_mod.forward(cfg, params, fwd_batch, mode="train", pctx=pctx,
                                      capacity_factor=capacity_factor)
-        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        if pctx is None:
+            loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        else:   # this rank's share of the global masked mean: sum over the ranks
+            loss = masked_nll_sum(logits, batch["labels"]) / global_label_count(
+                batch["labels"], pctx.mesh)
         # aux: the blocks' router_aux_loss-weighted load-balance losses
         return loss + aux, {"loss": loss, "aux": aux}
 

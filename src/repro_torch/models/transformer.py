@@ -14,10 +14,15 @@ the recurrent state (``wkv_S``, ``tm_x``, ``cm_x``), not K/V, and ignores
 the capacity.  Attention goes through ``kernels.flash_attention``, the MoE
 layer's expert products through ``kernels.moe_gmm`` and the RWKV recurrence
 through ``kernels.wkv6`` (the CUDA kernels on the card, their plain twins on
-the CPU).  Configs and modes the port does not run yet raise
+the CPU).  Under a context-parallel ``ParallelCtx`` a rank's train forward
+runs its T/m columns through ``cp_block_apply``, attention on the KV ring of
+``parallel.context``.  Configs and modes the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
@@ -25,11 +30,29 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.parallel.context import ring_attention
 from repro_torch.tree import tree_leaves
 
 SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
-MULTI_DEVICE = "ROADMAP.md Queue 1 items 5-8 (multi-device runtimes)"
+TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
+CONTEXT_SERVE = ("ROADMAP.md Queue 1 item 8b (context-parallel prefill: "
+                 "ring_attention_stats, prefill_chunk_cp)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """The rank mesh of a context-parallel run (JAX's ``ParallelCtx`` with
+    ``model_axis=None``): the ``context_axis`` group of ``mesh`` (a
+    ``parallel.dist.RankMesh``) is the KV ring, every parameter is
+    replicated across it, and each rank's ``forward`` gets its own T/m
+    columns of the tokens.  The port has no tensor-MP ctx (item 7)."""
+    mesh: Any
+    context_axis: str = "model"
+
+    @property
+    def ring_size(self) -> int:
+        return self.mesh.size(self.context_axis)
 
 
 def unported(what: str, item: str):
@@ -38,8 +61,10 @@ def unported(what: str, item: str):
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
     """Raise NotImplementedError for any config or mode outside the dense,
-    MoE or RWKV, full-attention, single-device decoder the port runs, and
-    ValueError for the CNN and LSTM families, which other modules run."""
+    MoE or RWKV, full-attention decoder the port runs (on one device, or a
+    dense decoder on a context ring), and ValueError for the CNN and LSTM
+    families, which other modules run, and for a context ring over an arch
+    that ``cp_arch_supported`` rejects."""
     if cfg.family == "cnn":
         raise ValueError(f"{cfg.name} is a CNN: models.inception runs it, not the "
                          f"transformer stack")
@@ -47,7 +72,12 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
         raise ValueError(f"{cfg.name} is an LSTM model: models.lstm runs it, not the "
                          f"transformer stack")
     if pctx is not None:
-        raise unported("a ParallelCtx (mesh execution)", MULTI_DEVICE)
+        if not isinstance(pctx, ParallelCtx):
+            raise unported("a ParallelCtx other than a context ring (tensor MP)", TENSOR_MP)
+        if not cp_arch_supported(cfg):
+            raise ValueError(f"{cfg.name}: context parallelism needs a homogeneous dense "
+                             f"decoder without logit softcap (cp_arch_supported); the "
+                             f"port has no GSPMD to fall back to")
     if window or cfg.sliding_window:
         raise unported(f"sliding-window attention ({cfg.name})", SERVING_EXT)
     for flag, what, item in (
@@ -74,10 +104,20 @@ def cp_arch_supported(cfg) -> bool:
     """The config half of the JAX ``cp_supported``: context-parallel ring
     attention needs an ``overlapped_arch_supported`` decoder with no logit
     softcap (the ring's online-softmax merge has no capped variant).  The
-    planner's ``context_mp_supported`` reads it; the ring itself is ROADMAP.md
-    Queue 1 item 8."""
+    planner's ``context_mp_supported`` and ``cp_supported`` read it."""
     return (overlapped_arch_supported(cfg) and not cfg.attn_logit_softcap
             and cfg.n_heads > 0)
+
+
+def cp_supported(cfg, pctx, t: int) -> bool:
+    """Can this (arch, ring, global sequence length ``t``) run
+    context-parallel ring attention?  A ring of more than one rank, a
+    ``cp_arch_supported`` arch and ``t`` divisible by the ring size, so the
+    residual stream stays sequence-sharded between blocks (JAX's
+    ``cp_supported``)."""
+    if not isinstance(pctx, ParallelCtx) or pctx.ring_size <= 1:
+        return False
+    return cp_arch_supported(cfg) and t % pctx.ring_size == 0
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +207,10 @@ def _cache_layer(cache, i: int):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None):
-    """Self-attention over x, or (decode) over the cache plus x.
+def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None, pctx=None, layer: int = 0):
+    """Self-attention over x, or (decode) over the cache plus x, or (a
+    context-parallel ``pctx``) over the ring's whole sequence, x being this
+    rank's rows from position ``pos0``.
 
     Decode writes the new roped K/V into the cache at ``pos0`` first and
     then attends over the view ``cache[:, :pos0 + t]`` with causal=False:
@@ -183,7 +225,10 @@ def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None):
     positions = (pos0 + torch.arange(t, device=x.device)).expand(b, t)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    if cache_kv is None:
+    if pctx is not None:
+        out = ring_attention(q, k, v, mesh=pctx.mesh, axis=pctx.context_axis, causal=True,
+                             layer=layer)
+    elif cache_kv is None:
         out = flash_attention(q, k, v, causal=True)
     else:
         L.cache_insert_full(cache_kv, k, v, pos0)
@@ -227,6 +272,20 @@ def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None,
     return x + mlp_out, cache, cfg.router_aux_loss * moe_aux
 
 
+def cp_block_apply(cfg, p, x, *, pctx, layer: int):
+    """``block_apply``'s dense train path on this rank's T/m rows of the
+    residual stream: RoPE at positions j T/m + arange(T/m) for ring place j,
+    attention on the KV ring (``parallel.context.ring_attention``); every
+    weight is replicated, so the projections and the MLP are local."""
+    j = pctx.mesh.ring(pctx.context_axis)[0]
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=j * x.shape[1], pctx=pctx,
+                                  layer=layer)
+    x = x + attn_out
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
+
+
 def _rwkv_block(cfg, p, x, cache):
     if cache is None:
         zero = x.new_zeros((x.shape[0], x.shape[-1]))
@@ -267,10 +326,14 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     """batch: dict(tokens (B,S)).  mode "train": returns (logits, aux);
     mode "prefill": returns (logits, cache, aux) with a cache of
     ``cache_capacity`` positions (default S).  aux is the blocks' summed
-    router aux loss (0 for a dense model)."""
+    router aux loss (0 for a dense model).  Under a context-parallel
+    ``pctx`` (train only) the tokens are this rank's (B, S/m) columns and
+    every block is ``cp_block_apply``."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}")
     check_supported(cfg, window=window_override or 0, pctx=pctx)
+    if pctx is not None and mode == "prefill":
+        raise unported("context-parallel prefill", CONTEXT_SERVE)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
     b, s = tokens.shape
@@ -283,6 +346,9 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
+        if pctx is not None:
+            x = cp_block_apply(cfg, layers[i], x, pctx=pctx, layer=i)
+            continue
         csl = None if cache is None else _cache_layer(cache, i)
         x, _, a = block_apply(cfg, layers[i], x, mode=mode, cache=csl,
                               capacity_factor=capacity_factor)
@@ -314,7 +380,9 @@ def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
     """batch: dict(tokens (B,t)) against a cache with scalar ``pos``.
     Returns (logits (B,t,V), cache): the K/V (or RWKV state) tensors are
     updated in place and the returned dict carries pos + t."""
-    check_supported(cfg, window=window_override or 0, pctx=pctx)
+    if pctx is not None:
+        raise unported("decoding over a ParallelCtx (a sequence-sharded cache)", TENSOR_MP)
+    check_supported(cfg, window=window_override or 0)
     pos = cache["pos"]
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
         raise unported("slot mode (per-row cache positions)", SERVING_EXT)

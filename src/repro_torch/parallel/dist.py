@@ -2,11 +2,14 @@
 mesh half of ``repro/parallel/jaxcompat.py`` and of the JAX launcher's
 ``_ensure_host_devices``).
 
-A run of ``dp`` data-parallel replicas of ``S`` pipeline stages is
-``dp * S`` ``torch.distributed`` ranks, rank = d * S + s in the JAX mesh's
-``("data", "model")`` order.  ``RankMesh`` holds the axis sizes, this rank's
+A run of ``dp`` data-parallel replicas of ``S`` pipeline stages (or of a
+context ring of ``S`` ranks) is ``dp * S`` ``torch.distributed`` ranks,
+rank = d * S + s in the JAX mesh's ``("data", "model")`` order.  ``RankMesh`` holds the axis sizes, this rank's
 coordinates and the process group of each axis this rank lies on; every
 rank creates every group, in one fixed order.
+
+``RankMesh.ring`` gives a rank's neighbours on an axis (the context
+ring's), and ``message_tag`` the tag of each of the ring's messages.
 
 The transport is chosen by a stated rule before ``init_process_group`` and
 never changed after (``choose_transport``):
@@ -103,6 +106,13 @@ class RankMesh:
 
     def size(self, axis: str) -> int:
         return len(self.members(axis))
+
+    def ring(self, axis: str) -> Tuple[int, int, int, int]:
+        """(j, m, next, prev): this rank's place j on the ring of the m ranks
+        of its ``axis`` group, and the ranks of places j + 1 and j - 1."""
+        ranks = self.members(axis)
+        m, j = len(ranks), ranks.index(self.rank)
+        return j, m, ranks[(j + 1) % m], ranks[(j - 1) % m]
 
     def members(self, axis: str) -> List[int]:
         """The ranks of this rank's group on ``axis`` ("data", "model", "ends":
@@ -222,6 +232,18 @@ def exchange(mesh: RankMesh, sends: Sequence[Tuple[torch.Tensor, int, int]],
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return [b.to(mesh.device) for b in bufs]
+
+
+MESSAGE_PARTS, MESSAGE_HOPS = 4, 64
+
+
+def message_tag(layer: int, hop: int, backward: bool, part: int = 0) -> int:
+    """The tag of one ring message: distinct for every (layer, hop,
+    direction, part), so a backward that autograd runs in its own order can
+    never pair one layer's message with another's."""
+    if not (0 <= hop < MESSAGE_HOPS and 0 <= part < MESSAGE_PARTS and layer >= 0):
+        raise ValueError(f"no message tag for layer {layer}, hop {hop}, part {part}")
+    return ((layer * 2 + int(backward)) * MESSAGE_HOPS + hop) * MESSAGE_PARTS + part
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ writes the state's tensors in place, and the returned state holds the same
 tensors with ``step + 1``.
 
 Given a ``parallel.dist.RankMesh`` and a ``ParallelPlan``, the step is one
-rank's part of a DP x pipeline-MP step; ``batch`` is the global batch on
-every rank, and the rank takes its DP shard (rows of its ``data`` index):
+rank's part of a DP x pipeline-MP or DP x context-parallel step; ``batch``
+is the global batch on every rank, and the rank takes its DP shard (rows of
+its ``data`` index):
 
 - *pipelined* (``plan.is_pipeline`` over a ``model`` axis > 1): the rank
   holds only its stage's parameters (``init_train_state``) and their
@@ -19,8 +20,15 @@ every rank, and the rank takes its DP shard (rows of its ``data`` index):
   ``pipeline_value_and_grad_fn`` (the scheduled runtime; the ``ad`` runtime
   raises, ROADMAP.md Queue 1 item 6b); stage 0 reads the tokens, the last
   stage the labels;
+- *context-parallel* (``plan.is_context`` over a ``model`` axis > 1): the
+  rank also takes its T/m columns of the tokens and labels (its place on
+  the ring, ``model_index``) and runs the forward under a ``ParallelCtx``
+  (``_make_pctx``): attention on the KV ring, parameters replicated.  Its
+  loss is its masked NLL sum over the valid labels of all ranks, so the
+  ranks' losses and gradients sum to the global masked mean's: both are
+  summed over every rank, one all-reduce a gradient leaf;
 - *pure DP*: the rank's shard through autograd;
-- either way the gradients are then summed over the ``data`` group, bucket
+- otherwise the gradients are then summed over the ``data`` group, bucket
   by bucket (``comm_runtime="overlapped"``) or one all-reduce a leaf
   (``"gspmd"``).  Pure DP averages them as the shards' mean losses average;
   a pipelined loss is already scaled by the global token count.  The loss
@@ -29,9 +37,9 @@ every rank, and the rank takes its DP shard (rows of its ``data`` index):
 
 The clip sees the global norm: each rank's sum of squares (a tied embedding
 counted once) is summed over the ``model`` group after the DP sync, so the
-clip scale is the single-process one.  Tensor MP and a ``ParallelCtx``
-raise (item 7), context parallelism raises (item 8), and parameters
-sharded over DP raise (item 5's remainder, fsdp).
+clip scale is the single-process one (a context-parallel rank's
+gradients are already whole).  Tensor MP and a caller's ``pctx`` raise
+(item 7), and parameters sharded over DP raise (item 5's remainder, fsdp).
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from typing import Any
 import torch
 
 from repro_torch.models.api import ModelApi
+from repro_torch.models.transformer import ParallelCtx, cp_arch_supported, cp_supported
 from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
                                           sum_of_squares)
 from repro_torch.parallel import dist as D
@@ -50,7 +59,6 @@ from repro_torch.parallel.pipeline import AD_RUNTIME
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
-CONTEXT = "ROADMAP.md Queue 1 item 8 (context parallelism)"
 FSDP = "ROADMAP.md Queue 1 item 5 (data parallelism: the fsdp plans are its remainder)"
 
 
@@ -67,8 +75,7 @@ class TrainState:
 def check_plan(plan, model: int) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a plan the
     port's ranks do not run over a ``model`` axis of that size: tensor MP,
-    context parallelism, parameters sharded over DP, the ``ad`` pipeline
-    runtime."""
+    parameters sharded over DP, the ``ad`` pipeline runtime."""
     if plan.fsdp_axes:
         raise NotImplementedError(f"parameters sharded over DP are not ported to "
                                   f"repro_torch yet: {FSDP}")
@@ -76,9 +83,6 @@ def check_plan(plan, model: int) -> None:
         return
     if plan.mp_kind == "tensor":
         raise NotImplementedError(f"tensor MP is not ported to repro_torch yet: {TENSOR_MP}")
-    if plan.mp_kind == "context":
-        raise NotImplementedError(f"context parallelism is not ported to repro_torch yet: "
-                                  f"{CONTEXT}")
     if plan.runtime == "ad":
         raise NotImplementedError(f"the ad pipeline runtime is not ported to repro_torch "
                                   f"yet: {AD_RUNTIME}")
@@ -87,6 +91,15 @@ def check_plan(plan, model: int) -> None:
 def _pipelined(plan, mesh) -> bool:
     return (plan is not None and mesh is not None and plan.is_pipeline
             and mesh.shape["model"] > 1)
+
+
+def _make_pctx(mesh, plan):
+    """The ``ParallelCtx`` of a context-parallel plan over a ring of more
+    than one rank (its ``model`` axis hosts the KV ring), else None (JAX's
+    ``_make_pctx``; the port has no tensor-MP ctx)."""
+    if plan is None or mesh is None or not plan.is_context or mesh.shape["model"] == 1:
+        return None
+    return ParallelCtx(mesh=mesh, context_axis=plan.model_axis)
 
 
 def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0, *,
@@ -111,6 +124,19 @@ def _dp_shard(batch, mesh):
     return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
 
 
+def _cp_shard(batch, pctx, cfg):
+    """This rank's T/m columns of every (B, T) entry of ``batch``: those of
+    its place j on the ring; raises where the ring cannot run (JAX falls
+    back to GSPMD there, which the port does not have)."""
+    j, m = pctx.mesh.ring(pctx.context_axis)[:2]
+    t = next(iter(batch.values())).shape[1]
+    if not cp_supported(cfg, pctx, t):
+        raise ValueError(f"{cfg.name}: a context ring of {m} cannot run a sequence of {t} "
+                         f"(cp_supported)")
+    n = t // m
+    return {k: v[:, j * n:(j + 1) * n] for k, v in batch.items()}
+
+
 def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None,
                     clip_norm: float = 1.0, pctx=None, microbatches: int = 1,
                     bucket_bytes=None):
@@ -120,11 +146,16 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
     The §4.2 accumulation count is ``plan.microbatches`` where a plan is
     given (as in JAX) and ``microbatches`` otherwise."""
     if pctx is not None:
-        raise NotImplementedError(f"a ParallelCtx (tensor MP) is not ported to repro_torch "
-                                  f"yet: {TENSOR_MP}")
+        raise NotImplementedError(f"a caller's ParallelCtx (tensor MP) is not ported to "
+                                  f"repro_torch yet (a context plan makes its own): "
+                                  f"{TENSOR_MP}")
     if plan is not None:
         check_plan(plan, mesh.shape["model"] if mesh is not None else 1)
     pipelined = _pipelined(plan, mesh)
+    pctx = _make_pctx(mesh, plan)
+    if pctx is not None and not cp_arch_supported(api.cfg):
+        raise ValueError(f"{api.cfg.name}: a context-parallel plan needs a homogeneous "
+                         f"dense decoder without logit softcap (cp_arch_supported)")
     if plan is not None and microbatches not in (1, plan.microbatches):
         raise ValueError(f"microbatches={microbatches} disagrees with the plan's "
                          f"{plan.microbatches}: a plan carries its own count")
@@ -142,7 +173,7 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
     def grads_of(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss, metrics = api.loss_fn(leaves, batch, None)
+            loss, metrics = api.loss_fn(leaves, batch, pctx)
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
@@ -176,13 +207,19 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         return loss, {"loss": loss}, acc
 
     def synced_grads(params, batch):
-        """The rank's loss and gradients, summed over DP."""
+        """The rank's loss and gradients, summed over DP (and the ring)."""
         if mesh is None:
             return total_grads(params, batch)
         batch = _dp_shard(batch, mesh)
+        if pctx is not None:
+            batch = _cp_shard(batch, pctx, api.cfg)
         if not pipelined:
             batch = {k: v.to(mesh.device) for k, v in batch.items()}
         loss, metrics, grads = total_grads(params, batch)
+        if pctx is not None:    # shares of the global mean: sum over every rank
+            all_reduce_grads(grads, mesh, axis=None)
+            loss = D.all_reduce(mesh, loss.detach().clone())
+            return loss, dict(metrics, loss=loss), grads
         if dp > 1:
             if comm == "overlapped":
                 bucketed_grad_sync(grads, mesh, bucket_bytes=bkt)

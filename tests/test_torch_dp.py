@@ -330,7 +330,6 @@ def test_launcher_trains_the_64_card_biglstm_plan(capfd):
 
 
 @pytest.mark.parametrize("arch,args,item", [
-    ("llama3_2_1b", ("--parallel", "auto", "--devices", "64"), "item 8"),
     ("biglstm", ("--parallel", "dp=1,mp=2"), "item 7"),
     ("biglstm", ("--parallel", "pipe=2", "--pipe-runtime", "ad"), "item 6b")])
 def test_launcher_names_what_is_not_ported(arch, args, item):

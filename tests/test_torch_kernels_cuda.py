@@ -65,6 +65,28 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, b, tq, tk, h,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,variant", [(torch.float32, F32_TOL, "fma"),
+                                               (torch.bfloat16, BF16_TOL, "tc_prefill")])
+@pytest.mark.parametrize("tq,tk,causal", [(64, 64, True), (64, 64, False), (1, 33, False)])
+def test_flash_attention_lse_launches_the_forward_on_card(cuda_device, dtype, tol, variant,
+                                                         tq, tk, causal):
+    """A hop of the context ring: one forward launch with lse, on the variant
+    the autograd forward takes (never the decode tile, even at Tq 1); out
+    against the plain output, lse within 1e-4 of max(1, |ref|)."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(tq + tk, 2, tq, tk, 8, 2, 64))
+    before = dict(TFA.flash_attention.variant_launches)
+    out, lse = TFA.flash_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in TFA.flash_attention.variant_launches.items()}
+    assert moved == {n: int(n == variant) for n in moved}
+    ref = TFA.flash_attention_ref(q, k, v, causal=causal)
+    want = TFA.flash_attention_lse_plain(q, k, causal=causal)
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    assert float((lse - want).abs().max()) < 1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
 def test_kernel_reads_strided_cache_view(cuda_device):
     """Decode attends over a view ``cache[:, :n]`` of a (B, cap, KV, hd)
     cache and over a head-transposed layout, without copies."""

@@ -350,9 +350,23 @@ def test_launcher_auto_clamps_dp_to_the_card(capsys):
 def test_launcher_auto_names_the_item_of_a_multi_card_plan(arch, item):
     """At 64 H100s the planner picks pipeline MP for BigLSTM, which trains
     on ranks through the scheduled runtime and names item 6b only under
-    ``--pipe-runtime ad``; context parallelism for Llama; at 256 tensor MP
-    for Inception-V3 (which the launcher refuses to train for its data
-    format first)."""
+    ``--pipe-runtime ad``; context parallelism for Llama, whose ring trains
+    (tests/test_torch_context.py) and whose context-parallel prefill names
+    item 8b; at 256 tensor MP for Inception-V3 (which the launcher refuses
+    to train for its data format first)."""
+    if arch == "llama3_2_1b":
+        import torch
+        from repro_torch.models.api import build_model
+        from repro_torch.models.transformer import ParallelCtx
+
+        plan, mp, _ = TL.parse_parallel("auto", 64, t_get_config(arch))
+        assert (plan.mp_kind, mp) == ("context", 8)
+        TL.check_plan(plan, mp)
+        api = build_model(t_get_config(arch).reduced(), device="cpu")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}b"):
+            api.prefill(api.init(0), {"tokens": torch.zeros((1, 16), dtype=torch.long)},
+                        pctx=ParallelCtx(mesh=None))
+        return
     if arch == "inception_v3":
         plan, mp, dp = TL.parse_parallel("auto", 256, t_get_config(arch))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):

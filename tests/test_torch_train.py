@@ -274,22 +274,26 @@ def test_loop_unported_options_raise(kw):
 
 def test_train_step_refuses_multi_device_arguments(biglstm):
     """What of a multi-device step is not ported raises naming its ROADMAP
-    item: a ParallelCtx and a tensor-MP plan (item 7), a context-parallel
-    plan (item 8), parameters sharded over DP (item 5's remainder) and the
-    ad pipeline runtime (item 6b).  DP and the scheduled pipeline run on
-    ranks (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py)."""
+    item: a caller's ParallelCtx and a tensor-MP plan (item 7), parameters
+    sharded over DP (item 5's remainder) and the ad pipeline runtime (item
+    6b).  DP, the scheduled pipeline and context parallelism run on ranks
+    (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py,
+    tests/test_torch_context.py); a context plan over an arch the ring
+    cannot run (BigLSTM) raises ValueError."""
     from repro_torch.parallel.plan import ParallelPlan as TPlan
 
     tapi = biglstm[5]
     mesh = TM_Mesh({"data": 1, "model": 2})
     for kw, item in (({"pctx": object()}, "item 7"),
                      ({"mesh": mesh, "plan": TPlan()}, "item 7"),
-                     ({"mesh": mesh, "plan": TPlan(mp_kind="context")}, "item 8"),
                      ({"plan": TPlan(model_axis=None, fsdp_axes=("data",))}, "item 5"),
                      ({"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
                       "item 6b")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
             make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), **kw)
+    with pytest.raises(ValueError, match="homogeneous dense decoder"):
+        make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), mesh=mesh,
+                        plan=TPlan(mp_kind="context"))
 
 
 class TM_Mesh:
@@ -317,8 +321,21 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
     """What of each multi-device spec is still unported raises naming its
     ROADMAP item: the ad pipeline runtime (item 6b) for the planner's BigLSTM
     plan at 64 H100s and for an explicit pipe= spec, parameters sharded over
-    DP (item 5's remainder) for a dp= spec, tensor MP (7), context
-    parallelism (8) and an unknown key (5-8)."""
+    DP (item 5's remainder) for a dp= spec, tensor MP (7) and an unknown key
+    (5-8).  A cp= spec resolves to a context ring, which trains
+    (tests/test_torch_context.py); what is left of item 8, the
+    context-parallel prefill, raises naming item 8b."""
+    if item == "item 8":
+        from repro_torch.models.api import build_model
+        from repro_torch.models.transformer import ParallelCtx
+
+        plan, mp, _ = _resolve(spec, devices=64)
+        assert (plan.mp_kind, mp) == ("context", 2)
+        api = build_model(t_get_config("llama3_2_1b").reduced(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
+            api.prefill(api.init(0), {"tokens": torch.zeros((1, 16), dtype=torch.long)},
+                        pctx=ParallelCtx(mesh=None))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         _resolve(spec, devices=64, runtime="ad" if item == "item 6" else None)
 
