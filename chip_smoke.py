@@ -35,6 +35,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    block wholly in the past (not causal), and the backward of each given
    the global output and lse of attention over T 2048, each timed against
    its plain version, its bound and SDPA's call;
+   the flash forward with lse and the backward at a tensor-MP rank's shape
+   in phase 20 (a) (B 4, T 2048, H 16/4: Llama's 32/8 heads over 2 ranks,
+   hd 64, bf16, causal), each timed against its plain version, its bound
+   and SDPA's call;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
    8192; also at the pipeline's micro-batch rows B 4 and B 1), at GNMT's
@@ -166,7 +170,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    gradient sync alone on those ranks, timed; (c) 2 full-width
    layers in f32, vocab 32768, B 4 x T 512: a ``cp=2`` and a ``dp=2,cp=2``
    step against the single-process card step (phase 15 (d)'s limits);
-20. print one JSON line of kernels, then the device line.
+20. tensor MP on ranks sharing the card (gloo, host-staged messages; no
+   step time there is a multi-card step time): (a) full-width, full-depth
+   Llama-3.2-1B through the launcher at ``--parallel mp=2 --comm-runtime
+   overlapped --comm-chunks 2`` and at ``mp=2`` (``gspmd``), B 4 x T 2048,
+   2 steps each on 2 ranks, with the counters set to 0 just before and
+   read just after (L m flash forward launches a step summed over the
+   ranks, all ``tc_prefill``, and as many backward calls, all ``tc``), each
+   rank's peak GiB and step ms, the losses finite and equal on both ranks,
+   and the wall time of one of those runs' all-reduces and ring hops
+   alone; (b) 2 full-width layers in f32, vocab 32768, B 4 x T 512: ``mp=2``
+   gspmd, ``mp=2`` overlapped with 1 and 2 chunks and ``dp=2,mp=2``
+   overlapped, each step against the single-process card step (phase 15
+   (d)'s limits), every leaf the rules replicate the same bits on every
+   rank of a model group; (c) Inception-V3's 256-card plan from the
+   planner (tensor 1 x 8 x 32) clamped to a model axis of 2 ranks: 2 bf16
+   steps at B 64 x 299 (peak, step ms, no hand-written kernel), and one
+   step in f64 at phase 18 (b)'s cell (B 4 x 299) against the single card
+   step (phase 15 (d)'s limits; replicated leaves the same bits);
+21. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -205,6 +227,10 @@ LLAMA_B, LLAMA_T = 4, 2048                      # the dense decoder's training s
 # activations fit the 80 GB card at B 2, not at B 4); its 2-layer f32 cell
 RING_B, RING_T, RING_STEPS = 2, 2048, 2
 RING_CELL_B, RING_CELL_T = 4, 512
+# phase 20: Llama-3.2-1B on a tensor-MP pair sharing the card, B 4 (each
+# rank holds half the parameters and AdamW state, 11.2 GiB, and about half
+# the activations); its 2-layer f32 cells are phase 19 (c)'s
+TP_B, TP_T, TP_STEPS, TP_M = 4, 2048, 2, 2
 BWD_F32_TOL = 1e-4    # f32 backward: sums of up to 2048 terms in another order
 # flash backward rows: B, Tq, Tk, H, Hkv, hd, causal, window (T 1, 4, 17, 130,
 # Tq != Tk both ways, hd 32 and 128, B 1, H = Hkv, windows with rows that see
@@ -261,8 +287,11 @@ PR14_DECODE_KERNELS = {"llama3.2-1b": 1262, "granite-moe-1b-a400m": 3254, "rwkv6
 OWN_KERNEL = re.compile(r"\b((?:flash|gmm|lstm|wkv6)\w*_kernel)\b")
 
 
+T0 = time.perf_counter()
+
+
 def _phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -281,31 +310,41 @@ def time_ms(fn, reps=20, warmup=3):
 
 
 def device_ms(fn, reps=20, warmup=3):
-    """Device milliseconds per call: the time of the CUDA kernels (and
-    copies) that torch.profiler saw over ``reps`` calls.  Unlike
-    ``time_ms`` it leaves out the host's launch gaps, which for a kernel of
-    a few microseconds are most of a call."""
+    """(device milliseconds per call, how they were timed).  The time of the
+    CUDA kernels (and copies) that torch.profiler saw over ``reps`` calls:
+    unlike ``time_ms`` it leaves out the host's launch gaps, which for a
+    kernel of a few microseconds are most of a call.  A profiling session
+    now and then records no device event, even several in a row; each retry
+    profiles four times as many calls, and after three empty sessions the
+    time is taken between CUDA events (``time_ms``) instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profiling session now and then records no device events
+    for attempt in range(3):
+        n = reps * 4 ** attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         total_us = sum(e.time_range.elapsed_us() for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
         if total_us > 0:
-            return total_us / 1e3 / reps
-    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+            return total_us / 1e3 / n, "profiler"
+    print("[timing] torch.profiler recorded no device time in three sessions; "
+          "timed between CUDA events", file=sys.stderr, flush=True)
+    return time_ms(fn, reps, warmup=0), "cuda events"
 
 
 def time_into(row, key, fn, reps=20):
-    """row[key]: device ms per call; row[key with "call_ms"]: event ms."""
-    row[key] = device_ms(fn, reps)
+    """row[key]: device ms per call; row[key with "call_ms"]: event ms.
+    Where the profiler saw no device time, row[key with "timed_by"] says
+    that row[key] was taken between CUDA events."""
+    row[key], how = device_ms(fn, reps)
+    if how != "profiler":
+        row[key.removesuffix("ms") + "timed_by"] = how
     row[key.removesuffix("ms") + "call_ms"] = time_ms(fn, reps)
 
 
@@ -622,6 +661,49 @@ def phase_ring_hops(fa):
         bwd_rows.append(row)
         del lib
     return fwd_rows, bwd_rows
+
+
+def phase_tp_attention(fa):
+    """The flash forward with lse and the backward at a tensor-MP rank's
+    shape in phase 20 (a): B 4, T 2048, Llama's 32/8 heads over 2 ranks (H
+    16/4), hd 64, bf16, causal.  The forward against its plain output
+    (``TOL``) and lse (``BWD_F32_TOL`` of max(1, |ref|)), timed against its
+    plain version, its bound and SDPA's call; the backward through
+    ``check_flash_bwd`` (timed the same way)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf = torch.bfloat16
+    b, t, h, hkv, hd = TP_B, TP_T, 32 // TP_M, 8 // TP_M, 64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    q, k, v, do = rnd(b, t, h, hd), rnd(b, t, hkv, hd), rnd(b, t, hkv, hd), rnd(b, t, h, hd)
+    case = f"tensor-MP rank B{b} T{t} H{h}/{hkv} hd{hd} causal"
+    (o, lse), variant = launched_variant(fa.flash_attention, lambda: fa.flash_attention_lse(
+        q, k, v, causal=True))
+    want_o = fa.flash_attention_ref(q, k, v, causal=True)
+    want_lse = fa.flash_attention_lse_plain(q, k, causal=True)
+    err = float((o.float() - want_o.float()).abs().max())
+    lse_err = float((lse - want_lse).abs().max()) / max(1.0, float(want_lse.abs().max()))
+    row = {"shape": case + ", with lse", "dtype": "bfloat16", "variant": variant,
+           "max_abs_err": err, "tol": TOL[bf], "lse_rel_err": lse_err, "lse_tol": BWD_F32_TOL}
+    if variant != "tc_prefill" or not (err < TOL[bf] and lse_err < BWD_F32_TOL):
+        raise AssertionError(f"flash_attention_lse {case}: {row}")
+    del want_o, want_lse
+    time_into(row, "ms", lambda: fa.flash_attention_lse(q, k, v, causal=True))
+    time_into(row, "plain_ms", lambda: (fa.flash_attention_ref(q, k, v, causal=True),
+                                        fa.flash_attention_lse_plain(q, k, causal=True)),
+              reps=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    time_into(row, "library_ms", lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        _nbytes(q, k, v, o, lse), 4.0 * b * h * _keep_pairs(t, t, True, 0) * hd, bf)
+    print(json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    bwd_rows = check_flash_bwd(fa, case, q, k, v, do, causal=True, timed=True)
+    torch.cuda.empty_cache()
+    return [row], bwd_rows
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -1085,7 +1167,9 @@ def profile_call(name, fn, reps=3):
     a synchronize) unprofiled over ``reps`` calls and profiled over one,
     device busy time as the sum of the CUDA kernels the profiler saw, the
     idle share against the unprofiled wall time, the top kernels, and the
-    ms of each kernel of csrc/*.cu (summed over its template instances)."""
+    ms of each kernel of csrc/*.cu (summed over its template instances).
+    Where three profiled calls saw no device event, busy time and idle share
+    are None: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1096,12 +1180,15 @@ def profile_call(name, fn, reps=3):
         fn()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):   # a session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1113,7 +1200,8 @@ def profile_call(name, fn, reps=3):
         if m:
             own[m.group(1)] = own.get(m.group(1), 0.0) + ms
     out = {"profile": name, "unprofiled_wall_ms": unprofiled_ms, "wall_ms": wall_ms,
-           "device_busy_ms": busy, "idle_share": 1 - busy / unprofiled_ms,
+           "device_busy_ms": busy if kern else None,
+           "idle_share": 1 - busy / unprofiled_ms if kern else None,
            "kernels": len(kern), "top": [[n[:80], ms] for n, ms in top],
            "own_kernels_ms": own}
     print(json.dumps(out), flush=True)
@@ -1563,14 +1651,16 @@ def phase_planner(train_launch, lc, counters, lstm_cfg, llama_cfg, lstm_timing,
 
 
 def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_T, lstm,
-                   high_water, ring=False):
+                   high_water, ring=False, tensor=False):
     """A multi-rank launcher run: the shared-card transport, the kernel
     launches summed over the ranks (LSTM: 2 L T K forward a step, all on
     ``tc``, and L T K backward; attention: 2 L K dp forward launches a step,
     all ``tc_prefill``, and L K dp backward calls, all ``tc``; on a context
     ring of m = ``stages`` ranks, L m (m + 1) / 2 dp of each: the hops the
-    causal mask does not skip), stage 0's store high-water mark, finite
-    losses.  Returns the run's record."""
+    causal mask does not skip; on a tensor-MP group of m ranks, L m dp of
+    each: every rank attends over its heads once a layer), stage 0's store
+    high-water mark, finite losses (on a tensor-MP group, every rank's the
+    same).  Returns the run's record."""
     t = summary["transport"]
     if (t.backend, t.placement, len(summary["ranks"])) != ("gloo", "shared", dp * stages):
         raise AssertionError(f"{name}: ran on {t} with {len(summary['ranks'])} ranks")
@@ -1581,8 +1671,8 @@ def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_
         per_step = cfg.n_layers * seq * micro * dp
         want.update(lstm_cell_fwd=2 * steps * per_step, lstm_cell_bwd_pointwise=steps * per_step)
         want_variants["lstm_cell_fwd"]["tc"] = 2 * steps * per_step
-    elif ring:
-        per_step = cfg.n_layers * stages * (stages + 1) // 2 * dp
+    elif ring or tensor:
+        per_step = cfg.n_layers * (stages if tensor else stages * (stages + 1) // 2) * dp
         want.update(flash_attention=steps * per_step, flash_attention_bwd=steps * per_step)
         want_variants["flash_attention"]["tc_prefill"] = steps * per_step
         want_variants["flash_attention_bwd"]["tc"] = steps * per_step
@@ -1601,12 +1691,16 @@ def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_
     losses = summary["history"]
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: losses {losses}")
+    if tensor and any(r["losses"] != losses for r in summary["ranks"]):
+        raise AssertionError(f"{name}: the ranks' losses differ: "
+                             f"{[r['losses'] for r in summary['ranks']]}")
     return {"run": name, "transport": t.describe(len(summary["ranks"])), "losses": losses,
             "launches": launches, "variant_launches": variants,
             "ranks": [{"rank": r["rank"], "data": r["data"], "stage": r["stage"],
                        "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
                        "store_high_water": r["store_high_water"],
-                       "step_ms": r["step_ms"],
+                       "step_ms": r["step_ms"], "losses": r["losses"],
+                       "launches": r["launches"],
                        "median_step_ms_after_first": float(np.median(r["step_ms"][1:]))}
                       for r in summary["ranks"]]}
 
@@ -1697,12 +1791,15 @@ def phase_ranks_vs_plain(train_launch, api_mod, cfg):
 
 def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     """One step of each of ``specs`` ((name, --parallel spec, comm runtime or
-    None)) through the launcher's ranks, sharing the card, against the
-    single-process step on the card from the same seeded weights (the
-    launcher's seed 0) and batch: loss and grad norm within 1e-4 relative,
-    every rank's parameters (a pipelined rank's stage) within
-    ``RANK_PARAMS_TOL``; TF32 off.  Prints ``{key: results}``."""
+    None[, ring chunks])) through the launcher's ranks, sharing the card,
+    against the single-process step on the card from the same seeded weights
+    (the launcher's seed 0) and batch: loss and grad norm within 1e-4
+    relative, every rank's parameters (a pipelined rank's stage, a tensor-MP
+    rank's part) within ``RANK_PARAMS_TOL``, and on a tensor-MP group every
+    leaf the rules replicate the same bits on each of its ranks; TF32 off.
+    Prints ``{key: results}``."""
     from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.parallel import sharding as SH
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.tree import tree_leaves
 
@@ -1719,32 +1816,61 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     del state, metrics, batch
     torch.cuda.empty_cache()
     results = {}
-    for name, spec, comm in specs:
+    for name, spec, comm, *chunks in specs:
         plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
         plan = dataclasses.replace(plan, dp_axes=("data",),
-                                   comm_runtime=comm or plan.comm_runtime)
-        stages = mp if plan.is_pipeline or plan.is_context else 1
+                                   comm_runtime=comm or plan.comm_runtime,
+                                   comm_chunks=chunks[0] if chunks else 1)
+        tensor = plan.mp_kind == "tensor" and mp > 1
+        stages = mp if plan.is_pipeline or plan.is_context or tensor else 1
         run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=1, batch=batch_size,
                                    seq=seq, lr=lr, return_params=True)
         summary = train_launch.run_ranks(run, dp, stages, "cuda")
         loss, gnorm = summary["history"][0], summary["grad_norms"][0]
+        rules = SH.ShardingRules(cfg2, {"data": dp, "model": mp}, plan) if tensor else None
         err = 0.0
         for r, params in zip(summary["ranks"], summary["rank_params"]):
-            want = (api.pipeline_stage_params(ref[2], stages, 1, r["stage"])
-                    if plan.is_pipeline else ref[2])
+            if plan.is_pipeline:
+                want = api.pipeline_stage_params(ref[2], stages, 1, r["stage"])
+            elif tensor:
+                want = SH.shard_params(ref[2], rules, r["stage"])
+            else:
+                want = ref[2]
             err = max(err, _max_err(tree_leaves(params), tree_leaves(want)))
         results[name] = {"loss_rel": abs(loss - ref[0]) / abs(ref[0]),
                          "grad_norm_rel": abs(gnorm - ref[1]) / abs(ref[1]),
                          "params_max_abs": err, "loss": loss, "grad_norm": gnorm,
                          "transport": summary["transport"].describe(dp * stages)}
+        if tensor:
+            results[name]["replicated_same_bits"] = _replicated_same_bits(
+                summary["rank_params"], [r["data"] for r in summary["ranks"]], cfg2, rules)
     out = {key: results, "single": {"loss": ref[0], "grad_norm": ref[1]},
            "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}}
     print(json.dumps(out), flush=True)
     for name, r in results.items():
         if not (r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4
-                and r["params_max_abs"] <= RANK_PARAMS_TOL):
+                and r["params_max_abs"] <= RANK_PARAMS_TOL
+                and r.get("replicated_same_bits", True)):
             raise AssertionError(f"{name} on ranks disagrees with the single-process step: {r}")
     return results
+
+
+def _replicated_same_bits(parts, data_index, cfg, rules):
+    """Whether every leaf the rules replicate over the model axis holds the
+    same bits on every rank of each model group (``parts`` in rank order,
+    ``data_index`` each rank's data index)."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    flags = SH.replicated_leaves(parts[0], SH.param_specs(cfg, rules), rules)
+    if not any(flags):
+        raise AssertionError("no replicated leaf to compare")
+    for d in set(data_index):
+        group = [tree_leaves(p) for p, i in zip(parts, data_index) if i == d]
+        for n, rep in enumerate(flags):
+            if rep and not all(torch.equal(g[n], group[0][n]) for g in group[1:]):
+                return False
+    return True
 
 
 def paper_batches(cfg, batch_size, n, seed, *, seq=GNMT_T, px=INCEPTION_PX):
@@ -2027,8 +2153,184 @@ def phase_context(train_launch, lc, counters, api_mod, cfg):
     return rec, ring_check, steps
 
 
+def _tensor_inception_rank(mesh, plan, cfg, cfg64, cell_batch):
+    """Phase 20 (c) on one rank: 2 bf16 steps of full Inception-V3 at B 64 x
+    299 on the planner's tensor plan (its part of the seeded init; step ms,
+    peak, losses, its kernel launches), then one f64 step of ``cfg64`` at
+    ``cell_batch`` from seed 0 (TF32 off): loss, grad norm, its part on the
+    CPU."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import api as api_mod
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+
+    api = api_mod.build_model(cfg, device=mesh.device)
+    opt = adamw(warmup_cosine(3e-3, 20, TP_STEPS))
+    state = init_train_state(api, opt, 0, mesh=mesh, plan=plan)
+    step = make_train_step(api, opt, mesh=mesh, plan=plan, clip_norm=1.0)
+    batches = paper_batches(cfg, INCEPTION_B, TP_STEPS, 0)
+    cuda = mesh.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"step_ms": [], "losses": []}
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(metrics["loss"]))
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    out["launches"] = {n: f.launches for n, f in (
+        ("flash_attention", fa.flash_attention), ("flash_attention_bwd",
+                                                  fa.flash_attention_bwd),
+        ("lstm_cell_fwd", lc.lstm_cell_fwd), ("gmm", gm.gmm), ("wkv6", wk.wkv6))}
+    del state, step, batches
+    if cuda:
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    api = api_mod.build_model(cfg64, device=mesh.device)
+    opt = adamw(warmup_cosine(3e-3, 20, 1))
+    state = init_train_state(api, opt, 0, mesh=mesh, plan=plan)
+    state, metrics = make_train_step(api, opt, mesh=mesh, plan=plan, clip_norm=1.0)(
+        state, cell_batch)
+    out["f64"] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                  _tree_to(state.params, "cpu"))
+    return out
+
+
+def _tp_comm_rank(mesh, d_model):
+    """The wall time of phase 20 (a)'s messages alone on ranks sharing the
+    card: an all-reduce of a (B, T, d) bf16 activation (the gspmd block's,
+    after each row-parallel product and in each ``copy_to_model``
+    backward) and one ring hop of a chunk of rows (B, T / 2m, d), the
+    overlapped block's message at 2 chunks; 2 warm-ups, then 5 of each."""
+    from repro_torch.parallel import collectives as CL
+    from repro_torch.parallel import dist as D
+
+    x = torch.randn((TP_B, TP_T, d_model), device=mesh.device).to(torch.bfloat16)
+    piece = x[:, :TP_T // (2 * TP_M)].contiguous()
+    out = {}
+    tag = D.tp_message_tag(0, 0, 0, 0, 0)
+    for name, fn in (("all_reduce_ms", lambda: D.all_reduce(mesh, x, "model")),
+                     ("ring_hop_ms", lambda: CL._pass_on(mesh, "model", [piece],
+                                                         lambda i: tag))):
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times[2:]
+    out["all_reduce_bytes"], out["ring_hop_bytes"] = _nbytes(x), _nbytes(piece)
+    return out
+
+
+def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
+    """Phase 20: tensor MP on ranks sharing the card.  (a) Full-width,
+    full-depth Llama-3.2-1B through the launcher at ``mp=2`` overlapped (2
+    chunks) and gspmd, B 4 x T 2048, 2 steps each, counters set to 0 just
+    before and read just after: L m flash forward launches a step summed
+    over the ranks (``tc_prefill``) and as many backward calls (``tc``),
+    every rank's losses finite and the same, its peak and step ms, and the
+    wall time of one all-reduce and one ring hop of those runs' messages
+    alone (``_tp_comm_rank``).  (b) 2 full-width f32 layers, vocab 32768, B
+    4 x T 512, at ``mp=2`` gspmd, overlapped with 1 and 2 chunks and
+    ``dp=2,mp=2`` overlapped against the single-process card step.  (c)
+    Inception-V3's 256-card plan clamped to 2 ranks: 2 bf16 steps at B 64 x
+    299, and an f64 step at phase 18 (b)'s cell against the single card
+    step (phase 15 (d)'s limits, replicated leaves the same bits)."""
+    from repro_torch.core.planner import HybridPlanner, default_epoch_model
+    from repro_torch.parallel import dist as D
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
+    runs = {}
+    for comm, extra in (("overlapped", ["--comm-chunks", "2"]), ("gspmd", [])):
+        torch.cuda.empty_cache()
+        reset_counters(every)
+        name = f"(a) llama3_2_1b --parallel mp={TP_M} --comm-runtime {comm} {' '.join(extra)}"
+        summary = train_launch.main(["--arch", "llama3_2_1b", "--parallel", f"mp={TP_M}",
+                                     "--comm-runtime", comm, *extra, "--batch", str(TP_B),
+                                     "--seq", str(TP_T), "--steps", str(TP_STEPS)])
+        rec = check_rank_run(summary, name, cfg, steps=TP_STEPS, stages=TP_M, micro=1,
+                             seq=TP_T, lstm=False, high_water=0, tensor=True)
+        rec["per_step"] = {"flash_attention": rec["launches"]["flash_attention"] // TP_STEPS,
+                           "flash_attention_bwd":
+                               rec["launches"]["flash_attention_bwd"] // TP_STEPS}
+        rec["batch"], rec["seq"] = TP_B, TP_T
+        print(json.dumps({f"tensor_a_{comm}": rec}), flush=True)
+        runs[comm] = rec
+        del summary
+    torch.cuda.empty_cache()
+    comm_ms = D.spawn_ranks(_tp_comm_rank, TP_M, "cuda", args=(cfg.d_model,), stages=TP_M)
+    print(json.dumps({"tensor_a_messages": comm_ms}), flush=True)
+
+    # (b) steps on ranks against one process, in f32
+    cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
+    steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T, [
+        ("mp=2 gspmd", "mp=2", "gspmd"), ("mp=2 overlapped c1", "mp=2", "overlapped", 1),
+        ("mp=2 overlapped c2", "mp=2", "overlapped", 2),
+        ("dp=2,mp=2 overlapped c2", "dp=2,mp=2", "overlapped", 2)], "tensor_b")
+    torch.cuda.empty_cache()
+
+    # (c) Inception-V3's planned tensor plan, clamped to a model axis of 2
+    choice = HybridPlanner(inc_cfg, epoch_model=default_epoch_model(inc_cfg)).choices(256)[0]
+    plan = dataclasses.replace(choice.plan, dp_axes=("data",))
+    if choice.mp_kind != "tensor":
+        raise AssertionError(f"the planner's 256-card Inception plan is {choice.mp_kind}, "
+                             f"not tensor")
+    cfg64 = dataclasses.replace(inc_cfg, dtype="float64", param_dtype="float64")
+    cell_batch = paper_batches(inc_cfg, 4, 1, 7)[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    single = paper_step(api_mod, cfg64, cell_batch)
+    ranks = D.spawn_ranks(_tensor_inception_rank, TP_M, "cuda",
+                          args=(plan, inc_cfg, cfg64, cell_batch), stages=TP_M)
+    rules = SH.ShardingRules(inc_cfg, {"data": 1, "model": TP_M}, plan)
+    errs = []
+    for j, r in enumerate(ranks):
+        loss, gnorm, part = r["f64"]
+        e = _step_errors((loss, gnorm, part),
+                         (single[0], single[1], SH.shard_params(single[2], rules, j)))
+        errs.append(e)
+    same_bits = _replicated_same_bits([r["f64"][2] for r in ranks], [0] * TP_M, cfg64, rules)
+    rec = {"planner_256": {"mesh": list(choice.mesh_shape), "kind": choice.mp_kind,
+                           "mp": choice.mp, "dp": choice.pods * choice.dp,
+                           "speedup": choice.speedup},
+           "clamped_to": {"data": 1, "model": TP_M},
+           "bf16_B64": [{k: r[k] for k in ("step_ms", "losses", "peak_mem_gib", "launches")}
+                        for r in ranks],
+           "f64_vs_single": errs, "replicated_same_bits": same_bits,
+           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}}
+    print(json.dumps({"tensor_c": rec}), flush=True)
+    losses = [r["losses"] for r in ranks]
+    if not all(np.isfinite(losses[0])) or any(x != losses[0] for x in losses) or \
+            any(any(r["launches"].values()) for r in ranks):
+        raise AssertionError(f"Inception-V3's tensor plan: losses {losses}, launches "
+                             f"{[r['launches'] for r in ranks]}")
+    if not same_bits or not all(e[k] <= rec["tol"][k] for e in errs for k in rec["tol"]):
+        raise AssertionError(f"Inception-V3's tensor plan disagrees with the single step: {rec}")
+    torch.cuda.empty_cache()
+    return runs, steps, rec
+
+
 def _by_path(paths, kernel):
     return {path: launches[kernel] for path, launches in paths.items()}
+
+
+def _tp_paths(runs, kernel, key="launches"):
+    """Phase 20 (a)'s runs as ``launches_by_path`` (or variant) entries."""
+    return {f"train llama3_2_1b mp=2 {comm} (ranks)": run[key][kernel]
+            for comm, run in runs.items()}
 
 
 def _kernel_entry(name, source, replaces, launches, rows, **extra):
@@ -2086,6 +2388,9 @@ def main():
     hop_fwd_rows, hop_bwd_rows = phase_ring_hops(fa)
     rows += hop_fwd_rows
     flash_bwd_rows += hop_bwd_rows
+    tp_fwd_rows, tp_bwd_rows = phase_tp_attention(fa)
+    rows += tp_fwd_rows
+    flash_bwd_rows += tp_bwd_rows
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd, "gmm": gm.gmm, "wkv6": wk.wkv6}
 
@@ -2147,7 +2452,10 @@ def main():
     _phase("19 Llama's context plan on a ring of ranks")
     context_run, _, _ = phase_context(train_launch, lc, counters, api_mod, cfg)
 
-    _phase("20 result")
+    _phase("20 tensor MP on ranks")
+    tp_runs, _, _ = phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg)
+
+    _phase("21 result")
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
@@ -2162,13 +2470,15 @@ def main():
                                             rank_runs["c"]["launches"]["flash_attention"],
                                         "train llama3_2_1b context ring of 2 (ranks)":
                                             context_run["launches"]["flash_attention"],
+                                        **_tp_paths(tp_runs, "flash_attention"),
                                         **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
                           "serve granite_moe_1b_a400m": moe_variants["flash_attention"],
                           "train llama3_2_1b": llama_variants["flash_attention"],
                           "train llama3_2_1b context ring of 2 (ranks)":
-                              context_run["variant_launches"]["flash_attention"]}),
+                              context_run["variant_launches"]["flash_attention"],
+                          **_tp_paths(tp_runs, "flash_attention", "variant_launches")}),
         _kernel_entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/models/layers.py:160",
                       llama_launches["flash_attention_bwd"], flash_bwd_rows,
@@ -2180,11 +2490,13 @@ def main():
                               rank_runs["c"]["launches"]["flash_attention_bwd"],
                           "train llama3_2_1b context ring of 2 (ranks)":
                               context_run["launches"]["flash_attention_bwd"],
+                          **_tp_paths(tp_runs, "flash_attention_bwd"),
                           **_by_path(paper_paths, "flash_attention_bwd")},
                       variant_launches_by_path={
                           "train llama3_2_1b": llama_variants["flash_attention_bwd"],
                           "train llama3_2_1b context ring of 2 (ranks)":
-                              context_run["variant_launches"]["flash_attention_bwd"]},
+                              context_run["variant_launches"]["flash_attention_bwd"],
+                          **_tp_paths(tp_runs, "flash_attention_bwd", "variant_launches")},
                       note="no TPU kernel: JAX differentiates src/repro/models/layers.py:160 "
                            "(attention)"),
         _kernel_entry("lstm_cell_fwd", lstm_src, "src/repro/kernels/lstm_cell.py:24",

@@ -25,7 +25,9 @@ from repro_torch.models import inception as inc_mod
 from repro_torch.models.rwkv import heads, lora_rank
 
 
-def _expected_shapes(cfg) -> dict:
+def param_shapes(cfg) -> dict:
+    """The shape of every parameter of ``cfg``'s model, in its tree: tuples
+    at the leaves, lists where the tree has lists."""
     if cfg.family == "cnn":
         return _inception_shapes(cfg)
     if cfg.name == "gnmt":
@@ -125,11 +127,11 @@ def _convert(tree, shapes, fn, path=""):
 def params_from_jax(np_params, cfg, device) -> dict:
     """The port's parameters from the JAX init's pytree given as numpy arrays
     (dense, MoE or RWKV decoder, BigLSTM, GNMT or Inception-V3, by ``cfg``)."""
-    return _convert(np_params, _expected_shapes(cfg),
+    return _convert(np_params, param_shapes(cfg),
                     lambda a: torch.from_numpy(np.array(a)).to(device))
 
 
 def params_to_numpy(params, cfg) -> dict:
     """The port's parameters as a numpy pytree in the JAX layout."""
-    return _convert(params, _expected_shapes(cfg),
+    return _convert(params, param_shapes(cfg),
                     lambda t: t.detach().cpu().numpy())

@@ -11,6 +11,8 @@
     python -m repro_torch.launch.train --arch llama3_2_1b --parallel cp=2 --batch 2 --seq 2048
     python -m repro_torch.launch.train --arch llama3_2_1b --parallel auto --devices 8 \
         --batch 2 --seq 2048
+    python -m repro_torch.launch.train --arch llama3_2_1b --parallel mp=2 \
+        --comm-runtime overlapped --comm-chunks 2 --batch 4 --seq 2048
 
 Feeds the JAX launcher's data (the order-2 Markov LM over min(V, 64)
 symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
@@ -24,27 +26,32 @@ backward (``[variants]``).  Runs on the card by default; ``--device cpu
 ``--parallel auto`` runs the paper's HybridPlanner (``core.planner``, on the
 H100 ``HardwareModel``) over a budget of ``--devices`` cards (default 256,
 as in JAX) and prints the JAX launcher's ``[planner]`` line.  Explicit specs
-take ``dp=N,mp=1[,accum=A]`` (DP, with the §4.2 accumulation),
-``pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]`` (DP x pipeline
-MP) and ``cp=M[,dp=N,accum=A]`` (DP x a context ring of M ranks).  As in
-JAX, the DP degree is clamped to what ``--max-local-devices`` affords
-(default: the cards on ``cuda``, 8 on the CPU) and must divide the batch,
-stages and rings are always realised, and the micro-batch count is clamped
-to divide each replica's rows.  A context plan needs ``--seq`` divisible by
-the ring and takes no ``--comm-runtime overlapped`` (the ring is its comm
-schedule), as in JAX.  A run of more than one rank starts dp x stages (or
-dp x ring) ``torch.distributed`` ranks (``parallel.dist.spawn_ranks``);
-where there are fewer cards than ranks they share the cards and their
-messages cross host memory, which the ``[dist]`` line says.  Every rank
-builds the same seeded data and takes its DP shard (and a ring rank its
-T/m columns); a pipelined rank holds only its stage's parameters, a ring
-rank all of them.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
+take ``dp=N,mp=M[,accum=A]`` (DP x M-way tensor MP, with the §4.2
+accumulation), ``pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]``
+(DP x pipeline MP) and ``cp=M[,dp=N,accum=A]`` (DP x a context ring of M
+ranks).  As in JAX, the DP degree is clamped to what
+``--max-local-devices`` affords (default: the cards on ``cuda``, 8 on the
+CPU) and must divide the batch, model axes (stages, rings, tensor MP) are
+always realised, and the micro-batch count is clamped to divide each
+replica's rows.  ``--comm-runtime gspmd|overlapped`` picks a tensor plan's
+collectives (monolithic all-reduces, or the chunked collective-matmul rings
+with ``--comm-chunks`` chunks) and a DP plan's gradient sync; a context plan
+needs ``--seq`` divisible by the ring and takes neither flag (the ring is
+its comm schedule), and ``--comm-chunks`` needs ``overlapped``, as in JAX.
+A run of more than one rank starts dp x M ``torch.distributed`` ranks
+(``parallel.dist.spawn_ranks``); where there are fewer cards than ranks
+they share the cards and their messages cross host memory, which the
+``[dist]`` line says.  Every rank builds the same seeded data and takes its
+DP shard (and a ring rank its T/m columns); a pipelined rank holds only its
+stage's parameters, a tensor-MP rank its part of each, a ring rank all of
+them.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
 ``[kernels]`` / ``[variants]`` counts summed over the ranks; the launcher
-then prints each rank's peak device memory and pipeline store high-water
-mark (``[ranks]``, each rank's stage or place on the ring).  Tensor MP
-raises NotImplementedError naming ROADMAP.md Queue 1 item 7, parameters
-sharded over DP (fsdp) item 5's remainder and ``--pipe-runtime ad`` item
-6b.  On the card
+then prints each rank's peak device memory, pipeline store high-water mark
+and kernel launches (``[ranks]``, each rank's stage, place on the ring or
+on the model axis).  Tensor MP of the LSTM family and RWKV raises
+NotImplementedError naming ROADMAP.md Queue 1 item 7b, of an MoE model item
+15, parameters sharded over DP (fsdp) item 5's remainder and
+``--pipe-runtime ad`` item 6b.  On the card
 BigLSTM and the dense decoder train; an MoE decoder needs the gmm backward
 kernel and RWKV a wkv backward.  On the CPU every decoder trains through
 the kernels' plain versions.  GNMT and Inception-V3 need source/target
@@ -273,6 +280,7 @@ def _train(mesh, run: RankRun) -> dict:
     summary = train_loop(timed_step, state, pipeline, LoopConfig(total_steps=run.steps),
                          log_fn=print if lead else (lambda line: None))
     launches, variants = _launch_counts()
+    own_launches = dict(launches)
     if mesh is not None:
         names = list(launches) + [(n, v) for n, vs in variants.items() for v in vs]
         counts = torch.tensor(list(launches.values())
@@ -285,14 +293,16 @@ def _train(mesh, run: RankRun) -> dict:
         print(f"[done] steps={summary['steps']} final_loss={summary['final_loss']:.4f} "
               f"wall={summary['wall_s']:.1f}s (floor {data.entropy:.4f})")
         _print_counts(launches, variants)
-    summary.update(launches=launches, variants=variants, grad_norms=grad_norms)
+    summary.update(launches=launches, variants=variants, grad_norms=grad_norms,
+                   step_ms=step_ms)
     if mesh is None:
         return summary
     final = summary.pop("state")
     out = dict(summary, transport=mesh.transport, rank={
         "rank": mesh.rank, "data": mesh.data_index, "stage": mesh.model_index,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0,
-        "store_high_water": high_water[0], "step_ms": step_ms})
+        "store_high_water": high_water[0], "step_ms": step_ms, "launches": own_launches,
+        "losses": list(summary["history"])})
     if run.return_params:
         out["params"] = tree_map(lambda t: t.detach().cpu(), final.params)
     return out
@@ -311,12 +321,13 @@ def run_ranks(run: RankRun, dp: int, stages: int, device) -> dict:
     summary["ranks"] = [r["rank"] for r in results]
     if run.return_params:
         summary["rank_params"] = [r["params"] for r in results]
-    place = "ring" if run.plan.is_context else "stage"
+    place = {"context": "ring", "tensor": "model"}.get(run.plan.mp_kind, "stage")
     print("[ranks] " + " | ".join(
         f"r{r['rank']} (data {r['data']}, {place} {r['stage']}): peak "
         f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, store high-water {r['store_high_water']}, "
         f"median step after the first {statistics.median(r['step_ms'][1:] or r['step_ms']):.1f}"
-        f" ms"
+        f" ms, launches " + (" ".join(f"{n}={c}" for n, c in r["launches"].items() if c)
+                             or "0")
         for r in summary["ranks"]), flush=True)
     return summary
 
@@ -331,7 +342,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--parallel", default="dp=1,mp=1",
-                    help="'auto', 'dp=N,mp=1[,accum=A]', "
+                    help="'auto', 'dp=N,mp=M[,accum=A]', "
                          "'pipe=S[,micro=K,sched=gpipe|1f1b|interleaved,v=V,dp=N]' or "
                          "'cp=M[,dp=N,accum=A]'")
     ap.add_argument("--devices", type=int, default=0,
@@ -344,18 +355,28 @@ def main(argv=None):
                     help="pipeline runtime: 'scheduled' (default) hand-executes the "
                          "fwd+bwd WorkUnit table; 'ad' is not ported (ROADMAP item 6b)")
     ap.add_argument("--comm-runtime", choices=["gspmd", "overlapped"], default=None,
-                    help="the DP gradient sync: 'overlapped' reduce-scatters and "
-                         "all-gathers bucket by bucket, 'gspmd' (default) all-reduces "
-                         "each leaf; with --parallel auto, the runtime the planner "
-                         "costs")
+                    help="the collectives of tensor MP and the DP gradient sync: "
+                         "'overlapped' runs the Megatron products on the chunked "
+                         "collective-matmul rings and reduce-scatters and all-gathers "
+                         "the gradients bucket by bucket, 'gspmd' (default) all-reduces "
+                         "after each row-parallel product and each gradient leaf; with "
+                         "--parallel auto, the runtime the planner costs")
     ap.add_argument("--context-parallel", action="store_true",
                     help="with --parallel auto, search only context-parallel "
                          "plans; with an explicit spec, mp= is the ring size")
+    ap.add_argument("--comm-chunks", type=int, default=None,
+                    help="ring chunks per shard for --comm-runtime overlapped (default 1)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    auto = args.parallel == "auto"
+    plan, mp, dp_hint = parse_parallel(args.parallel, args.devices or DEFAULT_DEVICES,
+                                       cfg, comm_runtime=args.comm_runtime or "gspmd",
+                                       context_parallel=args.context_parallel)
+    # a tensor plan of an arch the port does not shard names its item first
+    check_plan(plan, mp, cfg)
     if cfg.family == "cnn" or cfg.encoder_layers:
         # the launcher feeds the token LM only, as JAX's, which refuses cnn
         # archs and fails on GNMT's source/target pairs with a KeyError
@@ -363,18 +384,15 @@ def main(argv=None):
                          f"pipeline only; {cfg.name} trains through "
                          f"models.api.build_model + train.steps.make_train_step (as "
                          f"chip_smoke.py's GNMT and Inception-V3 phases do)")
-    auto = args.parallel == "auto"
-    plan, mp, dp_hint = parse_parallel(args.parallel, args.devices or DEFAULT_DEVICES,
-                                       cfg, comm_runtime=args.comm_runtime or "gspmd",
-                                       context_parallel=args.context_parallel)
     pipeline = plan.is_pipeline and mp > 1
     context = plan.is_context and mp > 1
+    tensor = plan.mp_kind == "tensor" and mp > 1
     if context:
         if args.seq % mp:
             raise SystemExit(f"[plan] context parallelism shards the sequence: --seq "
                              f"({args.seq}) must divide by the {mp}-way ring")
-        if args.comm_runtime == "overlapped":
-            raise SystemExit("[plan] --comm-runtime overlapped does not apply to "
+        if args.comm_runtime == "overlapped" or args.comm_chunks:
+            raise SystemExit("[plan] --comm-runtime/--comm-chunks do not apply to "
                              "context-parallel plans (the KV ring IS the comm schedule)")
         if not cp_arch_supported(cfg):
             raise SystemExit(f"[plan] {cfg.name}: context parallelism needs a homogeneous "
@@ -384,16 +402,25 @@ def main(argv=None):
             raise SystemExit("[plan] --pipe-runtime only applies to pipeline plans "
                              "(--parallel pipe=... or a planner choice with kind=pipeline)")
         plan = dataclasses.replace(plan, runtime=args.pipe_runtime)
-    if args.comm_runtime:
+    if args.comm_runtime or args.comm_chunks:
+        if args.comm_chunks and (args.comm_runtime or plan.comm_runtime) != "overlapped":
+            raise SystemExit("[plan] --comm-chunks only applies with --comm-runtime "
+                             "overlapped")
         if pipeline and not auto:
-            raise SystemExit("[plan] --comm-runtime applies to DP plans; pipeline stages "
-                             "exchange activations over their own ring (see --pipe-runtime)")
+            raise SystemExit("[plan] --comm-runtime/--comm-chunks apply to tensor-MP / DP "
+                             "plans; pipeline stages exchange activations over their own "
+                             "ring (see --pipe-runtime)")
         if pipeline:
-            print("[plan] note: planner chose a pipeline plan; --comm-runtime does not "
-                  "apply to it")
-        elif not auto:
-            plan = dataclasses.replace(plan, comm_runtime=args.comm_runtime)
-    check_plan(plan, mp)
+            print("[plan] note: planner chose a pipeline plan; --comm-runtime/--comm-chunks "
+                  "do not apply to it")
+        elif not context:
+            # an auto plan keeps the planner's runtime stamp (gspmd for archs
+            # the overlapped runtime cannot execute)
+            plan = dataclasses.replace(
+                plan, comm_runtime=plan.comm_runtime if auto else (args.comm_runtime
+                                                                   or plan.comm_runtime),
+                comm_chunks=args.comm_chunks or plan.comm_chunks)
+    check_plan(plan, mp, cfg)
     device = resolve_device(args.device)
     check_trainable(cfg, device)
     max_local = args.max_local_devices or (torch.cuda.device_count()
@@ -411,7 +438,7 @@ def main(argv=None):
     else:
         dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"{mp}-way MP") \
             if dp_hint > 1 else 1
-    stages = mp if pipeline or context else 1
+    stages = mp if pipeline or context or tensor else 1
     # DP narrows to the local ranks' data axis: drop the planner's pod axis
     plan = dataclasses.replace(plan, dp_axes=("data",))
     print(f"[plan] {plan.describe({'data': dp, 'model': stages})} on {device}")

@@ -11,8 +11,13 @@ gradients through ``parallel.pipeline.pipeline_value_and_grad``).  The dense, Mo
 and RWKV decoders go through ``models/transformer.py`` (RWKV's cache holds
 its recurrent state); BigLSTM and GNMT (``models/lstm.py``) and
 Inception-V3 (``models/inception.py``) have a loss and no serving path (as
-in JAX).  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; asking for CUDA where there is none raises.
+in JAX).  Under a tensor-MP ``ParallelCtx`` the dense decoder's and
+Inception-V3's losses are the rank's share of the global masked mean
+(``tensor_mp_loss``; vocab-sharded logits through
+``vocab_parallel_nll_sum``), and ``init`` is still the whole seeded init:
+``parallel.sharding.shard_params`` cuts a rank's part from it.  Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; asking
+for CUDA where there is none raises.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import inception as inc_mod
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import dist as D
 from repro_torch.parallel.pipeline import (make_schedule, pipeline_value_and_grad,
                                            stage_layers)
@@ -59,11 +65,53 @@ def cross_entropy(logits, labels, n_valid_vocab: int):
     return masked_nll_sum(logits, labels) / mask.sum().clamp(min=1)
 
 
-def global_label_count(labels, mesh):
-    """The labels >= 0 over every rank of ``mesh`` (at least 1), as f32: the
-    divisor that makes the ranks' loss shares sum to the global masked mean."""
+def global_label_count(labels, mesh, axes=(None,)):
+    """The labels >= 0 over the ranks of ``axes`` of ``mesh`` (None: every
+    rank; at least 1), as f32: the divisor that makes the ranks' loss shares
+    sum to the global masked mean."""
     n = (labels >= 0).sum().to(torch.float32).reshape(1)
-    return D.all_reduce(mesh, n)[0].clamp(min=1)
+    for axis in axes:
+        D.all_reduce(mesh, n, axis)
+    return n[0].clamp(min=1)
+
+
+def vocab_parallel_nll_sum(logits, labels, *, mesh, model_axis: str = "model"):
+    """``masked_nll_sum`` over vocab-sharded logits without gathering them
+    (JAX's ``vocab_parallel_cross_entropy``): ``logits`` (B, S, V/m) are
+    this rank's contiguous vocab columns; the row max (a shift without
+    gradient), the sum of exponentials and the gold logit are reduced over
+    ``model_axis``.  Every rank of the axis gets the same sum, and each
+    rank's columns their own gradient."""
+    lg = logits.float()
+    j = mesh.ring(model_axis)[0]
+    v_loc = lg.shape[-1]
+    lo = j * v_loc
+    with torch.no_grad():
+        top = D.all_reduce(mesh, lg.max(-1).values.contiguous(), model_axis, op="max")
+    z = CL.reduce_from_model(torch.exp(lg - top[..., None]).sum(-1), mesh, model_axis)
+    logz = top + torch.log(z)
+    mask = labels >= 0
+    lb = labels.clamp(min=0)
+    mine = (lb >= lo) & (lb < lo + v_loc)
+    gold_loc = torch.gather(lg, -1, (lb - lo).clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = CL.reduce_from_model(torch.where(mine, gold_loc, torch.zeros_like(gold_loc)),
+                                mesh, model_axis)
+    return ((logz - gold) * mask).sum()
+
+
+def tensor_mp_loss(logits, labels, cfg, pctx):
+    """A tensor-MP rank's share of the global masked mean NLL: its data
+    shard's NLL sum over the valid labels of every data shard (the model
+    ranks of a shard hold the same labels and the same share), so the sum
+    over the data axes is JAX's loss.  Vocab-sharded logits go through
+    ``vocab_parallel_nll_sum`` (JAX's condition: a model axis that divides
+    ``vocab_padded``), whole ones through ``masked_nll_sum``."""
+    count = global_label_count(labels, pctx.mesh, tuple(a for a in pctx.batch_axes if a))
+    if logits.shape[-1] * pctx.mesh.shape[pctx.model_axis] == cfg.vocab_padded and \
+            pctx.mesh.shape[pctx.model_axis] > 1:
+        return vocab_parallel_nll_sum(logits, labels, mesh=pctx.mesh,
+                                      model_axis=pctx.model_axis) / count
+    return masked_nll_sum(logits, labels) / count
 
 
 @dataclasses.dataclass
@@ -103,6 +151,8 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
                                      capacity_factor=capacity_factor)
         if pctx is None:
             loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        elif pctx.is_tensor:
+            loss = tensor_mp_loss(logits, batch["labels"], cfg, pctx)
         else:   # this rank's share of the global masked mean: sum over the ranks
             loss = masked_nll_sum(logits, batch["labels"]) / global_label_count(
                 batch["labels"], pctx.mesh)
@@ -141,8 +191,15 @@ def _build_inception(cfg: ModelConfig, dev: torch.device) -> ModelApi:
         return inc_mod.inception_init(gen, cfg, reduced=reduced, device=dev)
 
     def loss_fn(params, batch, pctx=None):
-        logits = inc_mod.inception_forward(cfg, params, batch, reduced=reduced)
-        loss = cross_entropy(logits[:, None, :], batch["labels"][:, None], cfg.vocab_size)
+        if pctx is not None and not pctx.is_tensor:
+            raise ValueError(f"{cfg.name}: a context ring needs a decoder")
+        logits = inc_mod.inception_forward(cfg, params, batch, reduced=reduced, pctx=pctx)
+        labels = batch["labels"][:, None]
+        if pctx is None:
+            loss = cross_entropy(logits[:, None, :], labels, cfg.vocab_size)
+        else:   # the logits are whole: this rank's share of the global mean
+            loss = masked_nll_sum(logits[:, None, :], labels) / global_label_count(
+                labels, pctx.mesh, tuple(a for a in pctx.batch_axes if a))
         return loss, {"loss": loss}
 
     return ModelApi(cfg, dev, init, loss_fn, None, None)

@@ -13,6 +13,12 @@ computes its convolutions outside any Pallas kernel
 (``jax.lax.conv_general_dilated``), so the library call is their
 counterpart.  Pools, concatenation and the head are plain ops too.
 
+Under a tensor-MP ``ParallelCtx`` each conv whose output channels the
+model axis divides is column-parallel and ``head.fc`` class-sharded, as
+JAX's sharding rules lay them out (HWIO dim 3, the classes); a conv the
+axis does not divide (80 or 1000 at 32) is replicated with the rules'
+warning and computed whole.
+
 Two JAX quirks are copied: ``_inception_e`` gives the 1x3 and 3x1 siblings
 their own 1x1 convs (6 branches, not one shared 1x1), and the reduced
 block table (blocks a, b, e) is picked by ``cfg.n_layers <= 3``
@@ -26,6 +32,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import collectives as CL
 
 
 def conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int, *,
@@ -55,12 +63,27 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def conv_bn(p, x, stride: int = 1, padding: str = "SAME"):
-    """x (B, H, W, cin) -> relu(conv(x, w) * scale + bias) (B, H', W', cout)."""
-    w = p["w"].to(x.dtype).permute(3, 2, 0, 1)                    # HWIO -> OIHW
+def conv_bn(p, x, stride: int = 1, padding: str = "SAME", pctx=None):
+    """x (B, H, W, cin) -> relu(conv(x, w) * scale + bias) (B, H', W', cout).
+
+    Under a tensor ctx whose rules shard ``w``'s output channels (HWIO dim 3;
+    ``scale`` and ``bias`` stay whole), the conv is column-parallel: the
+    replicated input enters through ``copy_to_model``, this rank computes
+    its channels, and they leave through ``gather_from_model(-1)``."""
+    w, scale, bias = p["w"], p["scale"], p["bias"]
+    sharded = pctx is not None and w.shape[3] != scale.shape[0]
+    if sharded:
+        mesh, axis = pctx.mesh, pctx.model_axis
+        n = w.shape[3]
+        lo = mesh.ring(axis)[0] * n
+        x = CL.copy_to_model(x, mesh, axis)
+        scale = CL.copy_to_model(scale, mesh, axis).narrow(0, lo, n)
+        bias = CL.copy_to_model(bias, mesh, axis).narrow(0, lo, n)
+    w = w.to(x.dtype).permute(3, 2, 0, 1)                          # HWIO -> OIHW
     y = _nhwc(F.conv2d(_nchw(x), w, stride=stride,
                        padding=_padding(tuple(w.shape[2:]), stride, padding)))
-    return torch.relu(y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype))
+    y = torch.relu(y * scale.to(x.dtype) + bias.to(x.dtype))
+    return CL.gather_from_model(y, mesh, -1, axis) if sharded else y
 
 
 def pool(x, kind: str, k: int = 3, stride: int = 1, padding: str = "SAME"):
@@ -181,7 +204,7 @@ def inception_init(gen: torch.Generator, cfg, *, reduced: bool = False, device=N
     return params
 
 
-def inception_block(spec, branches, x):
+def inception_block(spec, branches, x, pctx=None):
     """One block: each branch of ``spec`` (its convs' parameters in
     ``branches``) over NHWC ``x``, concatenated on the channels.  Stride-2
     convs are "VALID", all others "SAME"."""
@@ -197,26 +220,34 @@ def inception_block(spec, branches, x):
             else:
                 stride = op[3]
                 y = conv_bn(next(convs), y, stride=stride,
-                            padding="VALID" if stride == 2 else "SAME")
+                            padding="VALID" if stride == 2 else "SAME", pctx=pctx)
         outs.append(y)
     return torch.cat(outs, dim=-1)
 
 
-def inception_forward(cfg, params, batch, reduced: bool = False):
-    """batch: dict(images (B, H, W, 3)) -> logits (B, n_classes)."""
+def inception_forward(cfg, params, batch, reduced: bool = False, pctx=None):
+    """batch: dict(images (B, H, W, 3)) -> logits (B, n_classes).  Under a
+    tensor ctx (``pctx``) ``params`` is this rank's part: the sharded convs
+    are column-parallel (``conv_bn``) and a class-sharded ``head.fc``'s
+    logits are gathered; every other op runs whole on every rank."""
     x = batch["images"].to(getattr(torch, cfg.dtype))
     p = params["stem"]
-    x = conv_bn(p[0], x, stride=2, padding="VALID")
-    x = conv_bn(p[1], x, padding="VALID")
-    x = conv_bn(p[2], x)
+    x = conv_bn(p[0], x, stride=2, padding="VALID", pctx=pctx)
+    x = conv_bn(p[1], x, padding="VALID", pctx=pctx)
+    x = conv_bn(p[2], x, pctx=pctx)
     x = pool(x, "max", 3, 2, "VALID")
-    x = conv_bn(p[3], x, padding="VALID")
-    x = conv_bn(p[4], x, padding="VALID")
+    x = conv_bn(p[3], x, padding="VALID", pctx=pctx)
+    x = conv_bn(p[4], x, padding="VALID", pctx=pctx)
     x = pool(x, "max", 3, 2, "VALID")
     for (_, spec), branches in zip(_blocks(reduced), params["blocks"], strict=True):
-        x = inception_block(spec, branches, x)
+        x = inception_block(spec, branches, x, pctx=pctx)
     x = x.mean(dim=(1, 2))
-    return x @ params["head"]["fc"].to(x.dtype)
+    fc = params["head"]["fc"]
+    if pctx is None or fc.shape[1] == cfg.vocab_size:
+        return x @ fc.to(x.dtype)
+    mesh, axis = pctx.mesh, pctx.model_axis
+    return CL.gather_from_model(CL.copy_to_model(x, mesh, axis) @ fc.to(x.dtype), mesh, -1,
+                                axis)
 
 
 # ---------------------------------------------------------------------------

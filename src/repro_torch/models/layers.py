@@ -1,6 +1,7 @@
 """Shared layers (port of ``repro/models/layers.py``): initializers, RMS norm,
 RoPE, GQA head repeat, dense masked attention, the linear KV-cache insert,
-and the MLP variants.  Plain functions over tensors; weights keep the JAX
+and the MLP variants (``mlp_apply_overlapped``: the tensor-MP MLP on the
+collective-matmul rings).  Plain functions over tensors; weights keep the JAX
 (d_in, d_out) layout, so a projection is ``x @ w``.
 """
 from __future__ import annotations
@@ -143,3 +144,30 @@ def mlp_apply(params, x, kind: str):
     else:
         raise ValueError(kind)
     return h @ params["wo"].to(x.dtype)
+
+
+def mlp_apply_overlapped(params, x, kind: str, *, mesh, axis: str = "model",
+                         chunks: int = 1, layer: int = 0):
+    """The Megatron column/row-parallel MLP on the collective-matmul rings
+    (``parallel.collectives``): ``x`` is (..., T/m, d), this rank's rows;
+    ``wi``/``wg`` are its column slices, ``wo`` its row slice.  The gate and
+    up products share one gather ring (their weights concatenated, so x
+    travels the ring once).  Returns (..., T/m, d), this rank's rows.  The
+    rings' messages are tagged (layer, 2) and (layer, 3)."""
+    from repro_torch.parallel.collectives import all_gather_matmul, matmul_reduce_scatter
+
+    kw = dict(mesh=mesh, axis=axis, chunks=chunks)
+    if kind == "swiglu":
+        ff = params["wi"].shape[-1]
+        w2 = torch.cat([params["wg"], params["wi"]], dim=-1).to(x.dtype)
+        gi = all_gather_matmul(x, w2, tag=(layer, 2), **kw)
+        h = F.silu(gi[..., :ff]) * gi[..., ff:]
+    elif kind == "gelu":
+        h = F.gelu(all_gather_matmul(x, params["wi"].to(x.dtype), tag=(layer, 2), **kw),
+                   approximate="tanh")
+    elif kind == "sqrelu":
+        h = torch.square(F.relu(all_gather_matmul(x, params["wi"].to(x.dtype),
+                                                  tag=(layer, 2), **kw)))
+    else:
+        raise ValueError(kind)
+    return matmul_reduce_scatter(h, params["wo"].to(x.dtype), tag=(layer, 3), **kw)

@@ -36,7 +36,7 @@ from repro_torch.kernels import lstm_cell as K
 from repro_torch.models import layers as L
 from repro_torch.parallel.pipeline import AD_RUNTIME
 
-TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
+TENSOR_MP = "ROADMAP.md Queue 1 item 7b (tensor MP of the LSTM family)"
 
 
 def unported(what: str, item: str):

@@ -1,9 +1,10 @@
-"""Parallelism plans, pipeline schedules and the DP, scheduled pipeline and
-context-parallel runtimes on ``torch.distributed`` ranks (port of
-``repro/parallel``): ``plan``, ``pipeline``, ``collectives`` (the DP
-gradient sync), ``context`` (ring attention) and ``dist`` (the rank mesh,
-its transport and ``spawn_ranks``).  Tensor MP is ROADMAP.md Queue 1 item
-7."""
+"""Parallelism plans, pipeline schedules and the DP, scheduled pipeline,
+context-parallel and tensor-MP runtimes on ``torch.distributed`` ranks
+(port of ``repro/parallel``): ``plan``, ``sharding`` (the tensor-MP rules
+and a rank's part of the parameters), ``pipeline``, ``collectives`` (the DP
+gradient sync and the tensor-MP collectives and rings), ``context`` (ring
+attention) and ``dist`` (the rank mesh, its transport and
+``spawn_ranks``)."""
 from repro_torch.parallel.context import merge_attention, ring_attention
 from repro_torch.parallel.pipeline import (SCHEDULE_KINDS, PipelineSchedule,
                                            make_schedule,

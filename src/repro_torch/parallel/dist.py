@@ -3,13 +3,15 @@ mesh half of ``repro/parallel/jaxcompat.py`` and of the JAX launcher's
 ``_ensure_host_devices``).
 
 A run of ``dp`` data-parallel replicas of ``S`` pipeline stages (or of a
-context ring of ``S`` ranks) is ``dp * S`` ``torch.distributed`` ranks,
+context ring or a tensor-MP group of ``S`` ranks) is ``dp * S`` ``torch.distributed`` ranks,
 rank = d * S + s in the JAX mesh's ``("data", "model")`` order.  ``RankMesh`` holds the axis sizes, this rank's
 coordinates and the process group of each axis this rank lies on; every
 rank creates every group, in one fixed order.
 
-``RankMesh.ring`` gives a rank's neighbours on an axis (the context
-ring's), and ``message_tag`` the tag of each of the ring's messages.
+``RankMesh.ring`` gives a rank's neighbours on an axis (the context ring's
+and the tensor-MP rings'), ``message_tag`` the tag of each of the context
+ring's messages and ``tp_message_tag`` that of each tensor-MP ring message,
+in a range of its own.
 
 The transport is chosen by a stated rule before ``init_process_group`` and
 never changed after (``choose_transport``):
@@ -175,12 +177,28 @@ def _group(mesh: RankMesh, axis: Optional[str]):
     return None if axis is None else mesh.groups[axis]
 
 
-def all_reduce(mesh: RankMesh, t: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
-    """Sum ``t`` in place over the ranks of ``axis`` (all ranks for None)."""
+def all_reduce(mesh: RankMesh, t: torch.Tensor, axis: Optional[str] = None,
+               op: str = "sum") -> torch.Tensor:
+    """Sum ``t`` in place over the ranks of ``axis`` (all ranks for None), or
+    take the elementwise max with ``op="max"``."""
     if mesh.size(axis) == 1:
         return t
     w = _wire(mesh, t)
-    dist.all_reduce(w, group=_group(mesh, axis))
+    dist.all_reduce(w, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                    group=_group(mesh, axis))
+    if w is not t:
+        t.copy_(w)
+    return t
+
+
+def broadcast(mesh: RankMesh, t: torch.Tensor, axis: str) -> torch.Tensor:
+    """``t`` of the first rank of this rank's ``axis`` group, written in
+    place on every rank of the group."""
+    ranks = mesh.members(axis)
+    if len(ranks) == 1:
+        return t
+    w = _wire(mesh, t)
+    dist.broadcast(w, src=ranks[0], group=_group(mesh, axis))
     if w is not t:
         t.copy_(w)
     return t
@@ -235,15 +253,32 @@ def exchange(mesh: RankMesh, sends: Sequence[Tuple[torch.Tensor, int, int]],
 
 
 MESSAGE_PARTS, MESSAGE_HOPS = 4, 64
+# the tensor-MP rings' tags start here, above every context-ring tag
+TP_TAG_BASE = 1 << 22
+TP_OPS, TP_PHASES, TP_CHUNKS = 8, 3, 16
 
 
 def message_tag(layer: int, hop: int, backward: bool, part: int = 0) -> int:
     """The tag of one ring message: distinct for every (layer, hop,
     direction, part), so a backward that autograd runs in its own order can
     never pair one layer's message with another's."""
-    if not (0 <= hop < MESSAGE_HOPS and 0 <= part < MESSAGE_PARTS and layer >= 0):
+    if not (0 <= hop < MESSAGE_HOPS and 0 <= part < MESSAGE_PARTS
+            and 0 <= layer < TP_TAG_BASE // (2 * MESSAGE_HOPS * MESSAGE_PARTS)):
         raise ValueError(f"no message tag for layer {layer}, hop {hop}, part {part}")
     return ((layer * 2 + int(backward)) * MESSAGE_HOPS + hop) * MESSAGE_PARTS + part
+
+
+def tp_message_tag(layer: int, op: int, phase: int, hop: int, chunk: int) -> int:
+    """The tag of one message of a tensor-MP ring (``parallel.collectives``):
+    distinct for every (layer, op, phase, hop, chunk) and from every
+    ``message_tag``.  ``op`` numbers the rings of a layer, ``phase`` is 0 for
+    the forward ring and 1 or 2 for the backward's two rings."""
+    if not (layer >= 0 and 0 <= op < TP_OPS and 0 <= phase < TP_PHASES
+            and 0 <= hop < MESSAGE_HOPS and 0 <= chunk < TP_CHUNKS):
+        raise ValueError(f"no tensor-MP message tag for layer {layer}, op {op}, phase "
+                         f"{phase}, hop {hop}, chunk {chunk}")
+    return TP_TAG_BASE + ((((layer * TP_OPS + op) * TP_PHASES + phase) * MESSAGE_HOPS + hop)
+                          * TP_CHUNKS + chunk)
 
 
 # ---------------------------------------------------------------------------

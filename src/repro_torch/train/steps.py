@@ -10,9 +10,9 @@ writes the state's tensors in place, and the returned state holds the same
 tensors with ``step + 1``.
 
 Given a ``parallel.dist.RankMesh`` and a ``ParallelPlan``, the step is one
-rank's part of a DP x pipeline-MP or DP x context-parallel step; ``batch``
-is the global batch on every rank, and the rank takes its DP shard (rows of
-its ``data`` index):
+rank's part of a DP x pipeline-MP, DP x context-parallel or DP x tensor-MP
+step; ``batch`` is the global batch on every rank, and the rank takes its
+DP shard (rows of its ``data`` index):
 
 - *pipelined* (``plan.is_pipeline`` over a ``model`` axis > 1): the rank
   holds only its stage's parameters (``init_train_state``) and their
@@ -27,6 +27,19 @@ its ``data`` index):
   loss is its masked NLL sum over the valid labels of all ranks, so the
   ranks' losses and gradients sum to the global masked mean's: both are
   summed over every rank, one all-reduce a gradient leaf;
+- *tensor MP* (``mp_kind="tensor"`` over a ``model`` axis > 1, or a
+  caller's tensor ``pctx``): the rank holds its part of the parameters
+  (``init_train_state`` cuts it from the seeded init with
+  ``parallel.sharding.shard_params``) and their optimizer state, and runs
+  the forward under a tensor ``ParallelCtx`` (``_make_pctx``, JAX's).  Its
+  loss is its data shard's share of the global masked mean, so the
+  gradients are summed over ``data`` (bucketed or one all-reduce a leaf, per
+  model shard) and the loss too.  The model makes every replicated leaf's
+  gradient whole on every rank (``copy_to_model`` where its use is
+  rank-local); the step then gives each such gradient the bits of the
+  group's first rank (a broadcast over ``model``: cuDNN may not compute the
+  same bits twice), so replicated leaves leave the step the same on every
+  rank;
 - *pure DP*: the rank's shard through autograd;
 - otherwise the gradients are then summed over the ``data`` group, bucket
   by bucket (``comm_runtime="overlapped"``) or one all-reduce a leaf
@@ -38,8 +51,10 @@ its ``data`` index):
 The clip sees the global norm: each rank's sum of squares (a tied embedding
 counted once) is summed over the ``model`` group after the DP sync, so the
 clip scale is the single-process one (a context-parallel rank's
-gradients are already whole).  Tensor MP and a caller's ``pctx`` raise
-(item 7), and parameters sharded over DP raise (item 5's remainder, fsdp).
+gradients are already whole; a tensor-MP rank sums its sharded leaves over
+``model`` and counts the replicated ones once).  Tensor MP of an arch the
+port does not shard raises naming its item (``check_plan``), and
+parameters sharded over DP raise (item 5's remainder, fsdp).
 """
 from __future__ import annotations
 
@@ -49,16 +64,18 @@ from typing import Any
 import torch
 
 from repro_torch.models.api import ModelApi
-from repro_torch.models.transformer import ParallelCtx, cp_arch_supported, cp_supported
+from repro_torch.models.transformer import (ParallelCtx, cp_arch_supported, cp_supported,
+                                            is_tensor_ctx, tensor_mp_item)
 from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
                                           sum_of_squares)
 from repro_torch.parallel import dist as D
+from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.collectives import (DEFAULT_BUCKET_BYTES, all_reduce_grads,
                                               bucketed_grad_sync)
 from repro_torch.parallel.pipeline import AD_RUNTIME
+from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-TENSOR_MP = "ROADMAP.md Queue 1 item 7 (tensor MP)"
 FSDP = "ROADMAP.md Queue 1 item 5 (data parallelism: the fsdp plans are its remainder)"
 
 
@@ -72,17 +89,23 @@ class TrainState:
     in_update: bool = False
 
 
-def check_plan(plan, model: int) -> None:
+def check_plan(plan, model: int, cfg=None) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a plan the
-    port's ranks do not run over a ``model`` axis of that size: tensor MP,
-    parameters sharded over DP, the ``ad`` pipeline runtime."""
+    port's ranks do not run over a ``model`` axis of that size: tensor MP of
+    an arch other than the dense decoder and the CNN (``cfg``; not checked
+    without one), parameters sharded over DP, the ``ad`` pipeline
+    runtime."""
     if plan.fsdp_axes:
         raise NotImplementedError(f"parameters sharded over DP are not ported to "
                                   f"repro_torch yet: {FSDP}")
     if plan.model_axis is None or model == 1:
         return
     if plan.mp_kind == "tensor":
-        raise NotImplementedError(f"tensor MP is not ported to repro_torch yet: {TENSOR_MP}")
+        item = tensor_mp_item(cfg) if cfg is not None else None
+        if item is not None:
+            raise NotImplementedError(f"tensor MP of {cfg.name} is not ported to "
+                                      f"repro_torch yet: {item}")
+        return
     if plan.runtime == "ad":
         raise NotImplementedError(f"the ad pipeline runtime is not ported to repro_torch "
                                   f"yet: {AD_RUNTIME}")
@@ -94,21 +117,36 @@ def _pipelined(plan, mesh) -> bool:
 
 
 def _make_pctx(mesh, plan):
-    """The ``ParallelCtx`` of a context-parallel plan over a ring of more
-    than one rank (its ``model`` axis hosts the KV ring), else None (JAX's
-    ``_make_pctx``; the port has no tensor-MP ctx)."""
-    if plan is None or mesh is None or not plan.is_context or mesh.shape["model"] == 1:
+    """JAX's ``_make_pctx`` over a ``model`` axis of more than one rank: a
+    context plan's ctx (the axis hosts the KV ring) or a tensor plan's (the
+    axis shards the parameters, the batch lies over ``data``); None
+    otherwise (a pipelined plan, one rank on the axis)."""
+    if plan is None or mesh is None or plan.model_axis is None or mesh.shape["model"] == 1:
         return None
-    return ParallelCtx(mesh=mesh, context_axis=plan.model_axis)
+    if plan.is_context:
+        return ParallelCtx(mesh=mesh, context_axis=plan.model_axis)
+    if plan.mp_kind == "tensor":
+        return ParallelCtx(mesh=mesh, context_axis=None, batch_axes=("data",),
+                           model_axis=plan.model_axis, comm_runtime=plan.comm_runtime,
+                           comm_chunks=plan.comm_chunks)
+    return None
+
+
+def _tensor_rules(cfg, mesh, plan) -> SH.ShardingRules:
+    return SH.ShardingRules(cfg, dict(mesh.shape), plan or ParallelPlan())
 
 
 def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0, *,
                      mesh=None, plan=None) -> TrainState:
     """The seeded init and its optimizer state; a pipelined rank's holds
-    only its stage (``api.init_pipeline_stage``)."""
+    only its stage (``api.init_pipeline_stage``), a tensor-MP rank only its
+    part (``parallel.sharding.shard_params`` of the whole seeded init)."""
     if _pipelined(plan, mesh):
         params = api.init_pipeline_stage(seed, mesh.shape["model"], plan.virtual_stages,
                                          mesh.model_index)
+    elif is_tensor_ctx(_make_pctx(mesh, plan)):
+        params = SH.shard_params(api.init(seed), _tensor_rules(api.cfg, mesh, plan),
+                                 mesh.model_index)
     else:
         params = api.init(seed)
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
@@ -145,15 +183,25 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
     pipelined rank, ``store_high_water``: the peak stashed stage inputs).
     The §4.2 accumulation count is ``plan.microbatches`` where a plan is
     given (as in JAX) and ``microbatches`` otherwise."""
-    if pctx is not None:
-        raise NotImplementedError(f"a caller's ParallelCtx (tensor MP) is not ported to "
-                                  f"repro_torch yet (a context plan makes its own): "
-                                  f"{TENSOR_MP}")
+    if pctx is not None:      # a caller's ctx: tensor MP over its mesh
+        item = tensor_mp_item(api.cfg)
+        if item is not None:
+            raise NotImplementedError(f"tensor MP of {api.cfg.name} is not ported to "
+                                      f"repro_torch yet: {item}")
+        if not is_tensor_ctx(pctx):
+            raise ValueError("a caller's pctx must be a tensor-MP ParallelCtx over a "
+                             "model axis of more than one rank (a context plan makes its "
+                             "own)")
+        mesh = pctx.mesh if mesh is None else mesh
+        plan = plan or ParallelPlan(model_axis=pctx.model_axis,
+                                    comm_runtime=pctx.comm_runtime,
+                                    comm_chunks=pctx.comm_chunks)
     if plan is not None:
-        check_plan(plan, mesh.shape["model"] if mesh is not None else 1)
+        check_plan(plan, mesh.shape["model"] if mesh is not None else 1, api.cfg)
     pipelined = _pipelined(plan, mesh)
-    pctx = _make_pctx(mesh, plan)
-    if pctx is not None and not cp_arch_supported(api.cfg):
+    pctx = pctx or _make_pctx(mesh, plan)
+    tensor = is_tensor_ctx(pctx)
+    if pctx is not None and not tensor and not cp_arch_supported(api.cfg):
         raise ValueError(f"{api.cfg.name}: a context-parallel plan needs a homogeneous "
                          f"dense decoder without logit softcap (cp_arch_supported)")
     if plan is not None and microbatches not in (1, plan.microbatches):
@@ -169,6 +217,10 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
     # a tied embedding lives on the first and the last stage: count it once
     skip_in_norm = ("embed",) if (pipelined and api.cfg.tie_embeddings
                                   and mesh.model_index == mesh.shape["model"] - 1) else ()
+    if tensor:
+        rules = _tensor_rules(api.cfg, mesh, plan)
+        specs = SH.param_specs(api.cfg, rules)
+        replicated = []         # per leaf, in tree_leaves order; set at the first step
 
     def grads_of(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -211,11 +263,24 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         if mesh is None:
             return total_grads(params, batch)
         batch = _dp_shard(batch, mesh)
-        if pctx is not None:
+        if pctx is not None and not tensor:
             batch = _cp_shard(batch, pctx, api.cfg)
         if not pipelined:
             batch = {k: v.to(mesh.device) for k, v in batch.items()}
         loss, metrics, grads = total_grads(params, batch)
+        if tensor:              # shares of the global mean: sum over the data shards
+            if dp > 1:
+                if comm == "overlapped":
+                    bucketed_grad_sync(grads, mesh, bucket_bytes=bkt)
+                else:
+                    all_reduce_grads(grads, mesh)
+                loss = D.all_reduce(mesh, loss.detach().clone(), "data")
+            if not replicated:
+                replicated.extend(SH.replicated_leaves(grads, specs, rules))
+            for g, rep in zip(tree_leaves(grads), replicated):
+                if rep:         # whole on every rank: give them the same bits
+                    D.broadcast(mesh, g, "model")
+            return loss, dict(metrics, loss=loss), grads
         if pctx is not None:    # shares of the global mean: sum over every rank
             all_reduce_grads(grads, mesh, axis=None)
             loss = D.all_reduce(mesh, loss.detach().clone())
@@ -233,6 +298,14 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         return loss, metrics, grads
 
     def global_norm(grads) -> torch.Tensor:
+        if tensor:      # sharded leaves summed over the model group, replicated once
+            leaves = tree_leaves(grads)
+            zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            sharded = [g for g, rep in zip(leaves, replicated) if not rep]
+            whole = [g for g, rep in zip(leaves, replicated) if rep]
+            sq = D.all_reduce(mesh, (sum_of_squares(sharded) if sharded else zero).clone(),
+                              "model")
+            return torch.sqrt(sq + (sum_of_squares(whole) if whole else zero))
         sq = sum_of_squares({k: g for k, g in grads.items() if k not in skip_in_norm})
         return torch.sqrt(D.all_reduce(mesh, sq, "model"))
 
@@ -240,7 +313,7 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         params = state.params
         loss, metrics, grads = synced_grads(params, batch)
         if clip_norm:
-            norm = global_norm(grads) if pipelined else None
+            norm = global_norm(grads) if pipelined or tensor else None
             grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=norm)
             metrics = dict(metrics, grad_norm=gnorm)
         state.in_update = True

@@ -330,7 +330,7 @@ def test_launcher_trains_the_64_card_biglstm_plan(capfd):
 
 
 @pytest.mark.parametrize("arch,args,item", [
-    ("biglstm", ("--parallel", "dp=1,mp=2"), "item 7"),
+    ("biglstm", ("--parallel", "dp=1,mp=2"), "item 7b"),
     ("biglstm", ("--parallel", "pipe=2", "--pipe-runtime", "ad"), "item 6b")])
 def test_launcher_names_what_is_not_ported(arch, args, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):

@@ -195,7 +195,7 @@ def test_model_layer_forward_and_grads_match_jax(d_proj, with_state):
 
 
 def test_unported_lstm_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
         TM.lstm_layer_overlapped()
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         TM.biglstm_forward_pipeline()

@@ -352,8 +352,10 @@ def test_launcher_auto_names_the_item_of_a_multi_card_plan(arch, item):
     on ranks through the scheduled runtime and names item 6b only under
     ``--pipe-runtime ad``; context parallelism for Llama, whose ring trains
     (tests/test_torch_context.py) and whose context-parallel prefill names
-    item 8b; at 256 tensor MP for Inception-V3 (which the launcher refuses
-    to train for its data format first)."""
+    item 8b; at 256 tensor MP for Inception-V3, which the port runs
+    (item 7; tests/test_torch_tensor_mp.py trains this plan clamped to 2
+    ranks): the plan passes, its clamp to a 2-rank model axis builds a
+    step, and the launcher refuses Inception only for its data format."""
     if arch == "llama3_2_1b":
         import torch
         from repro_torch.models.api import build_model
@@ -368,9 +370,24 @@ def test_launcher_auto_names_the_item_of_a_multi_card_plan(arch, item):
                         pctx=ParallelCtx(mesh=None))
         return
     if arch == "inception_v3":
-        plan, mp, dp = TL.parse_parallel("auto", 256, t_get_config(arch))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-            TL.check_plan(plan, mp)
+        from repro_torch import optim as TO
+        from repro_torch.models.api import build_model
+        from repro_torch.train import make_train_step
+
+        cfg = t_get_config(arch)
+        plan, mp, dp = TL.parse_parallel("auto", 256, cfg)
+        assert (plan.mp_kind, dp, mp) == ("tensor", 8, 32)
+        TL.check_plan(plan, mp, cfg)
+        clamped = dataclasses.replace(plan, dp_axes=("data",))
+
+        class Mesh:
+            shape = {"data": 1, "model": 2}
+
+        api = build_model(cfg.reduced(), device="cpu")
+        assert callable(make_train_step(api, TO.sgd(TO.constant_lr(0.1)), mesh=Mesh(),
+                                        plan=clamped))
+        with pytest.raises(SystemExit, match="feeds the token-LM data pipeline only"):
+            TL.main(["--arch", arch, "--reduced", "--device", "cpu", "--parallel", "auto"])
         return
     extra = ["--pipe-runtime", "ad"] if arch == "biglstm" else []
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):

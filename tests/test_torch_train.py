@@ -274,18 +274,19 @@ def test_loop_unported_options_raise(kw):
 
 def test_train_step_refuses_multi_device_arguments(biglstm):
     """What of a multi-device step is not ported raises naming its ROADMAP
-    item: a caller's ParallelCtx and a tensor-MP plan (item 7), parameters
-    sharded over DP (item 5's remainder) and the ad pipeline runtime (item
-    6b).  DP, the scheduled pipeline and context parallelism run on ranks
-    (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py,
+    item: a caller's ParallelCtx and a tensor-MP plan over BigLSTM (item 7b:
+    the dense decoder's and the CNN's run, tests/test_torch_tensor_mp.py),
+    parameters sharded over DP (item 5's remainder) and the ad pipeline
+    runtime (item 6b).  DP, the scheduled pipeline and context parallelism
+    run on ranks (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py,
     tests/test_torch_context.py); a context plan over an arch the ring
     cannot run (BigLSTM) raises ValueError."""
     from repro_torch.parallel.plan import ParallelPlan as TPlan
 
     tapi = biglstm[5]
     mesh = TM_Mesh({"data": 1, "model": 2})
-    for kw, item in (({"pctx": object()}, "item 7"),
-                     ({"mesh": mesh, "plan": TPlan()}, "item 7"),
+    for kw, item in (({"pctx": object()}, "item 7b"),
+                     ({"mesh": mesh, "plan": TPlan()}, "item 7b"),
                      ({"plan": TPlan(model_axis=None, fsdp_axes=("data",))}, "item 5"),
                      ({"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
                       "item 6b")):
@@ -310,7 +311,7 @@ def _resolve(spec, devices=1, arch="biglstm", runtime=None):
         plan = dataclasses.replace(plan, runtime=runtime)
     if spec == "dp=2,mp=1":
         plan = dataclasses.replace(plan, fsdp_axes=("data",))
-    TL.check_plan(plan, mp)
+    TL.check_plan(plan, mp, t_get_config(arch))
     return plan, mp, dp
 
 
@@ -321,7 +322,8 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
     """What of each multi-device spec is still unported raises naming its
     ROADMAP item: the ad pipeline runtime (item 6b) for the planner's BigLSTM
     plan at 64 H100s and for an explicit pipe= spec, parameters sharded over
-    DP (item 5's remainder) for a dp= spec, tensor MP (7) and an unknown key
+    DP (item 5's remainder) for a dp= spec, BigLSTM's tensor MP (7b; the
+    dense decoder's runs, tests/test_torch_tensor_mp.py) and an unknown key
     (5-8).  A cp= spec resolves to a context ring, which trains
     (tests/test_torch_context.py); what is left of item 8, the
     context-parallel prefill, raises naming item 8b."""
