@@ -188,7 +188,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    steps at B 64 x 299 (peak, step ms, no hand-written kernel), and one
    step in f64 at phase 18 (b)'s cell (B 4 x 299) against the single card
    step (phase 15 (d)'s limits; replicated leaves the same bits);
-21. print one JSON line of kernels, then the device line.
+21. checkpoints and fault tolerance: (a) full-width, full-depth SmolLM-360M
+   (B 8 x T 512, 4 steps, a checkpoint every 2) through the launcher in
+   three processes (the third beside the first two on the card):
+   ``--fault kill@4`` exits 17 and leaves
+   ``ckpt_00000002``, ``--resume`` restores it and ends at step 4, and a
+   straight run with ``--background-save``; the two final checkpoints are
+   bit-equal leaf for leaf (read with the port's codec), and each process
+   that finishes launched 32 flash forward (``tc_prefill``) and 32 backward
+   (``tc``) kernels a step it ran, counted from 0 in that process; then, in
+   this process on a SmolLM-360M state on the card, the temp directory's
+   free bytes and filesystem, the checkpoint's bytes, a sync save's time
+   split into host copy, CRC and write, and fsync, the time a background
+   save takes to return (the step's stall) and ``restore_latest_valid``'s
+   time until the state is on the card, bit-equal to the saved state; (b)
+   2 full-width SmolLM layers in f32 on ranks sharing the card, 4 steps at
+   ``dp=2`` and at ``pipe=2,micro=2,sched=1f1b`` with a checkpoint every 2:
+   the step-2 file restores in one process bit-equal to the file (the
+   stage gather gives JAX's layout), and one process resumed from it to
+   step 4 ends within JAX's elastic tolerance (rtol 2e-4, atol 1e-5) of
+   the ranks' step-4 file;
+22. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -199,6 +219,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -221,6 +242,10 @@ RANK_STEPS = 3                                  # steps of each phase-15 run
 # first step at lr(0) moves an element, so a skipped or mis-scaled update shows
 RANK_PARAMS_TOL = 5e-5
 SMOL_B, SMOL_T = 8, 512                         # the hybrid SmolLM-360M run's batch
+# phase 21: SmolLM-360M's kill-and-resume, 4 steps, a checkpoint every 2;
+# JAX's elastic tolerance (tests/test_fault.py's dp 16 -> 8 or 32 resume)
+CKPT_STEPS, CKPT_EVERY = 4, 2
+ELASTIC_TOL = {"rtol": 2e-4, "atol": 1e-5}
 LLAMA_B, LLAMA_T = 4, 2048                      # the dense decoder's training shape
 # phase 19: Llama's 8-card context plan on a ring of 2 ranks sharing the card,
 # B 2 (two ranks' parameters and AdamW state, 22.35 GiB each, and their
@@ -2323,6 +2348,247 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     return runs, steps, rec
 
 
+def _start_launcher(args):
+    """``python -m repro_torch.launch.train`` started in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return (subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env), args, time.perf_counter())
+
+
+def _launcher_result(started, expect_rc=0, timeout=600):
+    """(stdout, its ``[kernels]`` counts, its ``[variants]`` counts, wall s) of
+    a started launcher once it ends; the counts are None for a process that
+    printed none (one killed).  The process is stopped on any failure."""
+    proc, args, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != expect_rc:
+        raise AssertionError(f"launcher {args} exited {proc.returncode}, want {expect_rc}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    launches = variants = None
+    for line in out.splitlines():
+        if line.startswith("[kernels] "):
+            launches = {k: int(v) for k, v in (w.split("=") for w in line.split()[1:])}
+        if line.startswith("[variants] "):
+            variants = {}
+            for part in line[len("[variants] "):].split(" | "):
+                name, rest = part.split(": ")
+                variants[name] = {k: int(v) for k, v in (w.split("=") for w in rest.split())}
+    return out, launches, variants, wall_s
+
+
+def _check_flash_counts(name, cfg, launches, variants, steps):
+    """A one-process dense-decoder run: L flash forward launches a step, all
+    ``tc_prefill``, and L backward calls, all ``tc``, no other kernel."""
+    want = dict.fromkeys(launches, 0)
+    per = cfg.n_layers * steps
+    want.update(flash_attention=per, flash_attention_bwd=per)
+    want_variants = {n: dict.fromkeys(v, 0) for n, v in variants.items()}
+    want_variants["flash_attention"]["tc_prefill"] = per
+    want_variants["flash_attention_bwd"]["tc"] = per
+    if launches != want or variants != want_variants:
+        raise AssertionError(f"{name} launched {launches} {variants}, want {want} "
+                             f"{want_variants}")
+
+
+def _compare_files(a, b, tol=None):
+    """Leaf by leaf, read with the port's codec (CRCs checked): the count of
+    leaves that are not the same bits and the largest difference, and with
+    ``tol`` the largest excess over allclose's bound among them (<= 0 or
+    None: within)."""
+    from repro_torch import checkpoint as C
+
+    la, lb = C.read_leaves(a), C.read_leaves(b)
+    if [(x.dtype, x.shape) for x in la] != [(y.dtype, y.shape) for y in lb]:
+        raise AssertionError(f"{a} and {b} hold different leaves")
+    differ, max_abs, excess = 0, 0.0, None
+    for x, y in zip(la, lb):
+        if torch.equal(x, y):
+            continue
+        differ += 1
+        d = (x.double() - y.double()).abs()
+        max_abs = max(max_abs, float(d.max()))
+        if tol is not None:
+            over = float((d - tol["atol"] - tol["rtol"] * y.double().abs()).max())
+            excess = over if excess is None else max(excess, over)
+    return {"leaves": len(la), "differ": differ, "max_abs": max_abs, "excess": excess}
+
+
+def _filesystem(path):
+    """(mount point, type) of the filesystem that holds ``path``."""
+    best = ("?", "?")
+    try:
+        for line in Path("/proc/mounts").read_text().splitlines():
+            _, mnt, fstype = line.split()[:3]
+            if path.startswith(mnt) and len(mnt) >= len(best[0].replace("?", "")):
+                best = (mnt, fstype)
+    except OSError:
+        pass
+    return best
+
+
+def phase_checkpoints(train_launch, api_mod, cfg):
+    """Phase 21: (a) SmolLM-360M's kill, resume and straight runs through the
+    launcher in processes of their own, then the save, stall and restore
+    times of its state in this process; (b) the dp=2 and pipe=2 files of 2
+    f32 layers on ranks sharing the card, restored and continued in one
+    process."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as C
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.parallel.plan import ParallelPlan
+    from repro_torch.train import eval_train_state, init_train_state, place_state
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        mount, fstype = _filesystem(root)
+        out["temp_dir"] = {"free_bytes": shutil.disk_usage(root).free, "mount": mount,
+                           "fstype": fstype}
+        print(json.dumps({"checkpoints_temp_dir": out["temp_dir"]}), flush=True)
+        # (a) kill at step 4, resume, straight with background saves
+        base = ["--arch", cfg.name, "--batch", str(SMOL_B), "--seq", str(SMOL_T), "--steps",
+                str(CKPT_STEPS), "--ckpt-every", str(CKPT_EVERY), "--keep-last", "1"]
+        kill_dir, straight_dir = f"{root}/kill", f"{root}/straight"
+        # the straight run shares the card with the kill and resume runs
+        straight = _start_launcher(base + ["--ckpt-dir", straight_dir, "--background-save"])
+        try:
+            _, counts, _, kill_s = _launcher_result(_start_launcher(
+                base + ["--ckpt-dir", kill_dir, "--fault", f"kill@{CKPT_STEPS}"]), expect_rc=17)
+            left = [os.path.basename(f) for f in C.list_checkpoints(kill_dir)]
+            if counts is not None or left != [f"ckpt_{CKPT_EVERY:08d}.msgpack"]:
+                raise AssertionError(f"the killed run left {left} and counts {counts}")
+            text, res_launches, res_variants, resume_s = _launcher_result(_start_launcher(
+                base + ["--ckpt-dir", kill_dir, "--resume"]))
+        except BaseException:
+            straight[0].kill()
+            straight[0].wait()
+            raise
+        _, st_launches, st_variants, straight_s = _launcher_result(straight)
+        if (f"restored ckpt_{CKPT_EVERY:08d}" not in text
+                or f"resuming at step {CKPT_EVERY}" not in text):
+            raise AssertionError(f"the resumed run did not restore step {CKPT_EVERY}:\n"
+                                 f"{text[-2000:]}")
+        _check_flash_counts("the resumed run", cfg, res_launches, res_variants,
+                            CKPT_STEPS - CKPT_EVERY)
+        _check_flash_counts("the straight run", cfg, st_launches, st_variants, CKPT_STEPS)
+        final = f"ckpt_{CKPT_STEPS:08d}.msgpack"
+        same = _compare_files(f"{kill_dir}/{final}", f"{straight_dir}/{final}")
+        out["a"] = {"arch": cfg.name, "batch": SMOL_B, "seq": SMOL_T, "steps": CKPT_STEPS,
+                    "ckpt_every": CKPT_EVERY, "kill_rc": 17, "kill_wall_s": kill_s,
+                    "resume_wall_s": resume_s, "straight_wall_s": straight_s,
+                    "resume_vs_straight": same,
+                    "resume_launches": res_launches, "resume_variants": res_variants,
+                    "straight_launches": st_launches, "straight_variants": st_variants}
+        print(json.dumps({"checkpoints_a": out["a"]}), flush=True)
+        if same["differ"]:
+            raise AssertionError(f"the resumed run's step-{CKPT_STEPS} file differs from the "
+                                 f"straight run's: {same}")
+        shutil.rmtree(kill_dir)
+        shutil.rmtree(straight_dir)
+
+        # (a) the save, stall and restore of a SmolLM-360M state on the card
+        torch.cuda.empty_cache()
+        api = api_mod.build_model(cfg, device="cuda")
+        opt = adamw(warmup_cosine(3e-3, 20, CKPT_STEPS))
+        state = init_train_state(api, opt, 0)
+        leaves = tree_leaves(state.params) + tree_leaves(state.opt_state)
+        sync = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fname = C.save_checkpoint(f"{root}/sync", state, 1, timings=sync)
+        sync["total_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        C.save_checkpoint(f"{root}/bg", state, 2, background=True)
+        stall_s = time.perf_counter() - t0
+        C.wait_for_saves()
+        bg_s = time.perf_counter() - t0
+        shutil.rmtree(f"{root}/bg")
+        read_s = []
+
+        def place(s):       # the read (mmap, CRC, a host copy a leaf) ends here
+            read_s.append(time.perf_counter() - t0)
+            return place_state(s, api)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, got = C.restore_latest_valid(f"{root}/sync", eval_train_state(api, opt),
+                                               place)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = tree_leaves(restored.params) + tree_leaves(restored.opt_state)
+        if got != fname or restored.step != state.step or not all(
+                a.device.type == "cuda" and torch.equal(a, b) for a, b in zip(back, leaves)):
+            raise AssertionError("the restored SmolLM-360M state is not the saved one")
+        out["save"] = {"bytes": os.path.getsize(fname),
+                       "leaf_bytes": sum(t.numel() * t.element_size() for t in leaves) + 4,
+                       "params": sum(t.numel() for t in tree_leaves(state.params)),
+                       "sync_save": sync, "background_return_s": stall_s,
+                       "background_total_s": bg_s, "restore_s": restore_s,
+                       "restore_read_s": read_s[0], "restore_upload_s": restore_s - read_s[0],
+                       "note": "the restore reads a file written just before (page cache)"}
+        print(json.dumps({"checkpoints_save": out["save"]}), flush=True)
+        del state, restored, leaves, back
+        shutil.rmtree(f"{root}/sync")
+        torch.cuda.empty_cache()
+
+        # (b) dp=2 and pipe=2 files of 2 f32 layers restored in one process
+        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        api2 = api_mod.build_model(cfg2, device="cuda")
+        opt2 = adamw(warmup_cosine(3e-3, 20, CKPT_STEPS))
+        for spec in ("dp=2,mp=1", "pipe=2,micro=2,sched=1f1b"):
+            plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
+            plan = dataclasses.replace(plan, dp_axes=("data",))
+            stages = mp if plan.is_pipeline else 1
+            ranks_dir, one_dir = f"{root}/ranks", f"{root}/one"
+            run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=CKPT_STEPS, batch=SMOL_B,
+                                       seq=SMOL_T, lr=3e-3, ckpt_dir=ranks_dir,
+                                       ckpt_every=CKPT_EVERY)
+            train_launch.run_ranks(run, dp, stages, "cuda")
+            mid = f"{ranks_dir}/ckpt_{CKPT_EVERY:08d}.msgpack"
+            state = C.restore_checkpoint(mid, eval_train_state(api2, opt2),
+                                         lambda s: place_state(s, api2))
+            got = [t.cpu() for t in tree_leaves(state.params) + tree_leaves(state.opt_state)]
+            want = C.read_leaves(mid)
+            restore_same = (state.step == CKPT_EVERY and len(got) == len(want) - 1
+                            and all(torch.equal(a, b) for a, b in zip(got, want)))
+            del state, got, want
+            os.makedirs(one_dir)
+            shutil.copy(mid, one_dir)
+            one = dataclasses.replace(run, plan=ParallelPlan(), ckpt_dir=one_dir, resume=True)
+            summary = train_launch._train(None, one)
+            if summary["start_step"] != CKPT_EVERY or summary["steps"] != CKPT_STEPS:
+                raise AssertionError(f"{spec}: the one-process resume ran {summary['start_step']}"
+                                     f" -> {summary['steps']}")
+            del summary
+            cont = _compare_files(f"{one_dir}/ckpt_{CKPT_STEPS:08d}.msgpack",
+                                  f"{ranks_dir}/ckpt_{CKPT_STEPS:08d}.msgpack", ELASTIC_TOL)
+            rec = {"spec": spec, "ranks": dp * stages, "restore_bit_equal": restore_same,
+                   "continuation_vs_ranks": cont, "tol": ELASTIC_TOL}
+            out[f"b {spec}"] = rec
+            print(json.dumps({"checkpoints_b": rec}), flush=True)
+            if not restore_same or (cont["excess"] or 0.0) > 0:
+                raise AssertionError(f"{spec} -> one process: {rec}")
+            shutil.rmtree(ranks_dir)
+            shutil.rmtree(one_dir)
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_paths(runs, kernel):
+    return {f"train {runs['a']['arch']} --resume (process)": runs["a"]["resume_launches"][kernel],
+            f"train {runs['a']['arch']} --background-save (process)":
+                runs["a"]["straight_launches"][kernel]}
+
+
 def _by_path(paths, kernel):
     return {path: launches[kernel] for path, launches in paths.items()}
 
@@ -2455,7 +2721,10 @@ def main():
     _phase("20 tensor MP on ranks")
     tp_runs, _, _ = phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg)
 
-    _phase("21 result")
+    _phase("21 checkpoints and fault tolerance")
+    ckpt_runs = phase_checkpoints(train_launch, api_mod, get_config("smollm_360m"))
+
+    _phase("22 result")
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
@@ -2471,6 +2740,7 @@ def main():
                                         "train llama3_2_1b context ring of 2 (ranks)":
                                             context_run["launches"]["flash_attention"],
                                         **_tp_paths(tp_runs, "flash_attention"),
+                                        **_ckpt_paths(ckpt_runs, "flash_attention"),
                                         **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
@@ -2491,6 +2761,7 @@ def main():
                           "train llama3_2_1b context ring of 2 (ranks)":
                               context_run["launches"]["flash_attention_bwd"],
                           **_tp_paths(tp_runs, "flash_attention_bwd"),
+                          **_ckpt_paths(ckpt_runs, "flash_attention_bwd"),
                           **_by_path(paper_paths, "flash_attention_bwd")},
                       variant_launches_by_path={
                           "train llama3_2_1b": llama_variants["flash_attention_bwd"],

@@ -51,7 +51,29 @@ and kernel launches (``[ranks]``, each rank's stage, place on the ring or
 on the model axis).  Tensor MP of the LSTM family and RWKV raises
 NotImplementedError naming ROADMAP.md Queue 1 item 7b, of an MoE model item
 15, parameters sharded over DP (fsdp) item 5's remainder and
-``--pipe-runtime ad`` item 6b.  On the card
+``--pipe-runtime ad`` item 6b.
+
+Fault tolerance, as in JAX: ``--ckpt-dir``/``--ckpt-every`` write
+CRC-manifested checkpoints of the global state in JAX's v2 format
+(``--keep-last`` retention, ``--background-save`` off the step path) with a
+guaranteed final checkpoint; on ranks every rank gathers and rank 0 writes.
+``--resume`` restores the newest valid one and cuts this run's parts out of
+it, so a run saved at one plan resumes on another (``dp=2`` onto one
+process, pipeline stages onto one process); a bare ``--resume`` keeps the
+default plan and ``--parallel auto --resume`` re-runs the planner for
+``--devices`` or ``--max-local-devices``.  ``--fault`` injects a seeded
+failure schedule (``train.fault``; a ``kill`` exits 17, on ranks too),
+``--max-retries`` bounds in-place step retries, ``--max-restarts`` runs the
+loop under the checkpoint-restoring supervisor and ``--watchdog`` flags hung
+steps (start the kill run on an empty ``--ckpt-dir``: a resume restores the
+newest file it finds there):
+
+    python -m repro_torch.launch.train --arch llama3_2_1b --reduced --device cpu \
+        --steps 12 --ckpt-dir "$TMPDIR/ck" --ckpt-every 5 --fault kill@9  # exits 17
+    python -m repro_torch.launch.train --arch llama3_2_1b --reduced --device cpu \
+        --steps 12 --ckpt-dir "$TMPDIR/ck" --ckpt-every 5 --resume
+
+On the card
 BigLSTM and the dense decoder train; an MoE decoder needs the gmm backward
 kernel and RWKV a wkv backward.  On the CPU every decoder trains through
 the kernels' plain versions.  GNMT and Inception-V3 need source/target
@@ -63,12 +85,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import statistics
+import sys
 import time
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.checkpoint import restore_latest_valid, wait_for_saves
 from repro_torch.configs import get_config
 from repro_torch.core.planner import HybridPlanner, default_epoch_model
 from repro_torch.data import DataPipeline, make_lm_dataset
@@ -82,8 +107,10 @@ from repro_torch.models.transformer import cp_arch_supported
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.parallel import dist as D
 from repro_torch.parallel.plan import ParallelPlan
+from repro_torch.train.fault import FaultInjector, parse_fault_schedule, run_supervised
 from repro_torch.train.loop import LoopConfig, train_loop
-from repro_torch.train.steps import check_plan, init_train_state, make_train_step
+from repro_torch.train.steps import (check_plan, checkpoint_saver, eval_train_state,
+                                     init_train_state, make_train_step, place_state)
 from repro_torch.tree import tree_map
 
 SPEC_KEYS = ("dp", "mp", "accum", "pipe", "micro", "sched", "v", "cp")
@@ -219,6 +246,16 @@ class RankRun:
     device: str = "cuda"
     seed: int = 0
     return_params: bool = False
+    # checkpoints and faults (the JAX launcher's flags)
+    ckpt_dir: str = ""
+    ckpt_every: int = 100
+    keep_last: int = 0
+    background_save: bool = False
+    resume: bool = False
+    max_retries: int = 0
+    max_restarts: int = 0
+    watchdog: float = 0.0
+    fault: str = ""
 
 
 def _counter_fns():
@@ -255,7 +292,6 @@ def _train(mesh, run: RankRun) -> dict:
         print(f"[data] markov-lm entropy floor = {data.entropy:.4f} nats/token", flush=True)
     opt = adamw(warmup_cosine(run.lr, 20, run.steps))
     step_fn = make_train_step(api, opt, clip_norm=1.0, mesh=mesh, plan=run.plan)
-    state = init_train_state(api, opt, run.seed, mesh=mesh, plan=run.plan)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -277,8 +313,7 @@ def _train(mesh, run: RankRun) -> dict:
     pipeline = DataPipeline(lambda e: data.epoch(e, run.batch),
                             device=api.device if mesh is None else None,
                             steps_per_epoch=data.steps_per_epoch(run.batch))
-    summary = train_loop(timed_step, state, pipeline, LoopConfig(total_steps=run.steps),
-                         log_fn=print if lead else (lambda line: None))
+    summary = _loop(api, opt, mesh, run, timed_step, pipeline, lead)
     launches, variants = _launch_counts()
     own_launches = dict(launches)
     if mesh is not None:
@@ -290,8 +325,10 @@ def _train(mesh, run: RankRun) -> dict:
         launches = {n: summed[n] for n in launches}
         variants = {n: {v: summed[(n, v)] for v in vs} for n, vs in variants.items()}
     if lead:
+        flags = "".join(f" {k}={summary[k]}" for k in ("retries", "hangs", "restarts")
+                        if summary.get(k))
         print(f"[done] steps={summary['steps']} final_loss={summary['final_loss']:.4f} "
-              f"wall={summary['wall_s']:.1f}s (floor {data.entropy:.4f})")
+              f"wall={summary['wall_s']:.1f}s (floor {data.entropy:.4f}){flags}")
         _print_counts(launches, variants)
     summary.update(launches=launches, variants=variants, grad_norms=grad_norms,
                    step_ms=step_ms)
@@ -306,6 +343,64 @@ def _train(mesh, run: RankRun) -> dict:
     if run.return_params:
         out["params"] = tree_map(lambda t: t.detach().cpu(), final.params)
     return out
+
+
+def _loop(api, opt, mesh, run: RankRun, step_fn, pipeline, lead: bool) -> dict:
+    """The loop of ``_train`` with JAX's fault-tolerance wiring: the
+    injector around the step, the resume, the supervisor.  On ranks every
+    rank runs the same injector and loop; the saver gathers on every rank
+    and rank 0 writes, the ``after_save`` hook runs on rank 0 alone and a
+    barrier follows it, and the supervisor waits at a barrier before every
+    restore."""
+    log = print if lead else (lambda line: None)
+    cfg = LoopConfig(total_steps=run.steps,
+                     ckpt_every=run.ckpt_every if run.ckpt_dir else 0,
+                     ckpt_dir=run.ckpt_dir, keep_last=run.keep_last,
+                     background_save=run.background_save, max_retries=run.max_retries,
+                     watchdog_timeout_s=run.watchdog)
+    on_ckpt = save = sync = None
+    if run.fault:
+        injector = FaultInjector(parse_fault_schedule(run.fault), log_fn=log)
+        step_fn = injector.wrap_step(step_fn)
+        on_ckpt = injector.after_save
+    if mesh is not None:
+        save = checkpoint_saver(api, mesh, run.plan)
+        hook = on_ckpt
+
+        def sync():
+            wait_for_saves()
+            D.barrier(mesh)
+
+        if hook is not None:
+            def on_ckpt(fname, step):
+                if lead:
+                    hook(fname, step)
+                D.barrier(mesh)
+
+    def init():
+        return init_train_state(api, opt, run.seed, mesh=mesh, plan=run.plan)
+
+    def place(state):
+        return place_state(state, api, mesh, run.plan)
+
+    like = eval_train_state(api, opt) if run.ckpt_dir else None
+    state = None
+    if run.resume:
+        restored, fname = restore_latest_valid(run.ckpt_dir, like, place)
+        if restored is not None:
+            state = restored
+            dp, mp = (1, 1) if mesh is None else (mesh.shape["data"], mesh.shape["model"])
+            log(f"[resume] restored {os.path.basename(fname)} at step {state.step} "
+                f"onto {dp}-way DP x {mp}-way MP")
+        else:
+            log("[resume] no valid checkpoint found; starting fresh")
+    if run.max_restarts > 0:
+        del state
+        return run_supervised(step_fn, pipeline, cfg, init_fn=init, like=like, place=place,
+                              max_restarts=run.max_restarts, log_fn=log,
+                              on_checkpoint=on_ckpt, save=save, sync=sync)
+    return train_loop(step_fn, state if state is not None else init(), pipeline, cfg,
+                      log_fn=log, on_checkpoint=on_ckpt, save=save)
 
 
 def run_ranks(run: RankRun, dp: int, stages: int, device) -> dict:
@@ -366,13 +461,53 @@ def main(argv=None):
                          "plans; with an explicit spec, mp= is the ring size")
     ap.add_argument("--comm-chunks", type=int, default=None,
                     help="ring chunks per shard for --comm-runtime overlapped (default 1)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="checkpoint cadence in steps (with --ckpt-dir); a final "
+                         "checkpoint at loop exit is guaranteed either way")
+    ap.add_argument("--keep-last", type=int, default=0,
+                    help="retain only the N newest checkpoints (0 = all)")
+    ap.add_argument("--background-save", action="store_true",
+                    help="write checkpoints on a worker thread, off the step path "
+                         "(the device-to-host copy stays on it)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest VALID checkpoint under --ckpt-dir (corrupt "
+                         "files are skipped with a warning) and continue with exact data "
+                         "order; the file holds the global state, so a run saved at one "
+                         "plan resumes on another (elastic grow/shrink)")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="bounded in-place retries per failed step (exponential backoff)")
+    ap.add_argument("--max-restarts", type=int, default=0,
+                    help="> 0: run under the fault supervisor, which restarts a crashed "
+                         "attempt from the newest valid checkpoint up to N times")
+    ap.add_argument("--watchdog", type=float, default=0.0,
+                    help="> 0: flag (log + count) steps exceeding this many seconds")
+    ap.add_argument("--fault", default="",
+                    help="seeded fault-injection schedule, e.g. "
+                         "'fail@5x2,kill@7,corrupt@10:bitflip,stall@3:0.4' "
+                         "(see repro_torch.train.fault)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("[resume] --resume needs --ckpt-dir")
+    if args.fault:
+        parse_fault_schedule(args.fault)        # a bad schedule fails before any work
     auto = args.parallel == "auto"
-    plan, mp, dp_hint = parse_parallel(args.parallel, args.devices or DEFAULT_DEVICES,
+    budget = args.devices or DEFAULT_DEVICES
+    max_local = args.max_local_devices or (torch.cuda.device_count()
+                                           if torch.device(args.device).type == "cuda" else 8)
+    if auto and args.resume:
+        # elastic resume: the checkpoint holds the global state and each run
+        # cuts its own parts out of it, so the plan comes from the planner at
+        # the budget this run has (a bare --resume keeps the default plan, so
+        # a same-topology resume stays bit-reproducible)
+        budget = args.devices or max_local
+        print(f"[plan] --parallel auto with --resume: re-running the planner for the "
+              f"current {budget}-device budget")
+    plan, mp, dp_hint = parse_parallel(args.parallel, budget,
                                        cfg, comm_runtime=args.comm_runtime or "gspmd",
                                        context_parallel=args.context_parallel)
     # a tensor plan of an arch the port does not shard names its item first
@@ -423,8 +558,6 @@ def main(argv=None):
     check_plan(plan, mp, cfg)
     device = resolve_device(args.device)
     check_trainable(cfg, device)
-    max_local = args.max_local_devices or (torch.cuda.device_count()
-                                           if device.type == "cuda" else 8)
     if pipeline:
         if not pipeline_applicable(cfg, mp, plan.virtual_stages):
             raise SystemExit(
@@ -443,9 +576,18 @@ def main(argv=None):
     plan = dataclasses.replace(plan, dp_axes=("data",))
     print(f"[plan] {plan.describe({'data': dp, 'model': stages})} on {device}")
     run = RankRun(cfg=cfg, plan=plan, steps=args.steps, batch=args.batch, seq=args.seq,
-                  lr=args.lr, device=str(device))
+                  lr=args.lr, device=str(device), ckpt_dir=args.ckpt_dir,
+                  ckpt_every=args.ckpt_every, keep_last=args.keep_last,
+                  background_save=args.background_save, resume=args.resume,
+                  max_retries=args.max_retries, max_restarts=args.max_restarts,
+                  watchdog=args.watchdog, fault=args.fault)
     if dp * stages > 1:
-        return run_ranks(run, dp, stages, device)
+        try:
+            return run_ranks(run, dp, stages, device)
+        except D.RankExitError as e:     # an injected kill ends every rank
+            if e.exit_code <= 0:
+                raise
+            sys.exit(e.exit_code)
     return _train(None, run)
 
 if __name__ == "__main__":

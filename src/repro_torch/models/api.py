@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import inception as inc_mod
+from repro_torch.models import layers as L
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.parallel import collectives as CL
@@ -47,6 +48,13 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _generator(seed: int, device):
+    """(a seeded generator, the device) for an init on ``device``; the meta
+    device, which allocates nothing, draws from a CPU generator."""
+    d = torch.device(device)
+    return torch.Generator(device="cpu" if d.type == "meta" else d).manual_seed(seed), d
 
 
 def masked_nll_sum(logits, labels):
@@ -118,7 +126,7 @@ def tensor_mp_loss(logits, labels, cfg, pctx):
 class ModelApi:
     cfg: ModelConfig
     device: torch.device
-    init: Callable                    # seed -> params
+    init: Callable                    # (seed, device=None) -> params; "meta": no storage
     loss_fn: Callable                 # (params, batch, pctx) -> (loss, metrics)
     prefill: Optional[Callable]       # (params, batch, pctx, capacity, window) -> (logits, cache)
     decode_fn: Optional[Callable]     # (params, cache, batch, pctx, window) -> (logits, cache)
@@ -141,9 +149,9 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
         return _build_lstm(cfg, dev)
     tf_mod.check_supported(cfg)
 
-    def init(seed: int = 0):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return tf_mod.model_init(gen, cfg, device=dev)
+    def init(seed: int = 0, device=None):
+        gen, d = _generator(seed, device or dev)
+        return tf_mod.model_init(gen, cfg, device=d)
 
     def loss_fn(params, batch, pctx=None):
         fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
@@ -186,9 +194,9 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
 def _build_inception(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     reduced = inc_mod.is_reduced(cfg)
 
-    def init(seed: int = 0):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return inc_mod.inception_init(gen, cfg, reduced=reduced, device=dev)
+    def init(seed: int = 0, device=None):
+        gen, d = _generator(seed, device or dev)
+        return inc_mod.inception_init(gen, cfg, reduced=reduced, device=d)
 
     def loss_fn(params, batch, pctx=None):
         if pctx is not None and not pctx.is_tensor:
@@ -207,9 +215,9 @@ def _build_inception(cfg: ModelConfig, dev: torch.device) -> ModelApi:
 
 def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     if cfg.name == "gnmt":
-        def gnmt_init(seed: int = 0):
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            return lstm_mod.gnmt_init(gen, cfg, device=dev)
+        def gnmt_init(seed: int = 0, device=None):
+            gen, d = _generator(seed, device or dev)
+            return lstm_mod.gnmt_init(gen, cfg, device=d)
 
         def gnmt_loss(params, batch, pctx=None):
             logits = lstm_mod.gnmt_forward(cfg, params, batch)
@@ -218,9 +226,9 @@ def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
 
         return ModelApi(cfg, dev, gnmt_init, gnmt_loss, None, None)
 
-    def init(seed: int = 0):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return lstm_mod.biglstm_init(gen, cfg, device=dev)
+    def init(seed: int = 0, device=None):
+        gen, d = _generator(seed, device or dev)
+        return lstm_mod.biglstm_init(gen, cfg, device=d)
 
     def loss_fn(params, batch, pctx=None):
         logits = lstm_mod.biglstm_forward(cfg, params, batch, pctx=pctx)
@@ -230,7 +238,7 @@ def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     api = ModelApi(cfg, dev, init, loss_fn, None, None)
     dt = getattr(torch, cfg.dtype)
     _add_pipeline(api, "lstm", lstm_mod.biglstm_stage_fn(cfg),
-                  pre_fn=lambda op, tokens: op["embed"][tokens].to(dt),
+                  pre_fn=lambda op, tokens: L.embed_lookup(op["embed"], tokens).to(dt),
                   head_fn=lambda op, y: y @ op["head"].to(y.dtype),
                   pre_keys=("embed",), head_keys=("head",),
                   init_fn=lambda gen, keep: lstm_mod.biglstm_init(gen, cfg, device=dev,

@@ -36,6 +36,15 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *,
 # norms and RoPE
 # ---------------------------------------------------------------------------
 
+def embed_lookup(table, ids):
+    """The rows ``ids`` of ``table``.  Its backward adds each row's gradients
+    in one fixed order on the CPU and on CUDA, so two runs from the same
+    state are the same bits (a kill-and-resume equals a straight run);
+    indexing's backward (``index_put_`` with accumulate) on the CPU adds
+    them in an order that depends on its threads."""
+    return F.embedding(ids, table)
+
+
 def rms_norm(x, gamma, eps: float = 1e-5):
     """Computed in f32, returned in x's dtype."""
     x32 = x.float()

@@ -198,12 +198,12 @@ def gnmt_forward(cfg, params, batch):
     to it; the later decoder layers are residual; the head has no final
     norm.  The attention is plain ops, as JAX's ``einsum``s."""
     dt = getattr(torch, cfg.dtype)
-    x = params["src_embed"][batch["src"]].to(dt)
+    x = L.embed_lookup(params["src_embed"], batch["src"]).to(dt)
     for i, lp in enumerate(params["enc"]):
         y, _ = lstm_layer(lp, x)
         x = y if i == 0 else x + y
     enc_out = x                                              # (B, S, d)
-    tgt = params["tgt_embed"][batch["tgt"]].to(dt)
+    tgt = L.embed_lookup(params["tgt_embed"], batch["tgt"]).to(dt)
     y0, _ = lstm_layer(params["dec"][0], torch.cat([tgt, torch.zeros_like(tgt)], -1))
     q = y0 @ params["attn_q"].to(dt)
     scores = q @ enc_out.transpose(1, 2) / math.sqrt(cfg.d_model)
@@ -266,7 +266,7 @@ def biglstm_forward(cfg, params, batch, pctx=None):
     if pctx is not None:
         raise unported("a ParallelCtx (mesh execution)", TENSOR_MP)
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"][batch["tokens"]].to(dt)
+    x = L.embed_lookup(params["embed"], batch["tokens"]).to(dt)
     for lp in params["lstm"]:
         y, _ = lstm_layer(lp, x)
         x = x + y

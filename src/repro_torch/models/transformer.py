@@ -516,7 +516,7 @@ def _rwkv_block(cfg, p, x, cache):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens):
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    x = L.embed_lookup(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     return x * (cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0)
 
 
@@ -538,11 +538,11 @@ def _tp_embed(cfg, params, tokens, pctx):
     dt = getattr(torch, cfg.dtype)
     scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0
     if emb.shape[0] == cfg.vocab_padded:
-        return emb[tokens].to(dt) * scale, False
+        return L.embed_lookup(emb, tokens).to(dt) * scale, False
     n = emb.shape[0]
     local = tokens - _model_place(pctx)[0] * n
     mine = ((local >= 0) & (local < n))[..., None].to(dt)
-    return emb[local.clamp(0, n - 1)].to(dt) * mine * scale, True
+    return L.embed_lookup(emb, local.clamp(0, n - 1)).to(dt) * mine * scale, True
 
 
 def _tp_head(cfg, params, x, pctx, *, seq_sharded: bool):

@@ -28,8 +28,14 @@ never changed after (``choose_transport``):
 (``spawn``), meets them through a file in a new temporary directory (no TCP
 port: concurrent test workers would collide, and the card's machine has no
 network), calls ``fn(mesh, *args)`` in each and returns each rank's result.
-An exception in any rank fails the whole run with that rank's traceback; the
-groups carry a ``timeout`` so that no rank waits forever on a dead peer.
+An exception in any rank fails the whole run with that rank's traceback; a
+rank that exits without one (``os._exit``, as an injected ``kill`` fault
+does) fails it with ``RankExitError`` carrying the exit code.  The groups
+carry a ``timeout`` so that no rank waits forever on a dead peer.
+
+``gather_tree`` brings every rank's tree of an axis group to the group's
+first rank, and ``barrier`` waits for every rank: what a checkpoint of a
+run on ranks needs (``train.steps.checkpoint_saver``).
 """
 from __future__ import annotations
 
@@ -47,6 +53,14 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 900.0
+
+
+class RankExitError(RuntimeError):
+    """A rank's process ended with ``exit_code`` and no Python error."""
+
+    def __init__(self, rank: int, exit_code: int, world: int):
+        super().__init__(f"rank {rank} of {world} exited with code {exit_code}")
+        self.rank, self.exit_code = rank, exit_code
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,12 +245,14 @@ def all_gather(mesh: RankMesh, out: torch.Tensor, inp: torch.Tensor, axis: str):
 
 
 def exchange(mesh: RankMesh, sends: Sequence[Tuple[torch.Tensor, int, int]],
-             recvs: Sequence[Tuple[torch.Size, torch.dtype, int, int]]) -> List[torch.Tensor]:
+             recvs: Sequence[Tuple[torch.Size, torch.dtype, int, int]], *,
+             to_device: bool = True) -> List[torch.Tensor]:
     """One ``batch_isend_irecv`` of point-to-point messages: ``sends`` are
     (tensor, peer rank, tag), ``recvs`` (shape, dtype, peer rank, tag).
     Every op is posted before any is waited on, so two ranks that list each
     other's messages in the same order cannot deadlock.  Returns the
-    received tensors on this rank's device."""
+    received tensors on this rank's device (``to_device``) or where the
+    transport carried them."""
     if not sends and not recvs:
         return []
     ops, bufs = [], []
@@ -249,12 +265,47 @@ def exchange(mesh: RankMesh, sends: Sequence[Tuple[torch.Tensor, int, int]],
         ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return [b.to(mesh.device) for b in bufs]
+    return [b.to(mesh.device) for b in bufs] if to_device else bufs
+
+
+def barrier(mesh: RankMesh) -> None:
+    """Return once every rank has called it."""
+    all_reduce(mesh, torch.zeros(1, device=mesh.device))
+
+
+def gather_tree(mesh: RankMesh, tree, axis: str):
+    """Every rank of this rank's ``axis`` group sends its ``tree`` (nested
+    dicts, lists and tuples of tensors; the ranks' trees may differ) to the
+    group's first rank, which returns them in group order; the others
+    return None.  Only the ranks of one group call it together.  The
+    received leaves lie where the transport carries them: on the CPU for
+    gloo, on the rank's card for nccl."""
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    ranks = mesh.members(axis)
+    if len(ranks) == 1:
+        return [tree]
+    root = ranks[0]
+    leaves = tree_leaves(tree)
+    meta = (tree_map(lambda _: None, tree), [(tuple(t.shape), t.dtype) for t in leaves])
+    metas = [None] * len(ranks) if mesh.rank == root else None
+    dist.gather_object(meta, metas, dst=root, group=_group(mesh, axis))
+    if mesh.rank != root:
+        exchange(mesh, [(t, root, GATHER_TAG_BASE + i) for i, t in enumerate(leaves)], [])
+        return None
+    recvs = [(torch.Size(shape), dtype, peer, GATHER_TAG_BASE + i)
+             for peer, (_, specs) in zip(ranks[1:], metas[1:])
+             for i, (shape, dtype) in enumerate(specs)]
+    got = iter(exchange(mesh, [], recvs, to_device=False))
+    return [tree] + [tree_unflatten(skeleton, [next(got) for _ in specs])
+                     for skeleton, specs in metas[1:]]
 
 
 MESSAGE_PARTS, MESSAGE_HOPS = 4, 64
 # the tensor-MP rings' tags start here, above every context-ring tag
 TP_TAG_BASE = 1 << 22
+# gather_tree's messages: one tag a leaf, above every ring's
+GATHER_TAG_BASE = 1 << 30
 TP_OPS, TP_PHASES, TP_CHUNKS = 8, 3, 16
 
 
@@ -312,7 +363,8 @@ def spawn_ranks(fn: Callable, world: int, device="cpu", args: tuple = (), *,
     return their results in rank order.  ``fn`` and ``args`` are pickled (a
     module-level function); each result is saved by its rank and loaded
     here.  A rank that raises fails the call with a RuntimeError carrying
-    the traceback of the rank that failed first, and the others are
+    the traceback of the rank that failed first, a rank that exits without
+    an error with ``RankExitError`` (its exit code), and the others are
     stopped.  Rank 0 prints the transport (``Transport.describe``).
     ``threads`` caps each CPU rank's intra-op threads (default: the host's
     cores shared out, at least one)."""
@@ -336,6 +388,8 @@ def spawn_ranks(fn: Callable, world: int, device="cpu", args: tuple = (), *,
                 at, text = path.read_text().split("\n", 1)
                 failed.append((float(at), int(path.stem.split("_")[1]), text))
             if not failed:
+                if isinstance(e, torch.multiprocessing.ProcessExitedException):
+                    raise RankExitError(e.error_index, e.exit_code, world) from e
                 raise
             _, rank, text = min(failed)
             raise RuntimeError(f"rank {rank} of {world} failed first:\n{text}") from e

@@ -55,6 +55,13 @@ gradients are already whole; a tensor-MP rank sums its sharded leaves over
 ``model`` and counts the replicated ones once).  Tensor MP of an arch the
 port does not shard raises naming its item (``check_plan``), and
 parameters sharded over DP raise (item 5's remainder, fsdp).
+
+Checkpoints hold a state's global form, JAX's layout (``interop.
+param_shapes``: stacked (L, ...) decoder leaves, BigLSTM's list of layer
+dicts, an f32 ``m`` and ``v`` a parameter): ``eval_train_state`` is the
+``like`` tree of a restore, ``global_state`` gathers a run's state to its
+writing rank, ``place_state`` cuts a rank's part back out of a restored
+global state, and ``checkpoint_saver`` is the loop's saver on ranks.
 """
 from __future__ import annotations
 
@@ -72,7 +79,7 @@ from repro_torch.parallel import dist as D
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.collectives import (DEFAULT_BUCKET_BYTES, all_reduce_grads,
                                               bucketed_grad_sync)
-from repro_torch.parallel.pipeline import AD_RUNTIME
+from repro_torch.parallel.pipeline import AD_RUNTIME, stages_to_stack
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -150,6 +157,141 @@ def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0, *,
     else:
         params = api.init(seed)
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def eval_train_state(api: ModelApi, optimizer: Optimizer) -> TrainState:
+    """The global state's shapes and dtypes with no storage (meta tensors):
+    the ``like`` tree of ``checkpoint.restore_checkpoint``.  Its parameters
+    are the init's on the meta device, checked against
+    ``interop.param_shapes``, then ``optimizer.init`` of them, step 0."""
+    from repro_torch.interop import param_shapes
+
+    params = api.init(0, device="meta")
+    shapes = tree_map(lambda t: tuple(t.shape), params)
+    if shapes != _shape_leaves(param_shapes(api.cfg)):
+        raise ValueError(f"{api.cfg.name}: the init's parameter tree differs from "
+                         f"interop.param_shapes (the checkpoint layout)")
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def _shape_leaves(shapes):
+    """``interop.param_shapes``' tree with the shape tuples as leaves."""
+    if isinstance(shapes, dict):
+        return {k: _shape_leaves(v) for k, v in sorted(shapes.items())}
+    if isinstance(shapes, list):
+        return [_shape_leaves(v) for v in shapes]
+    return tuple(shapes)
+
+
+def _state_trees(state: TrainState) -> dict:
+    """The parameter-shaped trees of a state: the parameters and each entry
+    of the optimizer state (AdamW's ``m`` and ``v``, momentum's ``m``)."""
+    opt = state.opt_state
+    if opt in ((), None):
+        return {"params": state.params}
+    if not isinstance(opt, dict):
+        raise ValueError(f"a checkpoint on ranks needs a dict optimizer state, got "
+                         f"{type(opt).__name__}")
+    return {"params": state.params, **{f"opt/{k}": v for k, v in opt.items()}}
+
+
+def _from_trees(trees: dict, state: TrainState) -> TrainState:
+    """``state`` with the trees of ``_state_trees`` replaced by ``trees``."""
+    opt = state.opt_state
+    if isinstance(opt, dict):
+        opt = {k: trees[f"opt/{k}"] for k in opt}
+    return TrainState(params=trees["params"], opt_state=opt, step=state.step)
+
+
+def _stages_to_global(parts, cfg, n_stages: int, v: int):
+    """The global tree from every stage's part (in stage order): the stage
+    leaves stacked (S, v, Lc, ...) and reassembled as (L, ...), BigLSTM's
+    back into one dict a layer; the embedding from the first stage (a tied
+    one is on the last too, the same bits), the head from the last."""
+    key = "lstm" if cfg.family == "rnn" else "layers"
+    out = {}
+    for part in parts:
+        for k, t in part.items():
+            if k != key and k not in out:
+                out[k] = t
+    stacked = stages_to_stack(tree_map(lambda *ls: torch.stack(ls), parts[0][key],
+                                       *(p[key] for p in parts[1:])), n_stages, v)
+    if key == "lstm":
+        stacked = [tree_map(lambda t, i=i: t[i], stacked) for i in range(cfg.n_layers)]
+    out[key] = stacked
+    return {k: out[k] for k in sorted(out)}
+
+
+def global_state(state: TrainState, api: ModelApi, mesh, plan):
+    """The whole state in JAX's layout on the writing rank (rank 0; on the
+    host where it was gathered), None on every other rank.  Every rank calls
+    it at the same step: the gathers are collectives.  DP and context ranks
+    hold replicas (rank 0's is the state); a tensor-MP rank's parts are
+    gathered over the model group of the first replica
+    (``sharding.gather_params``); a pipeline stage's are sent to rank 0 and
+    reassembled (``pipeline.stages_to_stack``).  In one process (``mesh``
+    None) it is the state itself."""
+    if mesh is None:
+        return state
+    if plan is not None:
+        check_plan(plan, mesh.shape["model"], api.cfg)
+    pipelined, tensor = _pipelined(plan, mesh), is_tensor_ctx(_make_pctx(mesh, plan))
+    if not (pipelined or tensor):
+        return state if mesh.rank == 0 else None
+    if mesh.data_index != 0:
+        return None
+    trees = _state_trees(state)
+    parts = D.gather_tree(mesh, trees, "model")
+    if parts is None:
+        return None
+    # the peers' parts arrive where the transport carries them: assemble on
+    # the host, where the writer reads every leaf anyway
+    parts = [tree_map(lambda t: t.detach().cpu(), p) for p in parts]
+    if pipelined:
+        whole = {k: _stages_to_global([p[k] for p in parts], api.cfg, mesh.shape["model"],
+                                      max(plan.virtual_stages, 1)) for k in trees}
+    else:
+        rules = _tensor_rules(api.cfg, mesh, plan)
+        specs = SH.param_specs(api.cfg, rules)
+        whole = {k: SH.gather_params([p[k] for p in parts], rules, specs) for k in trees}
+    return _from_trees(whole, state)
+
+
+def place_state(state: TrainState, api: ModelApi, mesh=None, plan=None) -> TrainState:
+    """This rank's part of a global state on its device, cut as
+    ``init_train_state`` cuts the init: a pipeline stage's pieces
+    (``api.pipeline_stage_params``), a tensor-MP rank's slices
+    (``sharding.shard_params``), or the whole tree (one process, DP and
+    context ranks).  Cuts are made on the host, then moved."""
+    device = api.device if mesh is None else mesh.device
+    trees = _state_trees(state)
+    if _pipelined(plan, mesh):
+        s, v = mesh.shape["model"], plan.virtual_stages
+        trees = {k: api.pipeline_stage_params(t, s, v, mesh.model_index)
+                 for k, t in trees.items()}
+    elif is_tensor_ctx(_make_pctx(mesh, plan)):
+        rules = _tensor_rules(api.cfg, mesh, plan)
+        trees = {k: SH.shard_params(t, rules, mesh.model_index) for k, t in trees.items()}
+    trees = tree_map(lambda t: t.to(device), trees)
+    return _from_trees(trees, state)
+
+
+def checkpoint_saver(api: ModelApi, mesh, plan):
+    """The loop's ``save`` on ranks: every rank gathers (``global_state``),
+    rank 0 writes (or, in the background, starts to), then every rank waits
+    at a barrier, so that after a sync save no rank reads the directory
+    before the file is whole.  Returns the file name on every rank."""
+    from repro_torch.checkpoint import checkpoint_path, save_checkpoint
+
+    def save(path, state, step, *, keep_last=0, background=False):
+        whole = global_state(state, api, mesh, plan)
+        if mesh.rank == 0:
+            save_checkpoint(path, whole, step, keep_last=keep_last, background=background)
+        del whole
+        D.barrier(mesh)
+        return checkpoint_path(path, step)
+
+    return save
 
 
 def _dp_shard(batch, mesh):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither ``jax`` nor anything of the JAX
-package ``repro`` nor ``networkx`` (which the card's machine lacks), and its
-entry points never fall back from CUDA to the CPU."""
+package ``repro`` nor ``networkx`` or ``msgpack`` (which the card's machine
+lacks), and its entry points never fall back from CUDA to the CPU."""
 import ast
 import os
 import pathlib
@@ -25,6 +25,7 @@ def test_every_module_imports_with_jax_blocked():
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "sys.modules['networkx'] = None\n"
+            "sys.modules['msgpack'] = None\n"
             f"for m in {_module_names()!r}:\n"
             "    importlib.import_module(m)\n"
             "print('ok', len(sys.modules))\n")
@@ -47,7 +48,7 @@ def test_no_jax_or_repro_import(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "networkx"), \
+            assert top not in ("jax", "jaxlib", "repro", "networkx", "msgpack"), \
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {n}"
 
 

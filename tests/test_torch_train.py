@@ -265,13 +265,6 @@ def test_loop_does_not_retry_a_step_that_failed_in_the_update():
                    LoopConfig(total_steps=3, max_retries=3, retry_backoff_s=0.0))
 
 
-@pytest.mark.parametrize("kw", [{"ckpt_dir": "ck"}, {"watchdog_timeout_s": 1.0}])
-def test_loop_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        train_loop(None, TrainState({}, (), 0), _toy_pipeline(),
-                   LoopConfig(total_steps=1, **kw))
-
-
 def test_train_step_refuses_multi_device_arguments(biglstm):
     """What of a multi-device step is not ported raises naming its ROADMAP
     item: a caller's ParallelCtx and a tensor-MP plan over BigLSTM (item 7b:
