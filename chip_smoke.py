@@ -39,6 +39,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    in phase 20 (a) (B 4, T 2048, H 16/4: Llama's 32/8 heads over 2 ranks,
    hd 64, bf16, causal), each timed against its plain version, its bound
    and SDPA's call;
+   flash attention with per-row key lengths (``kv_lens``) at phase 22's
+   shapes, bf16 and f32, window 0 and 256: the decode tick (B 8, Tq 1,
+   capacity 1064, H 32/8, hd 64, lengths 1, 63, 64, 65, 1063, 1064 and two
+   seeded ones, so some split runs lie wholly past a row's length) and a
+   prefill chunk (B 1, Tq 256 at pos 0, 256 and 768, causal), each timed
+   against its plain version, the bound of the keys the rows keep and SDPA
+   with the same boolean ``attn_mask``; and one row's output the same bits
+   whatever the other rows' lengths;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
    8192; also at the pipeline's micro-batch rows B 4 and B 1), at GNMT's
@@ -208,7 +216,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    stage gather gives JAX's layout), and one process resumed from it to
    step 4 ends within JAX's elastic tolerance (rtol 2e-4, atol 1e-5) of
    the ranks' step-4 file;
-22. print one JSON line of kernels, then the device line.
+22. continuous batching: (a) full-width, full-depth Llama-3.2-1B through
+   ``serve.continuous.ContinuousEngine`` (8 slots of 1064 positions,
+   prefill chunks of 256, 16 greedy requests with seeded prompt lengths in
+   64-1024 and 32 new tokens each) with the counters set to 0 just before
+   and read just after (16 flash launches a decode tick, all ``tc_decode``,
+   and 16 a prefill chunk, all ``tc_prefill`` but for a chunk of at most 4
+   tokens, which the decode tile takes), tok/s, ms a tick, the median time
+   to first token, peak GiB and one tick's profile; 4 of the requests,
+   each served alone in an engine of the same shape, give the same tokens
+   and logprobs bit for bit; (b) ``python -m repro_torch.launch.serve
+   --continuous --slots 4 --prefill-chunk 128 --batch 8 --prompt-len 512
+   --max-new 32`` in a process of its own exits 0 with 16 flash launches a
+   tick and a chunk; (c) 2 full-width layers in f32, vocab 32768: a slot
+   decode tick at mixed positions, a prefill chunk at pos 256, a ragged
+   ``prompt_lens`` generate (the same greedy tokens) and a window-64 ring
+   decode over a 200-token prompt on the card against the plain path on
+   the CPU, logits within 1e-3 (phase 5's limit);
+23. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -234,6 +259,10 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 L2_BYTES = 50e6
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# kv_lens rows: each (row, query, head) output vector's max error against
+# that vector's max |ref| (bf16 rounding is 2**-8 of it; a lost or extra
+# 64-key tile at the end of a 1000-key row moves it by about a quarter)
+KV_VEC_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BATCH, PROMPT, NEW = 4, 512, 32
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
 AUTO_STEPS = 2                                  # BigLSTM steps through --parallel auto
@@ -303,6 +332,11 @@ WKV_EDGE = [(1, 1, 1, 32), (2, 7, 3, 64), (2, 130, 2, 32), (1, 33, 2, 64), (1, 7
 # T, decays and dtype of the long-prompt rows (B 1, H 2, hd 64, from a state)
 WKV_LONG = [(2048, "near1", torch.bfloat16), (8192, "near1", torch.float32),
             (2048, "strong", torch.bfloat16)]
+# the continuous engine's cell (phase 22): slots, capacity (the longest
+# prompt, 1024, + 32 new + 8), prefill chunk, requests, prompt lengths, new
+# tokens a request, and the requests also served alone
+CONT_SLOTS, CONT_CAP, CONT_CHUNK = 8, 1064, 256
+CONT_REQUESTS, CONT_PROMPTS, CONT_NEW, CONT_SOLO = 16, (64, 1024), 32, 4
 # kernels a decode step on PR 14's tree (PERF.md section 5): Llama and
 # Granite the same in four profiles of one step, RWKV the most a PR 14
 # profile saw.  A single profile may see fewer: torch.profiler drops events
@@ -470,6 +504,131 @@ def phase_kernels(fa):
             fa, f"B{b} Tq{tq} Tk{tk} H{h}/{hkv} hd{hd} causal={causal} window={window}",
             rnd(b, tq, h, hd, dtype=dt), rnd(b, tk, hkv, hd, dtype=dt),
             rnd(b, tk, hkv, hd, dtype=dt), causal=causal, window=window))
+    return rows
+
+
+def kv_lens_bound_ms(q, k, keep):
+    """Least time on the card for attention with per-row key lengths: q read
+    and o written once, and of K and V only the keys some query of the row
+    keeps (``keep`` (B, Tq, Tk)), against 4*hd FLOPs a kept (query, key)
+    pair and query head."""
+    b, tq, h, hd = q.shape
+    hkv = k.shape[2]
+    keys = int(keep.any(1).sum())                     # keys read, summed over the rows
+    nbytes = (2 * q.numel() + 2 * keys * hkv * hd) * q.element_size()
+    flops = 4.0 * h * int(keep.sum()) * hd
+    return bound_ms(nbytes, flops, q.dtype)
+
+
+def vec_rel_err(out, ref):
+    """The largest error of an output vector (one row, query and head) over
+    that vector's max |ref|."""
+    ref = ref.float()
+    return float(((out.float() - ref).abs().amax(-1)
+                  / ref.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def check_kv_lens(fa, case, q, k, v, kv_lens, *, causal, window=0, timed=True):
+    """The kernel with per-row key lengths against its plain version, each
+    row naming the variant it launched: the max abs error within ``TOL`` and
+    each output vector's within ``KV_VEC_TOL`` of its own size.  For a
+    decode tick (Tq 1) the row also shows that the vector check would
+    reject the loss of the last 64-key tile of every row of 128 keys or
+    more (``tile_loss_min_rel``: the least, over those rows, of the plain
+    version's move).  Timed against the plain version, the bound of the
+    keys the rows keep and SDPA with the same boolean ``attn_mask`` (a
+    yardstick the port never calls)."""
+    call = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,  # noqa: E731
+                                      kv_lens=kv_lens)
+    out, variant = launched_variant(fa.flash_attention, call)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+    err = float((out.float() - ref.float()).abs().max())
+    tol, vec_tol = TOL[q.dtype], KV_VEC_TOL[q.dtype]
+    vec_err = vec_rel_err(out, ref)
+    row = {"shape": case, "dtype": str(q.dtype).removeprefix("torch."), "variant": variant,
+           "kv_lens": kv_lens.tolist(), "max_abs_err": err, "tol": tol,
+           "vec_rel_err": vec_err, "vec_tol": vec_tol}
+    if q.shape[1] == 1:
+        long_rows = kv_lens >= 128
+        lost = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      kv_lens=torch.where(long_rows, kv_lens - 64, kv_lens))
+        row["tile_loss_min_rel"] = min(vec_rel_err(lost[b], ref[b])
+                                       for b in long_rows.nonzero()[:, 0].tolist())
+        if not row["tile_loss_min_rel"] > vec_tol:
+            raise AssertionError(f"flash_attention {case}: the vector check would pass a "
+                                 f"lost tile ({row['tile_loss_min_rel']} <= {vec_tol})")
+    if variant != fa.flash_variant(q, k, v):
+        raise AssertionError(f"flash_attention {case}: launched {variant}, "
+                             f"flash_variant says {fa.flash_variant(q, k, v)}")
+    if not err < tol or not vec_err < vec_tol or not torch.isfinite(out).all():
+        raise AssertionError(f"flash_attention {case}: max abs err {err} (tol {tol}), "
+                             f"vector rel err {vec_err} (tol {vec_tol})")
+    if timed:
+        from repro_torch.kernels.ref import keep_mask
+        keep = keep_mask(q.shape[1], k.shape[1], causal, window, q.device, kv_lens)
+        time_into(row, "ms", call)
+        time_into(row, "plain_ms", lambda: fa.flash_attention_ref(
+            q, k, v, causal=causal, window=window, kv_lens=kv_lens))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        time_into(row, "library_ms", lambda: sdpa(qt, kt, vt, attn_mask=keep[:, None],
+                                                   enable_gqa=True))
+        row["bound_ms"], row["bound_by"] = kv_lens_bound_ms(q, k, keep)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_kv_lens(fa):
+    """Flash attention with per-row key lengths at the continuous engine's
+    shapes (full-width Llama-3.2-1B, H 32/8, hd 64, capacity CONT_CAP), bf16
+    and f32: the decode tick (B CONT_SLOTS, Tq 1; lengths that leave the
+    split runs past a row's length empty, and long rows one key off a tile
+    boundary) and a prefill chunk (B 1, Tq CONT_CHUNK at pos 0, 256, 768 and
+    769), window 0 and 256; then one row's output bits against the other
+    rows' lengths."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    lens_gen = torch.Generator().manual_seed(25)
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # 1 and 63-65 fill only the first of the split's runs; 1063 and 1064 the
+    # last tile; two seeded lengths between
+    tick_lens = [1, 63, 64, 65, 1063, 1064] + torch.randint(
+        2, CONT_CAP, (CONT_SLOTS - 6,), generator=lens_gen).tolist()
+    # long rows one key either side of a tile boundary
+    off_by_one = [1023, 1025, 959, 961, 1, 129, 127, 640]
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        k, v = rnd(CONT_SLOTS, CONT_CAP, 8, 64, dtype=dt), rnd(CONT_SLOTS, CONT_CAP, 8, 64, dtype=dt)
+        q = rnd(CONT_SLOTS, 1, 32, 64, dtype=dt)
+        for lens_list in (tick_lens, off_by_one):
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            for window in (0, 256):
+                rows.append(check_kv_lens(
+                    fa, f"tick B{CONT_SLOTS} Tq1 cap{CONT_CAP} H32/8 hd64 window={window}",
+                    q, k, v, lens, causal=True, window=window))
+        qc = rnd(1, CONT_CHUNK, 32, 64, dtype=dt)
+        for pos in (0, 256, 768, 769):
+            lens = torch.tensor([pos + CONT_CHUNK], dtype=torch.int32, device=dev)
+            for window in (0, 256):
+                rows.append(check_kv_lens(
+                    fa, f"chunk B1 Tq{CONT_CHUNK} pos{pos} cap{CONT_CAP} H32/8 hd64 causal "
+                        f"window={window}", qc, k[:1], v[:1], lens, causal=True, window=window))
+        # row 0's bits do not hang on the other rows' lengths (the split is
+        # planned from the capacity)
+        outs = [fa.flash_attention(q, k, v, causal=True, kv_lens=torch.tensor(
+                    [700] + rest, dtype=torch.int32, device=dev))[0]
+                for rest in ([1] * 7, [1064] * 7, tick_lens[1:])]
+        same = all(torch.equal(o, outs[0]) for o in outs[1:])
+        print(json.dumps({"check": "kv_lens row bits independent of other rows",
+                          "dtype": str(dt).removeprefix("torch."), "same_bits": same}),
+              flush=True)
+        if not same:
+            raise AssertionError(f"flash_attention kv_lens ({dt}): row 0's output changed "
+                                 f"with the other rows' lengths")
     return rows
 
 
@@ -2583,6 +2742,233 @@ def phase_checkpoints(train_launch, api_mod, cfg):
     return out
 
 
+def _start_serve_launcher(args):
+    """``python -m repro_torch.launch.serve`` started in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return (subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env), args, time.perf_counter())
+
+
+def _chunks(n, chunk):
+    """The prefill chunks of an n-token prompt."""
+    return [chunk] * (n // chunk) + ([n % chunk] if n % chunk else [])
+
+
+def _want_cont_variants(cfg, ticks, chunk_sizes, variants):
+    """Flash launches of a continuous run: L a decode tick on the decode
+    tile, L a prefill chunk on the prefill tile, except a chunk so short
+    that (H / Hkv) t query rows fit the decode tile's 16."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    small = sum(1 for t in chunk_sizes if rep * t <= 16)
+    want = dict.fromkeys(variants, 0)
+    want.update(tc_decode=cfg.n_layers * (ticks + small),
+                tc_prefill=cfg.n_layers * (len(chunk_sizes) - small))
+    return want
+
+
+def _cont_requests(cont_mod, cfg, n, seed):
+    """n greedy requests of CONT_NEW tokens, their prompt lengths drawn in
+    CONT_PROMPTS and their tokens from the vocabulary, from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(CONT_PROMPTS[0], CONT_PROMPTS[1] + 1, (n,), generator=gen).tolist()
+    return [cont_mod.Request(rid=i, tokens=torch.randint(0, cfg.vocab_size, (m,),
+                                                         generator=gen).tolist(),
+                             max_new_tokens=CONT_NEW) for i, m in enumerate(lens)]
+
+
+def phase_continuous(counters, api_mod, cont_mod, engine_mod, cfg):
+    """(a) Full-width, full-depth Llama-3.2-1B through ``ContinuousEngine``
+    (CONT_SLOTS slots of CONT_CAP, chunks of CONT_CHUNK, CONT_REQUESTS
+    greedy requests): launches counted from 0, tok/s, ms a tick, median
+    time to first token, peak GiB, one tick's profile; CONT_SOLO of the
+    requests served alone in an engine of the same shape, the same tokens
+    and logprobs bit for bit.  (b) The launcher's ``--continuous`` run in a
+    process of its own (started during the solo runs).  (c) 2 full-width
+    layers in f32, vocab 32768: a slot decode tick at mixed positions, a
+    prefill chunk at pos 256, a ragged ``prompt_lens`` generate and a
+    window-64 ring decode over a 200-token prompt, each on the card against
+    the plain path on the CPU from the same weights, logits within 1e-3."""
+    fa_fn = counters["flash_attention"]
+    api = api_mod.build_model(cfg, device="cuda")
+    params = api.init(0)
+    reqs = _cont_requests(cont_mod, cfg, CONT_REQUESTS, seed=25)
+    chunk_sizes = [t for r in reqs for t in _chunks(len(r.tokens), CONT_CHUNK)]
+
+    def engine():
+        return cont_mod.ContinuousEngine(api, params, n_slots=CONT_SLOTS, capacity=CONT_CAP,
+                                         prefill_chunk=CONT_CHUNK)
+
+    warm = engine()                    # the first calls pay cuBLAS's and the build's set-up
+    warm.run(_cont_requests(cont_mod, cfg, 2, seed=26))
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    variants = variant_launches(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_variants = _want_cont_variants(cfg, eng.decode_ticks, chunk_sizes,
+                                        variants["flash_attention"])
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["flash_attention"] = sum(want_variants.values())
+    if eng.prefill_chunks != len(chunk_sizes) or launches != want_launches or \
+            variants["flash_attention"] != want_variants:
+        raise AssertionError(f"continuous run: {eng.prefill_chunks} chunks ({len(chunk_sizes)} "
+                             f"planned), launched {launches} {variants}, want {want_launches} "
+                             f"flash {want_variants}")
+    bad = [r.rid for r in results if len(r.tokens) != CONT_NEW or r.finished_reason != "length"
+           or not all(math.isfinite(x) for x in r.logprobs)
+           or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    if bad or len(results) != CONT_REQUESTS:
+        raise AssertionError(f"continuous run: bad results for requests {bad}")
+    toks = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.first_token_s for r in results)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "slots": CONT_SLOTS, "capacity": CONT_CAP,
+           "prefill_chunk": CONT_CHUNK, "requests": CONT_REQUESTS, "new": CONT_NEW,
+           "prompt_lens": [len(r.tokens) for r in reqs], "wall_s": wall_s,
+           "tok_per_s": toks / wall_s, "steps": eng.ticks, "decode_ticks": eng.decode_ticks,
+           "prefill_chunks": eng.prefill_chunks,
+           "ms_per_tick": eng.tick_ms_sum / eng.decode_ticks,
+           "tick_ms_min_max": [eng.tick_ms_min, eng.tick_ms_max],
+           "median_ttft_s": ttft[len(ttft) // 2], "ttft_s_min_max": [ttft[0], ttft[-1]],
+           "peak_mem_gib": peak, "launches": launches, "variant_launches": variants}
+    print(json.dumps(out), flush=True)
+
+    # one tick at mid-run positions (the first slots' prompts plus 16 tokens)
+    with torch.inference_mode():
+        cache = eng.cache
+        cache["pos"] = torch.tensor([len(r.tokens) + 16 for r in reqs[:CONT_SLOTS]],
+                                    dtype=torch.int32, device="cuda")
+        tokens = torch.ones(CONT_SLOTS, dtype=torch.long, device="cuda")
+        active = torch.ones(CONT_SLOTS, dtype=torch.bool, device="cuda")
+        profile_call("continuous decode tick",
+                     lambda: eng._decode_tick(params, cache, tokens, active, None))
+    del eng, cache
+
+    # (b) starts now, beside the solo runs
+    cli = _start_serve_launcher(["--arch", "llama3_2_1b", "--continuous", "--slots", "4",
+                                 "--prefill-chunk", "128", "--batch", "8", "--prompt-len",
+                                 "512", "--max-new", "32"])
+    try:
+        by_rid = {r.rid: r for r in results}
+        solo_rids = torch.randperm(CONT_REQUESTS, generator=torch.Generator().manual_seed(27))[
+            :CONT_SOLO].tolist()
+        for rid in solo_rids:
+            alone = engine().run([reqs[rid]])[0]
+            same = (alone.tokens == by_rid[rid].tokens and alone.logprobs == by_rid[rid].logprobs)
+            print(json.dumps({"check": "request alone == in the 16-request run", "rid": rid,
+                              "prompt_len": len(reqs[rid].tokens), "same_bits": same}),
+                  flush=True)
+            if not same:
+                raise AssertionError(f"request {rid} alone gave {alone.tokens} "
+                                     f"{alone.logprobs}, in the run {by_rid[rid].tokens} "
+                                     f"{by_rid[rid].logprobs}")
+        del params, api
+        torch.cuda.empty_cache()
+        phase_continuous_vs_plain(api_mod, engine_mod, cfg)
+    finally:
+        proc, args, t_cli = cli
+        try:
+            cli_out, cli_err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_wall = time.perf_counter() - t_cli
+    if proc.returncode != 0:
+        raise AssertionError(f"serve launcher {args} exited {proc.returncode}:\n"
+                             f"{cli_out[-3000:]}\n{cli_err[-3000:]}")
+    line = next(x for x in cli_out.splitlines() if x.startswith("[serve] continuous"))
+    kernels_line = next(x for x in cli_out.splitlines() if x.startswith("[kernels] "))
+    cli_launches = {k: int(v) for k, v in (w.split("=") for w in kernels_line.split()[1:])}
+    fields = dict(w.split("=") for w in line.split() if "=" in w)
+    want = cfg.n_layers * (int(fields["decode_ticks"]) + int(fields["prefill_chunks"]))
+    print(json.dumps({"launcher": "serve --continuous", "wall_s": cli_wall, "line": line,
+                      "launches": cli_launches}), flush=True)
+    if cli_launches["flash_attention"] != want or "256 tokens" not in line:
+        raise AssertionError(f"the continuous launcher printed {line!r} {cli_launches}, "
+                             f"want {want} flash launches and 256 tokens")
+    return launches, variants
+
+
+def phase_continuous_vs_plain(api_mod, engine_mod, cfg):
+    """Phase 22 (c): slot mode, the chunked-prefill extend step, a ragged
+    batch and the window ring on the card against the plain path on the
+    CPU, 2 full-width layers in f32, vocab 32768, from the same seeded
+    weights; logits (and the ragged generate's logprobs) within 1e-3, its
+    greedy tokens equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32", vocab_size=32768)
+    gpu, cpu = (api_mod.build_model(cfg2, device=d) for d in ("cuda", "cpu"))
+    params = gpu.init(3)
+    params_cpu = _tree_to(params, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    gaps = {}
+
+    def gap(name, a, b):
+        gaps[name] = max(gaps.get(name, 0.0), float((a.float().cpu() - b.float()).abs().max()))
+
+    with torch.inference_mode():
+        # a decode tick at mixed positions: 4 rows prefilled, then each at its own pos
+        tokens = torch.randint(0, cfg2.vocab_size, (4, 200), generator=gen)
+        caches = [api.prefill(p, {"tokens": tokens.to(api.device)}, capacity=264)[1]
+                  for api, p in ((gpu, params), (cpu, params_cpu))]
+        lens = torch.tensor([200, 77, 130, 5], dtype=torch.int32)
+        step = torch.randint(0, cfg2.vocab_size, (4, 1), generator=gen)
+        out = []
+        for api, p, c in zip((gpu, cpu), (params, params_cpu), caches):
+            c["pos"] = lens.to(api.device)
+            for _ in range(2):
+                lg, c = api.decode_fn(p, c, {"tokens": step.to(api.device)})
+            out.append(lg)
+        gap("slot decode tick", *out)
+        # a prefill chunk at pos 256 of a slot (after one at pos 0)
+        chunk = torch.randint(0, cfg2.vocab_size, (1, 512), generator=gen)
+        out = []
+        for api, p in ((gpu, params), (cpu, params_cpu)):
+            sc = api_mod.make_slot_cache(cfg2, 2, 520, device=api.device)
+            sl = api_mod.cache_extract_slot(sc, 1)
+            _, sl = api.decode_fn(p, sl, {"tokens": chunk[:, :256].to(api.device)})
+            api_mod.cache_insert_slot(sc, sl, 1)
+            lg, sl = api.decode_fn(p, api_mod.cache_extract_slot(sc, 1),
+                                   {"tokens": chunk[:, 256:].to(api.device)})
+            out.append(lg)
+        gap("prefill chunk at pos 256", *out)
+        # a ragged batch through the static engine
+        ragged = torch.randint(0, cfg2.vocab_size, (4, 64), generator=gen)
+        res = [engine_mod.ServeEngine(api, p).generate(
+                   {"tokens": ragged.to(api.device)}, max_new_tokens=4,
+                   prompt_lens=[64, 17, 40, 33])
+               for api, p in ((gpu, params), (cpu, params_cpu))]
+        gap("ragged generate logprobs", res[0].logprobs, res[1].logprobs)
+        same_tokens = torch.equal(res[0].tokens.cpu(), res[1].tokens)
+        # the window-64 ring over a 200-token prompt, then 3 decode steps
+        ring_steps = torch.randint(0, cfg2.vocab_size, (3, 2, 1), generator=gen)
+        out = []
+        for api, p in ((gpu, params), (cpu, params_cpu)):
+            lg0, c = api.prefill(p, {"tokens": tokens[:2].to(api.device)}, window=64)
+            lgs = [lg0]
+            for nxt in ring_steps:
+                lg, c = api.decode_fn(p, c, {"tokens": nxt.to(api.device)}, window=64)
+                lgs.append(lg)
+            out.append(lgs)
+        for a, b in zip(*out):
+            gap("window-64 ring", a, b)
+    res = {"arch": cfg.name, "continuous_vs_plain_max_abs_diff": gaps, "tol": 1e-3,
+           "ragged_tokens_equal": same_tokens}
+    print(json.dumps(res), flush=True)
+    if not all(g <= 1e-3 for g in gaps.values()) or not same_tokens:
+        raise AssertionError(f"continuous batching on the card disagrees with the plain "
+                             f"path: {res}")
+    return res
+
+
 def _ckpt_paths(runs, kernel):
     return {f"train {runs['a']['arch']} --resume (process)": runs["a"]["resume_launches"][kernel],
             f"train {runs['a']['arch']} --background-save (process)":
@@ -2623,6 +3009,7 @@ def main():
     from repro_torch.launch import train as train_launch
     from repro_torch.models import api as api_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import continuous as cont_mod
     from repro_torch.serve import engine as engine_mod
 
     _phase("1 card")
@@ -2647,6 +3034,7 @@ def main():
 
     _phase("3 kernels against their plain versions")
     rows = phase_kernels(fa)
+    rows += phase_kv_lens(fa)
     fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
     gmm_rows = phase_gmm_kernels(gm, ref_mod)
     wkv_rows = phase_wkv_kernels(wk, ref_mod)
@@ -2724,7 +3112,10 @@ def main():
     _phase("21 checkpoints and fault tolerance")
     ckpt_runs = phase_checkpoints(train_launch, api_mod, get_config("smollm_360m"))
 
-    _phase("22 result")
+    _phase("22 continuous batching")
+    cont_launches, cont_variants = phase_continuous(counters, api_mod, cont_mod, engine_mod, cfg)
+
+    _phase("23 result")
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
@@ -2732,6 +3123,8 @@ def main():
                       "src/repro/kernels/flash_attention.py:33",
                       launches["flash_attention"], rows,
                       launches_by_path={"serve llama3_2_1b": launches["flash_attention"],
+                                        "serve llama3_2_1b continuous":
+                                            cont_launches["flash_attention"],
                                         "serve granite_moe_1b_a400m":
                                             moe_launches["flash_attention"],
                                         "train llama3_2_1b": llama_launches["flash_attention"],
@@ -2744,6 +3137,7 @@ def main():
                                         **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={
                           "serve llama3_2_1b": variants["flash_attention"],
+                          "serve llama3_2_1b continuous": cont_variants["flash_attention"],
                           "serve granite_moe_1b_a400m": moe_variants["flash_attention"],
                           "train llama3_2_1b": llama_variants["flash_attention"],
                           "train llama3_2_1b context ring of 2 (ranks)":

@@ -22,6 +22,18 @@
 // copy, and the KV head of query head h is h / (H / Hkv): grouped-query
 // attention reads the un-repeated cache.
 //
+// Per-row key lengths (`kv_lens`, for serving from a slotted cache: a
+// decode tick over rows at different positions, a prefill chunk appended
+// to a row's prefix; no backward takes them).  Row b then attends to keys
+// [0, kv_lens[b]) and its query i sits at kv_lens[b] - Tq + i, so causal is
+// aligned bottom-right on the row's prefix and the window counts from
+// there (JAX's slot-mode mask once the new keys sit in the cache).  Every
+// variant reads the lengths on the device (`row_span`), skips the tiles
+// past a row's length and, under a window, those before it; the decode
+// tile's split is still planned from the static Tk, so a row's bits do not
+// depend on the other rows' lengths.  Without kv_lens each kernel runs as
+// before, to the bit.
+//
 // Three variants, chosen by the wrapper (kernels/flash_attention.py,
 // `variant`), each a kernel of its own:
 //
@@ -186,11 +198,38 @@ struct Params {
   const void* v;
   void* o;
   float* lse;  // (B, H, Tq) log-sum-exp of each row, or null (no gradient wanted)
+  const int* kv_lens;  // (B,) keys of each row, or null (every row keeps Tk)
   Strides sq, sk, sv, so;
   int B, Tq, Tk, H, Hkv;
   int causal, window;
   float sm_scale;
 };
+
+// The keys row b attends to and the absolute position of its first query.
+// Without kv_lens every row keeps its Tk keys and query i sits at i (causal
+// aligned top-left).  With kv_lens row b keeps keys [0, kv_lens[b]) and
+// query i sits at kv_lens[b] - Tq + i: causal aligned bottom-right on the
+// row's prefix, as a slotted cache's rows at their own positions need.  The
+// length is read on the device (no host sync) and cut to Tk, so a bad one
+// cannot read past the tensor; the wrapper documents Tq <= kv_lens <= Tk.
+struct RowSpan {
+  int tk, qoff;
+};
+
+__device__ __forceinline__ RowSpan row_span(const Params& p, int b) {
+  if (p.kv_lens == nullptr) return {p.Tk, 0};
+  const int tk = min(p.kv_lens[b], p.Tk);
+  return {tk, tk - p.Tq};
+}
+
+// The first kv tile of `bk` keys that a query at absolute position `qpos` or
+// later can see under the window.  Tiles before it are wholly masked and
+// skipped; that is done only with kv_lens, so the bits of a launch without
+// it stay as they were (a skipped tile would add exp(-1e30 - m) = 0).
+__device__ __forceinline__ int first_tile(const Params& p, int qpos, int bk) {
+  if (p.kv_lens == nullptr || p.window <= 0) return 0;
+  return max(0, qpos - p.window + 1) / bk;
+}
 
 template <int HD, int BQ>
 constexpr size_t smem_bytes() {
@@ -221,6 +260,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
+  const RowSpan rs = row_span(p, b);
 
   const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
@@ -242,15 +282,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
   // causal block skip: tiles starting past the tile's last query row are
   // fully masked for every row
-  const int kv_end = p.causal ? min(p.Tk, q0 + BQ) : p.Tk;
+  const int kv_end = p.causal ? min(rs.tk, rs.qoff + q0 + BQ) : rs.tk;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = first_tile(p, rs.qoff + q0, kBK); tile < n_tiles; ++tile) {
     const int k0 = tile * kBK;
     __syncthreads();  // the previous tile's reads of Ks / Vs / Ss are done
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, c = i % HD, t = k0 + r;
-      const bool ok = t < p.Tk;
+      const bool ok = t < rs.tk;
       Ks[r * QS + c] = ok ? to_f32(kg[t * p.sk.t + c * p.sk.d]) : 0.f;
       Vs[r * HD + c] = ok ? to_f32(vg[t * p.sv.t + c * p.sv.d]) : 0.f;
     }
@@ -280,11 +320,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
-          const int qpos = q0 + r, kpos = k0 + c;
-          bool ok = kpos < p.Tk;
+          const int qpos = rs.qoff + q0 + r, kpos = k0 + c;
+          bool ok = kpos < rs.tk;
           if (p.causal) ok = ok && kpos <= qpos;
           if (p.window > 0) ok = ok && kpos > qpos - p.window;
-          Ss[r * SS + c] = ok ? s[i][j] : masked_score(kpos, p.Tk);
+          Ss[r * SS + c] = ok ? s[i][j] : masked_score(kpos, rs.tk);
         }
     }
     __syncthreads();
@@ -517,21 +557,23 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_prefill_kernel(Params p) 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int hk = h / (p.H / p.Hkv);
+  const RowSpan rs = row_span(p, b);
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + hk * p.sk.h;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + hk * p.sv.h;
 
-  const int kv_end = p.causal ? min(p.Tk, q0 + BQ) : p.Tk;
+  const int kv_end = p.causal ? min(rs.tk, rs.qoff + q0 + BQ) : rs.tk;
   const int n_tiles = (kv_end + kTcBK - 1) / kTcBK;
+  const int tile_lo = first_tile(p, rs.qoff + q0, kTcBK);
   auto load_tile = [&](int tile) {
     const int stage = tile % S;
-    load_rows<HD, kTcThreads>(ks + stage * kTcBK * LD, kg, p.sk.t, tile * kTcBK, kTcBK, p.Tk);
-    load_rows<HD, kTcThreads>(vs + stage * kTcBK * LD, vg, p.sv.t, tile * kTcBK, kTcBK, p.Tk);
+    load_rows<HD, kTcThreads>(ks + stage * kTcBK * LD, kg, p.sk.t, tile * kTcBK, kTcBK, rs.tk);
+    load_rows<HD, kTcThreads>(vs + stage * kTcBK * LD, vg, p.sv.t, tile * kTcBK, kTcBK, rs.tk);
   };
   load_rows<HD, kTcThreads>(qs, qg, p.sq.t, q0, BQ, p.Tq);
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
-    if (i < n_tiles) load_tile(i);
+    if (tile_lo + i < n_tiles) load_tile(tile_lo + i);
     mma::cp_async_commit();
   }
 
@@ -543,23 +585,23 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_prefill_kernel(Params p) 
   for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = tile_lo; tile < n_tiles; ++tile) {
     mma::cp_async_wait<S - 2>();  // this tile (and Q) have landed
     // all copies of this tile are visible, and every warp is done with the
     // previous tile, whose stage the next load refills: one barrier a tile
     __syncthreads();
     if (tile + S - 1 < n_tiles) load_tile(tile + S - 1);
     mma::cp_async_commit();
-    if (tile == 0) load_q_frags<HD>(qf, qs, row0);
+    if (tile == tile_lo) load_q_frags<HD>(qf, qs, row0);
     const int k0 = tile * kTcBK;
     const bf16* kt = ks + (tile % S) * kTcBK * LD;
     const bf16* vt = vs + (tile % S) * kTcBK * LD;
     float s[NB][4];
     qk<HD, NB>(s, qf, kt, 0);
-    const bool need_mask = (p.causal && k0 + kTcBK - 1 > q0) || k0 + kTcBK > p.Tk ||
+    const bool need_mask = (p.causal && k0 + kTcBK - 1 > rs.qoff + q0) || k0 + kTcBK > rs.tk ||
                            p.window > 0;
-    const int qpos = q0 + row0 + g;
-    scale_mask<NB>(s, scale, need_mask, p.Tk, p.causal, p.window, qpos, qpos + 8, k0);
+    const int qpos = rs.qoff + q0 + row0 + g;
+    scale_mask<NB>(s, scale, need_mask, rs.tk, p.causal, p.window, qpos, qpos + 8, k0);
     online_softmax<NB, NO>(s, o, m, l);
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk) pv_step<HD, NB>(o, s, kk, vt, kk * 16);
@@ -572,14 +614,14 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_prefill_kernel(Params p) 
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const float li = 1.f / fmaxf(lsum, 1e-30f);
-    const int qpos = q0 + row0 + g + 8 * i;
-    if (qpos >= p.Tq) continue;  // padded query rows are dropped
+    const int qrow = q0 + row0 + g + 8 * i;
+    if (qrow >= p.Tq) continue;  // padded query rows are dropped
     // m is in log2 units here: the row's lse in natural-log units is
     // (m + log2 l) ln 2, converted once, at the store
     if (p.lse != nullptr && t == 0)
-      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Tq + qpos] =
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Tq + qrow] =
           m[i] == kNegInf ? kNegInf : (m[i] + log2f(lsum)) * kLn2;
-    bf16* og = static_cast<bf16*>(p.o) + b * p.so.b + qpos * p.so.t + h * p.so.h;
+    bf16* og = static_cast<bf16*>(p.o) + b * p.so.b + qrow * p.so.t + h * p.so.h;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(og + j * 8 + 2 * t) =
@@ -621,17 +663,22 @@ __global__ void __launch_bounds__(kTcThreads)
   const int split = blockIdx.x, n_split = gridDim.x, hk = blockIdx.y, b = blockIdx.z;
   const int rep = p.H / p.Hkv;
   const int rows = rep * p.Tq;  // <= 16
+  const RowSpan rs = row_span(p, b);
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + hk * p.sk.h;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + hk * p.sv.h;
 
-  const int kv_end = p.causal ? min(p.Tk, p.Tq) : p.Tk;
+  // The split runs are planned on the host from the static Tk, so a row's
+  // bits do not depend on the other rows' lengths; this row's run is the
+  // split's tiles cut to the tiles the row sees.  A run left empty still
+  // writes its partial (m = -1e30, l = 0, o = 0) and arrives on the count.
+  const int kv_end = p.causal ? min(rs.tk, rs.qoff + p.Tq) : rs.tk;
   const int n_tiles = (kv_end + kTcBK - 1) / kTcBK;
-  const int tile0 = split * tiles_per_split;
-  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
+  const int tile0 = max(split * tiles_per_split, first_tile(p, rs.qoff, kTcBK));
+  const int tile1 = min(n_tiles, split * tiles_per_split + tiles_per_split);
   auto load_tile = [&](int tile) {
     const int stage = (tile - tile0) % S;
-    load_rows<HD, kTcThreads>(ks + stage * kTcBK * LD, kg, p.sk.t, tile * kTcBK, kTcBK, p.Tk);
-    load_rows<HD, kTcThreads>(vs + stage * kTcBK * LD, vg, p.sv.t, tile * kTcBK, kTcBK, p.Tk);
+    load_rows<HD, kTcThreads>(ks + stage * kTcBK * LD, kg, p.sk.t, tile * kTcBK, kTcBK, rs.tk);
+    load_rows<HD, kTcThreads>(vs + stage * kTcBK * LD, vg, p.sv.t, tile * kTcBK, kTcBK, rs.tk);
   };
   {  // the packed query rows
     const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b;
@@ -651,7 +698,7 @@ __global__ void __launch_bounds__(kTcThreads)
 
   const float scale = p.sm_scale * kLog2e;
   // query positions of the thread's two rows (rows past `rows` are padding)
-  const int qpos_lo = g % p.Tq, qpos_hi = (g + 8) % p.Tq;
+  const int qpos_lo = rs.qoff + g % p.Tq, qpos_hi = rs.qoff + (g + 8) % p.Tq;
   uint32_t qf[HD / 16][4];
   float o[NO][4];
 #pragma unroll
@@ -669,8 +716,8 @@ __global__ void __launch_bounds__(kTcThreads)
     const bf16* vt = vs + ((tile - tile0) % S) * kTcBK * LD;
     float s[2][4];
     qk<HD, 2>(s, qf, kt, warp * 16);
-    const bool need_mask = p.causal || p.window > 0 || k0 + kTcBK > p.Tk;
-    scale_mask<2>(s, scale, need_mask, p.Tk, p.causal, p.window, qpos_lo, qpos_hi,
+    const bool need_mask = p.causal || p.window > 0 || k0 + kTcBK > rs.tk;
+    scale_mask<2>(s, scale, need_mask, rs.tk, p.causal, p.window, qpos_lo, qpos_hi,
                   k0 + warp * 16);
     online_softmax<2, NO>(s, o, m, l);
     pv_step<HD, 2>(o, s, 0, vt, warp * 16);
@@ -1767,20 +1814,23 @@ cudaError_t bwd_dispatch(int hd, const BwdParams& p, int variant, cudaStream_t s
 // caller checks the alignment).  The decode tile splits the kv tiles into
 // `n_split` runs of `tiles_per_split`; with n_split > 1 it needs `ws`, B *
 // Hkv * n_split * 16 * (hd + 2) floats, and `counters`, B * Hkv ints that are
-// 0 and are left 0.  Launches on `stream` and returns cudaGetLastError() (0
-// on success).
+// 0 and are left 0.  `kv_lens`, null or B int32 on the device, gives each
+// row's keys (row_span: Tq <= kv_lens[b] <= Tk, its queries aligned to the
+// end of them); the split is still planned from Tk.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          float* lse, int dtype, int B, int Tq, int Tk, int H, int Hkv,
                                          int hd, const int64_t* strides, int causal,
                                          int window, float sm_scale, int variant, int n_split,
                                          int tiles_per_split, void* ws, void* counters,
-                                         void* stream) {
+                                         const void* kv_lens, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
   p.lse = lse;
+  p.kv_lens = static_cast<const int*>(kv_lens);
   p.sq = Strides{strides[0], strides[1], strides[2], strides[3]};
   p.sk = Strides{strides[4], strides[5], strides[6], strides[7]};
   p.sv = Strides{strides[8], strides[9], strides[10], strides[11]};

@@ -30,6 +30,14 @@ launch a call in ``flash_attention_bwd.launches`` and
 and ``flash_attention_bwd_plain``.  On CPU tensors autograd runs through
 ``flash_attention_ref``.  ``flash_attention_lse`` is that forward alone,
 returning the output and lse (the hop of the context ring).
+
+``kv_lens`` (B,) int32 gives each row its own key length, for serving from
+a slotted cache: row b attends to keys [0, kv_lens[b]) with its queries at
+the last Tq of those positions (causal aligned bottom-right, the window
+counted from there).  Every variant reads the lengths on the device; the
+decode tile's split is still planned from the static Tk, so a row's bits do
+not depend on the other rows' lengths.  It has no backward
+(``SERVING_REST``).
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, keep_mask
 
 HEAD_DIMS = (32, 64, 128)
 VARIANTS = ("fma", "tc_prefill", "tc_decode")   # the C entry's variant codes 0, 1, 2
@@ -47,27 +55,18 @@ BWD_VARIANTS = ("fma", "tc")                    # the backward entry's codes 0, 
 DECODE_ROWS = 16     # rows of the decode tile: (H / Hkv) * Tq query rows packed
 KV_TILE = 64         # keys per kv tile of the tensor-core kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SERVING_REST = ("ROADMAP.md Queue 1 item 3b (sliding windows under a ParallelCtx, "
+                "the flash backward with kv_lens)")
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """Plain version: repeat the KV heads, then the dense f32 oracle."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None):
+    """Plain version: repeat the KV heads, then the dense f32 oracle (with
+    ``kv_lens``, each row's slot-mode mask)."""
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    return attention_ref(q, k, v, causal=causal, window=window)
-
-
-def _keep_mask(tq: int, tk: int, causal: bool, window: int, device):
-    """(Tq, Tk) bool: the (query, key) pairs the masks keep."""
-    qpos = torch.arange(tq, device=device)[:, None]
-    kpos = torch.arange(tk, device=device)[None, :]
-    keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
-    if causal:
-        keep &= kpos <= qpos
-    if window > 0:
-        keep &= kpos > qpos - window
-    return keep
+    return attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
 
 
 def _scores(q, k, causal: bool, window: int):
@@ -76,7 +75,7 @@ def _scores(q, k, causal: bool, window: int):
     rep = q.shape[2] // k.shape[2]
     k = torch.repeat_interleave(k, rep, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(q.shape[-1])
-    keep = _keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    keep = keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
     return torch.where(keep, s, torch.full_like(s, -1e30)), keep
 
 
@@ -139,7 +138,7 @@ def attention_partials(q, k, v, bounds, *, causal: bool = True, window: int = 0)
     v = torch.repeat_interleave(v, rep, dim=2).float()
     tq, hd = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k) / math.sqrt(hd)
-    keep = _keep_mask(tq, k.shape[1], causal, window, s.device)[:, None, :]   # (Tq, 1, Tk)
+    keep = keep_mask(tq, k.shape[1], causal, window, s.device)[:, None, :]   # (Tq, 1, Tk)
     s = torch.where(keep, s, torch.full_like(s, -1e30))
     ms, ls, accs = [], [], []
     for lo, hi in bounds:
@@ -215,6 +214,27 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _check_kv_lens(q, k, kv_lens) -> None:
+    """kv_lens must be a contiguous (B,) int32 tensor on q's device (the
+    kernel reads it by pointer).  On the CPU its values are
+    checked too: Tq <= kv_lens[b] <= Tk, so every query sees at least its own
+    key.  On the card that check would need a host sync, so the kernel takes
+    the lengths as given (cut to Tk)."""
+    b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
+    if not isinstance(kv_lens, torch.Tensor) or kv_lens.shape != (b,) or \
+            kv_lens.dtype != torch.int32 or not kv_lens.is_contiguous():
+        raise ValueError(f"kv_lens must be a contiguous ({b},) int32 tensor, got "
+                         f"{getattr(kv_lens, 'dtype', type(kv_lens).__name__)} "
+                         f"{tuple(getattr(kv_lens, 'shape', ()))}")
+    if kv_lens.device != q.device:
+        raise ValueError(f"kv_lens on {kv_lens.device}, q on {q.device}")
+    if kv_lens.device.type == "cpu":
+        lo, hi = int(kv_lens.min()), int(kv_lens.max())
+        if lo < tq or hi > tk:
+            raise ValueError(f"kv_lens must lie in [Tq, Tk] = [{tq}, {tk}] (every query "
+                             f"sees its own key); got {kv_lens.tolist()}")
+
+
 def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
@@ -234,21 +254,30 @@ def _check_cuda(q, k, v) -> None:
         raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None):
     """q: (B, Tq, H, hd); k, v: (B, Tk, Hkv, hd), any strides.
 
     Returns (B, Tq, H, hd) in q's dtype.  Causal masking is aligned top-left
     (query i sees keys j <= i, as the TPU kernel's), so a decode step attends
-    with ``causal=False`` over the valid prefix of its cache.  Differentiable:
-    on CUDA tensors that need a gradient it runs ``FlashAttentionFunction``."""
+    with ``causal=False`` over the valid prefix of its cache.  With
+    ``kv_lens`` (B,) int32 on q's device, row b attends to its first
+    kv_lens[b] keys and its queries sit at the last Tq of those positions
+    (Tq <= kv_lens[b] <= Tk: checked on the CPU, taken as given on the card,
+    where checking would sync).  Differentiable without ``kv_lens``: on CUDA
+    tensors that need a gradient it runs ``FlashAttentionFunction``."""
     _check(q, k, v, window)
+    if kv_lens is not None:
+        _check_kv_lens(q, k, kv_lens)
     if _on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
     _check_cuda(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if kv_lens is not None:
+            raise NotImplementedError(f"the flash backward with kv_lens is not ported to "
+                                      f"repro_torch yet: {SERVING_REST}")
         return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, want_lse=False)[0]
+    return _forward(q, k, v, causal, window, want_lse=False, kv_lens=kv_lens)[0]
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True):
@@ -288,10 +317,12 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None):
+def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None,
+             kv_lens=None):
     """Launch the forward kernel, through the variant ``flash_variant`` picks
     or, for a test, ``variant`` forced; returns (out, lse or None), lse (B,
-    H, Tq) f32 when ``want_lse``."""
+    H, Tq) f32 when ``want_lse``.  The decode tile's split is planned from
+    Tk (with ``kv_lens``, the whole capacity), never from the lengths."""
     b, tq, h, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     variant = variant or flash_variant(q, k, v, want_lse=want_lse)
@@ -303,7 +334,7 @@ def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None
     with torch.cuda.device(q.device):   # the kernel launches on the current device
         stream = torch.cuda.current_stream(q.device)
         if variant == "tc_decode":
-            kv_end = min(tk, tq) if causal else tk
+            kv_end = min(tk, tq) if causal and kv_lens is None else tk
             n_tiles = -(-kv_end // KV_TILE)
             n_split, per = decode_split(b, hkv, n_tiles, _sm_count(q.device))
             if n_split > 1:
@@ -316,7 +347,9 @@ def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None
                  h, hkv, hd, strides, int(causal), int(window), 1.0 / math.sqrt(hd),
                  VARIANTS.index(variant), n_split, per,
                  None if ws is None else ws.data_ptr(),
-                 None if counters is None else counters.data_ptr(), stream.cuda_stream)
+                 None if counters is None else counters.data_ptr(),
+                 None if kv_lens is None else kv_lens.data_ptr(),
+                 stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({variant}): "
                            f"CUDA error {err}")
@@ -415,7 +448,7 @@ def _bind():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+                      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
     _entry = fn
     return fn
 

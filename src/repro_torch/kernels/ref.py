@@ -9,19 +9,38 @@ import math
 import torch
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def keep_mask(tq: int, tk: int, causal: bool, window: int, device, kv_lens=None):
+    """The (query, key) pairs the masks keep: (Tq, Tk) bool, or (B, Tq, Tk)
+    with per-row key lengths ``kv_lens`` (B,).  Without them query i sits at
+    position i (causal aligned top-left); with them row b keeps keys
+    [0, kv_lens[b]) and its query i sits at kv_lens[b] - Tq + i (causal
+    aligned bottom-right on the row's prefix).  ``window`` keeps keys
+    j > qpos - window."""
+    qpos = torch.arange(tq, device=device)[:, None]
+    kpos = torch.arange(tk, device=device)[None, :]
+    keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if kv_lens is not None:
+        lens = kv_lens.to(device=device, dtype=torch.long)[:, None, None]
+        qpos = qpos[None] + lens - tq                                # (B, Tq, 1)
+        keep = kpos[None] < lens
+    if causal:
+        keep = keep & (kpos <= qpos)
+    if window > 0:
+        keep = keep & (kpos > qpos - window)
+    return keep
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None):
     """q: (B,Tq,H,hd); k,v: (B,Tk,H,hd) — dense softmax attention in f32,
-    returned in ``q.dtype``.  Masks as the JAX oracle: causal is aligned
-    top-left (query i sees keys j <= i) and ``window`` keeps keys j > i - w."""
+    returned in ``q.dtype``.  Masks as the JAX oracle (``keep_mask``):
+    causal is aligned top-left (query i sees keys j <= i) and ``window``
+    keeps keys j > i - w; with ``kv_lens`` each row's mask is JAX's
+    slot-mode mask over its first kv_lens[b] keys."""
     tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
-    qpos = torch.arange(tq, device=q.device)[:, None]
-    kpos = torch.arange(tk, device=q.device)[None, :]
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window > 0:
-        mask &= kpos > qpos - window
+    mask = keep_mask(tq, tk, causal, window, q.device, kv_lens)
+    if kv_lens is not None:
+        mask = mask[:, None]                                         # (B, 1, Tq, Tk)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -18,6 +18,14 @@ Inception-V3's losses are the rank's share of the global masked mean
 ``parallel.sharding.shard_params`` cuts a rank's part from it.  Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; asking
 for CUDA where there is none raises.
+
+The slotted cache of the continuous-batching engine (JAX's per-slot
+helpers): ``make_slot_cache`` (``pos`` a (n_slots,) int32 device tensor,
+which routes ``decode_fn`` into slot mode), ``cache_extract_slot``,
+``cache_insert_slot``, ``cache_evict_slot``; ``slot_capable`` gates the
+archs whose cache has a per-position layout.  The port updates caches in
+place, so ``cache_extract_slot`` returns views of the slot and
+``cache_insert_slot`` writes back only the slot's new ``pos``.
 """
 from __future__ import annotations
 
@@ -189,6 +197,77 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
                       init_fn=lambda gen, keep: tf_mod.model_init(gen, cfg, device=dev,
                                                                   keep=keep))
     return api
+
+
+# ---------------------------------------------------------------------------
+# per-slot cache helpers (continuous-batching serve engine)
+# ---------------------------------------------------------------------------
+
+def slot_capable(cfg: ModelConfig) -> bool:
+    """Archs whose cache admits per-request positions (linear KV, no
+    recurrent or cross-attention state): the gate for ``prompt_lens`` in the
+    static engine and for the slotted continuous engine (JAX's
+    ``_slot_capable``)."""
+    return not (cfg.rwkv or cfg.family == "hybrid" or cfg.encoder_layers
+                or cfg.n_prefix_embeds)
+
+
+def make_slot_cache(cfg: ModelConfig, n_slots: int, capacity: int, *, dtype=None,
+                    device="cuda"):
+    """A slotted KV cache for continuous batching: ``n_slots`` independent
+    request slots over a LINEAR cache of ``capacity`` positions each, with
+    per-slot write positions (``pos`` is (n_slots,) int32 on the device,
+    which is what routes ``decode_step`` into slot mode).  A sliding-window
+    arch still gets full linear capacity: the window is a mask, so requests
+    at different positions share a batch."""
+    if not slot_capable(cfg):
+        raise ValueError(
+            f"slotted KV serving supports homogeneous KV-cache decoders; "
+            f"{cfg.name} (family={cfg.family}) carries recurrent/cross-attn "
+            f"state that has no per-position slot layout")
+    dev = resolve_device(device)
+    cache = tf_mod.make_cache(cfg, n_slots, capacity, window=0, dtype=dtype, device=dev)
+    cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    return cache
+
+
+def _slot(t, slot: int):
+    """Slot ``slot`` of a stacked (L, n_slots, ...) tensor, as a (L, 1, ...)
+    view."""
+    return t[:, slot:slot + 1]
+
+
+def cache_extract_slot(cache, slot: int):
+    """One slot of a slotted cache as a batch-1 slot cache (``pos`` (1,)):
+    the shape ``decode_step``'s slot-extend path takes for chunked prefill.
+    Views, not copies: the extend step writes K and V into the slot in
+    place."""
+    out = {"pos": cache["pos"][slot:slot + 1]}
+    for k, v in cache.items():
+        if k != "pos":
+            out[k] = _slot(v, slot)
+    return out
+
+
+def cache_insert_slot(cache, slot_cache, slot: int):
+    """Put a slot back after ``decode_fn`` extended it: ``slot_cache`` is
+    ``cache_extract_slot(cache, slot)``'s views, whose K and V the extend
+    step already wrote in place, so only its new ``pos`` (the step returns
+    a new tensor) is written into the slotted cache.  Returns ``cache``."""
+    cache["pos"][slot:slot + 1] = slot_cache["pos"].reshape(1).to(cache["pos"].dtype)
+    return cache
+
+
+def cache_evict_slot(cache, slot: int):
+    """Free a slot, in place: zero its K and V and reset its position, so
+    it can be admitted again.  (Zeroing is not needed, since ``pos`` gates
+    what attention sees, but it keeps an evicted request's state from
+    leaking and makes reuse exact.)  Returns ``cache``."""
+    cache["pos"][slot] = 0
+    for k, v in cache.items():
+        if k != "pos":
+            _slot(v, slot).zero_()
+    return cache
 
 
 def _build_inception(cfg: ModelConfig, dev: torch.device) -> ModelApi:

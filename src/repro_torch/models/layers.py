@@ -1,6 +1,6 @@
 """Shared layers (port of ``repro/models/layers.py``): initializers, RMS norm,
-RoPE, GQA head repeat, dense masked attention, the linear KV-cache insert,
-and the MLP variants (``mlp_apply_overlapped``: the tensor-MP MLP on the
+RoPE, GQA head repeat, dense masked attention, the KV-cache inserts (linear,
+per-row slots, the sliding-window ring), and the MLP variants (``mlp_apply_overlapped``: the tensor-MP MLP on the
 collective-matmul rings).  Plain functions over tensors; weights keep the JAX
 (d_in, d_out) layout, so a projection is ``x @ w``.
 """
@@ -110,7 +110,7 @@ def attention(q, k, v, *, causal: bool = True, q_start: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# KV cache (linear buffer)
+# KV cache (linear buffer, per-row slots, sliding-window ring)
 # ---------------------------------------------------------------------------
 
 def cache_insert_full(cache, k_new, v_new, pos: int):
@@ -124,6 +124,47 @@ def cache_insert_full(cache, k_new, v_new, pos: int):
                          f"overflows capacity {cap}")
     cache["k"][:, pos:pos + t] = k_new
     cache["v"][:, pos:pos + t] = v_new
+    return cache
+
+
+def cache_insert_at(cache, k_new, v_new, pos):
+    """Write (B,t,KV,hd) at per-row positions ``pos`` (B,) of a (B,cap,KV,hd)
+    cache: row b's t tokens land at pos[b] .. pos[b] + t - 1 (the slotted
+    cache's insert; JAX vmaps a dynamic_update_slice over the rows).  One
+    ``index_put_`` on device positions, in place, no host loop over rows.
+    A scalar ``pos`` is ``cache_insert_full``.  JAX's dynamic_update_slice
+    would clamp a position past cap - t; this does not: on the CPU it raises,
+    and on the card the positions are never read on the host, so a caller
+    must keep pos[b] + t <= cap (the continuous engine's capacity check at
+    submit does)."""
+    if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
+        return cache_insert_full(cache, k_new, v_new, int(pos))
+    b, t = k_new.shape[:2]
+    cap = cache["k"].shape[1]
+    if pos.shape != (b,):
+        raise ValueError(f"per-row positions {tuple(pos.shape)} for a batch of {b}")
+    if pos.device.type == "cpu" and (int(pos.min()) < 0 or int(pos.max()) > cap - t):
+        raise ValueError(f"cache insert of {t} token(s) at positions {pos.tolist()} "
+                         f"overflows capacity {cap}")
+    rows = torch.arange(b, device=pos.device)[:, None]
+    cols = pos.long()[:, None] + torch.arange(t, device=pos.device)[None]
+    cache["k"].index_put_((rows, cols), k_new)
+    cache["v"].index_put_((rows, cols), v_new)
+    return cache
+
+
+def cache_insert_window(cache, k_new, v_new):
+    """Shift-left ring insert for sliding-window caches (keys stored roped):
+    the (B,W,KV,hd) ring drops its oldest slot and the new token lands in
+    the last, as JAX's concatenate([cache[:, 1:], new]).  In place; one
+    token a step (JAX's ring holds W slots only for t = 1)."""
+    if k_new.shape[1] != 1:
+        raise ValueError(f"a sliding-window ring takes one token a step, got "
+                         f"{k_new.shape[1]}")
+    for name, new in (("k", k_new), ("v", v_new)):
+        ring = cache[name]
+        ring[:, :-1] = ring[:, 1:].clone()
+        ring[:, -1:] = new
     return cache
 
 

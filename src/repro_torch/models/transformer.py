@@ -7,7 +7,13 @@ the JAX layer scan becomes a Python loop over per-layer views.  Entry points:
 
     forward(mode="train")    (B,S) tokens -> (B,S,V) logits
     forward(mode="prefill")  also fills a linear KV cache of given capacity
-    decode_step              t tokens against the cache (scalar ``pos``)
+                             (with a window, a shift-left ring of that length)
+    decode_step              t tokens against the cache: a scalar ``pos`` is
+                             the static batch's step (the ring's with a
+                             window); a (B,) int32 ``pos`` on the device is
+                             slot mode (continuous batching), each row at its
+                             own position in a linear cache, t > 1 the
+                             chunked-prefill extend step
 
 An RWKV config stacks ``models/rwkv.py`` blocks instead: its cache holds
 the recurrent state (``wkv_S``, ``tm_x``, ``cm_x``), not K/V, and ignores
@@ -48,7 +54,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import SERVING_REST, flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -56,7 +62,6 @@ from repro_torch.parallel import collectives as CL
 from repro_torch.parallel.context import ring_attention
 from repro_torch.tree import tree_leaves
 
-SERVING_EXT = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
 TENSOR_MP_REST = ("ROADMAP.md Queue 1 item 7b (tensor MP of the LSTM family and RWKV, "
                   "and the serving TP)")
@@ -122,9 +127,10 @@ def unported(what: str, item: str):
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
     """Raise NotImplementedError for any config or mode outside the dense,
-    MoE or RWKV, full-attention decoder the port runs (on one device, or a
-    dense decoder on a context ring or under tensor MP: other archs under a
-    tensor ctx name ``tensor_mp_item``), and ValueError for the CNN and LSTM
+    MoE or RWKV decoder the port runs (on one device, with or without a
+    sliding window, or a full-attention dense decoder on a context ring or
+    under tensor MP: other archs under a tensor ctx name ``tensor_mp_item``,
+    a window under any ctx item 3b), and ValueError for the CNN and LSTM
     families, which other modules run, and for a context ring over an arch
     that ``cp_arch_supported`` rejects."""
     if cfg.family == "cnn":
@@ -145,8 +151,9 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
             raise ValueError(f"{cfg.name}: context parallelism needs a homogeneous dense "
                              f"decoder without logit softcap (cp_arch_supported); the "
                              f"port has no GSPMD to fall back to")
-    if window or cfg.sliding_window:
-        raise unported(f"sliding-window attention ({cfg.name})", SERVING_EXT)
+    if pctx is not None and (window or cfg.sliding_window):
+        raise unported(f"sliding-window attention under a ParallelCtx ({cfg.name})",
+                       SERVING_REST)
     for flag, what, item in (
             (cfg.family == "hybrid", "the hybrid SSM block", FAMILIES),
             (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
@@ -248,9 +255,10 @@ def model_init(gen: torch.Generator, cfg, *, device=None, keep=None):
     return params
 
 
-def make_cache(cfg, batch: int, capacity: int, *, dtype=None, device=None):
+def make_cache(cfg, batch: int, capacity: int, *, window: int = 0, dtype=None, device=None):
     """Linear decode cache stacked over layers: k, v (L, B, cap, KV, hd) and
-    the scalar write position ``pos`` (a Python int).  An RWKV cache holds
+    the scalar write position ``pos`` (a Python int); with ``window`` > 0 a
+    shift-left ring of ``window`` slots instead of cap.  An RWKV cache holds
     the recurrent state instead, for any capacity: wkv_S (L, B, H, hd, hd)
     f32 and the last normed inputs of the time and channel mixes, tm_x and
     cm_x (L, B, d), all zeros."""
@@ -264,7 +272,7 @@ def make_cache(cfg, batch: int, capacity: int, *, dtype=None, device=None):
                                      dtype=torch.float32, device=device),
                 "tm_x": torch.zeros(x_shape, dtype=dtype, device=device),
                 "cm_x": torch.zeros(x_shape, dtype=dtype, device=device)}
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, window or capacity, cfg.n_kv_heads, cfg.head_dim)
     return {"pos": 0,
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -291,29 +299,55 @@ def _cache_layer(cache, i: int):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None, pctx=None, layer: int = 0):
+def _is_slot_pos(pos) -> bool:
+    """A (B,) tensor of per-row positions: slot mode."""
+    return isinstance(pos, torch.Tensor) and pos.dim() > 0
+
+
+def _self_attention(p, x, cfg, *, pos0, window: int = 0, cache_kv=None, pctx=None,
+                    layer: int = 0):
     """Self-attention over x, or (decode) over the cache plus x, or (a
     context-parallel ``pctx``) over the ring's whole sequence, x being this
     rank's rows from position ``pos0``.
 
-    Decode writes the new roped K/V into the cache at ``pos0`` first and
-    then attends over the view ``cache[:, :pos0 + t]`` with causal=False:
-    the same keys as the JAX path's concat(cache, new) under a kv_mask
-    (the sum runs in another order, so the two agree to round-off, not
-    bitwise).  Returns (out, (k_roped, v))."""
+    Decode writes the new roped K/V into the cache first and then attends,
+    in one of three modes (the sum runs in another order than the JAX
+    path's concat(cache, new) under a mask, so the two agree to round-off,
+    not bitwise):
+
+    - scalar ``pos0``, no window: insert at ``pos0``, attend over the view
+      ``cache[:, :pos0 + t]`` with causal=False;
+    - scalar ``pos0`` with a window: the shift-left ring insert, then attend
+      over its last min(pos0, window - 1) + 1 slots with causal=False;
+    - slot mode, ``pos0`` a (B,) int32 device tensor: insert each row's t
+      tokens at its own position, then attend over the whole capacity with
+      ``kv_lens = pos0 + t``, causal and windowed from each row's position
+      (JAX's slot-mode mask; t > 1 is the chunked-prefill extend step).
+
+    Returns (out, (k_roped, v))."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(x.dtype)).view(b, t, nh, hd)
     k = (x @ p["wk"].to(x.dtype)).view(b, t, nkv, hd)
     v = (x @ p["wv"].to(x.dtype)).view(b, t, nkv, hd)
-    positions = (pos0 + torch.arange(t, device=x.device)).expand(b, t)
+    slot = _is_slot_pos(pos0)
+    steps = torch.arange(t, device=x.device)
+    positions = pos0.long()[:, None] + steps[None] if slot else (pos0 + steps).expand(b, t)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if pctx is not None:
         out = ring_attention(q, k, v, mesh=pctx.mesh, axis=pctx.context_axis, causal=True,
-                             layer=layer)
+                             window=window, layer=layer)
     elif cache_kv is None:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, window=window)
+    elif slot:
+        L.cache_insert_at(cache_kv, k, v, pos0)
+        out = flash_attention(q, cache_kv["k"], cache_kv["v"], causal=True, window=window,
+                              kv_lens=pos0 + t)
+    elif window:
+        L.cache_insert_window(cache_kv, k, v)
+        n = min(pos0, window - 1) + 1
+        out = flash_attention(q, cache_kv["k"][:, -n:], cache_kv["v"][:, -n:], causal=False)
     else:
         L.cache_insert_full(cache_kv, k, v, pos0)
         n = pos0 + t
@@ -322,11 +356,14 @@ def _self_attention(p, x, cfg, *, pos0: int, cache_kv=None, pctx=None, layer: in
     return out.reshape(b, t, nh * hd) @ p["wo"].to(x.dtype), (k, v)
 
 
-def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None,
+def block_apply(cfg, p, x, *, mode: str, pos0=0, window: int = 0, cache=None,
                 capacity_factor=1.25):
     """One decoder block.  ``cache`` is this layer's {"k", "v"} view
     (B, cap, KV, hd): decode reads and updates it in place, prefill fills
-    its first S positions (the rest stays zero, the JAX pad to capacity).
+    its first S positions (the rest stays zero, the JAX pad to capacity);
+    with a ``window``, a (B, window, KV, hd) ring that prefill fills with the
+    last min(S, window) keys right-aligned (JAX's shift-left layout).
+    ``pos0`` is decode's scalar position or slot mode's (B,) positions.
     An MoE block drops tokens beyond ``capacity_factor`` in train and
     prefill and none in decode.  Returns (x, cache or None, aux): aux is
     ``cfg.router_aux_loss`` times the router's load-balance loss, None for a
@@ -338,19 +375,23 @@ def block_apply(cfg, p, x, *, mode: str, pos0: int = 0, cache=None,
         return _rwkv_block(cfg, p, x, cache), cache, None
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
-        attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=pos0, cache_kv=cache)
+        attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=pos0, window=window,
+                                      cache_kv=cache)
     else:
-        attn_out, (k_new, v_new) = _self_attention(p["attn"], h, cfg, pos0=0)
+        attn_out, (k_new, v_new) = _self_attention(p["attn"], h, cfg, pos0=0, window=window)
         if mode == "prefill":
             s = k_new.shape[1]
-            cache["k"][:, :s] = k_new
-            cache["v"][:, :s] = v_new
+            n = min(s, window) if window else s
+            lo = window - n if window else 0      # the ring's left pad stays zero
+            cache["k"][:, lo:lo + n] = k_new[:, s - n:]
+            cache["v"][:, lo:lo + n] = v_new[:, s - n:]
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if not cfg.is_moe:
         return x + L.mlp_apply(p["mlp"], h2, cfg.mlp_kind), cache, None
     # decode batches are tiny: the no-drop capacity makes cached decoding
-    # agree with the teacher-forced forward
+    # (slot mode's ticks and prefill chunks too) agree with the
+    # teacher-forced forward
     cf = None if mode == "decode" else capacity_factor
     mlp_out, moe_aux = moe_mod.moe_ffn(p["moe"], h2, cfg, capacity_factor=cf)
     return x + mlp_out, cache, cfg.router_aux_loss * moe_aux
@@ -609,14 +650,17 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
             pctx=None, cache_capacity: int = 0, capacity_factor=1.25):
     """batch: dict(tokens (B,S)).  mode "train": returns (logits, aux);
     mode "prefill": returns (logits, cache, aux) with a cache of
-    ``cache_capacity`` positions (default S).  aux is the blocks' summed
+    ``cache_capacity`` positions (default S), or with a window (the config's
+    ``sliding_window`` unless ``window_override`` is given) a ring of that
+    many, whatever the capacity.  aux is the blocks' summed
     router aux loss (0 for a dense model).  Under a context-parallel
     ``pctx`` (train only) the tokens are this rank's (B, S/m) columns and
     every block is ``cp_block_apply``; under a tensor-MP one (train only)
     the forward is ``tp_forward``."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}")
-    check_supported(cfg, window=window_override or 0, pctx=pctx)
+    window = cfg.sliding_window if window_override is None else window_override
+    check_supported(cfg, window=window, pctx=pctx)
     if pctx is not None and mode == "prefill":
         if pctx.is_tensor:
             raise unported("tensor-MP prefill (prefill_chunk_tp)", TENSOR_MP_REST)
@@ -630,9 +674,9 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     cache = None
     if mode == "prefill":
         cap = cache_capacity or s
-        if cap < s and not cfg.rwkv:
+        if cap < s and not cfg.rwkv and not window:
             raise ValueError(f"cache capacity {cap} < prompt length {s}")
-        cache = make_cache(cfg, b, cap, dtype=x.dtype, device=x.device)
+        cache = make_cache(cfg, b, cap, window=window, dtype=x.dtype, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
@@ -640,7 +684,7 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
             x = cp_block_apply(cfg, layers[i], x, pctx=pctx, layer=i)
             continue
         csl = None if cache is None else _cache_layer(cache, i)
-        x, _, a = block_apply(cfg, layers[i], x, mode=mode, cache=csl,
+        x, _, a = block_apply(cfg, layers[i], x, mode=mode, window=window, cache=csl,
                               capacity_factor=capacity_factor)
         if a is not None:
             aux = aux + a
@@ -660,29 +704,45 @@ def pipeline_stage_fn(cfg):
     def stage_fn(sp, x):
         lc = tree_leaves(sp)[0].shape[0]
         for lp in _unstack(sp, lc):
-            x, _, _ = block_apply(cfg, lp, x, mode="train")
+            x, _, _ = block_apply(cfg, lp, x, mode="train", window=cfg.sliding_window)
         return x
 
     return stage_fn
 
 
 def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
-    """batch: dict(tokens (B,t)) against a cache with scalar ``pos``.
-    Returns (logits (B,t,V), cache): the K/V (or RWKV state) tensors are
-    updated in place and the returned dict carries pos + t."""
+    """batch: dict(tokens (B,t)) against the cache.  Returns (logits
+    (B,t,V), cache): the K/V (or RWKV state) tensors are updated in place and
+    the returned dict carries pos + t.
+
+    ``cache["pos"]`` a scalar: the static batch's step, on a linear cache or,
+    with a window (the config's unless ``window_override`` is given), on the
+    shift-left ring of that many slots (one token a step).  ``cache["pos"]``
+    a (B,) int32 tensor on the cache's device: slot mode, each row at its
+    own position in a linear cache of full capacity, the window a mask;
+    t > 1 is the chunked-prefill extend step (causal within the chunk).  The
+    positions stay on the device: nothing here reads them on the host."""
     if pctx is not None:
         raise unported("decoding over a ParallelCtx (decode_slots_tp, a sequence-sharded "
                        "cache)", TENSOR_MP_REST)
-    check_supported(cfg, window=window_override or 0)
+    window = cfg.sliding_window if window_override is None else window_override
+    check_supported(cfg, window=window)
     pos = cache["pos"]
-    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        raise unported("slot mode (per-row cache positions)", SERVING_EXT)
-    pos = int(pos)
+    slot = _is_slot_pos(pos)
+    if not slot:
+        pos = int(pos)
+        if window and not cfg.rwkv and cache["k"].shape[2] != window:
+            raise ValueError(f"window {window} decode over a cache of "
+                             f"{cache['k'].shape[2]} slots: a scalar-position window "
+                             f"decode takes the ring that a windowed prefill makes")
+    elif pos.dtype != torch.int32 or pos.shape != (batch["tokens"].shape[0],):
+        raise ValueError(f"slot-mode positions must be ({batch['tokens'].shape[0]},) int32, "
+                         f"got {pos.dtype} {tuple(pos.shape)}")
     x = _embed(cfg, params, batch["tokens"])
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
         csl = _cache_layer(cache, i)
-        x, _, _ = block_apply(cfg, layers[i], x, mode="decode",
-                              pos0=pos, cache=csl)
+        x, _, _ = block_apply(cfg, layers[i], x, mode="decode", pos0=pos, window=window,
+                              cache=csl)
     logits = _head(cfg, params, x)
     return logits, {**cache, "pos": pos + batch["tokens"].shape[1]}

@@ -29,11 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
-                                                 flash_attention_lse)
+from repro_torch.kernels.flash_attention import (SERVING_REST, flash_attention,
+                                                 flash_attention_bwd, flash_attention_lse)
 from repro_torch.parallel import dist as D
-
-WINDOW = "ROADMAP.md Queue 1 item 3 (window, ring and slot caches)"
 
 
 def merge_attention(out, lse, out_s, lse_s):
@@ -115,11 +113,11 @@ def ring_attention(q, k, v, *, mesh, axis: str = "model", causal: bool = True,
     j T/m to (j + 1) T/m); k, v: (B, T/m, Hkv, hd), this rank's KV block.
     Returns (B, T/m, Hq, hd), this rank's output rows, in q's dtype;
     differentiable.  ``layer`` keys the messages' tags.  A ring of one rank
-    is ``flash_attention``.  ``window > 0`` raises: the kernel takes no
-    query offset, and the port's models refuse windows (ROADMAP.md item 3)."""
+    is ``flash_attention``.  ``window > 0`` raises: a window under a
+    ParallelCtx is ROADMAP.md item 3b."""
     if window:
         raise NotImplementedError(f"sliding-window ring attention is not ported to "
-                                  f"repro_torch yet: {WINDOW}")
+                                  f"repro_torch yet: {SERVING_REST}")
     if mesh.size(axis) == 1:
         return flash_attention(q, k, v, causal=causal)
     return RingAttentionFunction.apply(q, k, v, mesh, axis, bool(causal), int(layer))

@@ -1,7 +1,11 @@
 """Static-batch serving engine (port of ``repro/serve/engine.py:ServeEngine``).
 
-One prefill fills a linear KV cache (an RWKV model's recurrent state),
-then one decode step per generated token.  Greedy when temperature == 0,
+One prefill fills a linear KV cache (a sliding-window ring with a window;
+an RWKV model's recurrent state), then one decode step per generated
+token.  A ragged batch (``prompt_lens``) takes each row's first token from
+its own last prompt position and decodes in slot mode, each row from its
+own cache position.  The continuous-batching engine is
+``serve.continuous``.  Greedy when temperature == 0,
 else temperature sampling from a
 ``torch.Generator`` seeded per call from (engine seed, call counter), so
 keyless calls differ from each other and a fixed seed replays.  Rows that
@@ -17,8 +21,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models.api import ModelApi, resolve_device
-from repro_torch.models.transformer import SERVING_EXT, unported
+from repro_torch.models.api import ModelApi, resolve_device, slot_capable
 
 
 @dataclasses.dataclass
@@ -64,25 +67,54 @@ class ServeEngine:
                  eos_id: Optional[int] = None,
                  stop_tokens: Sequence[int] = (),
                  prompt_lens=None) -> GenerationResult:
-        """prompt_batch: dict(tokens (B, S)) on the engine's device."""
-        if prompt_lens is not None:
-            raise unported("prompt_lens (ragged batches need slot mode)",
-                           SERVING_EXT)
+        """prompt_batch: dict(tokens (B, S)) on the engine's device.
+        ``prompt_lens`` (B,) marks the valid prefix of each left-aligned row
+        of a ragged batch: row r's first token is sampled from position
+        len_r - 1 and it decodes from cache position len_r (slot mode)."""
         tokens = prompt_batch["tokens"]
         b, s = tokens.shape
         cfg = self.api.cfg
         cap = (s + max_new_tokens + 8) if capacity is None else capacity
-        # an RWKV cache carries recurrent state, not positions: no capacity
-        if not cfg.rwkv and cap < s + max_new_tokens:
+        window = cfg.sliding_window if self.window is None else self.window
+        # an RWKV cache carries recurrent state, not positions, and a window's
+        # ring holds the last W of them: no capacity to check
+        if not cfg.rwkv and not window and cap < s + max_new_tokens:
             raise ValueError(
                 f"KV cache capacity {cap} cannot hold prompt ({s}) + "
                 f"max_new_tokens ({max_new_tokens}) = {s + max_new_tokens} "
                 f"positions for {cfg.name}; pass capacity >= "
                 f"{s + max_new_tokens} (or omit it)")
+        if prompt_lens is not None:
+            lens = torch.as_tensor(prompt_lens).to("cpu", torch.int32)
+            if tuple(lens.shape) != (b,):
+                raise ValueError(
+                    f"prompt_lens shape {tuple(lens.shape)} != ({b},) for a "
+                    f"batch of {b} prompts")
+            if not slot_capable(cfg):
+                raise ValueError(
+                    f"prompt_lens needs per-request cache positions, which "
+                    f"{cfg.name} (family={cfg.family}) does not support: "
+                    f"recurrent/cross-attn state has no per-position layout")
+            if window:
+                raise ValueError(
+                    f"prompt_lens is unsupported with a sliding-window ring "
+                    f"cache (window={window}); serve {cfg.name} with "
+                    f"window=0 or use serve.continuous (mask-windowed)")
+            if (lens < 1).any() or (lens > s).any():
+                raise ValueError(
+                    f"prompt_lens must lie in [1, {s}] (got {lens.tolist()})")
         t0 = time.perf_counter()
         logits, cache = self.api.prefill(self.params, prompt_batch, None,
                                          capacity=cap, window=self.window)
-        last_logits = logits[:, -1]
+        if prompt_lens is None:
+            last_logits = logits[:, -1]
+        else:
+            # row r's first token comes from its own last prompt position, and
+            # its decode stream starts at len_r: the per-row ``pos`` tensor
+            # routes decode_step into slot mode
+            lens = lens.to(self.device)
+            last_logits = logits[torch.arange(b, device=self.device), lens.long() - 1]
+            cache["pos"] = lens
         self._sync()
         t1 = time.perf_counter()
         if generator is None:

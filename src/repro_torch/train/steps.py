@@ -62,6 +62,10 @@ dicts, an f32 ``m`` and ``v`` a parameter): ``eval_train_state`` is the
 ``like`` tree of a restore, ``global_state`` gathers a run's state to its
 writing rank, ``place_state`` cuts a rank's part back out of a restored
 global state, and ``checkpoint_saver`` is the loop's saver on ranks.
+
+``make_continuous_steps`` is the serving side's pair of steps (JAX keeps it
+here too): the continuous engine's decode tick and prefill chunk over a
+slotted cache, on one device.
 """
 from __future__ import annotations
 
@@ -70,9 +74,10 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.api import ModelApi
-from repro_torch.models.transformer import (ParallelCtx, cp_arch_supported, cp_supported,
-                                            is_tensor_ctx, tensor_mp_item)
+from repro_torch.models.api import ModelApi, cache_extract_slot, cache_insert_slot
+from repro_torch.models.transformer import (CONTEXT_SERVE, TENSOR_MP_REST, ParallelCtx,
+                                            cp_arch_supported, cp_supported, is_tensor_ctx,
+                                            tensor_mp_item, unported)
 from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
                                           sum_of_squares)
 from repro_torch.parallel import dist as D
@@ -466,3 +471,71 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
 
     return train_step
+
+
+def sample_tokens(logits, temperature: float, generators=None):
+    """(next token (B,) int64, its log-probability (B,) f32) from ``logits``
+    (B, V): greedy (the first largest, as ``jnp.argmax``) when temperature
+    <= 0, else row r drawn from softmax(logits / temperature) with
+    ``generators[r]`` (rows whose generator is None take the greedy token).
+    Everything stays on the logits' device."""
+    lg = logits.float()
+    nxt = lg.argmax(-1)
+    if temperature > 0.0 and generators is not None:
+        probs = torch.softmax(lg / temperature, dim=-1)
+        for r, gen in enumerate(generators):
+            if gen is not None:
+                nxt[r] = torch.multinomial(probs[r], 1, generator=gen)[0]
+    lp = torch.gather(torch.log_softmax(lg, dim=-1), 1, nxt[:, None])[:, 0]
+    return nxt, lp
+
+
+def make_continuous_steps(api: ModelApi, *, n_slots: int, temperature: float = 0.0,
+                          mesh=None, model_axis=None, window=None, context_axis=None):
+    """``(decode_tick, prefill_chunk, prefill_grid)`` for the continuous
+    engine (``serve.continuous``), on one device (JAX's
+    ``make_continuous_steps`` without a mesh; ``prefill_grid`` is 1).
+
+    ``decode_tick(params, cache, tokens, active, generators)`` runs ONE
+    token step for every slot of a slotted cache (``tokens`` and ``active``
+    (n_slots,) on the cache's device), samples on the device
+    (``sample_tokens``, ``generators`` a list of per-slot generators or
+    None) and advances ``pos`` only for ``active`` slots.  An inactive
+    slot's write at its frozen position is overwritten at its next
+    admission or chunk; it writes at min(pos, capacity - 1) so that a slot
+    whose request filled its capacity exactly, and is evicted this step,
+    cannot write past it.  ``prefill_chunk(params, cache, tokens (1, t),
+    slot)`` extends one slot by a chunk (slot mode with t > 1, causal within
+    the chunk) and returns the chunk's last-position logits (1, V).  Both
+    update the cache in place and return it.
+
+    The tensor-MP tick and chunk (``decode_slots_tp``, ``prefill_chunk_tp``)
+    are item 7b and the context-parallel chunk (``prefill_chunk_cp``) item
+    8b: any ``mesh`` or ``model_axis`` raises naming 7b, a ``context_axis``
+    8b (JAX's ``batch_axes`` and ``comm_chunks`` come with item 7b)."""
+    if context_axis is not None:
+        raise unported("the context-parallel prefill chunk (prefill_chunk_cp)", CONTEXT_SERVE)
+    if mesh is not None or model_axis is not None:
+        raise unported("the tensor-MP decode tick and prefill chunk (decode_slots_tp, "
+                       "prefill_chunk_tp)", TENSOR_MP_REST)
+    if n_slots < 1:
+        raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+
+    @torch.inference_mode()
+    def decode_tick(params, cache, tokens, active, generators=None):
+        pos = cache["pos"]
+        cap = cache["k"].shape[2]
+        write = torch.where(active, pos, pos.clamp(max=cap - 1))
+        logits, _ = api.decode_fn(params, {**cache, "pos": write}, {"tokens": tokens[:, None]},
+                                  None, window)
+        nxt, lp = sample_tokens(logits[:, -1], temperature, generators)
+        cache["pos"] = torch.where(active, pos + 1, pos)
+        return cache, nxt, lp
+
+    @torch.inference_mode()
+    def prefill_chunk(params, cache, tokens, slot: int):
+        sl = cache_extract_slot(cache, slot)
+        logits, sl = api.decode_fn(params, sl, {"tokens": tokens}, None, window)
+        return cache_insert_slot(cache, sl, slot), logits[:, -1]
+
+    return decode_tick, prefill_chunk, 1

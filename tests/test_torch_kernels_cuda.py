@@ -102,6 +102,71 @@ def test_kernel_reads_strided_cache_view(cuda_device):
     assert torch.equal(out_t, TFA.flash_attention(q, k, v, causal=False))
 
 
+KV_LENS_CASES = [   # b, tq, tk, h, hkv, hd, causal, window, per-row key lengths
+    (8, 1, 1064, 32, 8, 64, True, 0, [1, 63, 64, 65, 1063, 1064, 300, 700]),
+    (8, 1, 1064, 32, 8, 64, True, 256, [1, 63, 64, 65, 1063, 1064, 300, 700]),
+    (4, 3, 200, 8, 2, 64, True, 0, [3, 64, 130, 200]),
+    (1, 256, 1064, 32, 8, 64, True, 0, [512]), (1, 256, 1064, 32, 8, 64, True, 256, [1024]),
+    (3, 70, 300, 4, 2, 128, True, 16, [70, 135, 300]), (2, 5, 77, 4, 1, 32, False, 0, [5, 77]),
+    (2, 17, 40, 2, 2, 64, False, 9, [20, 40])]
+
+
+def _variant_of(dtype, tq, h, hkv):
+    if dtype == torch.float32:
+        return "fma"
+    return "tc_decode" if (h // hkv) * tq <= TFA.DECODE_ROWS else "tc_prefill"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,tq,tk,h,hkv,hd,causal,window,lens", KV_LENS_CASES)
+def test_kernel_with_kv_lens_matches_plain_on_card(cuda_device, dtype, tol, b, tq, tk, h,
+                                                   hkv, hd, causal, window, lens):
+    """Per-row key lengths (slot mode's decode tick and prefill chunk) on the
+    variant the wrapper picks and, for bf16, on the FMA kernel forced."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(tq + tk, b, tq, tk, h, hkv, hd))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    ref = TFA.flash_attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in TFA.flash_attention.variant_launches.items()}
+    variant = _variant_of(dtype, tq, h, hkv)
+    assert moved == {n: int(n == variant) for n in moved}
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    if dtype == torch.bfloat16:
+        fma, _ = TFA._forward(q, k, v, causal, window, want_lse=False, variant="fma",
+                              kv_lens=kv_lens)
+        assert float((fma.float() - ref.float()).abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [1, 4])
+def test_kv_lens_row_bits_do_not_depend_on_other_rows(cuda_device, dtype, tq):
+    """The decode tile's split is planned from the capacity: changing the
+    other rows' lengths leaves row 0's output the same bits."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(5, 8, tq, 1064, 32, 8, 64))
+    outs = [TFA.flash_attention(q, k, v, causal=True, kv_lens=torch.tensor(
+        [700] + rest, dtype=torch.int32, device=cuda_device))
+        for rest in ([tq] * 7, [1064] * 7, [64, 65, 1063, 300, 900, 128, 129])]
+    assert all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_kv_lens_has_no_backward_on_card(cuda_device):
+    q = torch.zeros(1, 1, 2, 64, device=cuda_device, requires_grad=True)
+    k = torch.zeros(1, 4, 2, 64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3b"):
+        TFA.flash_attention(q, k, k, kv_lens=torch.tensor([2], dtype=torch.int32,
+                                                          device=cuda_device))
+    with pytest.raises(ValueError, match="kv_lens on cpu"):
+        TFA.flash_attention(q.detach(), k, k, kv_lens=torch.tensor([2], dtype=torch.int32))
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     def z(*s, dtype=torch.bfloat16):

@@ -179,8 +179,7 @@ def test_capacity_check(models):
         eng.generate(tok, max_new_tokens=NEW, capacity=S + NEW - 1)
 
 
-@pytest.mark.parametrize("case", ["window", "moe", "encdec", "hybrid", "slot_pos",
-                                  "prompt_lens", "pctx", "biglstm"])
+@pytest.mark.parametrize("case", ["moe", "encdec", "hybrid", "pctx", "biglstm"])
 def test_unported_modes_raise(models, case):
     tapi, tparams, tcfg = models["tapi"], models["tparams"], models["tcfg"]
     tok = torch.from_numpy(models["tokens"]).long()
@@ -188,9 +187,7 @@ def test_unported_modes_raise(models, case):
             "moe": "ROADMAP.md Queue 1 item 15",
             "encdec": "ROADMAP.md Queue 1 item 11"}.get(case, "ROADMAP.md Queue 1")
     with pytest.raises(NotImplementedError, match=item):
-        if case == "window":
-            tapi.prefill(tparams, {"tokens": tok}, window=4)
-        elif case == "moe":     # MoE serves on one device; expert parallelism does not
+        if case == "moe":     # MoE serves on one device; expert parallelism does not
             from repro_torch.models import moe as moe_mod
             moe_mod.moe_ffn(None, torch.zeros(B, S, 8),
                             t_get_config("granite_moe_1b_a400m").reduced(),
@@ -199,13 +196,6 @@ def test_unported_modes_raise(models, case):
             t_build_model(t_get_config("whisper_large_v3").reduced(), device="cpu")
         elif case == "hybrid":
             t_build_model(t_get_config("hymba_1_5b").reduced(), device="cpu")
-        elif case == "slot_pos":
-            _, cache = tapi.prefill(tparams, {"tokens": tok}, capacity=S + 2)
-            cache["pos"] = torch.full((B,), S)
-            tapi.decode_fn(tparams, cache, {"tokens": tok[:, :1]})
-        elif case == "prompt_lens":
-            TServeEngine(tapi, tparams).generate({"tokens": tok}, max_new_tokens=2,
-                                                 prompt_lens=[S, S - 1])
         elif case == "pctx":
             tapi.prefill(tparams, {"tokens": tok}, pctx=object())
         else:
