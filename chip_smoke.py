@@ -64,7 +64,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    from a non-zero state, in place), at edge shapes (T 1, 7, 16, 17, 33,
    130; hd 32; B 1, H 1) and over long prompts from a state (decays near 1
    over T 2048 and 8192, strong decays down to 1e-38 over T 2048), outputs
-   and final state.  Time each kernel variant at the main shape, its plain
+   and final state; the grouped matmul's backward (dx = dy w^T and dw = x^T
+   dy, a launch each) at Granite's training products (B 4 x T 2048: capacity
+   2560; bf16 on the wgmma tile ``tc``, then the FMA kernel forced on the
+   same inputs; f32; a misaligned bf16 x) and at edge shapes (C 1, odd d and
+   F, tiles ragged in every dimension), against the plain twin within 1e-4
+   (f32) or 2e-2 (bf16) of max(1, |ref|), timed against ``torch.bmm``; the
+   WKV backward (dr, dk, dv, dw, du) at RWKV6-7B's training shape (B 4, T
+   2048, H 64, hd 64, bf16), T no multiple of its 64-token chunk, hd 32 and
+   strong decays, within 2e-4 (f32) or 2e-2 (bf16) of max(1, |ref|); both
+   backwards the same bits on a repeat launch.  Time each kernel variant at the main shape, its plain
    version and one PyTorch library call computing the same function where
    there is one (a yardstick the port never calls): device time per call
    from torch.profiler (``ms``) and CUDA-event time per call, host gaps
@@ -109,7 +118,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tokens/s, peak memory) and profile one;
 13. hold the Llama train step against its plain path: 2 layers at full
    width, f32, vocab cut to 32768, kernels on the card against the plain
-   versions on the CPU (phase 7's limits);
+   versions on the CPU (phase 7's limits, and every gradient leaf within
+   ``STEP_GRAD_LEAF_TOL`` of the CPU's);
 14. the planner on the card: measure the card's memory, its HBM rate (a
    device-to-device copy of 2 GiB), the rate of a bf16 8192^3
    ``torch.matmul`` and the MFU of phase 12's Llama step, each beside the
@@ -233,7 +243,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``prompt_lens`` generate (the same greedy tokens) and a window-64 ring
    decode over a 200-token prompt on the card against the plain path on
    the CPU, logits within 1e-3 (phase 5's limit);
-23. print one JSON line of kernels, then the device line.
+23. train full-width, full-depth Granite-3.0-1B-A400M (1.39 B parameters)
+   through the launcher at B 4 x T 2048 (capacity 2560), 5 steps, with the
+   counters set to 0 just before and read just after (360 gmm forward
+   launches on ``tc_prefill``, 360 dx and 360 dw launches on ``tc_dx`` and
+   ``tc_dw``, 120 flash forward and 120 backward calls; the loss falls),
+   then time steps and profile one;
+24. hold Granite's train step against the CPU: 2 full-width layers, f32,
+   vocab 32768, B 2 x T 128 (phase 13's limits), and count the (token, k)
+   routing ids that differ between card and CPU (where some do, the CPU
+   step is run again with the card's ids replayed);
+25. train RWKV6-7B at full width (d 4096, H 64, hd 64) on 8 of its 32 layers
+   through the launcher's run function (the config cut in depth only: the
+   whole model's AdamW state, ~120 GB, does not fit the card), B 4 x T
+   2048, 5 steps (40 ``wkv6`` launches on ``chunked`` and 40 ``wkv6_bwd``
+   calls; the loss falls), then time steps and profile one; and ``--arch
+   rwkv6_7b --reduced`` through the launcher's command line;
+26. hold RWKV's train step against the CPU at phase 24's cell;
+27. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -267,6 +294,10 @@ BATCH, PROMPT, NEW = 4, 512, 32
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 64, 5
 AUTO_STEPS = 2                                  # BigLSTM steps through --parallel auto
 RANK_STEPS = 3                                  # steps of each phase-15 run
+# phases 13, 24 and 26: each gradient leaf of the card's f32 step against the
+# CPU's, |g_card - g_cpu| / |g_cpu|; a zeroed or mis-scaled leaf reads 1, a
+# flipped one 2
+STEP_GRAD_LEAF_TOL = 2e-4
 # phase 15 (d)'s parameters after one step: under the 1.5e-4 that AdamW's
 # first step at lr(0) moves an element, so a skipped or mis-scaled update shows
 RANK_PARAMS_TOL = 5e-5
@@ -332,6 +363,27 @@ WKV_EDGE = [(1, 1, 1, 32), (2, 7, 3, 64), (2, 130, 2, 32), (1, 33, 2, 64), (1, 7
 # T, decays and dtype of the long-prompt rows (B 1, H 2, hd 64, from a state)
 WKV_LONG = [(2048, "near1", torch.bfloat16), (8192, "near1", torch.float32),
             (2048, "strong", torch.bfloat16)]
+# the backward rows (no TPU kernel: JAX differentiates the expert einsums and
+# the scan): the error over max(1, the largest reference value), in f32 at the
+# forwards' tolerances (sums of up to 2560 terms in another order), in bf16
+# with the outputs rounded to bf16 (2**-8 of the value)
+GMM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+WKV_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# G, C, d, F of full-width Granite-3.0-1B-A400M's training products: B 4 x T
+# 2048, capacity ceil(8192 * 8 / 32 * 1.25) = 2560
+GRANITE_B, GRANITE_T = 4, 2048
+GMM_TRAIN = [("train wg/wi", (32, 2560, 1024, 512)), ("train wo", (32, 2560, 512, 1024))]
+GMM_BWD_EDGE = [(8, 37, 130, 70), (1, 1, 1, 1), (3, 1, 64, 48), (2, 17, 1, 9),
+                (2, 300, 136, 264)]
+# RWKV6-7B's training cell: full width (d 4096, H 64, hd 64), 8 of its 32
+# layers (2.4 B parameters: 38 GB of parameters and AdamW state; the whole
+# model's 120 GB does not fit the card), B 4 x T 2048
+RWKV_B, RWKV_T, RWKV_LAYERS = 4, 2048, 8
+# the WKV backward rows besides the training shape: T no multiple of the
+# 64-token chunk, hd 32, strong decays (w down to 1e-38) over T 2048
+WKV_BWD_EDGE = [((2, 300, 8, 64), torch.float32, "sweep"), ((2, 130, 4, 32), torch.float32, "sweep"),
+                ((2, 130, 4, 32), torch.bfloat16, "sweep"), ((1, 2048, 2, 64), torch.float32, "strong"),
+                ((1, 2048, 2, 64), torch.bfloat16, "strong")]
 # the continuous engine's cell (phase 22): slots, capacity (the longest
 # prompt, 1024, + 32 new + 8), prefill chunk, requests, prompt lengths, new
 # tokens a request, and the requests also served alone
@@ -1108,6 +1160,12 @@ def gmm_inputs(gen, g, c, d, f, dtype):
     return x, w
 
 
+def _misaligned(x):
+    """A copy of x whose base is one element past a 16-byte boundary."""
+    xm = torch.empty(1 + x.numel(), dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return xm.copy_(x)
+
+
 def check_gmm(gm, ref_mod, case, x, w, gen, timed=False):
     """The grouped matmul against its plain version; timed against the plain
     version, the bound and ``torch.bmm`` on the same tensors.  The timed
@@ -1130,7 +1188,10 @@ def check_gmm(gm, ref_mod, case, x, w, gen, timed=False):
         g, c, d = x.shape
         f = w.shape[2]
         n_sets = max(1, math.ceil(2 * L2_BYTES / _nbytes(x, w)))
-        sets = [(x, w)] + [gmm_inputs(gen, g, c, d, f, x.dtype) for _ in range(n_sets - 1)]
+        sets = [(x, w)]
+        for _ in range(n_sets - 1):          # x as misaligned as the first: one variant
+            xs, ws = gmm_inputs(gen, g, c, d, f, x.dtype)
+            sets.append((_misaligned(xs) if x.data_ptr() % 16 else xs, ws))
 
         def rotating(fn):
             cycle = itertools.cycle(sets)
@@ -1153,14 +1214,13 @@ def phase_gmm_kernels(gm, ref_mod):
     for case, (g, c, d, f) in GMM_SERVE:   # bf16 timed first: the main path's dtype
         rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.bfloat16),
                               gen, timed=True))
-    for case, (g, c, d, f) in GMM_SERVE:
+    for case, (g, c, d, f) in GMM_SERVE:   # the FMA kernel: f32 (phase 9's path)
         rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.float32),
-                              gen))
+                              gen, timed=True))
     # bf16 with x's base 2 bytes off: the FMA kernel at the prefill shape
     x, w = gmm_inputs(gen, *GMM_SERVE[0][1], torch.bfloat16)
-    xm = torch.empty(1 + x.numel(), dtype=x.dtype, device=x.device)[1:].view(x.shape)
-    xm.copy_(x)
-    rows.append(check_gmm(gm, ref_mod, f"{GMM_SERVE[0][0]}, x misaligned", xm, w, gen))
+    rows.append(check_gmm(gm, ref_mod, f"{GMM_SERVE[0][0]}, x misaligned", _misaligned(x), w,
+                          gen, timed=True))
     for g, c, d, f in GMM_EDGE:
         for dt in (torch.float32, torch.bfloat16):
             rows.append(check_gmm(gm, ref_mod, "edge", *gmm_inputs(gen, g, c, d, f, dt), gen))
@@ -1267,6 +1327,134 @@ def phase_wkv_kernels(wk, ref_mod):
     return rows
 
 
+def check_gmm_bwd(gm, ref_mod, case, x, w, dy, timed=False, variant=None):
+    """dx and dw against the plain twin: one launch a product on the variant
+    ``gmm_bwd_variant`` picks (or ``variant`` forced), the same bits on a
+    repeat launch; timed product by product against its plain half, its
+    bound and ``torch.bmm`` on the same tensors (transposed views)."""
+    def run():
+        return gm.gmm_bwd(x, w, dy) if variant is None else gm._launch_bwd(x, w, dy, variant)
+
+    before = dict(gm.gmm_bwd.variant_launches)
+    grads = run()
+    torch.cuda.synchronize()
+    picked = variant or gm.gmm_bwd_variant(x, w, dy)
+    moved = {n: c - before[n] for n, c in gm.gmm_bwd.variant_launches.items() if c != before[n]}
+    if moved != {f"{picked}_dx": 1, f"{picked}_dw": 1}:
+        raise AssertionError(f"gmm_bwd {case}: moved {moved}, want one {picked} launch a product")
+    same_bits = all(torch.equal(a, b) for a, b in zip(run(), grads))
+    g, c, d = x.shape
+    f = w.shape[2]
+    plain = ref_mod.gmm_bwd_plain(x, w, dy)
+    rows = []
+    for name, got, want, library, operands in (
+            ("dx", grads[0], plain[0], lambda: torch.bmm(dy, w.transpose(1, 2)), (dy, w)),
+            ("dw", grads[1], plain[1], lambda: torch.bmm(x.transpose(1, 2), dy), (x, dy))):
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / max(1.0, float(want.float().abs().max()))
+        tol = GMM_BWD_TOL[x.dtype]
+        row = {"kernel": "gmm_bwd", "product": name,
+               "shape": f"{case} x {tuple(x.shape)} w {tuple(w.shape)}",
+               "dtype": str(x.dtype).removeprefix("torch."), "variant": f"{picked}_{name}",
+               "max_abs_err": err, "rel_err": rel, "tol": tol, "same_bits_on_repeat": same_bits}
+        if not rel < tol or not torch.isfinite(got).all() or not same_bits:
+            raise AssertionError(f"gmm_bwd {case} {name}: error {rel} over max(1, |ref|) >= "
+                                 f"{tol}, not finite, or other bits on a repeat launch")
+        if timed:
+            need = {"need_dx": name == "dx", "need_dw": name == "dw"}
+            time_into(row, "ms", lambda: gm._launch_bwd(x, w, dy, picked, **need))
+            time_into(row, "plain_ms", lambda: ref_mod.gmm_bwd_plain(x, w, dy, **need))
+            time_into(row, "library_ms", library)
+            row["library"] = "torch.bmm"
+            row["bound_ms"], row["bound_by"] = bound_ms(_nbytes(*operands, got),
+                                                        2.0 * g * c * d * f, x.dtype)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def phase_gmm_bwd(gm, ref_mod):
+    """The gmm backward at Granite's training products (bf16 on the wgmma
+    tile, then the FMA kernel forced on the same inputs), in f32 and with a
+    misaligned bf16 x (the FMA kernel), and at edge shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def inputs(g, c, d, f, dtype):
+        x, w = gmm_inputs(gen, g, c, d, f, dtype)
+        return x, w, torch.randn((g, c, f), generator=gen, device="cuda").to(dtype)
+
+    rows = []
+    for case, shape in GMM_TRAIN:   # bf16 timed first: the main path's dtype
+        x, w, dy = inputs(*shape, bf)
+        rows += check_gmm_bwd(gm, ref_mod, case, x, w, dy, timed=True)
+        rows += check_gmm_bwd(gm, ref_mod, case, x, w, dy, timed=True, variant="fma")
+    case, shape = GMM_TRAIN[0]
+    rows += check_gmm_bwd(gm, ref_mod, case, *inputs(*shape, f32), timed=True)
+    x, w, dy = inputs(*shape, bf)
+    rows += check_gmm_bwd(gm, ref_mod, f"{case}, x misaligned", _misaligned(x), w, dy)
+    for shape in GMM_BWD_EDGE:
+        for dt in (f32, bf):
+            rows += check_gmm_bwd(gm, ref_mod, "edge", *inputs(*shape, dt))
+    return rows
+
+
+def check_wkv_bwd(wk, ref_mod, case, inputs, do, timed=False):
+    """dr, dk, dv, dw, du against the plain twin (one count a call), the same
+    bits on a repeat launch; timed against the plain twin (one call, CUDA
+    events: it launches some hundred thousand small kernels) and the bound
+    (no library call computes it)."""
+    before = wk.wkv6_bwd.launches
+    got = wk.wkv6_bwd(*inputs, do)
+    torch.cuda.synchronize()
+    if wk.wkv6_bwd.launches != before + 1:
+        raise AssertionError(f"wkv6_bwd {case}: {wk.wkv6_bwd.launches - before} launches")
+    same_bits = all(torch.equal(a, b) for a, b in zip(wk.wkv6_bwd(*inputs, do), got))
+    want = ref_mod.wkv6_bwd_plain(*inputs, do)
+    names = ("dr", "dk", "dv", "dw", "du")
+    errs = {n: float((g.float() - x.float()).abs().max()) for n, g, x in zip(names, got, want)}
+    rels = {n: errs[n] / max(1.0, float(x.float().abs().max())) for n, x in zip(names, want)}
+    r = inputs[0]
+    b, t, h, hd = r.shape
+    tol = WKV_BWD_TOL[r.dtype]
+    row = {"kernel": "wkv6_bwd", "shape": f"{case} B{b} T{t} H{h} hd{hd}",
+           "dtype": str(r.dtype).removeprefix("torch."), "max_abs_err": max(errs.values()),
+           "rel_err": rels, "tol": tol, "same_bits_on_repeat": same_bits,
+           "workspace_bytes": b * h * max(1, -(-t // 64) - 1) * hd * hd * 4}
+    if not max(rels.values()) < tol or not same_bits or \
+            not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"wkv6_bwd {case}: errors {rels} over max(1, |ref|) >= {tol}, "
+                             f"not finite, or other bits on a repeat launch")
+    if timed:
+        time_into(row, "ms", lambda: wk.wkv6_bwd(*inputs, do), reps=10)
+        row["plain_ms"] = time_ms(lambda: ref_mod.wkv6_bwd_plain(*inputs, do), reps=1, warmup=0)
+        row["plain_timed_by"] = "cuda events, one call"
+        row["library_ms"] = None
+        row["library"] = "none: no single PyTorch call computes the WKV backward"
+        # r, k, v, w, u, dO read once, dr, dk, dv, dw, du written once; per
+        # (token, head, row, column) one FMA each for S, G, dr, dk, dv and dw
+        row["bound_ms"], row["bound_by"] = bound_ms(_nbytes(*inputs, do, *got),
+                                                    12.0 * b * t * h * hd * hd, torch.float32)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_wkv_bwd(wk, ref_mod):
+    """The WKV backward at RWKV6-7B's training shape (bf16, timed), with T
+    no multiple of the chunk, hd 32 and strong decays."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def dout(shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.5
+
+    inputs = wkv_inputs(gen, RWKV_B, RWKV_T, 64, 64, torch.bfloat16, False)[:5]
+    rows = [check_wkv_bwd(wk, ref_mod, "train", inputs, dout(inputs[0].shape), timed=True)]
+    for shape, dt, decay in WKV_BWD_EDGE:
+        inputs = wkv_inputs(gen, *shape, dt, False, decay=decay)[:5]
+        rows.append(check_wkv_bwd(wk, ref_mod, f"{decay} decays", inputs, dout(shape)))
+    return rows
+
+
 def reset_counters(counters):
     for fn in counters.values():
         fn.launches = 0
@@ -1304,7 +1492,7 @@ def phase_serve(counters, api_mod, engine_mod, cfg):
     launches = {name: fn.launches for name, fn in counters.items()}
     variants = variant_launches(counters)
     calls = cfg.n_layers * (1 + NEW)           # one prefill and NEW decode steps
-    want = {"flash_attention": 0 if cfg.rwkv else calls, "flash_attention_bwd": 0,
+    want = {**dict.fromkeys(counters, 0), "flash_attention": 0 if cfg.rwkv else calls,
             "gmm": 3 * calls if cfg.is_moe else 0, "wkv6": calls if cfg.rwkv else 0}
     if launches != want:
         raise AssertionError(f"generate launched {launches}, want {want}")
@@ -1578,11 +1766,14 @@ def time_train_steps(api_mod, cfg, state, batch_size, seq, name, batch=None, uni
     return timing
 
 
-def phase_train_llama(train_launch, lc, counters, api_mod, cfg):
-    """Full-width, full-depth Llama-3.2-1B through the launcher at B 4, T
-    2048, counters set to 0 just before and read just after: one forward
-    launch (``tc_prefill``, with lse) and one backward call (``tc``) a layer
-    a step, and a falling loss; then step time and a profile of one step."""
+def train_lm_phase(lc, counters, api_mod, cfg, run, *, batch, seq, want, want_variants):
+    """``run()`` trains ``cfg`` for TRAIN_STEPS steps at ``batch`` x ``seq``
+    on the card through the launcher and returns its summary.  The counters
+    are set to 0 just before and read just after: each kernel's launches are
+    ``want``'s (0 if it is not named) and each named variant's
+    ``want_variants``'s (every other variant 0); the loss falls and the
+    parameters stay finite.  Then step time and a profile of one step,
+    continuing from the trained state."""
     from repro_torch.tree import tree_leaves
 
     torch.cuda.empty_cache()
@@ -1591,21 +1782,18 @@ def phase_train_llama(train_launch, lc, counters, api_mod, cfg):
              "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
     reset_counters(every)
     t0 = time.perf_counter()
-    summary = train_launch.main(["--arch", "llama3_2_1b", "--steps", str(TRAIN_STEPS),
-                                 "--batch", str(LLAMA_B), "--seq", str(LLAMA_T)])
+    summary = run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in every.items()}
     variants = variant_launches(every)
-    want = TRAIN_STEPS * cfg.n_layers
-    want_launches = dict.fromkeys(every, 0)
-    want_launches.update(flash_attention=want, flash_attention_bwd=want)
-    want_variants = {name: dict.fromkeys(v, 0) for name, v in variants.items()}
-    want_variants["flash_attention"]["tc_prefill"] = want
-    want_variants["flash_attention_bwd"]["tc"] = want
-    if launches != want_launches or variants != want_variants:
-        raise AssertionError(f"training launched {launches} {variants}, want {want} forward "
-                             f"launches on tc_prefill and {want} backward calls on tc")
+    want_launches = {**dict.fromkeys(every, 0), **want}
+    want_all = {name: dict.fromkeys(v, 0) for name, v in variants.items()}
+    for name, counts in want_variants.items():
+        want_all[name].update(counts)
+    if launches != want_launches or variants != want_all:
+        raise AssertionError(f"training {cfg.name} launched {launches} {variants}, want "
+                             f"{want_launches} {want_all}")
     state = summary["state"]
     losses = summary["history"]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
@@ -1613,17 +1801,86 @@ def phase_train_llama(train_launch, lc, counters, api_mod, cfg):
             not all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)):
         raise AssertionError(f"training gave losses {losses} or non-finite parameters")
     out = {"arch": cfg.name, "params": sum(p.numel() for p in tree_leaves(state.params)),
-           "layers": cfg.n_layers, "batch": LLAMA_B, "seq": LLAMA_T, "steps": TRAIN_STEPS,
+           "layers": cfg.n_layers, "batch": batch, "seq": seq, "steps": TRAIN_STEPS,
            "losses": losses, "launcher_wall_s": wall_s, "launches": launches,
-           "variant_launches": {n: variants[n] for n in ("flash_attention",
-                                                         "flash_attention_bwd")},
+           "variant_launches": {n: variants[n] for n in want_variants},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps(out), flush=True)
-    timing = time_train_steps(api_mod, cfg, state, LLAMA_B, LLAMA_T,
-                              f"train_step {cfg.name}")
+    timing = time_train_steps(api_mod, cfg, state, batch, seq, f"train_step {cfg.name}")
     del summary, state
     torch.cuda.empty_cache()
     return launches, variants, timing
+
+
+def phase_train_llama(train_launch, lc, counters, api_mod, cfg):
+    """Full-width, full-depth Llama-3.2-1B through the launcher at B 4, T
+    2048: one forward launch (``tc_prefill``, with lse) and one backward call
+    (``tc``) a layer a step, and a falling loss; then step time and a
+    profile of one step."""
+    per = TRAIN_STEPS * cfg.n_layers
+    return train_lm_phase(
+        lc, counters, api_mod, cfg,
+        lambda: train_launch.main(["--arch", "llama3_2_1b", "--steps", str(TRAIN_STEPS),
+                                   "--batch", str(LLAMA_B), "--seq", str(LLAMA_T)]),
+        batch=LLAMA_B, seq=LLAMA_T, want={"flash_attention": per, "flash_attention_bwd": per},
+        want_variants={"flash_attention": {"tc_prefill": per},
+                       "flash_attention_bwd": {"tc": per}})
+
+
+def phase_train_granite(train_launch, gm, lc, counters, api_mod, cfg):
+    """Full-width, full-depth Granite-3.0-1B-A400M through the launcher at B
+    4, T 2048 (capacity 2560): a layer a step, three expert products on the
+    gmm forward (``tc_prefill``), their dx and dw on the backward's wgmma
+    tile (``tc_dx``, ``tc_dw``), one flash forward (``tc_prefill``) and one
+    backward call (``tc``); a falling loss; then step time and a profile."""
+    per = TRAIN_STEPS * cfg.n_layers
+    copies = gm.gmm_bwd.dy_copies
+    out = train_lm_phase(
+        lc, counters, api_mod, cfg,
+        lambda: train_launch.main(["--arch", "granite_moe_1b_a400m", "--steps",
+                                   str(TRAIN_STEPS), "--batch", str(GRANITE_B),
+                                   "--seq", str(GRANITE_T)]),
+        batch=GRANITE_B, seq=GRANITE_T,
+        want={"flash_attention": per, "flash_attention_bwd": per, "gmm": 3 * per,
+              "gmm_bwd": 6 * per},
+        want_variants={"flash_attention": {"tc_prefill": per},
+                       "flash_attention_bwd": {"tc": per}, "gmm": {"tc_prefill": 3 * per},
+                       "gmm_bwd": {"tc_dx": 3 * per, "tc_dw": 3 * per}})
+    print(json.dumps({"gmm_bwd_dy_copies": gm.gmm_bwd.dy_copies - copies}), flush=True)
+    return out
+
+
+def phase_train_rwkv(train_launch, wk, lc, counters, api_mod, cfg):
+    """RWKV6-7B at full width on RWKV_LAYERS of its layers (the config cut in
+    depth only) through the launcher's run function at B 4, T 2048: a layer
+    a step, one ``wkv6`` forward (``chunked``) and one backward call; a
+    falling loss; then step time and a profile.  Then ``--arch rwkv6_7b
+    --reduced`` through the launcher's command line, its counters from 0:
+    one forward and one backward call a layer a step."""
+    cfg8 = dataclasses.replace(cfg, n_layers=RWKV_LAYERS)
+    per = TRAIN_STEPS * RWKV_LAYERS
+    copies = wk.wkv6_bwd.dout_copies
+    # the launcher's default plan (--parallel dp=1,mp=1) and learning rate
+    plan = dataclasses.replace(train_launch.parse_parallel("dp=1,mp=1", 1, cfg8)[0],
+                               dp_axes=("data",))
+    run = train_launch.RankRun(cfg=cfg8, plan=plan, steps=TRAIN_STEPS, batch=RWKV_B,
+                               seq=RWKV_T, lr=3e-3, device="cuda")
+    out = train_lm_phase(lc, counters, api_mod, cfg8, lambda: train_launch._train(None, run),
+                         batch=RWKV_B, seq=RWKV_T, want={"wkv6": per, "wkv6_bwd": per},
+                         want_variants={"wkv6": {"chunked": per}})
+    print(json.dumps({"wkv6_bwd_dout_copies": wk.wkv6_bwd.dout_copies - copies}), flush=True)
+    reduced = cfg.reduced()
+    reset_counters(counters)
+    summary = train_launch.main(["--arch", "rwkv6_7b", "--reduced", "--steps", "3",
+                                 "--batch", "4", "--seq", "64"])
+    want = 3 * reduced.n_layers
+    got = {n: counters[n].launches for n in ("wkv6", "wkv6_bwd")}
+    if got != {"wkv6": want, "wkv6_bwd": want} or not all(np.isfinite(summary["history"])):
+        raise AssertionError(f"rwkv6_7b --reduced launched {got}, want {want} of each; "
+                             f"losses {summary['history']}")
+    print(json.dumps({"rwkv6_7b --reduced": {"launches": got, "losses": summary["history"]}}),
+          flush=True)
+    return out
 
 
 def phase_train_vs_plain(api_mod, cfg):
@@ -1662,13 +1919,47 @@ def phase_train_vs_plain(api_mod, cfg):
     return r
 
 
-def phase_llama_train_vs_plain(fa, api_mod, cfg):
-    """One Llama train step at full width, 2 layers, f32, vocab cut to 32768,
-    B 2 x T 128: the card's kernels (the FMA forward and backward, f32)
-    against the plain versions on the CPU from the same weights and batch;
-    loss and gradient norm within 1e-4 relative, every parameter after the
-    update within 1e-3."""
-    from repro_torch.optim import adamw, warmup_cosine
+@contextlib.contextmanager
+def replayed_routes(moe_mod, routes):
+    """``moe._route`` with the (t, k) expert ids of ``routes`` (one a call, in
+    order) in place of its own top-k; the router's probabilities, the
+    weights of those ids and the aux loss computed as ``moe._route`` does."""
+    route, queue = moe_mod._route, iter(routes)
+
+    def replaying(router_w, xf, n_experts, k):
+        probs = torch.softmax(xf.float() @ router_w, dim=-1)
+        ids = next(queue).to(xf.device)
+        w = probs.gather(1, ids)
+        w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+        f = torch.zeros((n_experts,), dtype=torch.float32, device=xf.device)
+        f.index_add_(0, ids.reshape(-1), torch.ones(ids.numel(), device=xf.device))
+        f = f / f.sum().clamp(min=1.0)
+        return ids, w.to(xf.dtype), n_experts * (f * probs.mean(0)).sum()
+
+    moe_mod._route = replaying
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
+def phase_step_vs_plain(api_mod, moe_mod, cfg, counters, want_calls):
+    """One train step at full width, 2 layers, f32, vocab cut to 32768, B 2
+    x T 128 (phases 13, 24 and 26): the card's kernels (their f32 variants)
+    against the plain versions on the CPU from the same weights and batch,
+    at phase 7's limits (loss and gradient norm within 1e-4 relative, every
+    parameter after the update within 1e-3) and, leaf by leaf, the clipped
+    gradient the optimizer is given: |g_card - g_cpu| over |g_cpu| (L2 norms
+    of the leaf) within ``STEP_GRAD_LEAF_TOL``.  AdamW's first step moves an
+    element by about lr(0) = 1.5e-4 whatever its gradient's size, so the
+    parameters alone cannot see a zeroed, mis-scaled or flipped gradient.
+    ``want_calls``: each kernel's
+    launches in the card step and, for a kernel with variants, the launches
+    of each (every other kernel and variant 0).  For an MoE model also the (token, k) routing ids that
+    differ between card and CPU (as phase 9 counts them); where some do, the
+    CPU step is run again with the card's ids replayed, and that step is the
+    one held to the limits."""
+    from repro_torch.optim import Optimizer, adamw, warmup_cosine
     from repro_torch.train import TrainState, make_train_step
     from repro_torch.tree import tree_leaves
 
@@ -1677,31 +1968,65 @@ def phase_llama_train_vs_plain(fa, api_mod, cfg):
     cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
     gpu, cpu = (api_mod.build_model(cfg2, device=d) for d in ("cuda", "cpu"))
     params = gpu.init(1)
+    params_cpu = _tree_to(params, "cpu")
     batch = _lm_batch(128, 2)
-    bwd_before = dict(fa.flash_attention_bwd.variant_launches)
-    results = {}
-    for name, api, p, b in (("cuda", gpu, params, {k: v.cuda() for k, v in batch.items()}),
-                            ("cpu", cpu, _tree_to(params, "cpu"), batch)):
+
+    def step(api, p, b):
         opt = adamw(warmup_cosine(3e-3, 20, TRAIN_STEPS))
-        step = make_train_step(api, opt, clip_norm=1.0)
-        state, metrics = step(TrainState(params=p, opt_state=opt.init(p), step=0), b)
-        results[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
-                         [t.cpu() for t in tree_leaves(state.params)])
-    bwd_calls = {n: c - bwd_before[n] for n, c in fa.flash_attention_bwd.variant_launches.items()}
-    (gl, gn, gp), (cl, cn, cp) = results["cuda"], results["cpu"]
-    out = {"llama_train_vs_plain": {"loss_rel": abs(gl - cl) / abs(cl),
-                                    "grad_norm_rel": abs(gn - cn) / abs(cn),
-                                    "params_max_abs": max(float((a - b).abs().max())
-                                                          for a, b in zip(gp, cp)),
-                                    "loss": gl, "grad_norm": gn,
-                                    "flash_attention_bwd_calls": bwd_calls},
-           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": 1e-3}}
-    print(json.dumps(out), flush=True)
-    r = out["llama_train_vs_plain"]
-    if bwd_calls != {"fma": cfg2.n_layers, "tc": 0} or not (
-            r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4 and r["params_max_abs"] <= 1e-3):
-        raise AssertionError(f"Llama train step on the card disagrees with its plain path: {r}")
-    return r
+        grads = []
+
+        def update(g, *args):               # keeps the clipped gradients it is given
+            grads.extend(t.detach().cpu() for t in tree_leaves(g))
+            return opt.update(g, *args)
+
+        state, metrics = make_train_step(api, Optimizer(opt.init, update), clip_norm=1.0)(
+            TrainState(params=p, opt_state=opt.init(p), step=0), b)
+        return (float(metrics["loss"]), float(metrics["grad_norm"]),
+                [t.cpu() for t in tree_leaves(state.params)], grads)
+
+    before = {n: (fn.launches, dict(getattr(fn, "variant_launches", {})))
+              for n, fn in counters.items()}
+    with recorded_routes(moe_mod) as card_routes:
+        gl, gn, gp, gg = step(gpu, params, {k: v.cuda() for k, v in batch.items()})
+    calls = {n: fn.launches - before[n][0] for n, fn in counters.items()}
+    on_variants = {n: {v: c - before[n][1][v] for v, c in fn.variant_launches.items()
+                       if c != before[n][1][v]}
+                   for n, fn in counters.items() if hasattr(fn, "variant_launches")}
+    with recorded_routes(moe_mod) as cpu_routes:
+        cl, cn, cp, cg = step(cpu, params_cpu, batch)
+    out = {"arch": cfg.name, "kernel_calls": calls, "variant_calls": on_variants}
+    if cfg.is_moe:
+        n_diff, same = _route_mismatch(card_routes, cpu_routes, batch["tokens"].shape)
+        out.update(routing_ids_differing=n_diff, tokens_routed_apart=int((~same).sum()))
+        if n_diff:
+            out["cpu_loss_own_routes"] = cl
+            with replayed_routes(moe_mod, card_routes):
+                cl, cn, cp, cg = step(cpu, params_cpu, batch)
+            out["cpu_step"] = "the card's routing ids replayed"
+    leaf_rel = [float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(gg, cg)]
+    worst = max(range(len(leaf_rel)), key=leaf_rel.__getitem__)
+    out.update(loss_rel=abs(gl - cl) / abs(cl), grad_norm_rel=abs(gn - cn) / abs(cn),
+               params_max_abs=max(float((a - b).abs().max()) for a, b in zip(gp, cp)),
+               grad_leaf_max_rel=leaf_rel[worst], grad_leaf_worst_shape=list(cg[worst].shape),
+               grad_leaves=len(leaf_rel), loss=gl, grad_norm=gn,
+               tol={"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": 1e-3,
+                    "grad_leaf_max_rel": STEP_GRAD_LEAF_TOL})
+    print(json.dumps({"train_step_vs_plain": out}), flush=True)
+    want_counts = {n: 0 for n in counters}
+    want_variants = {}
+    for name, (count, variants) in want_calls.items():
+        want_counts[name] = count
+        if variants:
+            want_variants[name] = variants
+    got_variants = {n: v for n, v in on_variants.items() if v}
+    if calls != want_counts or got_variants != want_variants or not (
+            out["loss_rel"] <= 1e-4 and out["grad_norm_rel"] <= 1e-4
+            and out["params_max_abs"] <= 1e-3
+            and out["grad_leaf_max_rel"] <= STEP_GRAD_LEAF_TOL):
+        raise AssertionError(f"{cfg.name} train step on the card disagrees with its plain path "
+                             f"or launched {calls} {got_variants}, want {want_counts} "
+                             f"{want_variants}: {out}")
+    return out
 
 
 def measure_card_constants(hw, llama_cfg, llama_timing):
@@ -3038,6 +3363,8 @@ def main():
     fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
     gmm_rows = phase_gmm_kernels(gm, ref_mod)
     wkv_rows = phase_wkv_kernels(wk, ref_mod)
+    gmm_bwd_rows = phase_gmm_bwd(gm, ref_mod)
+    wkv_bwd_rows = phase_wkv_bwd(wk, ref_mod)
     flash_bwd_rows = phase_flash_bwd(fa)
     hop_fwd_rows, hop_bwd_rows = phase_ring_hops(fa)
     rows += hop_fwd_rows
@@ -3046,7 +3373,8 @@ def main():
     rows += tp_fwd_rows
     flash_bwd_rows += tp_bwd_rows
     counters = {"flash_attention": fa.flash_attention,
-                "flash_attention_bwd": fa.flash_attention_bwd, "gmm": gm.gmm, "wkv6": wk.wkv6}
+                "flash_attention_bwd": fa.flash_attention_bwd, "gmm": gm.gmm,
+                "gmm_bwd": gm.gmm_bwd, "wkv6": wk.wkv6, "wkv6_bwd": wk.wkv6_bwd}
 
     _phase("4 serve llama3_2_1b, full width and depth")
     cfg = get_config("llama3_2_1b")
@@ -3082,7 +3410,9 @@ def main():
                                                                      counters, api_mod, cfg)
 
     _phase("13 Llama train step against its plain path")
-    phase_llama_train_vs_plain(fa, api_mod, cfg)
+    phase_step_vs_plain(api_mod, moe_mod, cfg, counters,
+                        {"flash_attention": (2, {"fma": 2}),
+                         "flash_attention_bwd": (2, {"fma": 2})})
 
     _phase("14 the planner on the card")
     auto_launches, auto64_launches = phase_planner(train_launch, lc, counters, lstm_cfg, cfg,
@@ -3115,7 +3445,25 @@ def main():
     _phase("22 continuous batching")
     cont_launches, cont_variants = phase_continuous(counters, api_mod, cont_mod, engine_mod, cfg)
 
-    _phase("23 result")
+    _phase("23 train granite_moe_1b_a400m, full width and depth")
+    granite_launches, granite_variants, _ = phase_train_granite(train_launch, gm, lc, counters,
+                                                                api_mod, moe_cfg)
+
+    _phase("24 Granite train step against its plain path")
+    phase_step_vs_plain(api_mod, moe_mod, moe_cfg, counters,
+                        {"flash_attention": (2, {"fma": 2}),
+                         "flash_attention_bwd": (2, {"fma": 2}), "gmm": (6, {"fma": 6}),
+                         "gmm_bwd": (12, {"fma_dx": 6, "fma_dw": 6})})
+
+    _phase(f"25 train rwkv6_7b, full width, {RWKV_LAYERS} layers")
+    rwkv_train_launches, rwkv_train_variants, _ = phase_train_rwkv(train_launch, wk, lc,
+                                                                   counters, api_mod, rwkv_cfg)
+
+    _phase("26 RWKV train step against its plain path")
+    phase_step_vs_plain(api_mod, moe_mod, rwkv_cfg, counters,
+                        {"wkv6": (2, {"chunked": 2}), "wkv6_bwd": (2, None)})
+
+    _phase("27 result")
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
@@ -3197,12 +3545,42 @@ def main():
                       "src/repro/kernels/moe_gmm.py:23", moe_launches["gmm"], gmm_rows,
                       variant_launches=moe_variants["gmm"],
                       launches_by_path={"serve granite_moe_1b_a400m": moe_launches["gmm"],
-                                        **_by_path(paper_paths, "gmm")}),
+                                        "train granite_moe_1b_a400m": granite_launches["gmm"],
+                                        **_by_path(paper_paths, "gmm")},
+                      variant_launches_by_path={
+                          "serve granite_moe_1b_a400m": moe_variants["gmm"],
+                          "train granite_moe_1b_a400m": granite_variants["gmm"]}),
+        _kernel_entry("gmm_bwd", "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                      "src/repro/models/moe.py:92", granite_launches["gmm_bwd"], gmm_bwd_rows,
+                      library=gmm_bwd_rows[0]["library"],
+                      variant_launches=granite_variants["gmm_bwd"],
+                      launches_by_path={"train granite_moe_1b_a400m":
+                                            granite_launches["gmm_bwd"],
+                                        "serve granite_moe_1b_a400m": moe_launches["gmm_bwd"],
+                                        **_by_path(paper_paths, "gmm_bwd")},
+                      note="no TPU backward kernel: JAX differentiates the expert einsums "
+                           "(src/repro/models/moe.py:92-94) of the gmm kernel "
+                           "(src/repro/kernels/moe_gmm.py:23)"),
         _kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                       "src/repro/kernels/rwkv_scan.py:25", rwkv_launches["wkv6"], wkv_rows,
                       library=wkv_rows[0]["library"], variant_launches=rwkv_variants["wkv6"],
                       launches_by_path={"serve rwkv6_7b": rwkv_launches["wkv6"],
-                                        **_by_path(paper_paths, "wkv6")}),
+                                        f"train rwkv6_7b {RWKV_LAYERS} layers":
+                                            rwkv_train_launches["wkv6"],
+                                        **_by_path(paper_paths, "wkv6")},
+                      variant_launches_by_path={
+                          "serve rwkv6_7b": rwkv_variants["wkv6"],
+                          f"train rwkv6_7b {RWKV_LAYERS} layers": rwkv_train_variants["wkv6"]}),
+        _kernel_entry("wkv6_bwd", "src/repro_torch/kernels/csrc/wkv6.cu",
+                      "src/repro/models/rwkv.py:69", rwkv_train_launches["wkv6_bwd"],
+                      wkv_bwd_rows, library=wkv_bwd_rows[0]["library"],
+                      launches_by_path={f"train rwkv6_7b {RWKV_LAYERS} layers":
+                                            rwkv_train_launches["wkv6_bwd"],
+                                        "serve rwkv6_7b": rwkv_launches["wkv6_bwd"],
+                                        **_by_path(paper_paths, "wkv6_bwd")},
+                      note="no TPU backward kernel: JAX differentiates the scan "
+                           "(src/repro/models/rwkv.py:69, wkv_scan) of the wkv kernel "
+                           "(src/repro/kernels/rwkv_scan.py:25)"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -132,9 +132,10 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x N, f32) = A B + (scale_d ? d : 0): A (64 x 16) K-major and B
-// (16 x N) from shared memory; TRANS_B 0 reads B K-major, 1 MN-major.
-template <int N, int TRANS_B>
+// d (64 x N, f32) = A B + (scale_d ? d : 0): A (64 x 16) and B (16 x N)
+// from shared memory; TRANS_B 0 reads B K-major, 1 MN-major, and TRANS_A
+// the same for A.
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss shape");
@@ -146,9 +147,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   } else if constexpr (N == 128) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -161,9 +162,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   } else if constexpr (N == 256) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -184,9 +185,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56), WG_ACC8(64), WG_ACC8(72), WG_ACC8(80), WG_ACC8(88), WG_ACC8(96), WG_ACC8(104), WG_ACC8(112), WG_ACC8(120)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   }
 }
 

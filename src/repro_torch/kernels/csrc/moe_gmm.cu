@@ -22,7 +22,8 @@
 //   base not 16-byte aligned).  BM x 64 tiles (BM 64, or 16 when C <= 16),
 //   a BM x 16 tile of x and a 16 x 64 tile of w staged as f32 in shared
 //   memory per step, a TM x 4 block of f32 accumulators a thread; rows past
-//   C, columns past F and the contraction tail past d are masked.
+//   C, columns past F and the contraction tail past d are masked.  The same
+//   kernel, given other strides, runs the backward's FMA products.
 // * Tensor-core prefill tile, wgmma (bf16, C > 16).  128 x 256 outputs of
 //   one expert a block; two warpgroups of 64 rows, each issuing one
 //   m64n256k16 wgmma (bf16 in, f32 out) per k16 step with both operands read
@@ -46,6 +47,18 @@
 //   expert and streams its (d x 64) slab of w through a 4-stage ring of
 //   64 x 64 tiles, three in flight while one is used; 256 (wg, wi) or 512
 //   (wo) blocks of 46 KB keep every SM's memory pipe busy.
+//
+// The backward (`repro_gmm_bwd`, no TPU kernel: JAX differentiates the
+// expert einsums of models/moe.py) is two more grouped products, dx = dy w^T
+// (contracting over F) and dw = x^T dy (contracting over C), each read in
+// its stored layout, with no transposed copy: bf16 inputs the forward's
+// tensor-core tiles take run the same wgmma tile with dx's B (w) read
+// K-major and dw's A (x) read M-major through wgmma's transpose bits; the
+// rest runs the FMA kernel with the operands' strides.  A block owns an output
+// tile and sums the whole contraction itself, in order (no split over C),
+// so a repeat launch gives the same bits.  At Granite's training products
+// (capacity 2560) each is 85.9 GFLOP against ~285 MB, bound by operations
+// at ~0.087 ms; PERF.md has the times.
 //
 // Bound on the H100 (SXM, 700 W data sheet: 3.35 TB/s HBM, 989 TFLOP/s dense
 // bf16, 67 TFLOP/s f32 without tensor cores).  Work is 2*G*C*d*F FLOPs;
@@ -95,32 +108,54 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-struct Params {
-  const void* x;
-  const void* w;
+// The FMA kernel: one grouped product out[g] (M x N, row-major) = A[g] (M x
+// K) B[g] (K x N) with A(m, k) at a[m * sam + k * sak] and B(k, n) at
+// b[k * sbk + n * sbn], so the forward (A = x, B = w), dx = dy w^T and dw =
+// x^T dy read x, w and dy as they are stored; which dimension of each is
+// unit-stride is a template argument, so a layout's index arithmetic is the
+// forward kernel's.  BM x 64 output tiles (BM 64, or 16 when M <= 16), BK
+// 16, a TM x 4 block of f32 accumulators a thread; consecutive threads along
+// each operand's unit-stride dimension, 4 elements an item, one load where
+// `vec_a` / `vec_b` allow it; rows past M, columns past N and the
+// contraction tail past K masked; the whole contraction in one block, in
+// order (no split over K).
+struct GenParams {
+  const void* a;
+  const void* b;
   void* out;
-  int G, C, d, F;
-  int vec_x;  // x rows may be read 4 elements at a time
-  int vec_w;  // w rows may be read 4 elements at a time
+  int M, N, K;
+  int64_t sam, sak, sbk, sbn;  // element strides of A(m, k) and B(k, n)
+  int64_t ga, gb, go;          // group strides
+  int vec_a, vec_b;            // 4 elements a load along the unit-stride dimension
 };
 
-template <typename T, int BM, int TM>
-__global__ void __launch_bounds__(kThreads) gmm_kernel(Params p) {
-  static_assert((BM / TM) * (kBN / kTN) == kThreads, "one thread per TM x 4 outputs");
-  // x tile stored transposed, [k][m], so one thread's TM rows of one k are
-  // consecutive; +4 keeps rows 16-byte aligned and staggers the banks.
-  __shared__ __align__(16) float xs[kBK][BM + 4];
-  __shared__ __align__(16) float ws[kBK][kBN];
+// A(m, k) at a[m * sam + k] when kAUnitK, else at a[m + k * sak]; B(k, n) at
+// b[k * sbk + n] when kBUnitN, else at b[k + n * sbn].
+template <typename T, bool kAUnitK>
+__device__ __forceinline__ const T* a_at(const T* a, const GenParams& p, int m, int k) {
+  if constexpr (kAUnitK) return a + m * p.sam + k;
+  else return a + m + k * p.sak;
+}
+template <typename T, bool kBUnitN>
+__device__ __forceinline__ const T* b_at(const T* b, const GenParams& p, int k, int n) {
+  if constexpr (kBUnitN) return b + k * p.sbk + n;
+  else return b + k + n * p.sbn;
+}
 
+template <typename T, int BM, int TM, bool kAUnitK, bool kBUnitN>
+__global__ void __launch_bounds__(kThreads, 4) gmm_fma_kernel(GenParams p) {
+  static_assert((BM / TM) * (kBN / kTN) == kThreads, "one thread per TM x 4 outputs");
+  // A's tile stored [k][m], so one thread's TM rows of one k are consecutive;
+  // +4 keeps rows 16-byte aligned and staggers the banks.
+  __shared__ __align__(16) float as[kBK][BM + 4];
+  __shared__ __align__(16) float bs[kBK][kBN];
   const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
-  const int f0 = blockIdx.x * kBN;
-  const int c0 = blockIdx.y * BM;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
   const int64_t g = blockIdx.z;
-  const T* x = static_cast<const T*>(p.x) + g * p.C * p.d;
-  const T* w = static_cast<const T*>(p.w) + g * p.d * p.F;
-  T* out = static_cast<T*>(p.out) + g * p.C * p.F;
+  const T* a = static_cast<const T*>(p.a) + g * p.ga;
+  const T* b = static_cast<const T*>(p.b) + g * p.gb;
+  T* out = static_cast<T*>(p.out) + g * p.go;
 
   float acc[TM][kTN];
 #pragma unroll
@@ -128,102 +163,135 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < p.d; k0 += kBK) {
-    // x tile: BM rows x kBK, 4 consecutive k per item
-    for (int it = tid; it < BM * (kBK / 4); it += kThreads) {
-      const int m = it / (kBK / 4);
-      const int k = (it % (kBK / 4)) * 4;
-      const int row = c0 + m;
-      const int kg = k0 + k;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < p.C) {
-        const T* src = x + static_cast<int64_t>(row) * p.d + kg;
-        if (p.vec_x) {
-          if (kg < p.d) v = load4(src);  // d % 4 == 0: all 4 in range
-        } else {
-          if (kg < p.d) v.x = to_f32(src[0]);
-          if (kg + 1 < p.d) v.y = to_f32(src[1]);
-          if (kg + 2 < p.d) v.z = to_f32(src[2]);
-          if (kg + 3 < p.d) v.w = to_f32(src[3]);
-        }
-      }
-      xs[k][m] = v.x;
-      xs[k + 1][m] = v.y;
-      xs[k + 2][m] = v.z;
-      xs[k + 3][m] = v.w;
-    }
-    // w tile: kBK rows x kBN, 4 consecutive columns per item
-    for (int it = tid; it < kBK * (kBN / 4); it += kThreads) {
-      const int k = it / (kBN / 4);
-      const int n = (it % (kBN / 4)) * 4;
-      const int kg = k0 + k;
-      const int col = f0 + n;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kg < p.d) {
-        const T* src = w + static_cast<int64_t>(kg) * p.F + col;
-        if (p.vec_w) {
-          if (col < p.F) v = load4(src);  // F % 4 == 0: all 4 in range
-        } else {
-          if (col < p.F) v.x = to_f32(src[0]);
-          if (col + 1 < p.F) v.y = to_f32(src[1]);
-          if (col + 2 < p.F) v.z = to_f32(src[2]);
-          if (col + 3 < p.F) v.w = to_f32(src[3]);
-        }
-      }
-      *reinterpret_cast<float4*>(&ws[k][n]) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM];
-      if constexpr (TM % 4 == 0) {
-#pragma unroll
-        for (int i = 0; i < TM; i += 4) {
-          const float4 av = *reinterpret_cast<const float4*>(&xs[kk][ty * TM + i]);
-          a[i] = av.x;
-          a[i + 1] = av.y;
-          a[i + 2] = av.z;
-          a[i + 3] = av.w;
+  for (int k0 = 0; k0 < p.K; k0 += kBK) {
+    // A's tile: 4 consecutive elements along its unit-stride dimension per
+    // item, one load where `vec_a` allows (that extent is then a multiple of
+    // 4, so the 4 are all in range or all out), else four
+    for (int it = tid; it < BM * kBK / 4; it += kThreads) {
+      const int m = kAUnitK ? it / (kBK / 4) : (it % (BM / 4)) * 4;
+      const int k = kAUnitK ? (it % (kBK / 4)) * 4 : it / (BM / 4);
+      const int row = m0 + m, kg = k0 + k;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      const T* src = a_at<T, kAUnitK>(a, p, row, kg);
+      if (p.vec_a) {
+        if (row < p.M && kg < p.K) {
+          const float4 q = load4(src);
+          v[0] = q.x;
+          v[1] = q.y;
+          v[2] = q.z;
+          v[3] = q.w;
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
+        for (int e = 0; e < 4; ++e)
+          if (kAUnitK ? row < p.M && kg + e < p.K : row + e < p.M && kg < p.K) v[e] = to_f32(src[e]);
       }
-      const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tx * kTN]);
-      const float b[kTN] = {bv.x, bv.y, bv.z, bv.w};
+      if constexpr (kAUnitK) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) as[k + e][m] = v[e];
+      } else {
+        *reinterpret_cast<float4*>(&as[k][m]) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    // B's tile, the same way
+    for (int it = tid; it < kBK * kBN / 4; it += kThreads) {
+      const int n = kBUnitN ? (it % (kBN / 4)) * 4 : it / (kBK / 4);
+      const int k = kBUnitN ? it / (kBN / 4) : (it % (kBK / 4)) * 4;
+      const int col = n0 + n, kg = k0 + k;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      const T* src = b_at<T, kBUnitN>(b, p, kg, col);
+      if (p.vec_b) {
+        if (col < p.N && kg < p.K) {
+          const float4 q = load4(src);
+          v[0] = q.x;
+          v[1] = q.y;
+          v[2] = q.z;
+          v[3] = q.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kBUnitN ? col + e < p.N && kg < p.K : col < p.N && kg + e < p.K) v[e] = to_f32(src[e]);
+      }
+      if constexpr (kBUnitN) {
+        *reinterpret_cast<float4*>(&bs[k][n]) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bs[k + e][n] = v[e];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float aa[TM];
+      if constexpr (TM == 4) {
+        const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * TM]);
+        aa[0] = av.x;
+        aa[1] = av.y;
+        aa[2] = av.z;
+        aa[3] = av.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) aa[i] = as[kk][ty * TM + i];
+      }
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * kTN]);
+      const float bb[kTN] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(aa[i], bb[j], acc[i][j]);
     }
     __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int row = c0 + ty * TM + i;
-    if (row >= p.C) continue;
+    const int row = m0 + ty * TM + i;
+    if (row >= p.M) continue;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
-      const int col = f0 + tx * kTN + j;
-      if (col < p.F) store(out + static_cast<int64_t>(row) * p.F + col, acc[i][j]);
+      const int col = n0 + tx * kTN + j;
+      if (col < p.N) store(out + static_cast<int64_t>(row) * p.N + col, acc[i][j]);
     }
   }
 }
 
-template <typename T, int BM, int TM>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int64_t c_tiles = (static_cast<int64_t>(p.C) + BM - 1) / BM;
-  if (c_tiles > 65535 || p.G > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((p.F + kBN - 1) / kBN, static_cast<unsigned>(c_tiles), p.G);
-  gmm_kernel<T, BM, TM><<<grid, kThreads, 0, stream>>>(p);
+template <typename T, int BM, int TM, bool kAUnitK, bool kBUnitN>
+cudaError_t launch_fma_tile(const GenParams& p, int G, cudaStream_t stream) {
+  const int64_t m_tiles = (static_cast<int64_t>(p.M) + BM - 1) / BM;
+  if (m_tiles > 65535 || G > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((p.N + kBN - 1) / kBN, static_cast<unsigned>(m_tiles), G);
+  gmm_fma_kernel<T, BM, TM, kAUnitK, kBUnitN><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, bool kAUnitK, bool kBUnitN>
+cudaError_t launch_fma_layout(const GenParams& p, int G, cudaStream_t stream) {
+  return p.M <= 16 ? launch_fma_tile<T, 16, 1, kAUnitK, kBUnitN>(p, G, stream)
+                   : launch_fma_tile<T, 64, 4, kAUnitK, kBUnitN>(p, G, stream);
+}
+
+// An operand is read 4 elements at a time along its unit-stride dimension
+// when that extent, its other stride and its group stride are multiples of 4
+// and its base is aligned to 4 elements: every load is then aligned and all
+// in or all out of range.
+bool vec4(const void* base, int elem_bytes, int extent, int64_t other, int64_t group) {
+  return extent % 4 == 0 && other % 4 == 0 && group % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(base) % (4 * elem_bytes) == 0;
+}
+
+// The three layouts of gmm's products: the forward (x, w), dx (dy, w read
+// K-major) and dw (x read M-major, dy).
 template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  return p.C <= 16 ? launch<T, 16, 1>(p, stream) : launch<T, 64, 4>(p, stream);
+cudaError_t launch_fma(GenParams p, int G, cudaStream_t stream) {
+  constexpr int e = sizeof(T);
+  const bool ak = p.sak == 1, bn = p.sbn == 1;
+  p.vec_a = ak ? vec4(p.a, e, p.K, p.sam, p.ga) : vec4(p.a, e, p.M, p.sak, p.ga);
+  p.vec_b = bn ? vec4(p.b, e, p.N, p.sbk, p.gb) : vec4(p.b, e, p.K, p.sbn, p.gb);
+  if (ak && bn) return launch_fma_layout<T, true, true>(p, G, stream);
+  if (ak && p.sbk == 1) return launch_fma_layout<T, true, false>(p, G, stream);
+  if (bn && p.sam == 1) return launch_fma_layout<T, false, true>(p, G, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -330,10 +398,12 @@ __global__ void __launch_bounds__(kDThreads) gmm_tc_decode_kernel(TcParams p) {
 // ---------------------------------------------------------------------------
 
 // 128 x 256 outputs of one expert a block; 2 warpgroups of 64 rows, each one
-// m64n256k16 wgmma per k16 step; BK 64; a 4-stage cp.async ring whose x and w
-// tiles are written in the 128-byte swizzled layouts wgmma reads: x rows (K
-// contiguous, 128 bytes each) and w rows (N contiguous, four 64-column atoms
-// of 8 KB).  Each step's wgmma group stays in flight while the next step
+// m64n256k16 wgmma per k16 step; BK 64; a 4-stage cp.async ring whose A and B
+// tiles are written in the 128-byte swizzled layouts wgmma reads.  A K-major
+// operand (the forward's x, dx's dy, dx's w as B) is stored as rows of its M
+// or N dimension, 128 bytes of K each; an MN-major one (the forward's w,
+// dw's x as A and dy as B) as 64-column atoms of 64 contraction rows, 8 KB
+// apart.  Each step's wgmma group stays in flight while the next step
 // waits, syncs and issues its loads, so tiles are loaded kWgAhead = 2 steps
 // ahead: the ring holds the tile being loaded, the one landing, the one read
 // now and the one the pending group still reads.
@@ -343,39 +413,69 @@ constexpr int kWgStage = kWgBM * kWgBK + kWgBK * kWgBN;  // elements per stage
 constexpr size_t kWgSmem = sizeof(bf16) * kWgStages * kWgStage + 1024;  // + alignment slack
 static_assert(kWgBM * (kWgBN + 8) <= kWgStages * kWgStage, "epilogue tile fits in the ring");
 
-__global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(TcParams p) {
+// One grouped product out[g] (M x N, row-major) = A[g] (M x K) B[g] (K x N).
+// A(m, k) is a[m * lda + k] (K-major) or, kAMn, a[k * lda + m]; B(k, n) is
+// b[k * ldb + n] (kBMn, N-major) or b[n * ldb + k].  Group g starts ga, gb
+// and go elements into a, b and out.  The forward is <false, true> (x, w),
+// dx = dy w^T is <false, false> and dw = x^T dy is <true, true>.
+struct WgParams {
+  const bf16* a;
+  const bf16* b;
+  bf16* out;
+  int M, N, K, lda, ldb;
+  int64_t ga, gb, go;
+};
+
+template <bool kAMn, bool kBMn>
+__global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(WgParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // swizzle atoms need 1024-byte alignment
   bf16* smem =
       reinterpret_cast<bf16*>(smem_raw + ((1024 - (mma::smem_addr(smem_raw) & 1023)) & 1023));
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g8 = lane / 4, t4 = lane % 4;
-  const int f0 = blockIdx.x * kWgBN, c0 = blockIdx.y * kWgBM;
+  const int n0 = blockIdx.x * kWgBN, m0 = blockIdx.y * kWgBM;
   const int64_t g = blockIdx.z;
-  const bf16* x = p.x + g * p.C * p.d;
-  const bf16* w = p.w + g * p.d * p.F;
-  bf16* out = p.out + g * p.C * p.F;
-  const int n_k = (p.d + kWgBK - 1) / kWgBK;
+  const bf16* a = p.a + g * p.ga;
+  const bf16* b = p.b + g * p.gb;
+  bf16* out = p.out + g * p.go;
+  const int n_k = (p.K + kWgBK - 1) / kWgBK;
 
-  auto load = [&](int kt) {
-    bf16* xs = smem + (kt % kWgStages) * kWgStage;
-    bf16* ws = xs + kWgBM * kWgBK;
-    const int k0 = kt * kWgBK;
-    for (int i = threadIdx.x; i < kWgBM * 8; i += kWgThreads) {
+  // rows [r0, r0 + R) of a K-major operand (M or N rows, K contiguous) at
+  // contraction step k0: 128-byte rows, chunk c of row r at chunk c ^ (r % 8)
+  auto load_kmajor = [&](bf16* dst, const bf16* src, int ld, int r0, int rows, int R, int k0) {
+    for (int i = threadIdx.x; i < R * 8; i += kWgThreads) {
       const int r = i / 8, c = i % 8;
-      const int row = c0 + r, k = k0 + c * 8;
-      const bool ok = row < p.C && k < p.d;
-      mma::cp_async16(xs + r * kWgBK + ((c ^ (r & 7)) * 8),
-                      ok ? x + static_cast<int64_t>(row) * p.d + k : x, ok);
+      const int row = r0 + r, k = k0 + c * 8;
+      const bool ok = row < rows && k < p.K;
+      mma::cp_async16(dst + r * kWgBK + ((c ^ (r & 7)) * 8),
+                      ok ? src + static_cast<int64_t>(row) * ld + k : src, ok);
     }
-    constexpr int WCH = kWgBN / 8;  // 16-byte chunks of a w row
-    for (int i = threadIdx.x; i < kWgBK * WCH; i += kWgThreads) {
-      const int k = i / WCH, c = i % WCH;
-      const int kg = k0 + k, col = f0 + c * 8;
-      const bool ok = kg < p.d && col < p.F;
-      mma::cp_async16(ws + (c / 8) * (kWgBK * 64) + k * 64 + (((c % 8) ^ (k & 7)) * 8),
-                      ok ? w + static_cast<int64_t>(kg) * p.F + col : w, ok);
+  };
+  // columns [c0, c0 + C) of an MN-major operand (contraction rows, M or N
+  // contiguous) at contraction step k0: 64-column atoms of kWgBK rows
+  auto load_mnmajor = [&](bf16* dst, const bf16* src, int ld, int c0, int cols, int C, int k0) {
+    const int chunks = C / 8;  // 16-byte chunks of a row
+    for (int i = threadIdx.x; i < kWgBK * chunks; i += kWgThreads) {
+      const int k = i / chunks, c = i % chunks;
+      const int kg = k0 + k, col = c0 + c * 8;
+      const bool ok = kg < p.K && col < cols;
+      mma::cp_async16(dst + (c / 8) * (kWgBK * 64) + k * 64 + (((c % 8) ^ (k & 7)) * 8),
+                      ok ? src + static_cast<int64_t>(kg) * ld + col : src, ok);
     }
+  };
+  auto load = [&](int kt) {
+    bf16* as = smem + (kt % kWgStages) * kWgStage;
+    bf16* bs = as + kWgBM * kWgBK;
+    const int k0 = kt * kWgBK;
+    if constexpr (kAMn)
+      load_mnmajor(as, a, p.lda, m0, p.M, kWgBM, k0);
+    else
+      load_kmajor(as, a, p.lda, m0, p.M, kWgBM, k0);
+    if constexpr (kBMn)
+      load_mnmajor(bs, b, p.ldb, n0, p.N, kWgBN, k0);
+    else
+      load_kmajor(bs, b, p.ldb, n0, p.N, kWgBN, k0);
   };
 #pragma unroll
   for (int s = 0; s < kWgAhead; ++s) {
@@ -395,18 +495,23 @@ __global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(TcParams p) {
     __syncthreads();
     if (kt + kWgAhead < n_k) load(kt + kWgAhead);
     mma::cp_async_commit();
-    const bf16* xs = smem + (kt % kWgStages) * kWgStage;
-    const bf16* ws = xs + kWgBM * kWgBK;
+    const bf16* as = smem + (kt % kWgStages) * kWgStage;
+    const bf16* bs = as + kWgBM * kWgBK;
     mma::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kWgBK / 16; ++j) {
-      // A: this warpgroup's 64 rows, k 16j..16j+15 (32 bytes into each
-      // swizzled 128-byte row); 8-row groups 1024 bytes apart
-      const uint64_t da = mma::sw128_desc(xs + wg * 64 * kWgBK + j * 16, 16, 1024);
-      // B: k rows 16j..16j+15 (two 8-row groups 1024 bytes apart), the four
-      // 64-column atoms 8 KB apart
-      const uint64_t db = mma::sw128_desc(ws + j * 16 * 64, kWgBK * 64 * 2, 1024);
-      mma::wgmma_ss<256, 1>(acc, da, db, 1);
+      // A: this warpgroup's 64 rows, k 16j..16j+15.  K-major: 32 bytes into
+      // each swizzled 128-byte row, 8-row groups 1024 bytes apart; M-major:
+      // the warpgroup's atom, contraction rows 16j.. (two 8-row groups 1024
+      // bytes apart)
+      const uint64_t da = kAMn ? mma::sw128_desc(as + wg * (kWgBK * 64) + j * 16 * 64,
+                                                 kWgBK * 64 * 2, 1024)
+                               : mma::sw128_desc(as + wg * 64 * kWgBK + j * 16, 16, 1024);
+      // B: N-major, k rows 16j..16j+15, the four 64-column atoms 8 KB apart;
+      // K-major, 32 bytes into each of the 256 rows
+      const uint64_t db = kBMn ? mma::sw128_desc(bs + j * 16 * 64, kWgBK * 64 * 2, 1024)
+                               : mma::sw128_desc(bs + j * 16, 16, 1024);
+      mma::wgmma_ss<256, kBMn ? 1 : 0, kAMn ? 1 : 0>(acc, da, db, 1);
     }
     mma::wgmma_commit();
     mma::wgmma_wait<1>();  // tile kt - 1's group is done; tile kt's may run on
@@ -430,20 +535,21 @@ __global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(TcParams p) {
   __syncthreads();
   for (int i = threadIdx.x; i < kWgBM * (kWgBN / 8); i += kWgThreads) {
     const int r = i / (kWgBN / 8), c = (i % (kWgBN / 8)) * 8;
-    const int row = c0 + r, col = f0 + c;
-    if (row < p.C && col < p.F)
-      *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * p.F + col) =
+    const int row = m0 + r, col = n0 + c;
+    if (row < p.M && col < p.N)
+      *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * p.N + col) =
           *reinterpret_cast<const uint4*>(os + r * OLD + c);
   }
 }
 
-cudaError_t launch_wgmma_prefill(const TcParams& p, int G, cudaStream_t stream) {
-  const int64_t c_tiles = (static_cast<int64_t>(p.C) + kWgBM - 1) / kWgBM;
-  if (c_tiles > 65535) return cudaErrorInvalidConfiguration;
-  cudaError_t err = launch::opt_in_smem<&gmm_wgmma_kernel>(kWgSmem);
+template <bool kAMn, bool kBMn>
+cudaError_t launch_wgmma(const WgParams& p, int G, cudaStream_t stream) {
+  const int64_t m_tiles = (static_cast<int64_t>(p.M) + kWgBM - 1) / kWgBM;
+  if (m_tiles > 65535 || G > 65535) return cudaErrorInvalidConfiguration;
+  cudaError_t err = launch::opt_in_smem<&gmm_wgmma_kernel<kAMn, kBMn>>(kWgSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.F + kWgBN - 1) / kWgBN, static_cast<unsigned>(c_tiles), G);
-  gmm_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(p);
+  const dim3 grid((p.N + kWgBN - 1) / kWgBN, static_cast<unsigned>(m_tiles), G);
+  gmm_wgmma_kernel<kAMn, kBMn><<<grid, kWgThreads, kWgSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -459,11 +565,11 @@ cudaError_t launch_tc(const TcParams& p, int G, int variant, cudaStream_t stream
     gmm_tc_decode_kernel<<<grid, kDThreads, kDSmem, stream>>>(p);
     return cudaGetLastError();
   }
-  return launch_wgmma_prefill(p, G, stream);
-}
-
-bool aligned4(const void* ptr, int elem_bytes) {
-  return reinterpret_cast<uintptr_t>(ptr) % (4 * elem_bytes) == 0;
+  // x read K-major, w N-major
+  const WgParams q{p.x, p.w, p.out, p.C, p.F, p.d, p.d, p.F,
+                   static_cast<int64_t>(p.C) * p.d, static_cast<int64_t>(p.d) * p.F,
+                   static_cast<int64_t>(p.C) * p.F};
+  return launch_wgmma<false, true>(q, G, stream);
 }
 
 }  // namespace
@@ -488,17 +594,48 @@ extern "C" int repro_gmm(const void* x, const void* w, void* out, int dtype, int
     return static_cast<int>(launch_tc(p, G, variant, s));
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int elem = dtype == 0 ? 4 : 2;
-  Params p;
-  p.x = x;
-  p.w = w;
-  p.out = out;
-  p.G = G;
-  p.C = C;
-  p.d = d;
-  p.F = F;
-  // every row of x (w) starts 4-aligned when the base is and d (F) % 4 == 0
-  p.vec_x = d % 4 == 0 && aligned4(x, elem);
-  p.vec_w = F % 4 == 0 && aligned4(w, elem);
-  return static_cast<int>(dtype == 0 ? dispatch<float>(p, s) : dispatch<__nv_bfloat16>(p, s));
+  const int64_t cd = static_cast<int64_t>(C) * d, df = static_cast<int64_t>(d) * F,
+                cf = static_cast<int64_t>(C) * F;
+  const GenParams p{x, w, out, C, F, d, d, 1, F, 1, cd, df, cf};
+  return static_cast<int>(dtype == 0 ? launch_fma<float>(p, G, s)
+                                     : launch_fma<__nv_bfloat16>(p, G, s));
+}
+
+// The backward of out = gmm(x, w) for the output gradient dy (G, C, F):
+// `which` 0 writes dx = dy w^T (G, C, d), 1 writes dw = x^T dy (G, d, F),
+// each summed in f32 over the whole contraction (F for dx, C for dw) by one
+// block, in order, and rounded once.  x, w, dy and out are contiguous and
+// of one dtype (0: f32, 1: bf16).  `variant` 0 runs the FMA kernel (any
+// shape); 1 the wgmma tile, which needs bf16, d and F multiples of 8 and
+// 16-byte aligned bases (the caller checks the bases).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for an empty shape, an unknown dtype, product or
+// variant, or a variant the inputs do not fit.
+extern "C" int repro_gmm_bwd(const void* x, const void* w, const void* dy, void* out,
+                             int dtype, int G, int C, int d, int F, int which, int variant,
+                             void* stream) {
+  if (G < 1 || C < 1 || d < 1 || F < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || (which != 0 && which != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t cd = static_cast<int64_t>(C) * d, df = static_cast<int64_t>(d) * F,
+                cf = static_cast<int64_t>(C) * F;
+  if (variant == 1) {
+    if (dtype != 1 || d % 8 != 0 || F % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* wb = static_cast<const bf16*>(w);
+    const bf16* dyb = static_cast<const bf16*>(dy);
+    bf16* ob = static_cast<bf16*>(out);
+    if (which == 0)   // A = dy (K-major), B = w read K-major: B(f, j) = w[j, f]
+      return static_cast<int>(
+          launch_wgmma<false, false>(WgParams{dyb, wb, ob, C, d, F, F, F, cf, df, cd}, G, s));
+    // A = x read M-major: A(j, c) = x[c, j]; B = dy (N-major)
+    return static_cast<int>(
+        launch_wgmma<true, true>(WgParams{xb, dyb, ob, d, F, C, d, F, cd, cf, df}, G, s));
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const GenParams p = which == 0 ? GenParams{dy, w, out, C, d, F, F, 1, 1, F, cf, df, cd}
+                                 : GenParams{x, dy, out, d, F, C, 1, d, F, 1, cd, cf, df};
+  return static_cast<int>(dtype == 0 ? launch_fma<float>(p, G, s)
+                                     : launch_fma<__nv_bfloat16>(p, G, s));
 }

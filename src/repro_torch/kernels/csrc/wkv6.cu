@@ -78,6 +78,9 @@
 //   the same elements.  Any T: the last sub-chunk's tokens past T decay by 1
 //   and carry zeros.
 //
+// The backward (`repro_wkv6_bwd`, three kernels, no TPU kernel: JAX
+// differentiates the scan) is described at its section below.
+//
 // What the chunked form still leaves on the table: it is bound by issued
 // instructions, not bytes: the split-TF32 conversions of the operands, the
 // direct diagonal block (~L/2 products a token and key) and address
@@ -96,6 +99,8 @@ constexpr int kSplit = 4;  // threads sharing one state column, each with hd/4 r
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 struct Params {
   const void* r;
@@ -104,12 +109,17 @@ struct Params {
   const float* w;
   const float* u;
   const float* s_in;  // initial state (B, H, hd, hd), or null for zeros
-  float* s_out;       // final state (B, H, hd, hd); may be s_in
-  float* out;         // (B, T, H, hd)
+  float* s_out;       // final state (B, H, hd, hd), may be s_in; null: not written (scan)
+  void* out;          // (B, T, H, hd), f32 (the backward's dv: r's dtype)
   int B, T, H;
 };
 
-template <typename T, int HD>
+// The sequential scan.  r and k are T, v TV, out TO; kRev walks the tokens
+// from the last to the first.  The forward is <T, T, float, HD, false>; the
+// backward's dv is the same recurrence in reverse with k and r swapped and
+// dO for v (dv_t = k_t (G_t + diag(u) r_t^T dO_t), G_{t-1} = diag(w_t) G_t
+// + r_t^T dO_t), <T, float, T, HD, true>.
+template <typename T, typename TV, typename TO, int HD, bool kRev>
 __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
   constexpr int kThreads = HD * kSplit;
   constexpr int kRows = HD / kSplit;                // state rows a thread keeps
@@ -134,10 +144,11 @@ __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
   const int64_t base = (static_cast<int64_t>(b) * p.T * p.H + h) * HD;  // (b, 0, h, 0)
   const T* r = static_cast<const T*>(p.r) + base;
   const T* k = static_cast<const T*>(p.k) + base;
-  const T* v = static_cast<const T*>(p.v) + base;
+  const TV* v = static_cast<const TV*>(p.v) + base;
   const float* w = p.w + base;
-  float* out = p.out + base;
+  TO* out = static_cast<TO*>(p.out) + base;
   const int64_t s_base = static_cast<int64_t>(bh) * HD * HD;
+  auto tok = [&](int t) { return kRev ? p.T - 1 - t : t; };   // the t-th token walked
 
   float u[kRows];
   float S[kRows];
@@ -155,7 +166,7 @@ __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
       const int e = tid + m * kThreads;
       const int t = t0 + e / HD;
       if (t < p.T) {
-        const int64_t off = t * step + e % HD;
+        const int64_t off = tok(t) * step + e % HD;
         fr[m] = to_f32(r[off]);
         fk[m] = to_f32(k[off]);
         fv[m] = to_f32(v[off]);
@@ -206,13 +217,15 @@ __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
       float o = 0.f;
 #pragma unroll
       for (int g = 0; g < kSplit; ++g) o += part[g][s][c];
-      out[(t0 + s) * step + c] = o;
+      store(out + tok(t0 + s) * step + c, o);
     }
   }
 
+  if (p.s_out) {
 #pragma unroll
-  for (int ii = 0; ii < kRows; ++ii)
-    p.s_out[s_base + static_cast<int64_t>(i0 + ii) * HD + j] = S[ii];
+    for (int ii = 0; ii < kRows; ++ii)
+      p.s_out[s_base + static_cast<int64_t>(i0 + ii) * HD + j] = S[ii];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -491,7 +504,7 @@ __global__ void __launch_bounds__(4 * HD) wkv6_chunked_kernel(Params p) {
   const int warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, t4 = lane % 4;
   const int j0 = 16 * warp;
-  float* out = p.out + base;
+  float* out = static_cast<float*>(p.out) + base;
   float St[HD / 8][4];
 #pragma unroll
   for (int kn = 0; kn < HD / 8; ++kn)
@@ -583,7 +596,7 @@ __global__ void __launch_bounds__(4 * HD) wkv6_chunked_kernel(Params p) {
 
 template <typename T, int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  wkv6_kernel<T, HD><<<p.B * p.H, HD * kSplit, 0, stream>>>(p);
+  wkv6_kernel<T, T, float, HD, false><<<p.B * p.H, HD * kSplit, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -618,6 +631,331 @@ cudaError_t dispatch_chunked(const Params& p, int hd, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
+//
+// From a zero initial state, the final state unused, for the output gradient
+// dO (B, T, H, hd) f32, with G_t = dL/dS_t (G_{T-1} = 0, G_{t-1} = r_t^T dO_t
+// + diag(w_t) G_t) and vdo_t = v_t . dO_t:
+//
+//   dr_t = S_{t-1} dO_t + u k_t vdo_t      dk_t = G_t v_t + u r_t vdo_t
+//   dv_t = k_t (G_t + diag(u) r_t^T dO_t)   dw_t = sum_j G_t[., j] S_{t-1}[., j]
+//   du   = sum_{b, t} r_t k_t vdo_t
+//
+// Three kernels, one launch of `repro_wkv6_bwd`:
+//
+// * `wkv6_bwd_rows_kernel`, for dr, dk, dw and du's partials.  Rows of S and
+//   G are independent (row i decays by w[., i] alone), so a block owns kRB
+//   rows of one (b, h) and nothing crosses blocks.  A thread keeps 8
+//   columns of its row of S, then of G, in registers; sums over the columns
+//   are its own and a shuffle over the HD / 8 threads of the row.  Tokens
+//   go through shared memory 16 at a time (a sub-chunk).  A forward pass
+//   writes dr, adds du's partial and saves S at every chunk start (64
+//   tokens) to a workspace of (B H, T / 64 - 1, hd, hd) f32 (130 MB at B 4
+//   x T 2048 x H 64 x hd 64).  The reverse pass walks the chunks from the
+//   last: it recomputes S forward from the chunk's saved state to each
+//   sub-chunk's start (kept in shared memory, a thread's own elements), then
+//   walks the sub-chunks backward with G.  S_{t-1} is never recovered from
+//   S_t (that divides by w, which underflows to 0 under strong decays):
+//   within a sub-chunk from t0,
+//
+//     dw_t = D(t0..t-1) (G_t . S_{t0-1}) + sum_{t0<=s<t} D(s+1..t-1) k_s (G_t . v_s)
+//
+//   per row, D(a..b) = prod_{a<=q<=b} w_q, the products built from 1 token
+//   by token, each factor <= 1.
+// * `wkv6_kernel<..., true>`, the scan in reverse, for dv (above).
+// * `wkv6_bwd_du_kernel`, du = the partials summed over b in order.
+//
+// Every sum is taken in a fixed order (no atomics), so a repeat launch gives
+// the same bits.  Bound on the H100 (3.35 TB/s): r, k, v (bf16), w and dO
+// (f32) read, dr, dk, dv (bf16) and dw (f32) written, 24 bytes an element,
+// 0.80 GB at B 4 x T 2048 x H 64 x hd 64: ~0.24 ms, plus the saved states
+// written and read (0.26 GB).  What it leaves on the table: the reverse
+// pass's sum over s costs ~L / 2 extra column sums a token (L = 16), the
+// forward state is computed twice, everything runs on the FMA pipes, and a
+// thread walks T alone (its latency is hidden only by the other blocks).
+
+constexpr int kBwdChunk = 64;     // tokens between saved states
+constexpr int kBwdSub = 16;       // tokens of a sub-chunk
+constexpr int kBwdThreads = 128;  // 8 threads a token when staging
+constexpr int kBwdCols = 8;       // columns of a row a thread keeps
+
+struct BwdParams {
+  const void* r;
+  const void* k;
+  const void* v;
+  const float* w;
+  const float* u;
+  const float* dout;  // dO (B, T, H, hd)
+  void* dr;           // (B, T, H, hd), r's dtype
+  void* dk;
+  float* dw;          // (B, T, H, hd)
+  float* du_part;     // (B, H, hd)
+  float* saved;       // (B H, n_chunks - 1, hd, hd): S before chunk c at c - 1
+  int B, T, H;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads) wkv6_bwd_rows_kernel(BwdParams p) {
+  constexpr int kQ = HD / kBwdCols;          // threads of a row
+  constexpr int kRB = kBwdThreads / kQ;      // rows a block owns
+  constexpr int L = kBwdSub;
+  constexpr int kSubs = kBwdChunk / L;
+  static_assert(HD % kRB == 0 && kBwdThreads == 8 * L && kBwdCols == 8, "block shape");
+  __shared__ __align__(16) float rs[L][kRB];
+  __shared__ __align__(16) float ks[L][kRB];
+  __shared__ __align__(16) float ws[L][kRB];
+  __shared__ __align__(16) float vs[L][HD];
+  __shared__ __align__(16) float dos[L][HD];
+  __shared__ float vdo[L];
+  __shared__ float outs[2][L][kRB];          // a sub-chunk's dr, or its dk and dw
+  __shared__ float first[kSubs][kBwdCols][kBwdThreads];   // S before each sub-chunk
+
+  const int tid = threadIdx.x;
+  const int ri = tid / kQ, q = tid % kQ;     // this thread's row of the block, column group
+  const int c0 = q * kBwdCols;
+  constexpr int kBlocksPerHead = HD / kRB;
+  const int bh = blockIdx.x / kBlocksPerHead, rb = blockIdx.x % kBlocksPerHead;
+  const int b = bh / p.H, h = bh % p.H;
+  const int i = rb * kRB + ri;               // the state row (key index)
+  const int64_t step = static_cast<int64_t>(p.H) * HD;
+  const int64_t base = (static_cast<int64_t>(b) * p.T * p.H + h) * HD;
+  const T* r = static_cast<const T*>(p.r) + base;
+  const T* k = static_cast<const T*>(p.k) + base;
+  const T* v = static_cast<const T*>(p.v) + base;
+  const float* w = p.w + base;
+  const float* dout = p.dout + base;
+  T* dr = static_cast<T*>(p.dr) + base;
+  T* dk = static_cast<T*>(p.dk) + base;
+  float* dw = p.dw + base;
+  const int n_chunks = (p.T + kBwdChunk - 1) / kBwdChunk;
+  float* saved = p.saved + static_cast<int64_t>(bh) * (n_chunks - 1) * HD * HD;
+  const float ui = p.u[h * HD + i];
+
+  // tokens [t0, t0 + L) into shared memory (zeros, and decays of 1, past T)
+  // and vdo; ends with a barrier
+  auto stage = [&](int t0) {
+    const int n = min(L, p.T - t0);
+    for (int e = tid; e < L * kRB; e += kBwdThreads) {
+      const int s = e / kRB, c = e % kRB;
+      float x = 0.f, y = 0.f, z = 1.f;
+      if (s < n) {
+        const int64_t off = (t0 + s) * step + rb * kRB + c;
+        x = to_f32(r[off]);
+        y = to_f32(k[off]);
+        z = w[off];
+      }
+      rs[s][c] = x;
+      ks[s][c] = y;
+      ws[s][c] = z;
+    }
+    for (int e = tid; e < L * HD; e += kBwdThreads) {
+      const int s = e / HD, c = e % HD;
+      float x = 0.f, y = 0.f;
+      if (s < n) {
+        const int64_t off = (t0 + s) * step + c;
+        x = to_f32(v[off]);
+        y = dout[off];
+      }
+      vs[s][c] = x;
+      dos[s][c] = y;
+    }
+    __syncthreads();
+    {   // vdo: 8 threads a token, HD / 8 columns each, added in a fixed order
+      const int s = tid / 8, part = tid % 8;
+      float x = 0.f;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) x = fmaf(vs[s][part * (HD / 8) + c], dos[s][part * (HD / 8) + c], x);
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      if (part == 0) vdo[s] = x;
+    }
+    __syncthreads();
+  };
+  // the sum over a row's kQ threads (consecutive lanes)
+  auto row_sum = [](float x) {
+#pragma unroll
+    for (int o = 1; o < kQ; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  };
+  auto load8 = [](const float* src, float x[kBwdCols]) {
+    const float4 lo = reinterpret_cast<const float4*>(src)[0];
+    const float4 hi = reinterpret_cast<const float4*>(src)[1];
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  };
+  auto advance = [&](float S[kBwdCols], int s) {   // S_t from S_{t-1}, token s staged
+    float vv[kBwdCols];
+    load8(&vs[s][c0], vv);
+    const float kk = ks[s][ri], ww = ws[s][ri];
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) S[e] = fmaf(ww, S[e], kk * vv[e]);
+  };
+  // a sub-chunk's outputs (outs[0] to o0, outs[1] to o1 if given), coalesced
+  auto write_out = [&](int t0, auto* o0, float* o1) {
+    const int n = min(L, p.T - t0);
+    for (int e = tid; e < n * kRB; e += kBwdThreads) {
+      const int s = e / kRB, c = e % kRB;
+      const int64_t off = (t0 + s) * step + rb * kRB + c;
+      store(o0 + off, outs[0][s][c]);
+      if (o1) o1[off] = outs[1][s][c];
+    }
+  };
+
+  // ---- forward: dr, du's partial, the saved states --------------------------
+  float S[kBwdCols];
+#pragma unroll
+  for (int e = 0; e < kBwdCols; ++e) S[e] = 0.f;
+  float du = 0.f;
+  for (int t0 = 0; t0 < p.T; t0 += L) {
+    if (t0 % kBwdChunk == 0 && t0 > 0) {
+      float4* dst = reinterpret_cast<float4*>(
+          saved + (static_cast<int64_t>(t0 / kBwdChunk - 1) * HD + i) * HD + c0);
+      dst[0] = make_float4(S[0], S[1], S[2], S[3]);
+      dst[1] = make_float4(S[4], S[5], S[6], S[7]);
+    }
+    stage(t0);
+    const int n = min(L, p.T - t0);
+    for (int s = 0; s < n; ++s) {
+      float dd[kBwdCols];
+      load8(&dos[s][c0], dd);
+      float x = 0.f;
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) x = fmaf(dd[e], S[e], x);
+      x = row_sum(x);
+      if (q == 0) {
+        outs[0][s][ri] = fmaf(ui * ks[s][ri], vdo[s], x);
+        du = fmaf(rs[s][ri] * ks[s][ri], vdo[s], du);
+      }
+      advance(S, s);
+    }
+    __syncthreads();
+    write_out(t0, dr, nullptr);
+  }
+  if (q == 0) p.du_part[static_cast<int64_t>(bh) * HD + i] = du;
+
+  // ---- reverse: dk, dw ------------------------------------------------------
+  float G[kBwdCols];
+#pragma unroll
+  for (int e = 0; e < kBwdCols; ++e) G[e] = 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int tc = c * kBwdChunk;
+    const int n_sub = min(kSubs, (p.T - tc + L - 1) / L);
+    if (c == 0) {
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) S[e] = 0.f;
+    } else {
+      load8(saved + (static_cast<int64_t>(c - 1) * HD + i) * HD + c0, S);
+    }
+    // the state before each sub-chunk (a thread reads back only its own)
+    for (int m = 0; m < n_sub; ++m) {
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) first[m][e][tid] = S[e];
+      if (m + 1 < n_sub) {           // sub-chunk m is whole
+        stage(tc + m * L);
+        for (int s = 0; s < L; ++s) advance(S, s);
+        __syncthreads();
+      }
+    }
+    for (int m = n_sub - 1; m >= 0; --m) {
+      const int t0 = tc + m * L;
+      const int n = min(L, p.T - t0);
+      stage(t0);
+      float s0[kBwdCols];
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) s0[e] = first[m][e][tid];
+      for (int s = n - 1; s >= 0; --s) {
+        float vv[kBwdCols], dd[kBwdCols];
+        load8(&vs[s][c0], vv);
+        float dkx = 0.f, y = 0.f;
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) {
+          dkx = fmaf(G[e], vv[e], dkx);
+          y = fmaf(G[e], s0[e], y);
+        }
+        float acc = 0.f, prod = 1.f;
+        for (int j = s - 1; j >= 0; --j) {
+          load8(&vs[j][c0], vv);
+          float z = 0.f;
+#pragma unroll
+          for (int e = 0; e < kBwdCols; ++e) z = fmaf(G[e], vv[e], z);
+          acc = fmaf(prod * ks[j][ri], z, acc);
+          prod *= ws[j][ri];
+        }
+        float dwx = fmaf(prod, y, acc);
+        dkx = row_sum(dkx);
+        dwx = row_sum(dwx);
+        const float rr = rs[s][ri], ww = ws[s][ri];
+        if (q == 0) {
+          outs[0][s][ri] = fmaf(ui * rr, vdo[s], dkx);
+          outs[1][s][ri] = dwx;
+        }
+        load8(&dos[s][c0], dd);
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) G[e] = fmaf(ww, G[e], rr * dd[e]);
+      }
+      __syncthreads();
+      write_out(t0, dk, dw);
+    }
+  }
+}
+
+// du[h, i] = sum_b du_part[b, h, i], b in order
+__global__ void wkv6_bwd_du_kernel(const float* du_part, float* du, int B, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float x = 0.f;
+  for (int b = 0; b < B; ++b) x += du_part[static_cast<int64_t>(b) * n + e];
+  du[e] = x;
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const BwdParams& p, void* dv, float* du, cudaStream_t stream) {
+  constexpr int kRB = kBwdThreads / (HD / kBwdCols);
+  const int64_t blocks = static_cast<int64_t>(p.B) * p.H * (HD / kRB);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  wkv6_bwd_rows_kernel<T, HD><<<static_cast<unsigned>(blocks), kBwdThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dv: the scan in reverse, k and r swapped, dO for v, no initial or final state
+  Params s;
+  s.r = p.k;
+  s.k = p.r;
+  s.v = p.dout;
+  s.w = p.w;
+  s.u = p.u;
+  s.s_in = nullptr;
+  s.s_out = nullptr;
+  s.out = dv;
+  s.B = p.B;
+  s.T = p.T;
+  s.H = p.H;
+  wkv6_kernel<T, float, T, HD, true><<<p.B * p.H, HD * kSplit, 0, stream>>>(s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = p.H * HD;
+  wkv6_bwd_du_kernel<<<(n + 255) / 256, 256, 0, stream>>>(p.du_part, du, p.B, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdParams& p, int hd, void* dv, float* du, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_bwd<T, 32>(p, dv, du, stream);
+    case 64: return launch_bwd<T, 64>(p, dv, du, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// du's partials, then the saved states: what `repro_wkv6_bwd_workspace` reports
+int64_t bwd_workspace_bytes(int B, int T, int H, int hd) {
+  const int64_t bh = static_cast<int64_t>(B) * H;
+  const int64_t saves = (T + kBwdChunk - 1) / kBwdChunk - 1;
+  return 4 * (bh * hd + bh * saves * hd * hd);
+}
+
 }  // namespace
 
 // r, k, v: (B, T, H, hd) of `dtype` (0: f32, 1: bf16); w: (B, T, H, hd) f32;
@@ -644,7 +982,7 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const voi
   p.u = static_cast<const float*>(u);
   p.s_in = static_cast<const float*>(s_in);
   p.s_out = static_cast<float*>(s_out);
-  p.out = static_cast<float*>(out);
+  p.out = out;
   p.B = B;
   p.T = T;
   p.H = H;
@@ -654,4 +992,53 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const voi
                                        : dispatch_chunked<__nv_bfloat16>(p, hd, s));
   return static_cast<int>(dtype == 0 ? dispatch<float>(p, hd, s)
                                      : dispatch<__nv_bfloat16>(p, hd, s));
+}
+
+// Bytes of scratch `repro_wkv6_bwd` needs at (B, T, H, hd): du's partials,
+// (B, H, hd) f32, then the state at every chunk start but the first, (B H) x
+// (ceil(T / 64) - 1) x hd x hd f32 (130 MB at B 4 x T 2048 x H 64 x hd 64).
+// -1 for a shape the backward does not take.
+extern "C" long long repro_wkv6_bwd_workspace(int B, int T, int H, int hd) {
+  if (B < 1 || T < 1 || H < 1 || (hd != 32 && hd != 64)) return -1;
+  return bwd_workspace_bytes(B, T, H, hd);
+}
+
+// The backward of (out, _) = wkv6(r, k, v, w, u) from a zero state, the final
+// state unused, for dO = dL/dout: r, k, v (B, T, H, hd) of `dtype` (0: f32,
+// 1: bf16); w, dout (B, T, H, hd) and u (H, hd) f32.  Writes dr, dk, dv in
+// `dtype`, dw (B, T, H, hd) and du (H, hd) f32; `workspace` is scratch of
+// `workspace_bytes`, at least `repro_wkv6_bwd_workspace(B, T, H, hd)`, 16-byte
+// aligned.  All contiguous; hd 32 or 64.  Three kernels on `stream`; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an empty
+// shape, an unknown dtype or head size, a workspace too small, or a grid too
+// large.
+extern "C" int repro_wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
+                              const void* u, const void* dout, void* dr, void* dk, void* dv,
+                              void* dw, void* du, void* workspace, long long workspace_bytes,
+                              int dtype, int B, int T, int H, int hd, void* stream) {
+  if (B < 1 || T < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(B) * H > 0x7fffffff / 8) return static_cast<int>(cudaErrorInvalidValue);
+  if ((hd != 32 && hd != 64) || workspace_bytes < bwd_workspace_bytes(B, T, H, hd) ||
+      reinterpret_cast<uintptr_t>(workspace) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams p;
+  p.r = r;
+  p.k = k;
+  p.v = v;
+  p.w = static_cast<const float*>(w);
+  p.u = static_cast<const float*>(u);
+  p.dout = static_cast<const float*>(dout);
+  p.dr = dr;
+  p.dk = dk;
+  p.dw = static_cast<float*>(dw);
+  p.du_part = static_cast<float*>(workspace);
+  p.saved = p.du_part + static_cast<int64_t>(B) * H * hd;
+  p.B = B;
+  p.T = T;
+  p.H = H;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* duf = static_cast<float*>(du);
+  return static_cast<int>(dtype == 0 ? dispatch_bwd<float>(p, hd, dv, duf, s)
+                                     : dispatch_bwd<__nv_bfloat16>(p, hd, dv, duf, s));
 }

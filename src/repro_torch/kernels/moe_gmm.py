@@ -13,6 +13,15 @@ F multiples of 8 and 16-byte aligned bases run on the tensor cores, in the
 decode tile when C <= 16, else in the prefill tile; f32 and other bf16
 inputs run the FMA kernel.  ``gmm.launches`` counts every launch and
 ``gmm.variant_launches`` each variant's.
+
+On CUDA tensors that need a gradient ``gmm`` runs ``GmmFunction``: the
+forward kernel, then ``gmm_bwd``, whose two products dx = dy w^T and dw =
+x^T dy are kernels of the same source reading dy, w and x in their stored
+layouts (no transposed copy), each counted in ``gmm_bwd.launches`` and
+``gmm_bwd.variant_launches`` (``tc_dx``, ``tc_dw`` on the wgmma tile for
+the inputs the forward's tensor-core tiles take, ``fma_dx``, ``fma_dw``
+else); its plain twin is ``ref.gmm_bwd_plain``.  On CPU tensors autograd
+runs through ``ref.gmm_ref``.
 """
 from __future__ import annotations
 
@@ -21,11 +30,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import gmm_ref
+from repro_torch.kernels.ref import gmm_bwd_plain, gmm_ref
 
-MOE_TRAIN = "ROADMAP.md Queue 1 item 14 (MoE training on the card: a gmm backward)"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("fma", "tc_prefill", "tc_decode")   # the C entry's variant codes 0, 1, 2
+BWD_VARIANTS = ("fma_dx", "fma_dw", "tc_dx", "tc_dw")   # a count per product launch
 DECODE_ROWS = 16     # C up to which the decode tile (one m16 tile of rows) runs
 
 
@@ -67,8 +76,92 @@ def gmm(x, w):
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("gmm's kernel takes contiguous x and w")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(f"the gmm backward kernel is not ported yet ({MOE_TRAIN})")
+        return GmmFunction.apply(x, w)
     return _launch(x, w, gmm_variant(x, w))
+
+
+class GmmFunction(torch.autograd.Function):
+    """The grouped matmul with its gradient on the card: the forward kernel,
+    then the backward kernels for the products autograd asks for."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _launch(x, w, gmm_variant(x, w))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if not dy.is_contiguous():
+            dy = dy.contiguous()
+            gmm_bwd.dy_copies += 1
+        return gmm_bwd(x, w, dy, need_dx=ctx.needs_input_grad[0],
+                       need_dw=ctx.needs_input_grad[1])
+
+
+def gmm_bwd_variant(x, w, dy) -> str:
+    """The backward kernel ``gmm_bwd`` launches: ``tc`` (the wgmma tile, for
+    both products) for bf16 with d and F multiples of 8 and 16-byte aligned
+    x, w and dy, the inputs whose rows the forward's tensor-core tiles copy
+    16 bytes at a time; ``fma`` for everything else."""
+    d, f = x.shape[2], w.shape[2]
+    if not (x.dtype == w.dtype == dy.dtype == torch.bfloat16) or d % 8 or f % 8 \
+            or any(t.data_ptr() % 16 for t in (x, w, dy)):
+        return "fma"
+    return "tc"
+
+
+def gmm_bwd(x, w, dy, *, need_dx: bool = True, need_dw: bool = True):
+    """Gradients of ``gmm(x, w)`` for the output gradient dy (G, C, F), all
+    contiguous and of one dtype: (dx = dy w^T (G, C, d), dw = x^T dy (G, d,
+    F)) in that dtype, each summed in f32 and rounded once; None for a
+    product not asked for.  On CUDA tensors it launches one kernel a product
+    (or raises); on CPU tensors it takes the plain version
+    ``ref.gmm_bwd_plain``."""
+    _check(x, w)
+    g, c, _ = x.shape
+    if tuple(dy.shape) != (g, c, w.shape[2]):
+        raise ValueError(f"dy {tuple(dy.shape)} is not gmm's output shape "
+                         f"{(g, c, w.shape[2])}")
+    if all(t.device.type == "cpu" for t in (x, w, dy)):
+        return gmm_bwd_plain(x, w, dy, need_dx=need_dx, need_dw=need_dw)
+    if not (x.is_cuda and x.device == w.device == dy.device):
+        raise ValueError(f"gmm_bwd needs x, w and dy on one CUDA device (or all on the "
+                         f"CPU); got {x.device}, {w.device}, {dy.device}")
+    if not (x.dtype == w.dtype == dy.dtype) or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"gmm_bwd takes float32 or bfloat16 x, w and dy of one dtype; got "
+                        f"{x.dtype}, {w.dtype}, {dy.dtype}")
+    if not all(t.is_contiguous() for t in (x, w, dy)):
+        raise ValueError("gmm_bwd's kernels take contiguous x, w and dy")
+    return _launch_bwd(x, w, dy, gmm_bwd_variant(x, w, dy), need_dx, need_dw)
+
+
+def _launch_bwd(x, w, dy, variant: str, need_dx: bool = True, need_dw: bool = True):
+    """Launch ``variant`` (``tc`` or ``fma``) of the backward for each product
+    asked for, on CUDA tensors that ``gmm_bwd`` has checked; ``tc`` needs
+    what ``gmm_bwd_variant`` asks of it."""
+    g, c, d = x.shape
+    f = w.shape[2]
+    fn = _bwd_entry or _bind_bwd()
+    grads = []
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for which, (name, need, shape) in enumerate((("dx", need_dx, (g, c, d)),
+                                                     ("dw", need_dw, (g, d, f)))):
+            if not need:
+                grads.append(None)
+                continue
+            out = torch.empty(shape, dtype=x.dtype, device=x.device)
+            err = fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                     _DTYPE_CODE[x.dtype], g, c, d, f, which, ("fma", "tc").index(variant),
+                     stream)
+            if err != 0:
+                raise RuntimeError(f"gmm backward launch failed ({variant}, {name}): "
+                                   f"CUDA error {err}")
+            gmm_bwd.launches += 1
+            gmm_bwd.variant_launches[f"{variant}_{name}"] += 1
+            grads.append(out)
+    return tuple(grads)
 
 
 def _launch(x, w, variant: str):
@@ -91,8 +184,12 @@ def _launch(x, w, variant: str):
 
 gmm.launches = 0
 gmm.variant_launches = dict.fromkeys(VARIANTS, 0)
+gmm_bwd.launches = 0
+gmm_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
+gmm_bwd.dy_copies = 0   # output gradients autograd handed over non-contiguous
 
-_entry = None   # the bound C entry point, once the library is built and loaded
+_entry = None   # the bound C entry points, once the library is built and loaded
+_bwd_entry = None
 
 
 def _bind():
@@ -101,4 +198,13 @@ def _bind():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     _entry = fn
+    return fn
+
+
+def _bind_bwd():
+    global _bwd_entry
+    fn = build.load("moe_gmm").repro_gmm_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    _bwd_entry = fn
     return fn

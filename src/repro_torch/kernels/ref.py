@@ -53,6 +53,18 @@ def gmm_ref(x, w):
     return torch.einsum("gcd,gdf->gcf", x.to(ct), w.to(ct)).to(x.dtype)
 
 
+def gmm_bwd_plain(x, w, dy, *, need_dx: bool = True, need_dw: bool = True):
+    """Gradients of ``gmm_ref(x, w)`` for the output gradient dy (G, C, F):
+    dx = dy w^T (G, C, d) and dw = x^T dy (G, d, F), each summed in f32 (f64
+    for f64 inputs) and rounded once, to x's and w's dtypes; None for a
+    product not asked for."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    dyc = dy.to(ct)
+    dx = torch.einsum("gcf,gdf->gcd", dyc, w.to(ct)).to(x.dtype) if need_dx else None
+    dw = torch.einsum("gcd,gcf->gdf", x.to(ct), dyc).to(w.dtype) if need_dw else None
+    return dx, dw
+
+
 def lstm_cell_ref(x, h, c, wx, wh, b):
     """x: (B, d_in); h: (B, H_in); c: (B, H); wx: (d_in, 4, H); wh: (H_in, 4, H).
 
@@ -132,3 +144,78 @@ def wkv6_chunked_plain(r, k, v, w, u, state=None, *, sub: int = 16):
         total = dec_in[:, :, -1] * wc[:, :, -1]
         s = total[..., None] * s + (kc * dec_out).transpose(2, 3) @ vc
     return torch.cat(outs, 2).transpose(1, 2), s
+
+
+WKV_BWD_CHUNK = 64   # tokens between the saved states (csrc/wkv6.cu's kBwdChunk)
+WKV_BWD_SUB = 16     # tokens of a sub-chunk (its kBwdSub)
+
+
+def wkv6_bwd_plain(r, k, v, w, u, do):
+    """The arithmetic of the WKV backward kernels (``csrc/wkv6.cu``) in plain
+    PyTorch: the gradients of ``wkv6_ref(r, k, v, w, u)[0]`` (zero initial
+    state, final state unused) for the output gradient ``do`` (B, T, H, hd).
+    With G_t = dL/dS_t (G_{T-1} = 0, G_{t-1} = r_t^T do_t + diag(w_t) G_t)
+    and vdo_t = v_t . do_t:
+
+        dr_t = S_{t-1} do_t + u k_t vdo_t           (forward, saving S at
+                                                      every chunk start)
+        dv_t = k_t (G_t + diag(u) r_t^T do_t)        (reverse)
+        dk_t = G_t v_t + u r_t vdo_t                 (reverse)
+        dw_t = sum_j G_t S_{t-1}                     (reverse)
+        du   = sum_{b,t} r_t k_t vdo_t               (over t, then over b)
+
+    S_{t-1} is never recovered from S_t (that divides by w, which underflows
+    to 0 under strong decays): within a sub-chunk of 16 tokens from
+    t0, S_{t-1} = D(t0..t-1) S_{t0-1} + sum_{t0<=s<t} D(s+1..t-1) k_s^T v_s
+    with D(a..b) = prod_{a<=q<=b} w_q, so
+
+        dw_t = D(t0..t-1) (G_t . S_{t0-1}) + sum_{t0<=s<t} D(s+1..t-1) k_s (G_t v_s),
+
+    the products of w built from 1 token by token; S_{t0-1} is recomputed
+    forward from the saved state of its chunk.  Computed in f32 (f64 for
+    f64 inputs); returns (dr, dk, dv) in r's dtype and (dw, du) in f32 (f64
+    for f64 inputs)."""
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    b, t, h, hd = r.shape
+    rf, kf, vf, wf, dof = (x.to(ct) for x in (r, k, v, w, do))
+    uf = u.to(ct)
+    vdo = (vf * dof).sum(-1, keepdim=True)                          # (B, T, H, 1)
+    zeros = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device)
+
+    def advance(s, i):                        # S_i from S_{i-1}
+        return wf[:, i, :, :, None] * s + kf[:, i, :, :, None] * vf[:, i, :, None, :]
+
+    dr, dk, dv, dw = (torch.empty((b, t, h, hd), dtype=ct, device=r.device)
+                      for _ in range(4))
+    saved, s = {}, zeros
+    for i in range(t):
+        if i % WKV_BWD_CHUNK == 0 and i > 0:
+            saved[i // WKV_BWD_CHUNK] = s
+        dr[:, i] = torch.einsum("bhij,bhj->bhi", s, dof[:, i]) + uf * kf[:, i] * vdo[:, i]
+        s = advance(s, i)
+    du = (rf * kf * vdo).sum(1).sum(0)
+    g = zeros
+    for i in reversed(range(t)):
+        rdo = rf[:, i, :, :, None] * dof[:, i, :, None, :]
+        dv[:, i] = torch.einsum("bhi,bhij->bhj", kf[:, i], g + uf[None, :, :, None] * rdo)
+        g = wf[:, i, :, :, None] * g + rdo
+    g = zeros
+    chunk, sub = WKV_BWD_CHUNK, WKV_BWD_SUB
+    for c in reversed(range(-(-t // chunk))):
+        starts = list(range(c * chunk, min((c + 1) * chunk, t), sub))
+        s, firsts = saved.get(c, zeros), []
+        for t0 in starts:                     # the state before each sub-chunk
+            firsts.append(s)
+            for i in range(t0, min(t0 + sub, t)):
+                s = advance(s, i)
+        for t0, s0 in reversed(list(zip(starts, firsts))):
+            for i in reversed(range(t0, min(t0 + sub, t))):
+                dk[:, i] = torch.einsum("bhij,bhj->bhi", g, vf[:, i]) + uf * rf[:, i] * vdo[:, i]
+                y = (g * s0).sum(-1)
+                acc, prod = torch.zeros_like(y), torch.ones_like(y)
+                for j in reversed(range(t0, i)):
+                    acc = acc + prod * kf[:, j] * torch.einsum("bhij,bhj->bhi", g, vf[:, j])
+                    prod = prod * wf[:, j]
+                dw[:, i] = prod * y + acc
+                g = wf[:, i, :, :, None] * g + rf[:, i, :, :, None] * dof[:, i, :, None, :]
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du

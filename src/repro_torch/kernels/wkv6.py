@@ -20,6 +20,13 @@ form on the tensor cores (``chunked``; its plain twin is
 ``ref.wkv6_chunked_plain``), a decode step and short prompts the sequential
 scan (``scan``).  ``wkv6.launches`` counts every launch and
 ``wkv6.variant_launches`` each variant's.
+
+On CUDA tensors that need a gradient ``wkv6`` runs ``WKV6Function`` from a
+zero state (training; a given state under autograd raises, and the final
+state is not differentiable): the forward kernel, then ``wkv6_bwd``, the
+backward kernels of the same source (one count in ``wkv6_bwd.launches`` a
+call, three kernels), whose plain twin is ``ref.wkv6_bwd_plain``.  On CPU
+tensors autograd runs through ``ref.wkv6_ref``.
 """
 from __future__ import annotations
 
@@ -28,9 +35,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import wkv6_ref
+from repro_torch.kernels.ref import wkv6_bwd_plain, wkv6_ref
 
-RWKV_TRAIN = "ROADMAP.md Queue 1 item 17 (RWKV training on the card: a wkv backward kernel)"
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("scan", "chunked")   # the C entry's variant codes 0, 1
@@ -75,8 +81,17 @@ def wkv6(r, k, v, w, u, state=None):
             return out, s
         state.copy_(s)
         return out, state
+    _check_cuda(r, k, v, tensors)
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError(f"the wkv6 backward kernel is not ported yet ({RWKV_TRAIN})")
+        if state is not None:
+            raise NotImplementedError("wkv6 differentiates from a zero initial state only "
+                                      "(training); a given state is a decode cache's, "
+                                      "which takes no gradient")
+        return WKV6Function.apply(r, k, v, w, u)
+    return _launch(r, k, v, w, u, state, wkv_variant(r, k, v, w))
+
+
+def _check_cuda(r, k, v, tensors) -> None:
     if not (r.is_cuda and all(x.device == r.device for x in tensors)):
         raise ValueError(f"wkv6 needs every tensor on one CUDA device (or all on the "
                          f"CPU); got {sorted({str(x.device) for x in tensors})}")
@@ -86,12 +101,66 @@ def wkv6(r, k, v, w, u, state=None):
     if any(x.dtype != torch.float32 for x in tensors[3:]):
         raise TypeError(f"wkv6 takes float32 w, u and state; got "
                         f"{[str(x.dtype) for x in tensors[3:]]}")
-    b, t, h, hd = r.shape
+    hd = r.shape[3]
     if hd not in HEAD_DIMS:
         raise ValueError(f"wkv6's kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("wkv6's kernel takes contiguous r, k, v, w, u and state")
-    return _launch(r, k, v, w, u, state, wkv_variant(r, k, v, w))
+        raise ValueError("wkv6's kernels take contiguous tensors")
+
+
+class WKV6Function(torch.autograd.Function):
+    """The WKV recurrence from a zero state with its gradient on the card:
+    the forward kernel, then the backward kernels; the final state is
+    returned but not differentiable."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        out, state = _launch(r, k, v, w, u, None, wkv_variant(r, k, v, w))
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.mark_non_differentiable(state)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, _dstate):
+        r, k, v, w, u = ctx.saved_tensors
+        if not dout.is_contiguous():
+            dout = dout.contiguous()
+            wkv6_bwd.dout_copies += 1
+        return wkv6_bwd(r, k, v, w, u, dout)
+
+
+def wkv6_bwd(r, k, v, w, u, dout):
+    """Gradients of ``wkv6(r, k, v, w, u)[0]`` from a zero state (the final
+    state unused) for the output gradient ``dout`` (B, T, H, hd) f32: (dr,
+    dk, dv) in r's dtype, dw (B, T, H, hd) and du (H, hd) in f32.  On CUDA
+    tensors it launches the backward kernels (or raises); on CPU tensors it
+    takes the plain version ``ref.wkv6_bwd_plain``.  Scratch on the card:
+    the bytes the C entry asks for (``repro_wkv6_bwd_workspace``), mostly
+    the state at every chunk start, (B H) x (ceil(T / 64) - 1) x hd^2 f32
+    (130 MB at B 4 x T 2048 x H 64 x hd 64)."""
+    _check(r, k, v, w, u, None)
+    if dout.shape != r.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} differs from r {tuple(r.shape)}")
+    tensors = (r, k, v, w, u, dout)
+    if all(x.device.type == "cpu" for x in tensors):
+        return wkv6_bwd_plain(*tensors)
+    _check_cuda(r, k, v, tensors)
+    b, t, h, hd = r.shape
+    dev = r.device
+    dr, dk, dv = (torch.empty(r.shape, dtype=r.dtype, device=dev) for _ in range(3))
+    dw = torch.empty(r.shape, dtype=torch.float32, device=dev)
+    du = torch.empty((h, hd), dtype=torch.float32, device=dev)
+    fn, size_fn = _bwd_entry or _bind_bwd()
+    n_bytes = size_fn(b, t, h, hd)   # the layout is the C entry's own
+    workspace = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(*(x.data_ptr() for x in (r, k, v, w, u, dout, dr, dk, dv, dw, du, workspace)),
+                 n_bytes, _DTYPE_CODE[r.dtype], b, t, h, hd,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err}")
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du
 
 
 def _launch(r, k, v, w, u, state, variant: str):
@@ -116,8 +185,11 @@ def _launch(r, k, v, w, u, state, variant: str):
 
 wkv6.launches = 0
 wkv6.variant_launches = dict.fromkeys(VARIANTS, 0)
+wkv6_bwd.launches = 0
+wkv6_bwd.dout_copies = 0   # output gradients autograd handed over non-contiguous
 
-_entry = None   # the bound C entry point, once the library is built and loaded
+_entry = None   # the bound C entry points, once the library is built and loaded
+_bwd_entry = None   # (the backward, its workspace size)
 
 
 def _bind():
@@ -127,3 +199,16 @@ def _bind():
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     _entry = fn
     return fn
+
+
+def _bind_bwd():
+    global _bwd_entry
+    lib = build.load("wkv6")
+    fn, size_fn = lib.repro_wkv6_bwd, lib.repro_wkv6_bwd_workspace
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    size_fn.restype = ctypes.c_longlong
+    size_fn.argtypes = [ctypes.c_int] * 4
+    _bwd_entry = fn, size_fn
+    return _bwd_entry

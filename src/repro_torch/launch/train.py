@@ -19,8 +19,9 @@ symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
 with the global-norm clip at 1.0, from a seeded init, and prints the JAX
 launcher's ``[data]`` and ``[done]`` lines, then the launch count of each
 kernel (``[kernels]``; zero on the CPU, where the plain twins run) and of
-each variant of the LSTM forward and of the flash-attention forward and
-backward (``[variants]``).  Runs on the card by default; ``--device cpu
+each variant of the LSTM forward, the flash-attention forward and backward,
+the grouped matmul's forward and its backward products and the WKV
+recurrence (``[variants]``).  Runs on the card by default; ``--device cpu
 --reduced`` is the CPU smoke run.
 
 ``--parallel auto`` runs the paper's HybridPlanner (``core.planner``, on the
@@ -74,9 +75,10 @@ newest file it finds there):
         --steps 12 --ckpt-dir "$TMPDIR/ck" --ckpt-every 5 --resume
 
 On the card
-BigLSTM and the dense decoder train; an MoE decoder needs the gmm backward
-kernel and RWKV a wkv backward.  On the CPU every decoder trains through
-the kernels' plain versions.  GNMT and Inception-V3 need source/target
+every decoder and BigLSTM train through the hand-written kernels, forward
+and backward (an MoE decoder through ``gmm`` and ``gmm_bwd``, RWKV through
+``wkv6`` and ``wkv6_bwd``); on the CPU through the kernels' plain versions.
+GNMT and Inception-V3 need source/target
 pairs and images, which this launcher (like JAX's) does not feed: it
 refuses them, and they train through ``models.api.build_model`` +
 ``train.steps.make_train_step``.
@@ -218,22 +220,6 @@ def clamp_micro(plan: ParallelPlan, shard_rows: int) -> ParallelPlan:
     return plan
 
 
-def check_trainable(cfg, device: torch.device) -> None:
-    """On the card BigLSTM and the dense decoder train; the MoE
-    layer's grouped matmuls and the RWKV recurrence have no backward kernels
-    yet."""
-    if device.type != "cuda":
-        return
-    if cfg.rwkv:
-        raise NotImplementedError(
-            f"training {cfg.name} on the card needs the wkv6 backward kernel, not "
-            f"ported yet: {wk.RWKV_TRAIN}")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"training {cfg.name} on the card needs the gmm backward kernel, not "
-            f"ported yet: {moe_gmm.MOE_TRAIN}")
-
-
 @dataclasses.dataclass(frozen=True)
 class RankRun:
     """What a training run needs (pickled to the ranks of a multi-rank run)."""
@@ -263,13 +249,15 @@ def _counter_fns():
             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise,
             "flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "gmm": moe_gmm.gmm, "wkv6": wk.wkv6}
+            "gmm": moe_gmm.gmm, "gmm_bwd": moe_gmm.gmm_bwd,
+            "wkv6": wk.wkv6, "wkv6_bwd": wk.wkv6_bwd}
 
 
 def _launch_counts() -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
     fns = _counter_fns()
     variants = {n: dict(fns[n].variant_launches)
-                for n in ("lstm_cell_fwd", "flash_attention", "flash_attention_bwd")}
+                for n in ("lstm_cell_fwd", "flash_attention", "flash_attention_bwd", "gmm",
+                          "gmm_bwd", "wkv6")}
     return {n: fn.launches for n, fn in fns.items()}, variants
 
 
@@ -557,7 +545,6 @@ def main(argv=None):
                 comm_chunks=args.comm_chunks or plan.comm_chunks)
     check_plan(plan, mp, cfg)
     device = resolve_device(args.device)
-    check_trainable(cfg, device)
     if pipeline:
         if not pipeline_applicable(cfg, mp, plan.virtual_stages):
             raise SystemExit(

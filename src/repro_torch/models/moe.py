@@ -94,7 +94,11 @@ def _expert_compute(xf, ids, w, wi, wg, wo, cap: int):
     buf_tok = torch.full((drop_bin + 1,), t, dtype=torch.long, device=dev)
     buf_tok.scatter_(0, slot, arange // k)
     xpad = torch.cat([xf, xf.new_zeros((1, d))], 0)
-    xb = xpad[buf_tok[:-1]].reshape(e, cap, d)
+    # the gathers are F.embedding: its backward sums the copies of a row in
+    # parallel segments, where indexing's backward adds them one after
+    # another, and the buffer's empty slots are thousands of copies of the
+    # zero row (B 4 x T 2048: 2.4 s of a 2.6 s step on the card)
+    xb = F.embedding(buf_tok[:-1], xpad).reshape(e, cap, d)
     # expert FFN (swiglu), three grouped matmuls
     h = F.silu(gmm(xb, wg.to(xf.dtype)))
     h = h * gmm(xb, wi.to(xf.dtype))
@@ -102,7 +106,7 @@ def _expert_compute(xf, ids, w, wi, wg, wo, cap: int):
     # combine back, weighted (a dropped assignment reads the zero row past
     # y); token i's k contributions are rows i*k .. i*k+k-1
     ypad = torch.cat([y, y.new_zeros((1, d))], 0)
-    contrib = ypad[slot] * w.reshape(-1, 1)
+    contrib = F.embedding(slot, ypad) * w.reshape(-1, 1)
     return contrib.view(t, k, d).sum(1)
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention's forward and backward, the LSTM cell's
-forward and pointwise backward, the grouped matmul, the RWKV6 WKV
-recurrence) against their plain versions on the card; for flash attention,
+forward and pointwise backward, the grouped matmul and its backward, the
+RWKV6 WKV recurrence and its backward) against their plain versions on the
+card; for flash attention,
 the grouped matmul, the LSTM forward (FMA, tensor-core ``tc``) and the WKV
 recurrence (``scan``, ``chunked``), each of their variants, asserting which
 variant's launch counter moved.
@@ -15,7 +16,12 @@ as test_wkv6_sweep).  The flash backward (no TPU kernel) is held at 1e-4 of
 max(1, the largest reference value) in f32, sums of up to 2048 terms taken
 in another order, and in bf16 by FlashAttention-2's rule: its error against
 the f32 plain version at most twice that of autograd through the plain
-forward in bf16, plus 1e-3 of the largest reference value.
+forward in bf16, plus 1e-3 of the largest reference value.  The gmm and
+wkv6 backwards (no TPU kernel) are held against their plain twins, and
+``gmm`` / ``wkv6`` under autograd against autograd through the plain
+forward, within 1e-4 (gmm) and 2e-4 (wkv6) of max(1, the largest reference
+value) in f32, the forwards' tolerances, and 2e-2 of it in bf16 (outputs
+rounded to bf16, 2^-8 of the value); a repeat launch gives the same bits.
 """
 import numpy as np
 import pytest
@@ -26,7 +32,8 @@ from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import lstm_cell as TLC
 from repro_torch.kernels import moe_gmm as TGM
 from repro_torch.kernels import wkv6 as TWK
-from repro_torch.kernels.ref import gmm_ref, lstm_cell_ref, wkv6_ref
+from repro_torch.kernels.ref import (gmm_bwd_plain, gmm_ref, lstm_cell_ref, wkv6_bwd_plain,
+                                     wkv6_ref)
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 
@@ -362,8 +369,86 @@ def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         TGM.gmm(x, w.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         TGM.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TGM.gmm(x.requires_grad_(), w)
+
+
+# G, C, d, F of the backward: the forward's odd shapes (FMA kernel at bf16
+# where d or F is no multiple of 8), C = 1, tiles ragged in every dimension
+# of both products (C 300, d 136, F 264), and Granite-3.0-1B-A400M's training
+# products (B 4 x T 2048: capacity 2560; wg/wi and wo)
+GMM_BWD_SHAPES = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (3, 1, 64, 48),
+                  (2, 17, 1, 9), (2, 300, 136, 264), (32, 2560, 1024, 512),
+                  (32, 2560, 512, 1024)]
+BWD_REL_TOL = {"gmm": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
+               "wkv6": {torch.float32: 2e-4, torch.bfloat16: 2e-2}}
+
+
+def _rel(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _gmm_dy(seed, g, c, f, device, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((g, c, f)).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,c,d,f", GMM_BWD_SHAPES)
+def test_gmm_bwd_kernels_match_plain_on_card(cuda_device, dtype, g, c, d, f):
+    """dx and dw, one launch each on the variant ``gmm_bwd_variant`` picks,
+    against the plain twin; a repeat launch gives the same bits."""
+    x, w = _gmm_inputs(g + c + d + f, g, c, d, f, cuda_device, dtype)
+    dy = _gmm_dy(c * f, g, c, f, cuda_device, dtype)
+    variant = TGM.gmm_bwd_variant(x, w, dy)
+    assert variant == ("tc" if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+                       else "fma")
+    before = dict(TGM.gmm_bwd.variant_launches)
+    dx, dw = TGM.gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert _moved(TGM.gmm_bwd, before) == {f"{variant}_dx": 1, f"{variant}_dw": 1}
+    assert dx.shape == (g, c, d) and dw.shape == (g, d, f) and dx.dtype == dw.dtype == dtype
+    for got, want in zip((dx, dw), gmm_bwd_plain(x, w, dy)):
+        assert _rel(got, want) < BWD_REL_TOL["gmm"][dtype]
+    again = TGM.gmm_bwd(x, w, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,c,d,f", [(4, 100, 192, 160), (2, 300, 136, 264)])
+def test_gmm_bwd_fma_kernel_takes_tensor_core_inputs(cuda_device, g, c, d, f):
+    """The FMA kernel forced on bf16 inputs the wgmma tile takes: both agree
+    with the plain twin, and only the forced variant's counters move."""
+    x, w = _gmm_inputs(7, g, c, d, f, cuda_device, torch.bfloat16)
+    dy = _gmm_dy(8, g, c, f, cuda_device, torch.bfloat16)
+    before = dict(TGM.gmm_bwd.variant_launches)
+    fma = TGM._launch_bwd(x, w, dy, "fma")
+    assert _moved(TGM.gmm_bwd, before) == {"fma_dx": 1, "fma_dw": 1}
+    tc = TGM.gmm_bwd(x, w, dy)
+    for a, b, want in zip(fma, tc, gmm_bwd_plain(x, w, dy)):
+        assert _rel(a, want) < BWD_REL_TOL["gmm"][torch.bfloat16]
+        assert _rel(b, want) < BWD_REL_TOL["gmm"][torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,c,d,f", [(4, 100, 192, 160), (3, 9, 130, 70)])
+def test_gmm_autograd_on_card_matches_autograd_of_plain(cuda_device, dtype, g, c, d, f):
+    """``gmm`` on CUDA tensors that need grad: one forward launch and one
+    launch a product in the backward, gradients equal to autograd through
+    the plain forward; only the products autograd asks for launch."""
+    x, w = _gmm_inputs(3, g, c, d, f, cuda_device, dtype)
+    dy = _gmm_dy(4, g, c, f, cuda_device, dtype)
+    xa, wa, xr, wr = (t.clone().requires_grad_() for t in (x, w, x, w))
+    fwd, bwd = TGM.gmm.launches, TGM.gmm_bwd.launches
+    gx, gw = torch.autograd.grad(TGM.gmm(xa, wa), (xa, wa), dy)
+    torch.cuda.synchronize()
+    assert (TGM.gmm.launches - fwd, TGM.gmm_bwd.launches - bwd) == (1, 2)
+    rx, rw = torch.autograd.grad(gmm_ref(xr, wr), (xr, wr), dy)
+    assert _rel(gx, rx) < BWD_REL_TOL["gmm"][dtype] and _rel(gw, rw) < BWD_REL_TOL["gmm"][dtype]
+    before = dict(TGM.gmm_bwd.variant_launches)
+    (gw_only,) = torch.autograd.grad(TGM.gmm(x, wa), (wa,), dy)
+    assert sum(_moved(TGM.gmm_bwd, before).values()) == 1 and torch.equal(gw_only, gw)
 
 
 # B, T, H, hd: RWKV6-7B's prefill (B 4, T 512, H 64, hd 64) and decode step
@@ -451,8 +536,94 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         TWK.wkv6(r, k, v, w, u, s0.transpose(2, 3))
     with pytest.raises(ValueError, match="head_dim"):
         TWK.wkv6(*(x[..., :48].contiguous() for x in (r, k, v, w, u)))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TWK.wkv6(r.requires_grad_(), k, v, w, u)
+
+
+# B, T, H, hd of the backward: T under a 16-token sub-chunk, 16, past one,
+# under and over the 64-token chunk (the last partial), hd 32 and 64, and
+# RWKV6-7B's training shape (B 4, T 2048, H 64, hd 64)
+WKV_BWD_SHAPES = [(2, 5, 2, 32), (2, 16, 1, 64), (1, 40, 2, 64), (1, 70, 2, 64),
+                  (2, 130, 2, 32), (4, 2048, 64, 64)]
+
+
+def _wkv_do(seed, shape, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * 0.5).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd", WKV_BWD_SHAPES)
+def test_wkv6_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, t, h, hd):
+    """dr, dk, dv (in r's dtype), dw and du against the plain twin, one
+    count a call; a repeat launch gives the same bits."""
+    r, k, v, w, u, _ = _wkv_inputs(b * t + hd, b, t, h, hd, cuda_device, dtype, state=False)
+    do = _wkv_do(t, r.shape, cuda_device)
+    before = TWK.wkv6_bwd.launches
+    got = TWK.wkv6_bwd(r, k, v, w, u, do)
+    torch.cuda.synchronize()
+    assert TWK.wkv6_bwd.launches == before + 1
+    assert [x.dtype for x in got] == [dtype] * 3 + [torch.float32] * 2
+    for x, want in zip(got, wkv6_bwd_plain(r, k, v, w, u, do)):
+        assert torch.isfinite(x).all() and _rel(x, want) < BWD_REL_TOL["wkv6"][dtype]
+    assert all(torch.equal(x, y) for x, y in zip(TWK.wkv6_bwd(r, k, v, w, u, do), got))
+
+
+@pytest.mark.cuda
+def test_wkv6_bwd_kernels_on_strong_decays(cuda_device):
+    """w in [1e-38, 1e-3] over 200 tokens: every gradient finite and held to
+    the plain twin (no factor of the kernels divides by w)."""
+    r, k, v, _, u, _ = _wkv_inputs(11, 1, 200, 2, 64, cuda_device, torch.float32, state=False)
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(np.exp(rng.uniform(np.log(1e-38), np.log(1e-3), r.shape))
+                         .astype(np.float32)).to(cuda_device)
+    do = _wkv_do(12, r.shape, cuda_device)
+    got = TWK.wkv6_bwd(r, k, v, w, u, do)
+    for x, want in zip(got, wkv6_bwd_plain(r, k, v, w, u, do)):
+        assert torch.isfinite(x).all() and _rel(x, want) < BWD_REL_TOL["wkv6"][torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hd", [(1, 64, 2, 32), (2, 65, 2, 64), (4, 2048, 64, 64)])
+def test_wkv6_bwd_workspace_is_sized_by_the_entry(cuda_device, b, t, h, hd):
+    """The C entry sizes its own scratch (du's partials and a state every 64
+    tokens after the first) and refuses a workspace one byte short."""
+    fn, size_fn = TWK._bwd_entry or TWK._bind_bwd()
+    n_bytes = size_fn(b, t, h, hd)
+    assert n_bytes == 4 * b * h * hd * (1 + (-(-t // 64) - 1) * hd)
+    assert size_fn(b, t, h, 48) == -1
+    r, k, v, w, u, _ = _wkv_inputs(3, b, t, h, hd, cuda_device, torch.float32, state=False)
+    do = _wkv_do(4, r.shape, cuda_device)
+    outs = [torch.empty_like(x) for x in (r, r, r, r)] + [torch.empty_like(u)]
+    workspace = torch.empty((n_bytes,), dtype=torch.uint8, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    ptrs = [x.data_ptr() for x in (r, k, v, w, u, do, *outs, workspace)]
+    assert fn(*ptrs, n_bytes - 1, 0, b, t, h, hd, stream) != 0
+    assert fn(*ptrs, n_bytes, 0, b, t, h, hd, stream) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd", [(2, 70, 2, 64), (1, 9, 3, 32)])
+def test_wkv6_autograd_on_card_matches_autograd_of_plain(cuda_device, dtype, b, t, h, hd):
+    """``wkv6`` from a zero state on CUDA tensors that need grad: one forward
+    launch (on the variant ``wkv_variant`` picks) and one backward call,
+    gradients equal to autograd through the plain forward; the final state
+    takes no gradient, and a given state under autograd raises."""
+    r, k, v, w, u, s0 = _wkv_inputs(t + hd, b, t, h, hd, cuda_device, dtype)
+    do = _wkv_do(5, r.shape, cuda_device)
+    card, plain = ([x.clone().requires_grad_() for x in (r, k, v, w, u)] for _ in range(2))
+    by_variant, bwd = dict(TWK.wkv6.variant_launches), TWK.wkv6_bwd.launches
+    out, state = TWK.wkv6(*card)
+    assert not state.requires_grad
+    got = torch.autograd.grad(out, card, do)
+    torch.cuda.synchronize()
+    assert _moved(TWK.wkv6, by_variant) == {TWK.wkv_variant(r, k, v, w): 1}
+    assert TWK.wkv6_bwd.launches == bwd + 1
+    want = torch.autograd.grad(wkv6_ref(*plain)[0], plain, do)
+    assert all(_rel(g, x) < BWD_REL_TOL["wkv6"][dtype] for g, x in zip(got, want))
+    with pytest.raises(NotImplementedError, match="zero initial state"):
+        TWK.wkv6(*card, s0)
 
 
 def _moved(fn, before):

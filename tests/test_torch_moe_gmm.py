@@ -5,10 +5,14 @@ On the CPU ``repro_torch.kernels.moe_gmm.gmm`` takes its plain twin
 mode (as tests/test_kernels.py runs it, blocks of 64 so that C, d and F are
 padded there) and against ``repro.kernels.ref.gmm_ref``, on the same inputs
 drawn with numpy.  Tolerances are those of
-tests/test_kernels.py::test_gmm_sweep: 1e-4 at fp32, 5e-2 at bf16.  The CUDA
-kernel itself is held against the plain twin on the card in
-tests/test_torch_kernels_cuda.py.
+tests/test_kernels.py::test_gmm_sweep: 1e-4 at fp32, 5e-2 at bf16.  The
+backward's plain twin ``ref.gmm_bwd_plain`` (``gmm_bwd`` on the CPU) is held
+against ``jax.vjp`` of ``repro.kernels.ref.gmm_ref`` in f32 within 1e-4 of
+max(1, the largest reference value): sums of up to C or F terms in another
+order.  The CUDA kernels themselves are held against the plain twins on the
+card in tests/test_torch_kernels_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,3 +104,52 @@ def test_gmm_variant_choice(dtype, c, d, f, off):
     before = dict(TGM.gmm.variant_launches)
     assert TGM.gmm(x, w).shape == (2, c, f)     # the CPU path launches nothing
     assert TGM.gmm.variant_launches == before
+
+
+# G, C, d, F of the backward: C = 1, odd d and F, and a case the tensor-core
+# tile would take on the card (bf16 there)
+BWD_SHAPES = [(3, 1, 5, 9), (2, 17, 13, 7), (4, 33, 64, 48)]
+BWD_TOL = 1e-4
+
+
+def _rel_err(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got.double().numpy() - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("g,c,d,f", BWD_SHAPES)
+def test_gmm_bwd_plain_matches_jax_vjp(g, c, d, f):
+    x, w = _inputs(g + c + d + f, g, c, d, f)
+    dy = np.random.default_rng(f).standard_normal((g, c, f)).astype(np.float32)
+    _, vjp = jax.vjp(JR.gmm_ref, jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
+    before = TGM.gmm_bwd.launches
+    dx, dw = TGM.gmm_bwd(tx, tw, tdy)
+    assert TGM.gmm_bwd.launches == before       # the CPU path launches no kernel
+    assert dx.shape == (g, c, d) and dw.shape == (g, d, f)
+    assert _rel_err(dx, jdx) < BWD_TOL and _rel_err(dw, jdw) < BWD_TOL
+    plain = TR.gmm_bwd_plain(tx, tw, tdy)
+    assert torch.equal(dx, plain[0]) and torch.equal(dw, plain[1])
+    # autograd through the plain forward (the CPU training path) agrees
+    ax, aw = (t.clone().requires_grad_() for t in (tx, tw))
+    gx, gw = torch.autograd.grad(TGM.gmm(ax, aw), (ax, aw), tdy)
+    assert _rel_err(gx, jdx) < BWD_TOL and _rel_err(gw, jdw) < BWD_TOL
+    assert TGM.gmm_bwd(tx, tw, tdy, need_dx=False)[0] is None
+    assert TGM.gmm_bwd(tx, tw, tdy, need_dw=False)[1] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,f", [(1024, 512), (512, 1024), (130, 72), (64, 70)])
+@pytest.mark.parametrize("off", [0, 8, 3])
+def test_gmm_bwd_variant_choice(dtype, d, f, off):
+    """The backward takes the tensor-core tile where the forward's tiles take
+    the inputs (bf16, d and F multiples of 8, 16-byte aligned x, w and dy),
+    whatever C, and the FMA kernel for everything else."""
+    c = 5
+    x, w, dy = (_at_offset(s, dtype, 0) for s in ((2, c, d), (2, d, f), (2, c, f)))
+    want = "fma" if dtype == torch.float32 or d % 8 or f % 8 or off % 8 else "tc"
+    for moved in range(3):
+        args = [x, w, dy]
+        args[moved] = _at_offset(args[moved].shape, dtype, off)
+        assert TGM.gmm_bwd_variant(*args) == want

@@ -163,11 +163,18 @@ def test_greedy_generate_matches(models):
     assert tres.decode_steps == NEW
 
 
-def test_moe_training_raises_on_the_card_only():
-    cfg = t_get_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        TL.check_trainable(cfg, torch.device("cuda"))
-    TL.check_trainable(cfg, torch.device("cpu"))
+def test_moe_training_is_accepted_on_both_devices(monkeypatch):
+    """The train launcher hands a MoE run to its training body on the card
+    as on the CPU (the gmm backward kernels run under autograd there): no device
+    gate is left.  The device is taken as given, so no card is needed."""
+    runs = []
+    monkeypatch.setattr(TL, "resolve_device", torch.device)
+    monkeypatch.setattr(TL, "_train", lambda mesh, run: runs.append((mesh, run)))
+    for device in ("cuda", "cpu"):
+        TL.main(["--arch", ARCH, "--reduced", "--device", device, "--steps", "1",
+                 "--batch", "2", "--seq", "8"])
+    assert [(mesh, run.device, run.cfg.name) for mesh, run in runs] == [
+        (None, device, t_get_config(ARCH).reduced().name) for device in ("cuda", "cpu")]
 
 
 def test_launch_serve_granite_cli_runs_on_cpu():

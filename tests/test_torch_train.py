@@ -343,20 +343,21 @@ def test_parallel_spec_accum():
         _resolve("dp=1,mp=x")
 
 
-def test_dense_decoder_training_on_the_card_raises():
-    """Training on the card: the dense decoder (flash attention has its
-    backward kernel) and BigLSTM pass ``check_trainable``; the MoE decoder
-    (no gmm backward) and RWKV (no wkv backward) still raise, naming their
-    ROADMAP items.  Every decoder trains on the CPU."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    for arch in ("llama3_2_1b", "biglstm"):
-        TL.check_trainable(t_get_config(arch), cuda)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TL.check_trainable(t_get_config("granite_moe_1b_a400m"), cuda)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TL.check_trainable(t_get_config("rwkv6_7b"), cuda)
-    for arch in ("llama3_2_1b", "granite_moe_1b_a400m", "rwkv6_7b"):
-        TL.check_trainable(t_get_config(arch), cpu)
+def test_every_decoder_training_is_accepted_on_both_devices(monkeypatch):
+    """The train launcher hands the dense decoder, the MoE decoder, RWKV and
+    BigLSTM to its training body on the card as on the CPU: each has its
+    backward kernels (flash, gmm, wkv6, the LSTM cell), and no device gate is
+    left.  The device is taken as given, so no card is needed."""
+    runs = []
+    monkeypatch.setattr(TL, "resolve_device", torch.device)
+    monkeypatch.setattr(TL, "_train", lambda mesh, run: runs.append(run))
+    archs = ("llama3_2_1b", "granite_moe_1b_a400m", "rwkv6_7b", "biglstm")
+    for arch in archs:
+        for device in ("cuda", "cpu"):
+            TL.main(["--arch", arch, "--reduced", "--device", device, "--steps", "1",
+                     "--batch", "2", "--seq", "8"])
+    assert [(r.cfg.name, r.device) for r in runs] == [
+        (t_get_config(a).reduced().name, d) for a in archs for d in ("cuda", "cpu")]
 
 
 def test_gnmt_and_biglstm_serving_are_not_ported():

@@ -23,10 +23,19 @@ above), against JAX ``wkv_chunked`` and the Pallas kernel where those run
 (w down to 1e-38), where it stays finite and the split exp(cum) factors
 of ``wkv_chunked`` overflow.  ``wkv_variant`` is held to its rule.
 
+``ref.wkv6_bwd_plain``, the plain twin of the backward kernels (the state
+saved at every 64-token chunk, recomputed forward to each 16-token
+sub-chunk, dw summed within a sub-chunk with no division by w), is held
+against ``jax.vjp`` of JAX ``wkv_scan`` (zero state, the final state
+unused) for dr, dk, dv, dw and du, with T under and over a chunk, hd 32 and
+64, and strong decays (w down to 1e-38), in f32 within 1e-4 of max(1, the
+largest reference value): sums over T and hd in another order.
+
 Inputs are drawn with numpy from a seed, as the JAX sweep draws them.  The
 CUDA kernel itself is held against the plain version on the card in
 tests/test_torch_kernels_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,8 +160,9 @@ def test_wkv6_refuses_bad_shapes(case):
 
 
 def test_wkv6_never_runs_plain_version_off_the_cpu():
-    """The CPU path is chosen by the tensors' device alone; off the CPU a
-    tensor that needs grad is refused first (the kernel has no backward)."""
+    """The CPU path is chosen by the tensors' device alone; off the CPU the
+    forward and the backward launch their kernels or raise, tensors that
+    need grad too (there is no fallback to the plain version)."""
     def meta(*shape, grad=False):
         return torch.zeros(shape, device="meta", requires_grad=grad)
 
@@ -160,8 +170,10 @@ def test_wkv6_never_runs_plain_version_off_the_cpu():
         TWK.wkv6(*(meta(1, 2, 2, 32),) * 4, meta(2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         TWK.wkv6(*(meta(1, 2, 2, 32),) * 4, torch.zeros(2, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
+    with pytest.raises(ValueError, match="CUDA"):
         TWK.wkv6(meta(1, 2, 2, 32, grad=True), *(meta(1, 2, 2, 32),) * 3, meta(2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        TWK.wkv6_bwd(*(meta(1, 2, 2, 32),) * 4, meta(2, 32), meta(1, 2, 2, 32))
 
 
 @pytest.mark.parametrize("t", [1, 7, 63, 64, 65, 130, 512])
@@ -233,3 +245,35 @@ def test_cpu_path_counts_no_variant():
     TWK.wkv6(r, k, v, w, u)
     assert TWK.wkv6.variant_launches == before
     assert set(before) == set(TWK.VARIANTS) == {"scan", "chunked"}
+
+
+# B, T, H, hd, decays of the backward: T under one sub-chunk, over a
+# sub-chunk and under the chunk, over two chunks (the last one partial),
+# hd 32 and 64, strong decays across a chunk boundary
+BWD_CASES = [(2, 5, 2, 32, "sweep"), (1, 40, 2, 64, "sweep"), (1, 130, 1, 32, "sweep"),
+             (1, 70, 2, 64, "strong")]
+BWD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,t,h,hd,decay", BWD_CASES)
+def test_wkv6_bwd_plain_matches_jax_vjp(b, t, h, hd, decay):
+    r, k, v, w, u, _ = _inputs(t * hd + b, b, t, h, hd)
+    rng = np.random.default_rng(t)
+    if decay == "strong":
+        w = np.exp(rng.uniform(np.log(1e-38), np.log(1e-3), r.shape)).astype(np.float32)
+    do = (rng.standard_normal(r.shape) * 0.5).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: JRW.wkv_scan(*a)[0], *(jnp.asarray(a) for a in (r, k, v, w, u)))
+    want = vjp(jnp.asarray(do))
+    before = TWK.wkv6_bwd.launches
+    got = TWK.wkv6_bwd(*_t(r, k, v, w, u, do))
+    assert TWK.wkv6_bwd.launches == before        # the CPU path launches no kernel
+    assert [g.shape for g in got] == [r.shape] * 4 + [u.shape]
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert torch.isfinite(g).all(), name
+        x = np.asarray(x, np.float64)
+        err = float(np.abs(g.double().numpy() - x).max()) / max(1.0, float(np.abs(x).max()))
+        assert err < BWD_TOL, (name, err)
+    # the kernels' arithmetic agrees with autograd through the plain scan
+    args = [a.requires_grad_() for a in _t(r, k, v, w, u)]
+    auto = torch.autograd.grad(TWK.wkv6(*args)[0], args, torch.from_numpy(do))
+    assert all(_err(g, a) < BWD_TOL for g, a in zip(got, auto))
