@@ -57,7 +57,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    same bits with and without the gates, and the cell's autograd function
    (dx, dh, dc, dWx, dWh, db) against autograd of the plain oracle; the
    grouped matmul at full-width Granite-3.0-1B-A400M's four expert products
-   (prefill at capacity 640, decode at C 4) and at edge shapes (odd C, d, F;
+   (prefill at capacity 640, decode at C 4), its forward at Granite's
+   training products (capacity 2560; bf16 prefill on the persistent TMA
+   ``wgmma`` tile, which the phase prints) and at edge shapes (odd C, d, F;
    G, C and d of 1); the RWKV6 WKV recurrence (``chunked`` form on the
    tensor cores and sequential ``scan``) at full-width RWKV6-7B prefill (B
    4, T 512, H 64, hd 64, r, k, v in bf16 and f32) and a decode step (T 1,
@@ -66,12 +68,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    over T 2048 and 8192, strong decays down to 1e-38 over T 2048), outputs
    and final state; the grouped matmul's backward (dx = dy w^T and dw = x^T
    dy, a launch each) at Granite's training products (B 4 x T 2048: capacity
-   2560; bf16 on the wgmma tile ``tc``, then the FMA kernel forced on the
+   2560; bf16 on the persistent wgmma tile ``tc``, then the FMA kernel forced on the
    same inputs; f32; a misaligned bf16 x) and at edge shapes (C 1, odd d and
    F, tiles ragged in every dimension), against the plain twin within 1e-4
    (f32) or 2e-2 (bf16) of max(1, |ref|), timed against ``torch.bmm``; the
    WKV backward (dr, dk, dv, dw, du) at RWKV6-7B's training shape (B 4, T
-   2048, H 64, hd 64, bf16), T no multiple of its 64-token chunk, hd 32 and
+   2048, H 64, hd 64, bf16; chunk-parallel: a state pass and a block per
+   64-token chunk), T no multiple of its chunk, hd 32 and
    strong decays, within 2e-4 (f32) or 2e-2 (bf16) of max(1, |ref|); both
    backwards the same bits on a repeat launch.  Time each kernel variant at the main shape, its plain
    version and one PyTorch library call computing the same function where
@@ -82,8 +85,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    through ``ServeEngine.generate`` (4 prompts of 512 tokens, 32 new tokens,
    greedy) with the launch counters set to 0 just before and read just after
    (every bf16 flash launch on a tensor-core variant), then profile one
-   prefill and one decode step (torch.profiler: wall time, device busy time,
-   idle share, top kernels; no more kernels a decode step than in PR 14);
+   prefill and one decode step (torch.profiler after a warm-up cycle: wall
+   time, device busy time, idle share, top kernels; no more kernels a decode
+   step than commit f4893cd runs, and the step's kernels by name);
 5. hold the serving model path against its plain path: the same weights at 2
    layers of full width in f32, kernels on the card against the plain
    versions on the CPU;
@@ -389,11 +393,14 @@ WKV_BWD_EDGE = [((2, 300, 8, 64), torch.float32, "sweep"), ((2, 130, 4, 32), tor
 # tokens a request, and the requests also served alone
 CONT_SLOTS, CONT_CAP, CONT_CHUNK = 8, 1064, 256
 CONT_REQUESTS, CONT_PROMPTS, CONT_NEW, CONT_SOLO = 16, (64, 1024), 32, 4
-# kernels a decode step on PR 14's tree (PERF.md section 5): Llama and
-# Granite the same in four profiles of one step, RWKV the most a PR 14
-# profile saw.  A single profile may see fewer: torch.profiler drops events
-# now and then, never adds them.
-PR14_DECODE_KERNELS = {"llama3.2-1b": 1262, "granite-moe-1b-a400m": 3254, "rwkv6-7b": 2955}
+# kernels a decode step on commit f4893cd (the tree that first served all
+# three models), counted by torch.profiler after a warm-up cycle: Llama 1262
+# and RWKV 2957 in each of three profiles, Granite 3254 in two of three (the
+# third saw 3197; PERF.md section 6).  A profile started cold may miss the
+# step's first kernels (the embedding's gather, then the first weight
+# cast): that tree's own cold profiles saw at most 2955 of RWKV's 2957.  A
+# profile may see fewer, never more.
+DECODE_KERNELS = {"llama3.2-1b": 1262, "granite-moe-1b-a400m": 3254, "rwkv6-7b": 2957}
 # the kernels of csrc/*.cu, by their function names in a profiler's kernel names
 OWN_KERNEL = re.compile(r"\b((?:flash|gmm|lstm|wkv6)\w*_kernel)\b")
 
@@ -1211,7 +1218,10 @@ def check_gmm(gm, ref_mod, case, x, w, gen, timed=False):
 def phase_gmm_kernels(gm, ref_mod):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for case, (g, c, d, f) in GMM_SERVE:   # bf16 timed first: the main path's dtype
+    print("gmm forward tile (tc_prefill): the persistent wgmma tile fed by TMA "
+          "(gmm_ws_kernel), as the backward's tc products", flush=True)
+    # bf16 timed first: the main path's dtype; serving, then Granite's training products
+    for case, (g, c, d, f) in GMM_SERVE + GMM_TRAIN:
         rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.bfloat16),
                               gen, timed=True))
     for case, (g, c, d, f) in GMM_SERVE:   # the FMA kernel: f32 (phase 9's path)
@@ -1420,7 +1430,7 @@ def check_wkv_bwd(wk, ref_mod, case, inputs, do, timed=False):
     row = {"kernel": "wkv6_bwd", "shape": f"{case} B{b} T{t} H{h} hd{hd}",
            "dtype": str(r.dtype).removeprefix("torch."), "max_abs_err": max(errs.values()),
            "rel_err": rels, "tol": tol, "same_bits_on_repeat": same_bits,
-           "workspace_bytes": b * h * max(1, -(-t // 64) - 1) * hd * hd * 4}
+           "workspace_bytes": wk.bwd_workspace_bytes(b, t, h, hd)}
     if not max(rels.values()) < tol or not same_bits or \
             not all(bool(torch.isfinite(g).all()) for g in got):
         raise AssertionError(f"wkv6_bwd {case}: errors {rels} over max(1, |ref|) >= {tol}, "
@@ -1523,12 +1533,14 @@ def phase_serve(counters, api_mod, engine_mod, cfg):
     print(json.dumps(out), flush=True)
     print("first sequence:", res.tokens[0].tolist(), flush=True)
     _, decode = phase_profile(api, params, batch)
+    print(json.dumps({"decode_step_kernels_by_name": dict(sorted(decode["count_by_name"].items()))}),
+          flush=True)
     # the split decode tile merges its partials in the same launch: no more
     # kernels a decode step than PR 14's profile saw (the profiler may drop
     # events, never add them)
-    if decode["kernels"] > PR14_DECODE_KERNELS[cfg.name]:
-        raise AssertionError(f"{decode['kernels']} kernels a decode step, PR 14 ran "
-                             f"{PR14_DECODE_KERNELS[cfg.name]}")
+    if decode["kernels"] > DECODE_KERNELS[cfg.name]:
+        raise AssertionError(f"{decode['kernels']} kernels a decode step, commit f4893cd "
+                             f"ran {DECODE_KERNELS[cfg.name]}")
     del params, engine
     torch.cuda.empty_cache()
     return launches, variants
@@ -1540,10 +1552,12 @@ def profile_call(name, fn, reps=3):
     device busy time as the sum of the CUDA kernels the profiler saw, the
     idle share against the unprofiled wall time, the top kernels, and the
     ms of each kernel of csrc/*.cu (summed over its template instances).
-    Where three profiled calls saw no device event, busy time and idle share
-    are None: not measured."""
+    The recorded call follows a warm-up cycle of the profiler (one call
+    whose events are dropped): a profile started cold may miss the call's
+    first kernels.  Where three profiled calls saw no device event, busy
+    time and idle share are None: not measured."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
@@ -1553,17 +1567,25 @@ def profile_call(name, fn, reps=3):
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3 / reps
     for _ in range(3):   # a session now and then records no device event
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            prof.step()
+        # the cycle's step marker is a device event too: not a kernel
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")]
         if kern:
             break
-    by_name = {}
+    by_name, count = {}, {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        count[e.name] = count.get(e.name, 0) + 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     own = {}
@@ -1577,6 +1599,7 @@ def profile_call(name, fn, reps=3):
            "kernels": len(kern), "top": [[n[:80], ms] for n, ms in top],
            "own_kernels_ms": own}
     print(json.dumps(out), flush=True)
+    out["count_by_name"] = count
     return out
 
 
@@ -1830,8 +1853,8 @@ def phase_train_llama(train_launch, lc, counters, api_mod, cfg):
 def phase_train_granite(train_launch, gm, lc, counters, api_mod, cfg):
     """Full-width, full-depth Granite-3.0-1B-A400M through the launcher at B
     4, T 2048 (capacity 2560): a layer a step, three expert products on the
-    gmm forward (``tc_prefill``), their dx and dw on the backward's wgmma
-    tile (``tc_dx``, ``tc_dw``), one flash forward (``tc_prefill``) and one
+    gmm forward (``tc_prefill``), their dx and dw on the same persistent
+    wgmma tile (``tc_dx``, ``tc_dw``), one flash forward (``tc_prefill``) and one
     backward call (``tc``); a falling loss; then step time and a profile."""
     per = TRAIN_STEPS * cfg.n_layers
     copies = gm.gmm_bwd.dy_copies

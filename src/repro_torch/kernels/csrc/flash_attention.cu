@@ -1242,20 +1242,8 @@ struct BwdMaps {
 // The tensor map of a bf16 (B, T, H, hd) tensor with element strides `s`
 // (d-stride 1): boxes of 64 columns x `rows` rows of one (b, head), written
 // 128-byte swizzled; columns past hd (hd 32) and rows past T are zero.
-// cuTensorMapEncodeTiled is looked up at run time through the CUDA runtime
-// (an entry point of libcuda), so the library links nothing more.
 cudaError_t rows_map(CUtensorMap* map, const void* base, const Strides& s, int B, int T, int H,
                      int hd, int rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
   // a dimension of extent 1 is never stepped: any multiple of 16 bytes will do
   auto bytes = [](int64_t stride, int extent) {
     return static_cast<cuuint64_t>(extent > 1 ? stride * 2 : 16);
@@ -1264,12 +1252,8 @@ cudaError_t rows_map(CUtensorMap* map, const void* base, const Strides& s, int B
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {bytes(s.t, T), bytes(s.h, H), bytes(s.b, B)};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return launch::bf16_tensor_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 // The tree's choices: warpgroups a block (each owns 64 keys of the dK/dV

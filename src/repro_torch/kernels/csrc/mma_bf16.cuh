@@ -1,6 +1,7 @@
 // Building blocks of the hand-written kernels (flash_attention.cu,
 // moe_gmm.cu, lstm_cell.cu, wkv6.cu), in inline PTX for sm_80 and later
-// (built for sm_90a), and the per-device shared-memory opt-in of a launch:
+// (built for sm_90a), and on the host the per-device shared-memory opt-in
+// of a launch, the device's SM count and the encoder of TMA tensor maps:
 //
 //   cp.async.cg 16-byte copies global -> shared, zero-filled when the source
 //   row is masked (src-size 0), with commit_group / wait_group;
@@ -10,7 +11,9 @@
 //   descriptor of a 128-byte-swizzled tile, wgmma.mma_async m64nNk16 (bf16
 //   in, f32 out) with both operands in shared memory (SS) or A in registers
 //   (RS), and its fences, commit and wait; TMA tile copies (cp.async.bulk.tensor)
-//   completing on mbarriers.
+//   global -> shared completing on mbarriers, and shared -> global in bulk
+//   groups; mbarrier arrivals, named barriers and setmaxnreg for
+//   warp-specialised kernels.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -21,6 +24,8 @@
 // A fragment of a k16 step: P of S = Q K^T feeds P V with no shuffle.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +51,48 @@ cudaError_t opt_in_smem(size_t smem) {
     set[dev] = true;
   }
   return cudaSuccess;
+}
+
+// The number of SMs of the current device (a persistent grid's size), read
+// once a device.
+inline cudaError_t sm_count(int* n) {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *n = count[dev];
+  return cudaSuccess;
+}
+
+// The tensor map of a bf16 tensor of `rank` dimensions (innermost first, the
+// innermost unit-stride), byte strides of the others, copied in boxes of
+// `box` elements; elements out of bounds read as zero and are not written.
+// cuTensorMapEncodeTiled is looked up at run time through the CUDA runtime
+// (an entry point of libcuda), so a library links nothing more.
+inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                                   CUtensorMapL2promotion promotion) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace launch
@@ -289,6 +336,62 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+// One arrival on `bar`.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// The box of a 3-d tensor map at coordinates (c0, c1, c2), innermost first,
+// into shared memory at `dst`; completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// The box at `src` in shared memory to a 3-d tensor map at (c0, c1, c2);
+// the parts out of bounds are not written.  Joins the thread's open bulk
+// group (commit with bulk_commit).
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1),
+               "r"(c2)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Arrives at barrier `id` without waiting: with named_sync on the same id
+// and count, one group of threads releases another.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Warp specialisation: a warpgroup gives up (dec) or takes (inc) registers,
+// every thread of its four warps together.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 // The box of a 4-d tensor map at coordinates (c0, c1, c2, c3), innermost
 // first, into shared memory at `dst`; completes on `bar`.

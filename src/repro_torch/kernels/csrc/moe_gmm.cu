@@ -24,23 +24,23 @@
 //   memory per step, a TM x 4 block of f32 accumulators a thread; rows past
 //   C, columns past F and the contraction tail past d are masked.  The same
 //   kernel, given other strides, runs the backward's FMA products.
-// * Tensor-core prefill tile, wgmma (bf16, C > 16).  128 x 256 outputs of
-//   one expert a block; two warpgroups of 64 rows, each issuing one
-//   m64n256k16 wgmma (bf16 in, f32 out) per k16 step with both operands read
-//   from shared memory; BK 64.  x (128 x 64) and w (64 x 256) tiles stream
-//   through a 4-stage cp.async ring, written in the 128-byte swizzled layouts
-//   wgmma reads: x K-major (one 128-byte row per row of x), w N-major (w is
-//   (d, F) row-major; the instruction's transpose flag reads it so), four
-//   64-column atoms of 8 KB.  Chunks past C, d or F are zero-filled by the
-//   copy (src-size 0).  Each step's wgmma group is left in flight while the
-//   next step's copies are issued, so tiles are loaded two steps ahead.  One
-//   block an SM (193 KB of shared memory, 128 f32 accumulators a thread).
-//   The epilogue rounds once, stages the tile in shared memory and stores 16
-//   bytes a thread.  Granite-3.0-1B-A400M's prefill products are 320 (wg,
-//   wi) and 640 (wo) blocks with no ragged tile (C = 640 = 5 x 128).
-//   Tried on the H100 and slower (PERF.md, PR 15): the same tile on
-//   mma.sync m16n8k16 (8 warps of 64 x 32), and 128 x 128 wgmma tiles with
-//   3 or 4 stages, 1 or 2 blocks an SM, with and without a group in flight.
+// * Tensor-core prefill tile, wgmma (bf16, C > 16): `gmm_ws_kernel`, the
+//   persistent, warp-specialised tile described at its definition below.
+//   128 x 256 outputs of one expert a tile, two consumer warpgroups of 64
+//   rows each issuing one m64n256k16 wgmma (bf16 in, f32 out) a k16 step
+//   with both operands read from shared memory, BK 64; a producer warp
+//   feeds a 3-stage ring by TMA (x K-major, w N-major through the
+//   instruction's transpose flag, the 128-byte swizzled layouts wgmma
+//   reads, zero fill past C, d and F); one block an SM walks the tiles, and
+//   the epilogue (rounded once, stored by TMA) overlaps the next tile's
+//   loads.  It replaced a tile with the same shape and layouts fed
+//   by a 4-stage cp.async ring from all 256 threads, one barrier a step and
+//   a non-persistent grid: on an NVIDIA H100 80GB HBM3 at 700.00 W the
+//   persistent tile took 0.042-0.045 ms against its 0.067-0.071 at
+//   Granite's serving prefill products and 0.132-0.140 against 0.234-0.257
+//   at its training products (PERF.md section 6).  Tried on that card and
+//   slower than the ring tile: the tile on mma.sync m16n8k16, and 128 x 128
+//   wgmma tiles with 3 or 4 stages, 1 or 2 blocks an SM.
 // * Tensor-core decode tile (bf16, C <= 16).  The cost is streaming the
 //   experts' weights, 33.6 MB a product at Granite's size.  The C rows fill
 //   one m16 tile of mma.sync; a block of 4 warps owns 64 columns of one
@@ -52,13 +52,14 @@
 // expert einsums of models/moe.py) is two more grouped products, dx = dy w^T
 // (contracting over F) and dw = x^T dy (contracting over C), each read in
 // its stored layout, with no transposed copy: bf16 inputs the forward's
-// tensor-core tiles take run the same wgmma tile with dx's B (w) read
-// K-major and dw's A (x) read M-major through wgmma's transpose bits; the
-// rest runs the FMA kernel with the operands' strides.  A block owns an output
-// tile and sums the whole contraction itself, in order (no split over C),
-// so a repeat launch gives the same bits.  At Granite's training products
-// (capacity 2560) each is 85.9 GFLOP against ~285 MB, bound by operations
-// at ~0.087 ms; PERF.md has the times.
+// tensor-core tiles take run the same persistent tile with dx's B (w) read
+// K-major and dw's A (x) read M-major through wgmma's transpose bits, each
+// operand's tensor map over its stored layout; the rest runs the FMA kernel
+// with the operands' strides.  A block owns an output tile and sums the
+// whole contraction itself, in order (no split over C), so a repeat launch
+// gives the same bits.  At Granite's training products (capacity 2560)
+// each is 85.9 GFLOP against ~285 MB, bound by operations at ~0.087 ms;
+// PERF.md has the times.
 //
 // Bound on the H100 (SXM, 700 W data sheet: 3.35 TB/s HBM, 989 TFLOP/s dense
 // bf16, 67 TFLOP/s f32 without tensor cores).  Work is 2*G*C*d*F FLOPs;
@@ -68,15 +69,18 @@
 // per byte, below the ~295 ridge), bound by bytes at ~28.8 us.  A decode step
 // (C = 4) streams the 33.6 MB of weights: ~10 us.
 //
-// What is still left on the table: the wgmma tile loads with cp.async from
-// every thread and syncs the block once a step (no TMA, no producer warp
-// with mbarriers, no clusters that share tiles); the tiles are not
-// persistent, so an epilogue does not overlap the next tile's loads, and the
-// 320 blocks of wg/wi are 2.4 waves on 132 SMs; the capacity buffer is
-// dense, so padded slots of lightly loaded experts are computed too (no
+// What is still left on the table: the tensor-core tiles run 1.0-1.15x
+// torch.bmm (PERF.md section 6): one m64n256 group in flight a warpgroup,
+// the epilogue not hidden behind the other warpgroup's products (ping-pong
+// on 64 x 256 tiles was slower; 128 x 128 ping-pong tiles are untried),
+// three stages (the 64 KB epilogue buffer takes the fourth), no clusters
+// sharing an operand's tile by TMA multicast; the capacity buffer
+// is dense, so padded slots of lightly loaded experts are computed too (no
 // ragged schedule over the experts' real counts); the decode tile computes
 // 16 rows for C of them (the tensor cores are idle there anyway: the tile
 // is bound by w's bytes).
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -392,173 +396,270 @@ __global__ void __launch_bounds__(kDThreads) gmm_tc_decode_kernel(TcParams p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// wgmma (Hopper's warpgroup MMA; the helpers are in mma_bf16.cuh) for the
-// prefill tile
-// ---------------------------------------------------------------------------
-
-// 128 x 256 outputs of one expert a block; 2 warpgroups of 64 rows, each one
-// m64n256k16 wgmma per k16 step; BK 64; a 4-stage cp.async ring whose A and B
-// tiles are written in the 128-byte swizzled layouts wgmma reads.  A K-major
-// operand (the forward's x, dx's dy, dx's w as B) is stored as rows of its M
+// BK 64; an operand's tiles in the 128-byte swizzled layouts wgmma reads: a
+// K-major operand (the forward's x, dx's dy, dx's w as B) as rows of its M
 // or N dimension, 128 bytes of K each; an MN-major one (the forward's w,
 // dw's x as A and dy as B) as 64-column atoms of 64 contraction rows, 8 KB
-// apart.  Each step's wgmma group stays in flight while the next step
-// waits, syncs and issues its loads, so tiles are loaded kWgAhead = 2 steps
-// ahead: the ring holds the tile being loaded, the one landing, the one read
-// now and the one the pending group still reads.
-constexpr int kWgBM = 128, kWgBN = 256, kWgBK = 64, kWgThreads = 256, kWgStages = 4;
-constexpr int kWgAhead = kWgStages - 2;
-constexpr int kWgStage = kWgBM * kWgBK + kWgBK * kWgBN;  // elements per stage
-constexpr size_t kWgSmem = sizeof(bf16) * kWgStages * kWgStage + 1024;  // + alignment slack
-static_assert(kWgBM * (kWgBN + 8) <= kWgStages * kWgStage, "epilogue tile fits in the ring");
+// apart.
+constexpr int kWgBN = 256, kWgBK = 64;
 
-// One grouped product out[g] (M x N, row-major) = A[g] (M x K) B[g] (K x N).
-// A(m, k) is a[m * lda + k] (K-major) or, kAMn, a[k * lda + m]; B(k, n) is
-// b[k * ldb + n] (kBMn, N-major) or b[n * ldb + k].  Group g starts ga, gb
-// and go elements into a, b and out.  The forward is <false, true> (x, w),
-// dx = dy w^T is <false, false> and dw = x^T dy is <true, true>.
-struct WgParams {
-  const bf16* a;
-  const bf16* b;
-  bf16* out;
-  int M, N, K, lda, ldb;
-  int64_t ga, gb, go;
+// ---------------------------------------------------------------------------
+// wgmma (Hopper's warpgroup MMA; the helpers are in mma_bf16.cuh): the
+// persistent, warp-specialised tile of the forward's prefill products and of
+// the backward's `tc` products
+// ---------------------------------------------------------------------------
+
+// The tile is built as Hopper's fast GEMMs are: one block an SM walks
+// the output tiles (expert-major: an expert's tiles one after another, so
+// the operands the SMs share stay in L2); a producer warpgroup whose one
+// thread issues TMA copies (3-d tensor maps over the stored layouts, the
+// expert a coordinate, 128-byte swizzle, zero fill past M, N and K) into a
+// ring of full/empty mbarriers, across tile boundaries; two consumer
+// warpgroups, each issuing one m64n256k16 wgmma a k16 step, one group left
+// in flight while the next stage is awaited, a stage handed back as soon as
+// its group is done.  setmaxnreg gives the producer 40 registers and each
+// consumer 232.  The two consumers share the tensor cores in one of two
+// ways (`kPing`):
+//
+// * cooperative (false, the tree's): 128 x 256 outputs a tile, 64 rows a
+//   warpgroup, three stages of 48 KB; both warpgroups take every stage.
+// * ping-pong (true): 64 x 256 outputs a tile, the block's tiles taken by
+//   the two warpgroups in turn, four stages of 40 KB, each used by one
+//   warpgroup; named barriers order their main loops, so one warpgroup's
+//   epilogue runs while the other's products run.  Only the tuning
+//   harness runs it (`python -m repro_torch.kernels.tune gmm`): on an
+//   NVIDIA H100 80GB HBM3 at 700.00 W it took 1.10-1.29x the cooperative
+//   tile's time at Granite's training products and 0.94-1.04x at its
+//   serving prefill, since half the rows a tile move 1.67x the bytes into
+//   shared memory per FLOP (PERF.md section 6).
+//
+// The epilogue rounds once, writes a warpgroup's 64 x 256 outputs to its
+// own 32 KB of shared memory in the swizzled layout (no bank conflict) and
+// stores them by TMA (the parts past M and N are not written); the store
+// runs while the warpgroup takes its next tile's stages, and is awaited
+// only before that buffer is written again.  One warpgroup sums a row's
+// whole contraction in order with the same wgmma steps in both layouts (no
+// split over K, no atomics): a repeat launch, and the other layout, give
+// the same bits.
+constexpr int kPsThreads = 384;
+
+template <bool kPing>
+struct WsTile {
+  static constexpr int BM = kPing ? 64 : 128;          // rows of a tile
+  static constexpr int kStages = kPing ? 4 : 3;
+  static constexpr int kStage = BM * kWgBK + kWgBK * kWgBN;   // elements of a stage
+  static constexpr uint32_t kStageBytes = sizeof(bf16) * kStage;
+  static constexpr size_t kSmem = 1024 + size_t{kStageBytes} * kStages +
+                                  sizeof(bf16) * 2 * 64 * kWgBN;
 };
 
-template <bool kAMn, bool kBMn>
-__global__ void __launch_bounds__(kWgThreads, 1) gmm_wgmma_kernel(WgParams p) {
+struct PsMaps {
+  CUtensorMap a, b, out;
+};
+
+struct PsShape {
+  int M, N, K, G;
+};
+
+template <bool kAMn, bool kBMn, bool kPing>
+__global__ void __launch_bounds__(kPsThreads, 1)
+    gmm_ws_kernel(const __grid_constant__ PsMaps maps, PsShape p) {
+  using Tile = WsTile<kPing>;
+  constexpr int BM = Tile::BM, kStages = Tile::kStages, kStage = Tile::kStage;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // swizzle atoms need 1024-byte alignment
   bf16* smem =
       reinterpret_cast<bf16*>(smem_raw + ((1024 - (mma::smem_addr(smem_raw) & 1023)) & 1023));
-  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const int g8 = lane / 4, t4 = lane % 4;
-  const int n0 = blockIdx.x * kWgBN, m0 = blockIdx.y * kWgBM;
-  const int64_t g = blockIdx.z;
-  const bf16* a = p.a + g * p.ga;
-  const bf16* b = p.b + g * p.gb;
-  bf16* out = p.out + g * p.go;
-  const int n_k = (p.K + kWgBK - 1) / kWgBK;
-
-  // rows [r0, r0 + R) of a K-major operand (M or N rows, K contiguous) at
-  // contraction step k0: 128-byte rows, chunk c of row r at chunk c ^ (r % 8)
-  auto load_kmajor = [&](bf16* dst, const bf16* src, int ld, int r0, int rows, int R, int k0) {
-    for (int i = threadIdx.x; i < R * 8; i += kWgThreads) {
-      const int r = i / 8, c = i % 8;
-      const int row = r0 + r, k = k0 + c * 8;
-      const bool ok = row < rows && k < p.K;
-      mma::cp_async16(dst + r * kWgBK + ((c ^ (r & 7)) * 8),
-                      ok ? src + static_cast<int64_t>(row) * ld + k : src, ok);
-    }
+  bf16* outs = smem + kStages * kStage;
+  __shared__ alignas(8) uint64_t full[kStages], empty[kStages];
+  const int wg = threadIdx.x / 128;
+  const int m_tiles = (p.M + BM - 1) / BM, n_tiles = (p.N + kWgBN - 1) / kWgBN;
+  const int tiles = p.G * m_tiles * n_tiles, n_k = (p.K + kWgBK - 1) / kWgBK;
+  auto tile_at = [&](int tile, int& g, int& m0, int& n0) {
+    g = tile / (m_tiles * n_tiles);
+    const int r = tile % (m_tiles * n_tiles);
+    m0 = (r / n_tiles) * BM;
+    n0 = (r % n_tiles) * kWgBN;
   };
-  // columns [c0, c0 + C) of an MN-major operand (contraction rows, M or N
-  // contiguous) at contraction step k0: 64-column atoms of kWgBK rows
-  auto load_mnmajor = [&](bf16* dst, const bf16* src, int ld, int c0, int cols, int C, int k0) {
-    const int chunks = C / 8;  // 16-byte chunks of a row
-    for (int i = threadIdx.x; i < kWgBK * chunks; i += kWgThreads) {
-      const int k = i / chunks, c = i % chunks;
-      const int kg = k0 + k, col = c0 + c * 8;
-      const bool ok = kg < p.K && col < cols;
-      mma::cp_async16(dst + (c / 8) * (kWgBK * 64) + k * 64 + (((c % 8) ^ (k & 7)) * 8),
-                      ok ? src + static_cast<int64_t>(kg) * ld + col : src, ok);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mma::mbar_init(&full[s], 1);
+      mma::mbar_init(&empty[s], (kPing ? 1 : 2) * 128);   // every consumer thread of a stage
     }
-  };
-  auto load = [&](int kt) {
-    bf16* as = smem + (kt % kWgStages) * kWgStage;
-    bf16* bs = as + kWgBM * kWgBK;
-    const int k0 = kt * kWgBK;
-    if constexpr (kAMn)
-      load_mnmajor(as, a, p.lda, m0, p.M, kWgBM, k0);
-    else
-      load_kmajor(as, a, p.lda, m0, p.M, kWgBM, k0);
-    if constexpr (kBMn)
-      load_mnmajor(bs, b, p.ldb, n0, p.N, kWgBN, k0);
-    else
-      load_kmajor(bs, b, p.ldb, n0, p.N, kWgBN, k0);
-  };
-#pragma unroll
-  for (int s = 0; s < kWgAhead; ++s) {
-    if (s < n_k) load(s);
-    mma::cp_async_commit();
-  }
-
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-
-  for (int kt = 0; kt < n_k; ++kt) {
-    mma::cp_async_wait<kWgAhead - 1>();  // tile kt has landed
-    mma::fence_proxy_async();
-    // all copies of tile kt are visible, and both warpgroups' wgmma of tile
-    // kt - 2, whose stage the next load refills, are done: one barrier a step
-    __syncthreads();
-    if (kt + kWgAhead < n_k) load(kt + kWgAhead);
-    mma::cp_async_commit();
-    const bf16* as = smem + (kt % kWgStages) * kWgStage;
-    const bf16* bs = as + kWgBM * kWgBK;
-    mma::wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kWgBK / 16; ++j) {
-      // A: this warpgroup's 64 rows, k 16j..16j+15.  K-major: 32 bytes into
-      // each swizzled 128-byte row, 8-row groups 1024 bytes apart; M-major:
-      // the warpgroup's atom, contraction rows 16j.. (two 8-row groups 1024
-      // bytes apart)
-      const uint64_t da = kAMn ? mma::sw128_desc(as + wg * (kWgBK * 64) + j * 16 * 64,
-                                                 kWgBK * 64 * 2, 1024)
-                               : mma::sw128_desc(as + wg * 64 * kWgBK + j * 16, 16, 1024);
-      // B: N-major, k rows 16j..16j+15, the four 64-column atoms 8 KB apart;
-      // K-major, 32 bytes into each of the 256 rows
-      const uint64_t db = kBMn ? mma::sw128_desc(bs + j * 16 * 64, kWgBK * 64 * 2, 1024)
-                               : mma::sw128_desc(bs + j * 16, 16, 1024);
-      mma::wgmma_ss<256, kBMn ? 1 : 0, kAMn ? 1 : 0>(acc, da, db, 1);
-    }
-    mma::wgmma_commit();
-    mma::wgmma_wait<1>();  // tile kt - 1's group is done; tile kt's may run on
-    mma::fence_acc(acc);
-  }
-  mma::wgmma_wait<0>();
-  mma::fence_acc(acc);
-  mma::cp_async_wait<0>();
-  __syncthreads();
-
-  // round once; stage the 128 x 256 bf16 tile; 16-byte stores
-  constexpr int OLD = kWgBN + 8;
-  bf16* os = smem;
-#pragma unroll
-  for (int ni = 0; ni < kWgBN / 8; ++ni) {
-    const int r = wg * 64 + warp * 16 + g8, c = ni * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(os + r * OLD + c) = mma::pack_bf16(acc[4 * ni], acc[4 * ni + 1]);
-    *reinterpret_cast<uint32_t*>(os + (r + 8) * OLD + c) =
-        mma::pack_bf16(acc[4 * ni + 2], acc[4 * ni + 3]);
+    mma::fence_mbar_init();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kWgBM * (kWgBN / 8); i += kWgThreads) {
-    const int r = i / (kWgBN / 8), c = (i % (kWgBN / 8)) * 8;
-    const int row = m0 + r, col = n0 + c;
-    if (row < p.M && col < p.N)
-      *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * p.N + col) =
-          *reinterpret_cast<const uint4*>(os + r * OLD + c);
+
+  if (wg == 0) {   // producer
+    mma::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int g, m0, n0;
+        tile_at(tile, g, m0, n0);
+        for (int kt = 0; kt < n_k; ++kt) {
+          mma::mbar_wait(&empty[stage], phase ^ 1);   // a fresh ring passes at once
+          bf16* as = smem + stage * kStage;
+          bf16* bs = as + BM * kWgBK;
+          const int k0 = kt * kWgBK;
+          mma::mbar_expect_tx(&full[stage], Tile::kStageBytes);
+          if constexpr (kAMn) {   // 64-column atoms of 64 contraction rows
+#pragma unroll
+            for (int a = 0; a < BM / 64; ++a)
+              mma::tma_load_3d(as + a * kWgBK * 64, &maps.a, m0 + 64 * a, k0, g, &full[stage]);
+          } else {                // BM rows of 128 bytes
+            mma::tma_load_3d(as, &maps.a, k0, m0, g, &full[stage]);
+          }
+          if constexpr (kBMn) {   // four 64-column atoms
+#pragma unroll
+            for (int a = 0; a < kWgBN / 64; ++a)
+              mma::tma_load_3d(bs + a * kWgBK * 64, &maps.b, n0 + 64 * a, k0, g, &full[stage]);
+          } else {                // 256 rows of 128 bytes
+            mma::tma_load_3d(bs, &maps.b, k0, n0, g, &full[stage]);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {         // consumers
+    mma::setmaxnreg_inc<232>();
+    const int cw = wg - 1, ct = threadIdx.x % 128;
+    const int warp = ct / 32, lane = ct % 32, g8 = lane / 4, t4 = lane % 4;
+    // cooperative: warpgroup cw owns rows [64 cw, 64 cw + 64) of every tile;
+    // ping-pong: the block's tiles cw, cw + 2, ... (its rows start at 0)
+    const int row0 = kPing ? 0 : 64 * cw;
+    bf16* my_out = outs + cw * 64 * kWgBN;   // four atoms of 64 rows x 64 columns
+    const int mine = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;   // the block's tiles
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    bool stored = false;
+    for (int j = kPing ? cw : 0; j < mine; j += kPing ? 2 : 1) {
+      int g, m0, n0;
+      tile_at(blockIdx.x + j * gridDim.x, g, m0, n0);
+      // the ring position of the tile's first stage: every earlier tile of
+      // the block took n_k stages (in ping-pong, some of them the other
+      // warpgroup's, whose main loop has finished issuing before this one
+      // starts, so no full barrier is waited on a phase early)
+      const int pos = j * n_k;
+      int stage = pos % kStages;
+      uint32_t phase = (pos / kStages) & 1;
+      if (kPing && j > 0) mma::named_sync(3 + cw, 256);   // the other's main loop is issued
+      int prev = 0;
+      for (int kt = 0; kt < n_k; ++kt) {
+        mma::mbar_wait(&full[stage], phase);
+        const bf16* as = smem + stage * kStage;
+        const bf16* bs = as + BM * kWgBK;
+        mma::wgmma_fence();
+#pragma unroll
+        for (int k16 = 0; k16 < kWgBK / 16; ++k16) {
+          const uint64_t da =
+              kAMn ? mma::sw128_desc(as + (row0 / 64) * (kWgBK * 64) + k16 * 16 * 64,
+                                     kWgBK * 64 * 2, 1024)
+                   : mma::sw128_desc(as + row0 * kWgBK + k16 * 16, 16, 1024);
+          const uint64_t db = kBMn ? mma::sw128_desc(bs + k16 * 16 * 64, kWgBK * 64 * 2, 1024)
+                                   : mma::sw128_desc(bs + k16 * 16, 16, 1024);
+          mma::wgmma_ss<256, kBMn ? 1 : 0, kAMn ? 1 : 0>(acc, da, db, kt > 0 || k16 > 0);
+        }
+        mma::wgmma_commit();
+        mma::wgmma_wait<1>();   // step kt - 1's group is done: hand its stage back
+        mma::fence_acc(acc);
+        if (kt > 0) mma::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (kPing && j + 1 < mine) mma::named_arrive(3 + (1 - cw), 256);   // the other's turn
+      mma::wgmma_wait<0>();
+      mma::fence_acc(acc);
+      mma::mbar_arrive(&empty[prev]);
+
+      // epilogue: the previous tile's store has read the buffer; round once
+      // into the 128-byte swizzled layout; one thread stores by TMA
+      if (ct == 0 && stored) mma::bulk_wait_read<0>();
+      mma::named_sync(1 + cw, 128);
+      const int r = warp * 16 + g8;
+#pragma unroll
+      for (int ni = 0; ni < kWgBN / 8; ++ni) {
+        bf16* atom = my_out + (ni / 8) * 64 * 64;
+        const int c = ((ni % 8) ^ g8) * 8 + 2 * t4;   // r % 8 == (r + 8) % 8 == g8
+        *reinterpret_cast<uint32_t*>(atom + r * 64 + c) = mma::pack_bf16(acc[4 * ni], acc[4 * ni + 1]);
+        *reinterpret_cast<uint32_t*>(atom + (r + 8) * 64 + c) =
+            mma::pack_bf16(acc[4 * ni + 2], acc[4 * ni + 3]);
+      }
+      mma::fence_proxy_async();
+      mma::named_sync(1 + cw, 128);
+      if (ct == 0) {
+#pragma unroll
+        for (int a = 0; a < kWgBN / 64; ++a)
+          mma::tma_store_3d(&maps.out, my_out + a * 64 * 64, n0 + 64 * a, m0 + row0, g);
+        mma::bulk_commit();
+      }
+      stored = true;
+    }
+    if (ct == 0) mma::bulk_wait<0>();
   }
 }
 
-template <bool kAMn, bool kBMn>
-cudaError_t launch_wgmma(const WgParams& p, int G, cudaStream_t stream) {
-  const int64_t m_tiles = (static_cast<int64_t>(p.M) + kWgBM - 1) / kWgBM;
-  if (m_tiles > 65535 || G > 65535) return cudaErrorInvalidConfiguration;
-  cudaError_t err = launch::opt_in_smem<&gmm_wgmma_kernel<kAMn, kBMn>>(kWgSmem);
+// Tensor maps of a bf16 operand of G groups stored row-major as (rows,
+// cols), read in boxes of `box_cols` x `box_rows`, 128-byte swizzled.
+cudaError_t operand_map(CUtensorMap* map, const bf16* base, int G, int rows, int cols,
+                        int box_cols, int box_rows, CUtensorMapL2promotion promotion) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(G)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  return launch::bf16_tensor_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                                 promotion);
+}
+
+// out[g] (M x N) = A[g] (M x K) B[g] (K x N) on the persistent tile, every
+// operand contiguous and row-major: A stored (M, K), or (K, M) when kAMn;
+// B stored (N, K), or (K, N) when kBMn; out (M, N).  K-major and N-major
+// strides are multiples of 16 bytes (the caller checks K, M, N as it reads
+// them); bases 16-byte aligned.  The tree runs the cooperative layout.
+template <bool kAMn, bool kBMn, bool kPing = false>
+cudaError_t launch_ws(const bf16* a, const bf16* b, bf16* out, int M, int N, int K, int G,
+                      cudaStream_t stream) {
+  using Tile = WsTile<kPing>;
+  PsMaps maps;
+  constexpr auto L2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+  cudaError_t err = kAMn ? operand_map(&maps.a, a, G, K, M, 64, kWgBK, L2)
+                         : operand_map(&maps.a, a, G, M, K, kWgBK, Tile::BM, L2);
+  if (err == cudaSuccess)
+    err = kBMn ? operand_map(&maps.b, b, G, K, N, 64, kWgBK, L2)
+               : operand_map(&maps.b, b, G, N, K, kWgBK, kWgBN, L2);
+  if (err == cudaSuccess)
+    err = operand_map(&maps.out, out, G, M, N, 64, 64, CU_TENSOR_MAP_L2_PROMOTION_NONE);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kWgBN - 1) / kWgBN, static_cast<unsigned>(m_tiles), G);
-  gmm_wgmma_kernel<kAMn, kBMn><<<grid, kWgThreads, kWgSmem, stream>>>(p);
+  int sms = 0;
+  err = launch::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  err = launch::opt_in_smem<&gmm_ws_kernel<kAMn, kBMn, kPing>>(Tile::kSmem);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = static_cast<int64_t>(G) * ((M + Tile::BM - 1) / Tile::BM) *
+                        ((N + kWgBN - 1) / kWgBN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  gmm_ws_kernel<kAMn, kBMn, kPing>
+      <<<grid, kPsThreads, Tile::kSmem, stream>>>(maps, PsShape{M, N, K, G});
   return cudaGetLastError();
 }
 
-// variant 1: wgmma prefill tile, 2: decode tile
+// variant 1: the persistent wgmma tile (prefill), 2: the decode tile
 cudaError_t launch_tc(const TcParams& p, int G, int variant, cudaStream_t stream) {
   if (p.d % 8 != 0 || p.F % 8 != 0) return cudaErrorInvalidValue;
-  if (G > 65535) return cudaErrorInvalidConfiguration;
   if (variant == 2) {
     if (p.C > 16) return cudaErrorInvalidValue;
+    if (G > 65535) return cudaErrorInvalidConfiguration;
     cudaError_t err = launch::opt_in_smem<&gmm_tc_decode_kernel>(kDSmem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.F + kDBN - 1) / kDBN, G);
@@ -566,19 +667,16 @@ cudaError_t launch_tc(const TcParams& p, int G, int variant, cudaStream_t stream
     return cudaGetLastError();
   }
   // x read K-major, w N-major
-  const WgParams q{p.x, p.w, p.out, p.C, p.F, p.d, p.d, p.F,
-                   static_cast<int64_t>(p.C) * p.d, static_cast<int64_t>(p.d) * p.F,
-                   static_cast<int64_t>(p.C) * p.F};
-  return launch_wgmma<false, true>(q, G, stream);
+  return launch_ws<false, true>(p.x, p.w, p.out, p.C, p.F, p.d, G, stream);
 }
 
 }  // namespace
 
 // x: (G, C, d); w: (G, d, F); out: (G, C, F); all contiguous and of one dtype
 // (0: f32, 1: bf16).  `variant` 0 runs the FMA kernel (any shape); 1 and 2
-// the bf16 tensor-core tiles (wgmma prefill, decode for C <= 16), which need
-// d and F multiples of 8 and 16-byte aligned bases (the caller checks the
-// bases).
+// the bf16 tensor-core tiles (the persistent wgmma tile, and the decode tile
+// for C <= 16), which need d and F multiples of 8 and 16-byte aligned bases
+// (the caller checks the bases).
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for an empty shape, an unknown dtype or a variant
 // the inputs do not fit.
@@ -606,8 +704,8 @@ extern "C" int repro_gmm(const void* x, const void* w, void* out, int dtype, int
 // each summed in f32 over the whole contraction (F for dx, C for dw) by one
 // block, in order, and rounded once.  x, w, dy and out are contiguous and
 // of one dtype (0: f32, 1: bf16).  `variant` 0 runs the FMA kernel (any
-// shape); 1 the wgmma tile, which needs bf16, d and F multiples of 8 and
-// 16-byte aligned bases (the caller checks the bases).  Launches on
+// shape); 1 the persistent wgmma tile, which needs bf16, d and F multiples
+// of 8 and 16-byte aligned bases (the caller checks the bases).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for an empty shape, an unknown dtype, product or
 // variant, or a variant the inputs do not fit.
@@ -627,11 +725,9 @@ extern "C" int repro_gmm_bwd(const void* x, const void* w, const void* dy, void*
     const bf16* dyb = static_cast<const bf16*>(dy);
     bf16* ob = static_cast<bf16*>(out);
     if (which == 0)   // A = dy (K-major), B = w read K-major: B(f, j) = w[j, f]
-      return static_cast<int>(
-          launch_wgmma<false, false>(WgParams{dyb, wb, ob, C, d, F, F, F, cf, df, cd}, G, s));
+      return static_cast<int>(launch_ws<false, false>(dyb, wb, ob, C, d, F, G, s));
     // A = x read M-major: A(j, c) = x[c, j]; B = dy (N-major)
-    return static_cast<int>(
-        launch_wgmma<true, true>(WgParams{xb, dyb, ob, d, F, C, d, F, cd, cf, df}, G, s));
+    return static_cast<int>(launch_ws<true, true>(xb, dyb, ob, d, F, C, G, s));
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const GenParams p = which == 0 ? GenParams{dy, w, out, C, d, F, F, 1, 1, F, cf, df, cd}

@@ -79,7 +79,7 @@
 //   and carry zeros.
 //
 // The backward (`repro_wkv6_bwd`, three kernels, no TPU kernel: JAX
-// differentiates the scan) is described at its section below.
+// differentiates the scan) is chunk-parallel, described at its section below.
 //
 // What the chunked form still leaves on the table: it is bound by issued
 // instructions, not bytes: the split-TF32 conversions of the operands, the
@@ -110,16 +110,12 @@ struct Params {
   const float* u;
   const float* s_in;  // initial state (B, H, hd, hd), or null for zeros
   float* s_out;       // final state (B, H, hd, hd), may be s_in; null: not written (scan)
-  void* out;          // (B, T, H, hd), f32 (the backward's dv: r's dtype)
+  void* out;          // (B, T, H, hd), f32
   int B, T, H;
 };
 
-// The sequential scan.  r and k are T, v TV, out TO; kRev walks the tokens
-// from the last to the first.  The forward is <T, T, float, HD, false>; the
-// backward's dv is the same recurrence in reverse with k and r swapped and
-// dO for v (dv_t = k_t (G_t + diag(u) r_t^T dO_t), G_{t-1} = diag(w_t) G_t
-// + r_t^T dO_t), <T, float, T, HD, true>.
-template <typename T, typename TV, typename TO, int HD, bool kRev>
+// The sequential scan; r, k and v are T, out f32.
+template <typename T, int HD>
 __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
   constexpr int kThreads = HD * kSplit;
   constexpr int kRows = HD / kSplit;                // state rows a thread keeps
@@ -144,11 +140,10 @@ __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
   const int64_t base = (static_cast<int64_t>(b) * p.T * p.H + h) * HD;  // (b, 0, h, 0)
   const T* r = static_cast<const T*>(p.r) + base;
   const T* k = static_cast<const T*>(p.k) + base;
-  const TV* v = static_cast<const TV*>(p.v) + base;
+  const T* v = static_cast<const T*>(p.v) + base;
   const float* w = p.w + base;
-  TO* out = static_cast<TO*>(p.out) + base;
+  float* out = static_cast<float*>(p.out) + base;
   const int64_t s_base = static_cast<int64_t>(bh) * HD * HD;
-  auto tok = [&](int t) { return kRev ? p.T - 1 - t : t; };   // the t-th token walked
 
   float u[kRows];
   float S[kRows];
@@ -166,7 +161,7 @@ __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
       const int e = tid + m * kThreads;
       const int t = t0 + e / HD;
       if (t < p.T) {
-        const int64_t off = tok(t) * step + e % HD;
+        const int64_t off = t * step + e % HD;
         fr[m] = to_f32(r[off]);
         fk[m] = to_f32(k[off]);
         fv[m] = to_f32(v[off]);
@@ -217,7 +212,7 @@ __global__ void __launch_bounds__(HD * kSplit) wkv6_kernel(Params p) {
       float o = 0.f;
 #pragma unroll
       for (int g = 0; g < kSplit; ++g) o += part[g][s][c];
-      store(out + tok(t0 + s) * step + c, o);
+      out[(t0 + s) * step + c] = o;
     }
   }
 
@@ -596,7 +591,7 @@ __global__ void __launch_bounds__(4 * HD) wkv6_chunked_kernel(Params p) {
 
 template <typename T, int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  wkv6_kernel<T, T, float, HD, false><<<p.B * p.H, HD * kSplit, 0, stream>>>(p);
+  wkv6_kernel<T, HD><<<p.B * p.H, HD * kSplit, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -643,43 +638,60 @@ cudaError_t dispatch_chunked(const Params& p, int hd, cudaStream_t stream) {
 //   dv_t = k_t (G_t + diag(u) r_t^T dO_t)   dw_t = sum_j G_t[., j] S_{t-1}[., j]
 //   du   = sum_{b, t} r_t k_t vdo_t
 //
-// Three kernels, one launch of `repro_wkv6_bwd`:
+// computed chunk-parallel (the arithmetic of ref.wkv6_bwd_chunked_plain),
+// three kernels a call of `repro_wkv6_bwd`:
 //
-// * `wkv6_bwd_rows_kernel`, for dr, dk, dw and du's partials.  Rows of S and
-//   G are independent (row i decays by w[., i] alone), so a block owns kRB
-//   rows of one (b, h) and nothing crosses blocks.  A thread keeps 8
-//   columns of its row of S, then of G, in registers; sums over the columns
-//   are its own and a shuffle over the HD / 8 threads of the row.  Tokens
-//   go through shared memory 16 at a time (a sub-chunk).  A forward pass
-//   writes dr, adds du's partial and saves S at every chunk start (64
-//   tokens) to a workspace of (B H, T / 64 - 1, hd, hd) f32 (130 MB at B 4
-//   x T 2048 x H 64 x hd 64).  The reverse pass walks the chunks from the
-//   last: it recomputes S forward from the chunk's saved state to each
-//   sub-chunk's start (kept in shared memory, a thread's own elements), then
-//   walks the sub-chunks backward with G.  S_{t-1} is never recovered from
-//   S_t (that divides by w, which underflows to 0 under strong decays):
-//   within a sub-chunk from t0,
+// * `wkv6_bwd_pass_kernel`: S at every 64-token chunk start and G at every
+//   chunk end, into the workspace.  One block per (direction, b, h) walks
+//   the sub-chunks of 16 tokens, forward for S <- diag(D) S + (k o B)^T V,
+//   backward for G <- diag(D) G + (r o A)^T dO (A, B the prefix and suffix
+//   products of w within the sub-chunk, D their total, built from 1); the
+//   state stays in registers as m16n8 accumulator tiles, a warp owning 16
+//   keys, and the product runs on the tensor cores (mma.sync m16n8k8) in
+//   split TF32, as the forward's.  The S pass and the G pass run side by
+//   side in one launch; each sub-chunk's tokens are loaded while the one
+//   before is carried.
+// * `wkv6_bwd_chunk_kernel`: one block per (b, h, chunk), 8192 at B 4 x T
+//   2048 x H 64, two an SM.  From its chunk's S and G it carries S forward
+//   to each sub-chunk's start S_b (kept in shared memory) and walks the
+//   sub-chunks backward carrying G_e (G after the sub-chunk), the next
+//   sub-chunk's tokens loading meanwhile.  Per sub-chunk, on the tensor
+//   cores in split TF32: Y = dO S_b^T, Z = V G_e^T, M = dO V^T, dv = (k o B)
+//   G_e + P^T dO (P the forward's diagonal block, its bonus on the
+//   diagonal) and G_e's update.  Then a thread per key walks the sub-chunk
+//   up (dr, and B Q + T4 of dw) and another down (dk, and A B (G_e . S_b) +
+//   A R of dw), the within-sub-chunk sums as recurrences in the token:
 //
-//     dw_t = D(t0..t-1) (G_t . S_{t0-1}) + sum_{t0<=s<t} D(s+1..t-1) k_s (G_t . v_s)
+//     dr_a = A_a Y_a + E_a(a) + u k_a M[a, a]
+//     dk_a = B_a Z_a + E'_a(a) + u r_a M[a, a]
+//     dw_a = A_a B_a (G_e . S_b) + A_a R(a) + B_a Q(a) + sum_{s'>a} r_s' D(a+1..s'-1) E_s'(a)
+//     E_s'(a) = sum_{s<a} D(s+1..a-1) k_s M[s', s],  E'_s(a) = sum_{s'>a} D(a+1..s'-1) r_s' M[s', s]
+//     Q(a) = sum_{s<a} D(s+1..a-1) k_s Z_s,          R(a) = sum_{s>a} D(a+1..s-1) r_s Y_s
 //
-//   per row, D(a..b) = prod_{a<=q<=b} w_q, the products built from 1 token
-//   by token, each factor <= 1.
-// * `wkv6_kernel<..., true>`, the scan in reverse, for dv (above).
-// * `wkv6_bwd_du_kernel`, du = the partials summed over b in order.
+//   per key, D(x..y) the product of w over those tokens, built from 1 token
+//   by token (never divided by w, which underflows to 0 under strong
+//   decays).  dv comes out of the same kernel: no scan for it.
+// * `wkv6_bwd_du_kernel`: du = the per-chunk partials summed over b and the
+//   chunks, in order.
 //
 // Every sum is taken in a fixed order (no atomics), so a repeat launch gives
-// the same bits.  Bound on the H100 (3.35 TB/s): r, k, v (bf16), w and dO
-// (f32) read, dr, dk, dv (bf16) and dw (f32) written, 24 bytes an element,
-// 0.80 GB at B 4 x T 2048 x H 64 x hd 64: ~0.24 ms, plus the saved states
-// written and read (0.26 GB).  What it leaves on the table: the reverse
-// pass's sum over s costs ~L / 2 extra column sums a token (L = 16), the
-// forward state is computed twice, everything runs on the FMA pipes, and a
-// thread walks T alone (its latency is hidden only by the other blocks).
+// the same bits.  Bound on the H100 (SXM, 700 W data sheet: 67 TFLOP/s f32,
+// 3.35 TB/s): 12 hd^2 FLOP a token and head, 0.385 ms at B 4 x T 2048 x H
+// 64 x hd 64 (the bytes, r, k, v bf16, w and dO f32 read, dr, dk, dv bf16
+// and dw f32 written, take 0.240 ms; the saved states add 0.27 GB written
+// and read).
+// What it leaves on the table (PERF.md section 6): the pass kernel walks T in
+// one block per (direction, b, h), bound by the latency of its 124 steps
+// (about a third of a call at RWKV6-7B's training shape); the chunk kernel's
+// products are mma.sync in split TF32 (three products each) read from
+// shared memory, not wgmma; its 111.5 KB of shared memory and 128
+// registers a thread (ptxas spills a few) hold two blocks of 8 warps an SM;
+// its per-key walks run on a quarter of the threads, each a chain of 16
+// steps, while another quarter updates G.
 
-constexpr int kBwdChunk = 64;     // tokens between saved states
-constexpr int kBwdSub = 16;       // tokens of a sub-chunk
-constexpr int kBwdThreads = 128;  // 8 threads a token when staging
-constexpr int kBwdCols = 8;       // columns of a row a thread keeps
+constexpr int kBwdChunk = 64;   // tokens a block of the chunk kernel owns
+constexpr int kBwdSub = 16;     // tokens of a sub-chunk
+constexpr int kBwdSubs = kBwdChunk / kBwdSub;
 
 struct BwdParams {
   const void* r;
@@ -690,35 +702,209 @@ struct BwdParams {
   const float* dout;  // dO (B, T, H, hd)
   void* dr;           // (B, T, H, hd), r's dtype
   void* dk;
+  void* dv;
   float* dw;          // (B, T, H, hd)
-  float* du_part;     // (B, H, hd)
-  float* saved;       // (B H, n_chunks - 1, hd, hd): S before chunk c at c - 1
+  float* du_part;     // (B H, n_chunks, hd)
+  float* s_start;     // (B H, n_chunks - 1, hd, hd): S before chunk c at c - 1
+  float* g_end;       // (B H, n_chunks - 1, hd, hd): G after chunk c at c
   int B, T, H;
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads) wkv6_bwd_rows_kernel(BwdParams p) {
-  constexpr int kQ = HD / kBwdCols;          // threads of a row
-  constexpr int kRB = kBwdThreads / kQ;      // rows a block owns
-  constexpr int L = kBwdSub;
-  constexpr int kSubs = kBwdChunk / L;
-  static_assert(HD % kRB == 0 && kBwdThreads == 8 * L && kBwdCols == 8, "block shape");
-  __shared__ __align__(16) float rs[L][kRB];
-  __shared__ __align__(16) float ks[L][kRB];
-  __shared__ __align__(16) float ws[L][kRB];
-  __shared__ __align__(16) float vs[L][HD];
-  __shared__ __align__(16) float dos[L][HD];
-  __shared__ float vdo[L];
-  __shared__ float outs[2][L][kRB];          // a sub-chunk's dr, or its dk and dw
-  __shared__ float first[kSubs][kBwdCols][kBwdThreads];   // S before each sub-chunk
+// c (16 x 8, the m16n8 C layout) += A (16 x K) B (K x 8) in split TF32, A(m,
+// k) at a[m * am + k * ak] and B(k, n) at b[k * bk + n * bn] in shared memory.
+template <int K>
+__device__ __forceinline__ void smem_mma(float c[4], const float* a, int am, int ak,
+                                         const float* b, int bk, int bn) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[4], al[4], bh2[2], bl2[2];
+    split_tf32(a[g * am + (k0 + t) * ak], ah[0], al[0]);
+    split_tf32(a[(g + 8) * am + (k0 + t) * ak], ah[1], al[1]);
+    split_tf32(a[g * am + (k0 + t + 4) * ak], ah[2], al[2]);
+    split_tf32(a[(g + 8) * am + (k0 + t + 4) * ak], ah[3], al[3]);
+    split_tf32(b[(k0 + t) * bk + g * bn], bh2[0], bl2[0]);
+    split_tf32(b[(k0 + t + 4) * bk + g * bn], bh2[1], bl2[1]);
+    mma3<false, false>(c, ah, al, bh2, bl2);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int ri = tid / kQ, q = tid % kQ;     // this thread's row of the block, column group
-  const int c0 = q * kBwdCols;
-  constexpr int kBlocksPerHead = HD / kRB;
-  const int bh = blockIdx.x / kBlocksPerHead, rb = blockIdx.x % kBlocksPerHead;
+// A sub-chunk's tokens [t0, t0 + kBwdSub) of an (B, T, H, HD) tensor in
+// registers as f32 (`fill` past T): element e = threadIdx.x + i NT of the
+// sub-chunk.  `fetch` issues every load before any value is used, so they
+// are in flight together (and while the block works on the sub-chunk
+// before); `put` writes them to shared memory rows of `ld` floats.
+template <int HD, int NT>
+struct Tokens {
+  static constexpr int N = kBwdSub * HD / NT;
+  float v[N];
+  template <typename T>
+  __device__ __forceinline__ void fetch(const T* src, int64_t step, int t0, int T_, float fill) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * NT, s = e / HD, c = e % HD;
+      v[i] = t0 + s < T_ ? to_f32(src[(t0 + s) * step + c]) : fill;
+    }
+  }
+  __device__ __forceinline__ void put(float* dst, int ld) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * NT;
+      dst[(e / HD) * ld + e % HD] = v[i];
+    }
+  }
+};
+
+// grid 2 B H: blocks [0, B H) carry S forward and save it at every chunk
+// start but the first, blocks [B H, 2 B H) carry G backward and save it at
+// every chunk end but the last.  2 HD threads: warp w owns keys [16 w, 16 w
+// + 16) of the state, kept as HD / 8 m16n8 tiles over the values.  (Split
+// over the values, four blocks of 16 columns a (b, h), the pass took 1.18
+// ms against 0.86 at RWKV6-7B's training shape on an NVIDIA H100 80GB HBM3
+// at 700.00 W: the blocks then need two to four waves, each walking all of
+// T.)
+template <typename T, int HD>
+__global__ void __launch_bounds__(2 * HD) wkv6_bwd_pass_kernel(BwdParams p) {
+  constexpr int L = kBwdSub, NT = 2 * HD, LD = HD + 4, V = HD;
+  constexpr int LDV = V + 8;   // B fragment loads free of bank conflicts
+  __shared__ __align__(16) float xs[L][LD];   // k o B (forward) or r o A (backward)
+  __shared__ __align__(16) float ys[L][LDV];  // v or dO
+  __shared__ __align__(16) float ws[L][LD];
+  __shared__ float dec[HD];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int nbh = p.B * p.H;
+  const bool rev = blockIdx.x >= nbh;
+  const int bh = rev ? blockIdx.x - nbh : blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int64_t step = static_cast<int64_t>(p.H) * HD;
+  const int64_t base = (static_cast<int64_t>(b) * p.T * p.H + h) * HD;
+  const int n_chunks = (p.T + kBwdChunk - 1) / kBwdChunk;
+  if (n_chunks < 2) return;
+  float* saves = (rev ? p.g_end : p.s_start) + static_cast<int64_t>(bh) * (n_chunks - 1) * HD * HD;
+  float st[V / 8][4] = {};
+  const int n_walk = (n_chunks - 1) * kBwdSubs;   // sub-chunks walked
+  // forward: sub-chunk it; backward: from the last sub-chunk down to the
+  // first of chunk 1
+  auto sub_at = [&](int it) { return rev ? n_chunks * kBwdSubs - 1 - it : it; };
+  Tokens<HD, NT> fx, fy, fw;
+  auto fetch = [&](int it) {
+    const int t0 = sub_at(it) * L;
+    if (rev) {
+      fx.fetch(static_cast<const T*>(p.r) + base, step, t0, p.T, 0.f);
+      fy.fetch(p.dout + base, step, t0, p.T, 0.f);
+    } else {
+      fx.fetch(static_cast<const T*>(p.k) + base, step, t0, p.T, 0.f);
+      fy.fetch(static_cast<const T*>(p.v) + base, step, t0, p.T, 0.f);
+    }
+    fw.fetch(p.w + base, step, t0, p.T, 1.f);
+  };
+  fetch(0);
+  for (int it = 0; it < n_walk; ++it) {
+    const int n = sub_at(it);
+    fx.put(&xs[0][0], LD);
+    fy.put(&ys[0][0], LDV);
+    fw.put(&ws[0][0], LD);
+    __syncthreads();
+    if (it + 1 < n_walk) fetch(it + 1);   // in flight during this sub-chunk
+    if (tid < HD) {   // the decays of key tid, built from 1
+      float d = 1.f;
+      if (rev) {
+#pragma unroll
+        for (int s = 0; s < L; ++s) {
+          xs[s][tid] *= d;
+          d *= ws[s][tid];
+        }
+      } else {
+#pragma unroll
+        for (int s = L - 1; s >= 0; --s) {
+          xs[s][tid] *= d;
+          d *= ws[s][tid];
+        }
+      }
+      dec[tid] = d;
+    }
+    __syncthreads();
+    // st <- diag(dec) st + A B, A(key, token) = xs[token][key] (split once
+    // for all the column tiles), B(token, column) = ys[token][column]
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const float* a = &xs[8 * ks + t4][16 * warp + g8];
+      split_tf32(a[0], ah[ks][0], al[ks][0]);
+      split_tf32(a[8], ah[ks][1], al[ks][1]);
+      split_tf32(a[4 * LD], ah[ks][2], al[ks][2]);
+      split_tf32(a[4 * LD + 8], ah[ks][3], al[ks][3]);
+    }
+    const float d0 = dec[16 * warp + g8], d1 = dec[16 * warp + g8 + 8];
+#pragma unroll
+    for (int kn = 0; kn < V / 8; ++kn) {
+      st[kn][0] *= d0;
+      st[kn][1] *= d0;
+      st[kn][2] *= d1;
+      st[kn][3] *= d1;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bh2[2], bl2[2];
+        split_tf32(ys[8 * ks + t4][8 * kn + g8], bh2[0], bl2[0]);
+        split_tf32(ys[8 * ks + t4 + 4][8 * kn + g8], bh2[1], bl2[1]);
+        mma3<false, false>(st[kn], ah[ks], al[ks], bh2, bl2);
+      }
+    }
+    const bool save = rev ? n % kBwdSubs == 0 : (n + 1) % kBwdSubs == 0;
+    if (save) {
+      const int c = rev ? n / kBwdSubs - 1 : (n + 1) / kBwdSubs - 1;
+      float* dst = saves + static_cast<int64_t>(c) * HD * HD;
+#pragma unroll
+      for (int kn = 0; kn < V / 8; ++kn) {
+        const int key = 16 * warp + g8, col = 8 * kn + 2 * t4;
+        *reinterpret_cast<float2*>(dst + key * HD + col) = make_float2(st[kn][0], st[kn][1]);
+        *reinterpret_cast<float2*>(dst + (key + 8) * HD + col) = make_float2(st[kn][2], st[kn][3]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory of the chunk kernel, in floats: S at the start of sub-chunks
+// 1-3 (slot m - 1 holds S_b(m); S_b(0) is read from the workspace, and into
+// slot 0 once S_b(1) is spent), G_e, the sub-chunk's tokens (r, k, v, w,
+// dO), r o A and k o B (the downward walk's part of dw reuses k o B once the
+// products have read it), Y and Z (the diagonal block's partial sums reuse
+// them before they are written), M and P, the decay totals and G_e . S_b:
+// 111.5 KB at hd 64, so two blocks share an SM.
+template <int HD>
+struct BwdSmem {
+  static constexpr int L = kBwdSub, LD = HD + 4, ML = L + 1, kQ = HD / 8;
+  static constexpr int kMat = HD * LD, kTok = L * LD;
+  static constexpr int kSb = 0, kGe = kSb + (kBwdSubs - 1) * kMat, kR = kGe + kMat;
+  static constexpr int kK = kR + kTok, kV = kK + kTok, kW = kV + kTok, kDo = kW + kTok;
+  static constexpr int kRA = kDo + kTok, kKB = kRA + kTok, kY = kKB + kTok, kZ = kY + kTok;
+  static constexpr int kM = kZ + kTok, kP = kM + L * ML, kDec = kP + L * ML, kX = kDec + HD;
+  static constexpr int kPart = kY, kDwp = kKB;   // reused, see above
+  static constexpr int kFloats = kX + HD;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(L * L * kQ <= 2 * kTok && L * HD <= kTok, "reused buffers fit");
+};
+
+// grid B H n_chunks (chunk fastest); 4 HD threads, HD / 8 warps, two blocks
+// an SM at hd 64.
+template <typename T, int HD>
+__global__ void __launch_bounds__(4 * HD, 2) wkv6_bwd_chunk_kernel(BwdParams p) {
+  using Sm = BwdSmem<HD>;
+  constexpr int L = kBwdSub, LD = Sm::LD, ML = Sm::ML, kQ = Sm::kQ, NT = 4 * HD;
+  extern __shared__ __align__(16) float sm[];
+  float* Sb = sm + Sm::kSb;
+  float* Ge = sm + Sm::kGe;
+  float *rs = sm + Sm::kR, *ks = sm + Sm::kK, *vs = sm + Sm::kV, *ws = sm + Sm::kW;
+  float *ds = sm + Sm::kDo, *rA = sm + Sm::kRA, *kB = sm + Sm::kKB;
+  float *Ys = sm + Sm::kY, *Zs = sm + Sm::kZ, *Ms = sm + Sm::kM, *Ps = sm + Sm::kP;
+  float *part = sm + Sm::kPart, *dwp = sm + Sm::kDwp, *dec = sm + Sm::kDec, *Xs = sm + Sm::kX;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int n_chunks = (p.T + kBwdChunk - 1) / kBwdChunk;
+  const int c = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks;
   const int b = bh / p.H, h = bh % p.H;
-  const int i = rb * kRB + ri;               // the state row (key index)
   const int64_t step = static_cast<int64_t>(p.H) * HD;
   const int64_t base = (static_cast<int64_t>(b) * p.T * p.H + h) * HD;
   const T* r = static_cast<const T*>(p.r) + base;
@@ -726,234 +912,329 @@ __global__ void __launch_bounds__(kBwdThreads) wkv6_bwd_rows_kernel(BwdParams p)
   const T* v = static_cast<const T*>(p.v) + base;
   const float* w = p.w + base;
   const float* dout = p.dout + base;
-  T* dr = static_cast<T*>(p.dr) + base;
-  T* dk = static_cast<T*>(p.dk) + base;
-  float* dw = p.dw + base;
-  const int n_chunks = (p.T + kBwdChunk - 1) / kBwdChunk;
-  float* saved = p.saved + static_cast<int64_t>(bh) * (n_chunks - 1) * HD * HD;
-  const float ui = p.u[h * HD + i];
-
-  // tokens [t0, t0 + L) into shared memory (zeros, and decays of 1, past T)
-  // and vdo; ends with a barrier
-  auto stage = [&](int t0) {
-    const int n = min(L, p.T - t0);
-    for (int e = tid; e < L * kRB; e += kBwdThreads) {
-      const int s = e / kRB, c = e % kRB;
-      float x = 0.f, y = 0.f, z = 1.f;
-      if (s < n) {
-        const int64_t off = (t0 + s) * step + rb * kRB + c;
-        x = to_f32(r[off]);
-        y = to_f32(k[off]);
-        z = w[off];
-      }
-      rs[s][c] = x;
-      ks[s][c] = y;
-      ws[s][c] = z;
+  const int tc = c * kBwdChunk;
+  const int n_sub = min(kBwdSubs, (p.T - tc + L - 1) / L);
+  const int64_t save0 = (static_cast<int64_t>(bh) * (n_chunks - 1)) * HD * HD;
+  // S at the chunk start (zeros at the first chunk), G at its end (zeros at
+  // the last)
+  const float* s0 = c > 0 ? p.s_start + save0 + static_cast<int64_t>(c - 1) * HD * HD : nullptr;
+  const float* g_src = c < n_chunks - 1 ? p.g_end + save0 + static_cast<int64_t>(c) * HD * HD
+                                        : nullptr;
+  // a (HD x HD) state of the workspace (zeros for null) into `dst` rows of
+  // LD floats, every load in flight at once
+  auto load_state = [&](float* dst, const float* src) {
+    constexpr int N = HD * HD / NT;
+    float x[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = src ? src[tid + i * NT] : 0.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = tid + i * NT;
+      dst[(e / HD) * LD + e % HD] = x[i];
     }
-    for (int e = tid; e < L * HD; e += kBwdThreads) {
-      const int s = e / HD, c = e % HD;
-      float x = 0.f, y = 0.f;
-      if (s < n) {
-        const int64_t off = (t0 + s) * step + c;
-        x = to_f32(v[off]);
-        y = dout[off];
+  };
+  load_state(Ge, g_src);
+
+  // the tokens of sub-chunk m in registers, loaded one sub-chunk ahead
+  Tokens<HD, NT> tr, tk, tv, tw, td;
+  auto fetch = [&](int m, bool all) {
+    const int t0 = tc + m * L;
+    tk.fetch(k, step, t0, p.T, 0.f);
+    tv.fetch(v, step, t0, p.T, 0.f);
+    tw.fetch(w, step, t0, p.T, 1.f);
+    if (all) {
+      tr.fetch(r, step, t0, p.T, 0.f);
+      td.fetch(dout, step, t0, p.T, 0.f);
+    }
+  };
+  // k, v, w of the forward walk's first sub-chunk, or all of the backward's
+  fetch(n_sub > 1 ? 0 : n_sub - 1, n_sub == 1);
+
+  // S_b(m + 1) = diag(D) S_b(m) + (k o B)^T V, m < n_sub - 1, into slot m
+  for (int m = 0; m + 1 < n_sub; ++m) {
+    tk.put(ks, LD);
+    tv.put(vs, LD);
+    tw.put(ws, LD);
+    __syncthreads();
+    if (m + 2 < n_sub)
+      fetch(m + 1, false);
+    else
+      fetch(n_sub - 1, true);   // the backward walk's first sub-chunk
+    if (tid < HD) {
+      float d = 1.f;
+#pragma unroll
+      for (int s = L - 1; s >= 0; --s) {
+        kB[s * LD + tid] = ks[s * LD + tid] * d;
+        d *= ws[s * LD + tid];
       }
-      vs[s][c] = x;
-      dos[s][c] = y;
+      dec[tid] = d;
     }
     __syncthreads();
-    {   // vdo: 8 threads a token, HD / 8 columns each, added in a fixed order
-      const int s = tid / 8, part = tid % 8;
-      float x = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD / 8; ++c) x = fmaf(vs[s][part * (HD / 8) + c], dos[s][part * (HD / 8) + c], x);
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
-      x += __shfl_xor_sync(0xffffffffu, x, 4);
-      if (part == 0) vdo[s] = x;
+    float* dst = Sb + m * HD * LD;
+    for (int tile = warp; tile < (HD / 16) * (HD / 8); tile += NT / 32) {
+      const int i0 = 16 * (tile / (HD / 8)), j0 = 8 * (tile % (HD / 8));
+      const int i = i0 + g8, j = j0 + 2 * t4;
+      float acc[4];
+      if (m > 0) {
+        const float* src = Sb + (m - 1) * HD * LD;
+        acc[0] = src[i * LD + j];
+        acc[1] = src[i * LD + j + 1];
+        acc[2] = src[(i + 8) * LD + j];
+        acc[3] = src[(i + 8) * LD + j + 1];
+      } else {
+        acc[0] = s0 ? s0[i * HD + j] : 0.f;
+        acc[1] = s0 ? s0[i * HD + j + 1] : 0.f;
+        acc[2] = s0 ? s0[(i + 8) * HD + j] : 0.f;
+        acc[3] = s0 ? s0[(i + 8) * HD + j + 1] : 0.f;
+      }
+      acc[0] *= dec[i];
+      acc[1] *= dec[i];
+      acc[2] *= dec[i + 8];
+      acc[3] *= dec[i + 8];
+      smem_mma<L>(acc, kB + i0, 1, LD, vs + j0, LD, 1);
+      dst[i * LD + j] = acc[0];
+      dst[i * LD + j + 1] = acc[1];
+      dst[(i + 8) * LD + j] = acc[2];
+      dst[(i + 8) * LD + j + 1] = acc[3];
     }
     __syncthreads();
-  };
-  // the sum over a row's kQ threads (consecutive lanes)
-  auto row_sum = [](float x) {
-#pragma unroll
-    for (int o = 1; o < kQ; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-  };
-  auto load8 = [](const float* src, float x[kBwdCols]) {
-    const float4 lo = reinterpret_cast<const float4*>(src)[0];
-    const float4 hi = reinterpret_cast<const float4*>(src)[1];
-    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
-    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
-  };
-  auto advance = [&](float S[kBwdCols], int s) {   // S_t from S_{t-1}, token s staged
-    float vv[kBwdCols];
-    load8(&vs[s][c0], vv);
-    const float kk = ks[s][ri], ww = ws[s][ri];
-#pragma unroll
-    for (int e = 0; e < kBwdCols; ++e) S[e] = fmaf(ww, S[e], kk * vv[e]);
-  };
-  // a sub-chunk's outputs (outs[0] to o0, outs[1] to o1 if given), coalesced
-  auto write_out = [&](int t0, auto* o0, float* o1) {
-    const int n = min(L, p.T - t0);
-    for (int e = tid; e < n * kRB; e += kBwdThreads) {
-      const int s = e / kRB, c = e % kRB;
-      const int64_t off = (t0 + s) * step + rb * kRB + c;
-      store(o0 + off, outs[0][s][c]);
-      if (o1) o1[off] = outs[1][s][c];
-    }
-  };
+  }
 
-  // ---- forward: dr, du's partial, the saved states --------------------------
-  float S[kBwdCols];
-#pragma unroll
-  for (int e = 0; e < kBwdCols; ++e) S[e] = 0.f;
+  // the sub-chunks from the last, G_e carried backward
+  const int key = tid % HD;
+  const float ui = p.u[h * HD + key];
   float du = 0.f;
-  for (int t0 = 0; t0 < p.T; t0 += L) {
-    if (t0 % kBwdChunk == 0 && t0 > 0) {
-      float4* dst = reinterpret_cast<float4*>(
-          saved + (static_cast<int64_t>(t0 / kBwdChunk - 1) * HD + i) * HD + c0);
-      dst[0] = make_float4(S[0], S[1], S[2], S[3]);
-      dst[1] = make_float4(S[4], S[5], S[6], S[7]);
-    }
-    stage(t0);
-    const int n = min(L, p.T - t0);
-    for (int s = 0; s < n; ++s) {
-      float dd[kBwdCols];
-      load8(&dos[s][c0], dd);
+  for (int m = n_sub - 1; m >= 0; --m) {
+    const int t0 = tc + m * L;
+    float* S = Sb + (m > 0 ? m - 1 : 0) * HD * LD;
+    if (m == 0) load_state(S, s0);   // S_b(1) is spent: S_b(0) takes its slot
+    tr.put(rs, LD);
+    tk.put(ks, LD);
+    tv.put(vs, LD);
+    tw.put(ws, LD);
+    td.put(ds, LD);
+    __syncthreads();
+    if (m > 0) fetch(m - 1, true);   // in flight during this sub-chunk
+    if (tid < HD) {            // r o A and the total decay of key tid
+      float d = 1.f;
+#pragma unroll
+      for (int s = 0; s < L; ++s) {
+        rA[s * LD + key] = rs[s * LD + key] * d;
+        d *= ws[s * LD + key];
+      }
+      dec[key] = d;
+    } else if (tid < 2 * HD) {   // k o B, and G_e . S_b of key tid - HD
+      float d = 1.f;
+#pragma unroll
+      for (int s = L - 1; s >= 0; --s) {
+        kB[s * LD + key] = ks[s * LD + key] * d;
+        d *= ws[s * LD + key];
+      }
+      float x = 0.f;
+      for (int jj = 0; jj < HD; ++jj) {   // columns rotated by the key: no bank conflict
+        const int j = (jj + key) % HD;
+        x = fmaf(Ge[key * LD + j], S[key * LD + j], x);
+      }
+      Xs[key] = x;
+    } else {   // the diagonal block's partial sums: token ps, keys [8 q, 8 q + 8)
+      const int pt = tid - 2 * HD, q = pt % kQ, ps = pt / kQ;
+      float kf[8], rr[8], ww[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kf[e] = ks[ps * LD + 8 * q + e];
+        rr[e] = rs[ps * LD + 8 * q + e];
+      }
       float x = 0.f;
 #pragma unroll
-      for (int e = 0; e < kBwdCols; ++e) x = fmaf(dd[e], S[e], x);
-      x = row_sum(x);
-      if (q == 0) {
-        outs[0][s][ri] = fmaf(ui * ks[s][ri], vdo[s], x);
-        du = fmaf(rs[s][ri] * ks[s][ri], vdo[s], du);
+      for (int e = 0; e < 8; ++e) x = fmaf(rr[e] * p.u[h * HD + 8 * q + e], kf[e], x);
+      part[(ps * L + ps) * kQ + q] = x;
+      for (int j = ps + 1; j < L; ++j) {   // t = j: k_s prod_{s<q<t} w_q, built from 1
+        if (j > ps + 1) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) ww[e] = ws[(j - 1) * LD + 8 * q + e];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[e] *= ww[e];
+        }
+        x = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x = fmaf(rs[j * LD + 8 * q + e], kf[e], x);
+        part[(j * L + ps) * kQ + q] = x;
       }
-      advance(S, s);
     }
     __syncthreads();
-    write_out(t0, dr, nullptr);
-  }
-  if (q == 0) p.du_part[static_cast<int64_t>(bh) * HD + i] = du;
-
-  // ---- reverse: dk, dw ------------------------------------------------------
-  float G[kBwdCols];
+    for (int e = tid; e < L * L; e += NT) {
+      const int t = e / L, s = e % L;
+      float x = 0.f;
+      if (s <= t)
 #pragma unroll
-  for (int e = 0; e < kBwdCols; ++e) G[e] = 0.f;
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int tc = c * kBwdChunk;
-    const int n_sub = min(kSubs, (p.T - tc + L - 1) / L);
-    if (c == 0) {
+        for (int j = 0; j < kQ; ++j) x += part[e * kQ + j];
+      Ps[t * ML + s] = x;
+    }
+    __syncthreads();
+    {   // the products: warp w owns column tile [8 w, 8 w + 8) of Y, Z and dv
+      const int n0 = 8 * warp, col = n0 + 2 * t4;
+      float y[4] = {}, z[4] = {}, dvt[4] = {};
+      smem_mma<HD>(y, ds, LD, 1, S + n0 * LD, 1, LD);      // Y = dO S_b^T
+      smem_mma<HD>(z, vs, LD, 1, Ge + n0 * LD, 1, LD);     // Z = V G_e^T
+      smem_mma<HD>(dvt, kB, LD, 1, Ge + n0, LD, 1);        // (k o B) G_e
+      smem_mma<L>(dvt, Ps, 1, ML, ds + n0, LD, 1);         // + P^T dO
+      Ys[g8 * LD + col] = y[0];
+      Ys[g8 * LD + col + 1] = y[1];
+      Ys[(g8 + 8) * LD + col] = y[2];
+      Ys[(g8 + 8) * LD + col + 1] = y[3];
+      Zs[g8 * LD + col] = z[0];
+      Zs[g8 * LD + col + 1] = z[1];
+      Zs[(g8 + 8) * LD + col] = z[2];
+      Zs[(g8 + 8) * LD + col + 1] = z[3];
+      T* dv = static_cast<T*>(p.dv) + base;
 #pragma unroll
-      for (int e = 0; e < kBwdCols; ++e) S[e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int tok = t0 + g8 + 8 * (e / 2);
+        if (tok < p.T) store(dv + tok * step + col + e % 2, dvt[e]);
+      }
+      if (warp < 2) {   // M = dO V^T, tokens [8 w, 8 w + 8) as columns
+        float mt[4] = {};
+        smem_mma<HD>(mt, ds, LD, 1, vs + n0 * LD, 1, LD);
+        Ms[g8 * ML + col] = mt[0];
+        Ms[g8 * ML + col + 1] = mt[1];
+        Ms[(g8 + 8) * ML + col] = mt[2];
+        Ms[(g8 + 8) * ML + col + 1] = mt[3];
+      }
+    }
+    __syncthreads();
+    float dwu[L];
+    if (tid < HD) {
+      // the upward walk of key `key`: dr, and B Q + T4 of dw.  The products
+      // of w before a token build as the walk goes; those after it are
+      // taken first, from 1.
+      T* dr = static_cast<T*>(p.dr) + base;
+      float suf[L], e[L];
+      float d = 1.f;
+#pragma unroll
+      for (int a = L - 1; a >= 0; --a) {
+        suf[a] = d;
+        d *= ws[a * LD + key];
+      }
+#pragma unroll
+      for (int a = 0; a < L; ++a) e[a] = 0.f;
+      float q = 0.f, pre = 1.f;
+#pragma unroll
+      for (int a = 0; a < L; ++a) {
+        const float ma = Ms[a * ML + a], kk = ks[a * LD + key], ww = ws[a * LD + key];
+        if (t0 + a < p.T)
+          store(dr + (t0 + a) * step + key, pre * Ys[a * LD + key] + e[a] + ui * kk * ma);
+        du = fmaf(rs[a * LD + key] * kk, ma, du);
+        float t4s = 0.f, prod = 1.f;
+#pragma unroll
+        for (int s2 = a + 1; s2 < L; ++s2) {
+          t4s = fmaf(rs[s2 * LD + key] * prod, e[s2], t4s);
+          prod *= ws[s2 * LD + key];
+        }
+        dwu[a] = fmaf(suf[a], q, t4s);
+        q = fmaf(ww, q, kk * Zs[a * LD + key]);
+#pragma unroll
+        for (int s2 = a + 1; s2 < L; ++s2) e[s2] = fmaf(ww, e[s2], kk * Ms[s2 * ML + a]);
+        pre *= ww;
+      }
+    } else if (tid < 2 * HD) {
+      // the downward walk: dk, and A B (G_e . S_b) + A R of dw
+      T* dk = static_cast<T*>(p.dk) + base;
+      float pre[L], e[L];
+      float d = 1.f;
+#pragma unroll
+      for (int a = 0; a < L; ++a) {
+        pre[a] = d;
+        d *= ws[a * LD + key];
+      }
+#pragma unroll
+      for (int a = 0; a < L; ++a) e[a] = 0.f;
+      const float x = Xs[key];
+      float rq = 0.f, suf = 1.f;
+#pragma unroll
+      for (int a = L - 1; a >= 0; --a) {
+        const float ma = Ms[a * ML + a], rr = rs[a * LD + key], ww = ws[a * LD + key];
+        if (t0 + a < p.T)
+          store(dk + (t0 + a) * step + key, suf * Zs[a * LD + key] + e[a] + ui * rr * ma);
+        dwp[a * HD + key] = fmaf(pre[a] * suf, x, pre[a] * rq);
+        rq = fmaf(ww, rq, rr * Ys[a * LD + key]);
+#pragma unroll
+        for (int s = 0; s < a; ++s) e[s] = fmaf(ww, e[s], rr * Ms[a * ML + s]);
+        suf *= ww;
+      }
     } else {
-      load8(saved + (static_cast<int64_t>(c - 1) * HD + i) * HD + c0, S);
-    }
-    // the state before each sub-chunk (a thread reads back only its own)
-    for (int m = 0; m < n_sub; ++m) {
-#pragma unroll
-      for (int e = 0; e < kBwdCols; ++e) first[m][e][tid] = S[e];
-      if (m + 1 < n_sub) {           // sub-chunk m is whole
-        stage(tc + m * L);
-        for (int s = 0; s < L; ++s) advance(S, s);
-        __syncthreads();
+      // G_e <- diag(D) G_e + (r o A)^T dO, on the other half of the warps
+      for (int tile = warp - NT / 64; tile < (HD / 16) * (HD / 8); tile += NT / 64) {
+        const int i0 = 16 * (tile / (HD / 8)), j0 = 8 * (tile % (HD / 8));
+        const int i = i0 + g8, j = j0 + 2 * t4;
+        float acc[4] = {dec[i] * Ge[i * LD + j], dec[i] * Ge[i * LD + j + 1],
+                        dec[i + 8] * Ge[(i + 8) * LD + j], dec[i + 8] * Ge[(i + 8) * LD + j + 1]};
+        smem_mma<L>(acc, rA + i0, 1, LD, ds + j0, LD, 1);
+        Ge[i * LD + j] = acc[0];
+        Ge[i * LD + j + 1] = acc[1];
+        Ge[(i + 8) * LD + j] = acc[2];
+        Ge[(i + 8) * LD + j + 1] = acc[3];
       }
     }
-    for (int m = n_sub - 1; m >= 0; --m) {
-      const int t0 = tc + m * L;
-      const int n = min(L, p.T - t0);
-      stage(t0);
-      float s0[kBwdCols];
+    __syncthreads();
+    if (tid < HD) {
+      float* dw = p.dw + base;
 #pragma unroll
-      for (int e = 0; e < kBwdCols; ++e) s0[e] = first[m][e][tid];
-      for (int s = n - 1; s >= 0; --s) {
-        float vv[kBwdCols], dd[kBwdCols];
-        load8(&vs[s][c0], vv);
-        float dkx = 0.f, y = 0.f;
-#pragma unroll
-        for (int e = 0; e < kBwdCols; ++e) {
-          dkx = fmaf(G[e], vv[e], dkx);
-          y = fmaf(G[e], s0[e], y);
-        }
-        float acc = 0.f, prod = 1.f;
-        for (int j = s - 1; j >= 0; --j) {
-          load8(&vs[j][c0], vv);
-          float z = 0.f;
-#pragma unroll
-          for (int e = 0; e < kBwdCols; ++e) z = fmaf(G[e], vv[e], z);
-          acc = fmaf(prod * ks[j][ri], z, acc);
-          prod *= ws[j][ri];
-        }
-        float dwx = fmaf(prod, y, acc);
-        dkx = row_sum(dkx);
-        dwx = row_sum(dwx);
-        const float rr = rs[s][ri], ww = ws[s][ri];
-        if (q == 0) {
-          outs[0][s][ri] = fmaf(ui * rr, vdo[s], dkx);
-          outs[1][s][ri] = dwx;
-        }
-        load8(&dos[s][c0], dd);
-#pragma unroll
-        for (int e = 0; e < kBwdCols; ++e) G[e] = fmaf(ww, G[e], rr * dd[e]);
-      }
-      __syncthreads();
-      write_out(t0, dk, dw);
+      for (int a = 0; a < L; ++a)
+        if (t0 + a < p.T) dw[(t0 + a) * step + key] = dwu[a] + dwp[a * HD + key];
     }
   }
+  if (tid < HD) p.du_part[(static_cast<int64_t>(bh) * n_chunks + c) * HD + key] = du;
 }
 
-// du[h, i] = sum_b du_part[b, h, i], b in order
-__global__ void wkv6_bwd_du_kernel(const float* du_part, float* du, int B, int n) {
+// du[h, i] = sum over b, then the chunks, of du_part[b, h, c, i], in order
+__global__ void wkv6_bwd_du_kernel(const float* du_part, float* du, int B, int H, int n_chunks,
+                                   int hd) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  if (e >= H * hd) return;
+  const int h = e / hd, i = e % hd;
   float x = 0.f;
-  for (int b = 0; b < B; ++b) x += du_part[static_cast<int64_t>(b) * n + e];
+  for (int b = 0; b < B; ++b)
+    for (int c = 0; c < n_chunks; ++c)
+      x += du_part[((static_cast<int64_t>(b) * H + h) * n_chunks + c) * hd + i];
   du[e] = x;
 }
 
 template <typename T, int HD>
-cudaError_t launch_bwd(const BwdParams& p, void* dv, float* du, cudaStream_t stream) {
-  constexpr int kRB = kBwdThreads / (HD / kBwdCols);
-  const int64_t blocks = static_cast<int64_t>(p.B) * p.H * (HD / kRB);
+cudaError_t launch_bwd(const BwdParams& p, float* du, cudaStream_t stream) {
+  const int n_chunks = (p.T + kBwdChunk - 1) / kBwdChunk;
+  const int64_t blocks = static_cast<int64_t>(p.B) * p.H * n_chunks;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  wkv6_bwd_rows_kernel<T, HD><<<static_cast<unsigned>(blocks), kBwdThreads, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  if (n_chunks > 1) {
+    wkv6_bwd_pass_kernel<T, HD><<<2 * p.B * p.H, 2 * HD, 0, stream>>>(p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  constexpr size_t smem = BwdSmem<HD>::kBytes;
+  cudaError_t err = launch::opt_in_smem<&wkv6_bwd_chunk_kernel<T, HD>>(smem);
   if (err != cudaSuccess) return err;
-  // dv: the scan in reverse, k and r swapped, dO for v, no initial or final state
-  Params s;
-  s.r = p.k;
-  s.k = p.r;
-  s.v = p.dout;
-  s.w = p.w;
-  s.u = p.u;
-  s.s_in = nullptr;
-  s.s_out = nullptr;
-  s.out = dv;
-  s.B = p.B;
-  s.T = p.T;
-  s.H = p.H;
-  wkv6_kernel<T, float, T, HD, true><<<p.B * p.H, HD * kSplit, 0, stream>>>(s);
+  wkv6_bwd_chunk_kernel<T, HD><<<static_cast<unsigned>(blocks), 4 * HD, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = p.H * HD;
-  wkv6_bwd_du_kernel<<<(n + 255) / 256, 256, 0, stream>>>(p.du_part, du, p.B, n);
+  wkv6_bwd_du_kernel<<<(n + 255) / 256, 256, 0, stream>>>(p.du_part, du, p.B, p.H, n_chunks, HD);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_bwd(const BwdParams& p, int hd, void* dv, float* du, cudaStream_t stream) {
+cudaError_t dispatch_bwd(const BwdParams& p, int hd, float* du, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_bwd<T, 32>(p, dv, du, stream);
-    case 64: return launch_bwd<T, 64>(p, dv, du, stream);
+    case 32: return launch_bwd<T, 32>(p, du, stream);
+    case 64: return launch_bwd<T, 64>(p, du, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// du's partials, then the saved states: what `repro_wkv6_bwd_workspace` reports
+// du's partials, then S at every chunk start and G at every chunk end but
+// the first and the last: what `repro_wkv6_bwd_workspace` reports
 int64_t bwd_workspace_bytes(int B, int T, int H, int hd) {
   const int64_t bh = static_cast<int64_t>(B) * H;
-  const int64_t saves = (T + kBwdChunk - 1) / kBwdChunk - 1;
-  return 4 * (bh * hd + bh * saves * hd * hd);
+  const int64_t chunks = (T + kBwdChunk - 1) / kBwdChunk;
+  return 4 * (bh * chunks * hd + 2 * bh * (chunks - 1) * hd * hd);
 }
 
 }  // namespace
@@ -995,9 +1276,10 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const voi
 }
 
 // Bytes of scratch `repro_wkv6_bwd` needs at (B, T, H, hd): du's partials,
-// (B, H, hd) f32, then the state at every chunk start but the first, (B H) x
-// (ceil(T / 64) - 1) x hd x hd f32 (130 MB at B 4 x T 2048 x H 64 x hd 64).
-// -1 for a shape the backward does not take.
+// (B H) x ceil(T / 64) x hd f32, then S at every chunk start but the first
+// and G at every chunk end but the last, each (B H) x (ceil(T / 64) - 1) x hd
+// x hd f32 (130 MB each at B 4 x T 2048 x H 64 x hd 64).  -1 for a shape the
+// backward does not take.
 extern "C" long long repro_wkv6_bwd_workspace(int B, int T, int H, int hd) {
   if (B < 1 || T < 1 || H < 1 || (hd != 32 && hd != 64)) return -1;
   return bwd_workspace_bytes(B, T, H, hd);
@@ -1008,20 +1290,21 @@ extern "C" long long repro_wkv6_bwd_workspace(int B, int T, int H, int hd) {
 // 1: bf16); w, dout (B, T, H, hd) and u (H, hd) f32.  Writes dr, dk, dv in
 // `dtype`, dw (B, T, H, hd) and du (H, hd) f32; `workspace` is scratch of
 // `workspace_bytes`, at least `repro_wkv6_bwd_workspace(B, T, H, hd)`, 16-byte
-// aligned.  All contiguous; hd 32 or 64.  Three kernels on `stream`; returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an empty
-// shape, an unknown dtype or head size, a workspace too small, or a grid too
-// large.
+// aligned.  All contiguous; hd 32 or 64.  Three kernels on `stream` (two
+// when T <= 64); returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for an empty shape, an unknown dtype or head size, a
+// workspace too small, or a grid too large.
 extern "C" int repro_wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
                               const void* u, const void* dout, void* dr, void* dk, void* dv,
                               void* dw, void* du, void* workspace, long long workspace_bytes,
                               int dtype, int B, int T, int H, int hd, void* stream) {
   if (B < 1 || T < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<int64_t>(B) * H > 0x7fffffff / 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(B) * H > 0x7fffffff / 2) return static_cast<int>(cudaErrorInvalidValue);
   if ((hd != 32 && hd != 64) || workspace_bytes < bwd_workspace_bytes(B, T, H, hd) ||
       reinterpret_cast<uintptr_t>(workspace) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t bh = static_cast<int64_t>(B) * H, chunks = (T + kBwdChunk - 1) / kBwdChunk;
   BwdParams p;
   p.r = r;
   p.k = k;
@@ -1031,14 +1314,16 @@ extern "C" int repro_wkv6_bwd(const void* r, const void* k, const void* v, const
   p.dout = static_cast<const float*>(dout);
   p.dr = dr;
   p.dk = dk;
+  p.dv = dv;
   p.dw = static_cast<float*>(dw);
   p.du_part = static_cast<float*>(workspace);
-  p.saved = p.du_part + static_cast<int64_t>(B) * H * hd;
+  p.s_start = p.du_part + bh * chunks * hd;
+  p.g_end = p.s_start + bh * (chunks - 1) * hd * hd;
   p.B = B;
   p.T = T;
   p.H = H;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* duf = static_cast<float*>(du);
-  return static_cast<int>(dtype == 0 ? dispatch_bwd<float>(p, hd, dv, duf, s)
-                                     : dispatch_bwd<__nv_bfloat16>(p, hd, dv, duf, s));
+  return static_cast<int>(dtype == 0 ? dispatch_bwd<float>(p, hd, duf, s)
+                                     : dispatch_bwd<__nv_bfloat16>(p, hd, duf, s));
 }

@@ -10,17 +10,19 @@ puts the plain version on a CUDA tensor.
 The kernel has three variants (``VARIANTS``), each a hand-written kernel,
 chosen here by ``gmm_variant`` from the inputs alone: bf16 inputs with d and
 F multiples of 8 and 16-byte aligned bases run on the tensor cores, in the
-decode tile when C <= 16, else in the prefill tile; f32 and other bf16
-inputs run the FMA kernel.  ``gmm.launches`` counts every launch and
+decode tile when C <= 16, else in the prefill tile (the persistent,
+warp-specialised ``wgmma`` tile fed by TMA that the backward runs too); f32
+and other bf16 inputs run the FMA kernel.  ``gmm.launches`` counts every launch and
 ``gmm.variant_launches`` each variant's.
 
 On CUDA tensors that need a gradient ``gmm`` runs ``GmmFunction``: the
 forward kernel, then ``gmm_bwd``, whose two products dx = dy w^T and dw =
 x^T dy are kernels of the same source reading dy, w and x in their stored
 layouts (no transposed copy), each counted in ``gmm_bwd.launches`` and
-``gmm_bwd.variant_launches`` (``tc_dx``, ``tc_dw`` on the wgmma tile for
-the inputs the forward's tensor-core tiles take, ``fma_dx``, ``fma_dw``
-else); its plain twin is ``ref.gmm_bwd_plain``.  On CPU tensors autograd
+``gmm_bwd.variant_launches`` (``tc_dx``, ``tc_dw`` on the persistent,
+warp-specialised wgmma tile fed by TMA, for the inputs the forward's
+tensor-core tiles take, ``fma_dx``, ``fma_dw`` else); its plain twin is
+``ref.gmm_bwd_plain``.  On CPU tensors autograd
 runs through ``ref.gmm_ref``.
 """
 from __future__ import annotations
@@ -100,8 +102,9 @@ class GmmFunction(torch.autograd.Function):
 
 
 def gmm_bwd_variant(x, w, dy) -> str:
-    """The backward kernel ``gmm_bwd`` launches: ``tc`` (the wgmma tile, for
-    both products) for bf16 with d and F multiples of 8 and 16-byte aligned
+    """The backward kernel ``gmm_bwd`` launches: ``tc`` (the persistent wgmma
+    tile fed by TMA, for both products) for bf16 with d and F multiples of 8
+    and 16-byte aligned
     x, w and dy, the inputs whose rows the forward's tensor-core tiles copy
     16 bytes at a time; ``fma`` for everything else."""
     d, f = x.shape[2], w.shape[2]

@@ -146,35 +146,32 @@ def wkv6_chunked_plain(r, k, v, w, u, state=None, *, sub: int = 16):
     return torch.cat(outs, 2).transpose(1, 2), s
 
 
-WKV_BWD_CHUNK = 64   # tokens between the saved states (csrc/wkv6.cu's kBwdChunk)
+WKV_BWD_CHUNK = 64   # tokens a block of the chunk kernel owns (csrc/wkv6.cu's kBwdChunk)
 WKV_BWD_SUB = 16     # tokens of a sub-chunk (its kBwdSub)
+_PLAIN_SAVE_EVERY = 64   # the sequential oracle keeps S every 64 tokens (memory only)
 
 
 def wkv6_bwd_plain(r, k, v, w, u, do):
-    """The arithmetic of the WKV backward kernels (``csrc/wkv6.cu``) in plain
-    PyTorch: the gradients of ``wkv6_ref(r, k, v, w, u)[0]`` (zero initial
-    state, final state unused) for the output gradient ``do`` (B, T, H, hd).
+    """The sequential WKV backward in plain PyTorch, the oracle the backward
+    kernels (``csrc/wkv6.cu``) are held against and the CPU path of
+    ``wkv6_bwd``: the gradients of ``wkv6_ref(r, k, v, w, u)[0]`` (zero
+    initial state, final state unused) for the output gradient ``do`` (B, T,
+    H, hd).
     With G_t = dL/dS_t (G_{T-1} = 0, G_{t-1} = r_t^T do_t + diag(w_t) G_t)
     and vdo_t = v_t . do_t:
 
-        dr_t = S_{t-1} do_t + u k_t vdo_t           (forward, saving S at
-                                                      every chunk start)
+        dr_t = S_{t-1} do_t + u k_t vdo_t            (forward)
         dv_t = k_t (G_t + diag(u) r_t^T do_t)        (reverse)
         dk_t = G_t v_t + u r_t vdo_t                 (reverse)
         dw_t = sum_j G_t S_{t-1}                     (reverse)
         du   = sum_{b,t} r_t k_t vdo_t               (over t, then over b)
 
     S_{t-1} is never recovered from S_t (that divides by w, which underflows
-    to 0 under strong decays): within a sub-chunk of 16 tokens from
-    t0, S_{t-1} = D(t0..t-1) S_{t0-1} + sum_{t0<=s<t} D(s+1..t-1) k_s^T v_s
-    with D(a..b) = prod_{a<=q<=b} w_q, so
-
-        dw_t = D(t0..t-1) (G_t . S_{t0-1}) + sum_{t0<=s<t} D(s+1..t-1) k_s (G_t v_s),
-
-    the products of w built from 1 token by token; S_{t0-1} is recomputed
-    forward from the saved state of its chunk.  Computed in f32 (f64 for
-    f64 inputs); returns (dr, dk, dv) in r's dtype and (dw, du) in f32 (f64
-    for f64 inputs)."""
+    to 0 under strong decays).  To bound its memory the forward keeps S only
+    every 64 tokens, and the reverse walk recomputes the states of one such
+    stretch forward from its saved start before it walks them back, token by
+    token.  Computed in f32 (f64 for f64 inputs); returns (dr, dk, dv) in r's
+    dtype and (dw, du) in f32 (f64 for f64 inputs)."""
     ct = torch.float64 if r.dtype == torch.float64 else torch.float32
     b, t, h, hd = r.shape
     rf, kf, vf, wf, dof = (x.to(ct) for x in (r, k, v, w, do))
@@ -187,35 +184,181 @@ def wkv6_bwd_plain(r, k, v, w, u, do):
 
     dr, dk, dv, dw = (torch.empty((b, t, h, hd), dtype=ct, device=r.device)
                       for _ in range(4))
-    saved, s = {}, zeros
+    saved, s = [], zeros
     for i in range(t):
-        if i % WKV_BWD_CHUNK == 0 and i > 0:
-            saved[i // WKV_BWD_CHUNK] = s
+        if i % _PLAIN_SAVE_EVERY == 0:
+            saved.append(s)
         dr[:, i] = torch.einsum("bhij,bhj->bhi", s, dof[:, i]) + uf * kf[:, i] * vdo[:, i]
         s = advance(s, i)
     du = (rf * kf * vdo).sum(1).sum(0)
     g = zeros
-    for i in reversed(range(t)):
-        rdo = rf[:, i, :, :, None] * dof[:, i, :, None, :]
-        dv[:, i] = torch.einsum("bhi,bhij->bhj", kf[:, i], g + uf[None, :, :, None] * rdo)
-        g = wf[:, i, :, :, None] * g + rdo
-    g = zeros
-    chunk, sub = WKV_BWD_CHUNK, WKV_BWD_SUB
-    for c in reversed(range(-(-t // chunk))):
-        starts = list(range(c * chunk, min((c + 1) * chunk, t), sub))
-        s, firsts = saved.get(c, zeros), []
-        for t0 in starts:                     # the state before each sub-chunk
-            firsts.append(s)
-            for i in range(t0, min(t0 + sub, t)):
-                s = advance(s, i)
-        for t0, s0 in reversed(list(zip(starts, firsts))):
-            for i in reversed(range(t0, min(t0 + sub, t))):
-                dk[:, i] = torch.einsum("bhij,bhj->bhi", g, vf[:, i]) + uf * rf[:, i] * vdo[:, i]
-                y = (g * s0).sum(-1)
-                acc, prod = torch.zeros_like(y), torch.ones_like(y)
-                for j in reversed(range(t0, i)):
-                    acc = acc + prod * kf[:, j] * torch.einsum("bhij,bhj->bhi", g, vf[:, j])
-                    prod = prod * wf[:, j]
-                dw[:, i] = prod * y + acc
-                g = wf[:, i, :, :, None] * g + rf[:, i, :, :, None] * dof[:, i, :, None, :]
+    for c in reversed(range(len(saved))):
+        lo, hi = c * _PLAIN_SAVE_EVERY, min((c + 1) * _PLAIN_SAVE_EVERY, t)
+        before, s = [], saved[c]              # S_{i-1} for i in [lo, hi)
+        for i in range(lo, hi):
+            before.append(s)
+            s = advance(s, i)
+        for i in reversed(range(lo, hi)):
+            rdo = rf[:, i, :, :, None] * dof[:, i, :, None, :]
+            dv[:, i] = torch.einsum("bhi,bhij->bhj", kf[:, i], g + uf[None, :, :, None] * rdo)
+            dk[:, i] = torch.einsum("bhij,bhj->bhi", g, vf[:, i]) + uf * rf[:, i] * vdo[:, i]
+            dw[:, i] = (g * before[i - lo]).sum(-1)
+            g = wf[:, i, :, :, None] * g + rdo
     return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du
+
+
+def _sub_decays(w):
+    """w (B, H, L, hd) of one sub-chunk -> (A, B, total): A[:, :, a] =
+    prod_{q<a} w_q and B[:, :, a] = prod_{q>a} w_q within the sub-chunk,
+    built from 1 token by token, and total = prod_q w_q."""
+    n = w.shape[2]
+    pre, suf = [], [None] * n
+    p = torch.ones_like(w[:, :, 0])
+    for a in range(n):
+        pre.append(p)
+        p = p * w[:, :, a]
+    q = torch.ones_like(p)
+    for a in reversed(range(n)):
+        suf[a] = q
+        q = q * w[:, :, a]
+    return torch.stack(pre, 2), torch.stack(suf, 2), p
+
+
+def _diag_block(r, k, w, u):
+    """The forward's diagonal block of one sub-chunk (``wkv6_chunked_plain``):
+    P[t, s] = sum_i r_t k_s prod_{s<q<t} w_q (s < t), sum_i r_t u k_t (s =
+    t), 0 above; r, k, w (B, H, L, hd), u (1, H, 1, hd)."""
+    b, h, n, _ = r.shape
+    p = torch.zeros((b, h, n, n), dtype=r.dtype, device=r.device)
+    f = k.clone()                         # f[s] = k_s prod_{s<q<t}, built token by token
+    for i in range(n):
+        p[:, :, i, i] = (r[:, :, i] * u[:, :, 0] * k[:, :, i]).sum(-1)
+        if i > 1:
+            f[:, :, :i - 1] = f[:, :, :i - 1] * w[:, :, i - 1:i]
+        if i > 0:
+            p[:, :, i, :i] = torch.einsum("bhk,bhsk->bhs", r[:, :, i], f[:, :, :i])
+    return p
+
+
+def wkv6_bwd_chunked_plain(r, k, v, w, u, do):
+    """The chunk-parallel arithmetic of the WKV backward kernels
+    (``csrc/wkv6.cu``) in plain PyTorch: the same gradients as
+    ``wkv6_bwd_plain`` (zero initial state, the final state unused; (dr, dk,
+    dv) in r's dtype, (dw, du) in f32, f64 for f64 inputs).  T is padded to
+    whole chunks with r = k = v = dO = 0 and w = 1, which changes nothing.
+
+    1. The state S at every chunk start and G = dL/dS at every chunk end,
+       carried sub-chunk by sub-chunk (A, B the prefix and suffix products
+       of w within a sub-chunk, built from 1; D their total):
+           S <- diag(D) S + (k o B)^T V,     G <- diag(D) G + (r o A)^T dO.
+    2. Each chunk alone, from its S and G: S carried forward to each
+       sub-chunk's start S_b, then the sub-chunks walked backward carrying G
+       (G_e after the sub-chunk's last token).  With Y = dO S_b^T, Z = V
+       G_e^T, M = dO V^T and P the forward's diagonal block (bonus on its
+       diagonal), for token a of the sub-chunk and key i:
+           dr_a = A_a Y_a + E_a(a) + u k_a M[a, a]
+           dk_a = B_a Z_a + E'_a(a) + u r_a M[a, a]
+           dv   = (k o B) G_e + P^T dO
+           dw_a = A_a B_a (G_e . S_b) + A_a R(a) + B_a Q(a) + T4(a)
+       with the within-sub-chunk sums, every decay a product of w from 1
+       (no division by w, which underflows to 0 under strong decays):
+           E_s'(a)  = sum_{s<a} prod_{s<q<a} w_q k_s M[s', s]
+           E'_s(a)  = sum_{s'>a} prod_{a<q<s'} w_q r_s' M[s', s]
+           Q(a)     = sum_{s<a} prod_{s<q<a} w_q k_s Z_s
+           R(a)     = sum_{s>a} prod_{a<q<s} w_q r_s Y_s
+           T4(a)    = sum_{s'>a} (r_s' prod_{a<q<s'} w_q) E_s'(a)
+       (G_e . S_b the row-wise dot over values), each a recurrence in a:
+       E and Q walked up, E' and R down.  du = sum_{b, t} r_t k_t M[t, t].
+    """
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    b, t, h, hd = r.shape
+    chunk, sub = WKV_BWD_CHUNK, WKV_BWD_SUB
+    n_chunks = -(-t // chunk)
+    pad = n_chunks * chunk - t
+    per = chunk // sub
+
+    def prep(x, fill):                     # (B, H, T + pad, hd)
+        x = x.to(ct).transpose(1, 2)
+        return torch.cat([x, x.new_full((b, h, pad, hd), fill)], 2) if pad else x
+
+    rf, kf, vf, dof = (prep(x, 0.0) for x in (r, k, v, do))
+    wf = prep(w, 1.0)
+    uf = u.to(ct)[None, :, None, :]
+
+    def tokens(n, *xs):
+        return [x[:, :, n * sub:(n + 1) * sub] for x in xs]
+
+    def carry_s(s, n):
+        kc, vc, wc = tokens(n, kf, vf, wf)
+        _, suf, tot = _sub_decays(wc)
+        return tot[..., None] * s + (kc * suf).transpose(2, 3) @ vc
+
+    def carry_g(g, n):
+        rc, dc, wc = tokens(n, rf, dof, wf)
+        pre, _, tot = _sub_decays(wc)
+        return tot[..., None] * g + (rc * pre).transpose(2, 3) @ dc
+
+    zeros = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device)
+    starts, s = [zeros], zeros             # 1. S at each chunk start
+    for n in range((n_chunks - 1) * per):
+        s = carry_s(s, n)
+        if (n + 1) % per == 0:
+            starts.append(s)
+    ends, g = [zeros] * n_chunks, zeros    # G at each chunk end
+    for n in reversed(range(per, n_chunks * per)):
+        if (n + 1) % per == 0:
+            ends[(n + 1) // per - 1] = g
+        g = carry_g(g, n)
+    if n_chunks > 1:
+        ends[0] = g
+
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros((b, h, hd), dtype=ct, device=r.device)
+    for c in range(n_chunks):              # 2. each chunk alone
+        s_b = [starts[c]]
+        for m in range(per - 1):
+            s_b.append(carry_s(s_b[-1], c * per + m))
+        g = ends[c]
+        for m in reversed(range(per)):
+            n = c * per + m
+            rc, kc, vc, wc, dc = tokens(n, rf, kf, vf, wf, dof)
+            pre, suf, tot = _sub_decays(wc)
+            y = dc @ s_b[m].transpose(2, 3)
+            z = vc @ g.transpose(2, 3)
+            mm = dc @ vc.transpose(2, 3)
+            x = (g * s_b[m]).sum(-1)
+            p = _diag_block(rc, kc, wc, uf)
+            sl = slice(n * sub, (n + 1) * sub)
+            dv[:, :, sl] = (kc * suf) @ g + p.transpose(2, 3) @ dc
+            diag = torch.diagonal(mm, dim1=2, dim2=3)            # v_a . dO_a
+            du += (rc * kc * diag[..., None]).sum(2)
+            e = torch.zeros_like(rc)       # E_s'(a), s' > a, walked up
+            q = torch.zeros_like(x)
+            for a in range(sub):
+                dr[:, :, n * sub + a] = pre[:, :, a] * y[:, :, a] + e[:, :, a] \
+                    + uf[:, :, 0] * kc[:, :, a] * diag[:, :, a, None]
+                t4, prod = torch.zeros_like(x), torch.ones_like(x)
+                for s2 in range(a + 1, sub):
+                    t4 = t4 + rc[:, :, s2] * prod * e[:, :, s2]
+                    prod = prod * wc[:, :, s2]
+                dw[:, :, n * sub + a] = suf[:, :, a] * q + t4
+                q = wc[:, :, a] * q + kc[:, :, a] * z[:, :, a]
+                e[:, :, a + 1:] = wc[:, :, a, None] * e[:, :, a + 1:] \
+                    + kc[:, :, a, None] * mm[:, :, a + 1:, a, None]
+            e = torch.zeros_like(rc)       # E'_s(a), s <= a, walked down
+            rr = torch.zeros_like(x)
+            for a in reversed(range(sub)):
+                dk[:, :, n * sub + a] = suf[:, :, a] * z[:, :, a] + e[:, :, a] \
+                    + uf[:, :, 0] * rc[:, :, a] * diag[:, :, a, None]
+                dw[:, :, n * sub + a] += pre[:, :, a] * suf[:, :, a] * x + pre[:, :, a] * rr
+                rr = wc[:, :, a] * rr + rc[:, :, a] * y[:, :, a]
+                e[:, :, :a] = wc[:, :, a, None] * e[:, :, :a] \
+                    + rc[:, :, a, None] * mm[:, :, a, :a, None]
+            g = carry_g(g, n)
+
+    def out(x, dtype):
+        return x[:, :, :t].transpose(1, 2).to(dtype)
+
+    wt = torch.float64 if ct == torch.float64 else torch.float32
+    return (out(dr, r.dtype), out(dk, r.dtype), out(dv, r.dtype), out(dw, wt),
+            du.sum(0).to(wt))

@@ -1,9 +1,9 @@
 """Time other tile shapes of the tensor-core kernels beside the ones in the
 tree, on the card:
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune [lstm] [wkv] [flash_bwd]
+    PYTHONPATH=src python -m repro_torch.kernels.tune [lstm] [wkv] [flash_bwd] [gmm]
 
-(all three when none is named):
+(all four when none is named):
 
 - the LSTM forward's ``tc`` tile (``csrc/lstm_cell.cu``, ``launch_tc<BH,
   STAGES, KS>``: hidden units a block, ring stages, contraction rows a
@@ -17,7 +17,14 @@ tree, on the card:
   ``launch_wg_bwd_q<64, WGS, BK, STAGES, MIN_BLOCKS>``: warpgroups a block,
   ring stages, keys a streamed tile of the dQ kernel, and the blocks an SM
   their registers are capped for) at Llama-3.2-1B's training shape (B 4,
-  T 2048, H 32/8, hd 64, causal, bf16).
+  T 2048, H 32/8, hd 64, causal, bf16);
+- the two layouts of the grouped matmul's persistent wgmma tile
+  (``csrc/moe_gmm.cu``, ``launch_ws<kAMn, kBMn, kPing>``: the two consumer
+  warpgroups cooperating on 128 x 256 tiles, the tree's, or taking 64 x 256
+  tiles in turn, ping-pong) at Granite-3.0-1B-A400M's products (``GMM_CASES``:
+  the forward at the serving prefill's capacity 640 and the training
+  capacity 2560, and the backward's dx and dw at 2560), timed in the order
+  cooperative, ping-pong, ping-pong, cooperative, beside ``torch.bmm``.
 
 A harness that ``#include``s each source instantiates the other shapes, so
 the tree keeps one tile; it is built with the kernels' own nvcc flags into
@@ -41,6 +48,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
+from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import wkv6 as wk
 
 LSTM_TILES = [(32, 4, 64), (32, 3, 64), (32, 5, 64), (32, 6, 32), (16, 4, 64), (16, 6, 64),
@@ -51,6 +59,41 @@ WKV_STAGES = [2, 3, 4, 6]
 FLASH_BWD_KV = [(1, 4, 1), (1, 3, 1), (1, 4, 3), (2, 4, 1), (2, 3, 1)]
 # (WGS, BK, STAGES, MIN_BLOCKS) of the dQ kernel; the tree's first
 FLASH_BWD_Q = [(1, 64, 3, 3), (1, 64, 3, 1), (1, 64, 4, 2), (2, 64, 3, 1), (1, 128, 3, 1)]
+
+# (product, Granite's weight, capacity): the weight wg/wi is (1024, 512), wo
+# (512, 1024), for 32 experts; "forward" is x w, "dx" dy w^T, "dw" x^T dy
+GMM_CASES = [("forward", "wg/wi", 640), ("forward", "wo", 640), ("forward", "wg/wi", 2560),
+             ("forward", "wo", 2560), ("dx", "wg/wi", 2560), ("dx", "wo", 2560),
+             ("dw", "wg/wi", 2560), ("dw", "wo", 2560)]
+GMM_PRODUCTS = ("forward", "dx", "dw")   # the harness's product codes, in order
+GMM_LAYOUTS = ("cooperative", "ping_pong")   # kPing false / true
+
+
+def _gmm_harness() -> str:
+    layouts = {"forward": (False, True), "dx": (False, False), "dw": (True, True)}
+    cases = "\n".join(
+        f"    case {2 * i + ping}: return launch_ws<{str(a_mn).lower()}, {str(b_mn).lower()}, "
+        f"{str(bool(ping)).lower()}>(A, B, O, M, N, K, G, s);"
+        for i, prod in enumerate(GMM_PRODUCTS) for ping in (0, 1)
+        for a_mn, b_mn in [layouts[prod]])
+    return f'''
+namespace gmm {{
+#include "{build.CSRC / 'moe_gmm.cu'}"
+// cfg 2 * product + ping; out (G, M, N) = A B with A stored (G, M, K) (or
+// (G, K, M) for dw) and B (G, K, N) (or (G, N, K) for dx), as launch_ws reads
+extern "C" int tune_gmm(int cfg, const void* a, const void* b, void* out, int M, int N, int K,
+                        int G, void* stream) {{
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* B = static_cast<const bf16*>(b);
+  bf16* O = static_cast<bf16*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cfg) {{
+{cases}
+    default: return -1;
+  }}
+}}
+}}  // namespace gmm
+'''
 
 
 def _flash_harness() -> str:
@@ -136,7 +179,8 @@ extern "C" int tune_wkv(int cfg, const void* r, const void* k, const void* v, co
   }}
 }}
 }}  // namespace wkv
-''' + (_flash_harness() if "flash_bwd" in which else "")
+''' + (_flash_harness() if "flash_bwd" in which else "") + \
+        (_gmm_harness() if "gmm" in which else "")
 
 
 def _load(which) -> ctypes.CDLL:
@@ -155,6 +199,9 @@ def _load(which) -> ctypes.CDLL:
     dll.tune_lstm.restype = dll.tune_wkv.restype = i32
     dll.tune_lstm.argtypes = [i32] + [vp] * 9 + [i32] * 4 + [vp]
     dll.tune_wkv.argtypes = [i32] + [vp] * 7 + [i32] * 3 + [vp]
+    if "gmm" in which:
+        dll.tune_gmm.restype = i32
+        dll.tune_gmm.argtypes = [i32] + [vp] * 3 + [i32] * 4 + [vp]
     if "flash_bwd" not in which:
         return dll
     dll.tune_flash_bwd.restype = i32
@@ -295,7 +342,57 @@ def tune_flash_bwd(dll, stream):
               flush=True)
 
 
-KERNELS = {"lstm": tune_lstm, "wkv": tune_wkv, "flash_bwd": tune_flash_bwd}
+def tune_gmm(dll, stream):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = 32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    for product, weight, cap in GMM_CASES:
+        d, f = (1024, 512) if weight == "wg/wi" else (512, 1024)
+        x, w, dy = rnd(g, cap, d), rnd(g, d, f) * d ** -0.5, rnd(g, cap, f)
+        if product == "forward":   # (A, B, M, N, K) as launch_ws reads them
+            a, b, (m, n, k) = x, w, (cap, f, d)
+            tree = lambda: mg._launch(x, w, "tc_prefill")   # noqa: E731
+            bmm = lambda: torch.bmm(x, w)   # noqa: E731
+        elif product == "dx":
+            a, b, (m, n, k) = dy, w, (cap, d, f)
+            tree = lambda: mg._launch_bwd(x, w, dy, "tc", True, False)[0]   # noqa: E731
+            bmm = lambda: torch.bmm(dy, w.transpose(1, 2))   # noqa: E731
+        else:
+            a, b, (m, n, k) = x, dy, (d, f, cap)
+            tree = lambda: mg._launch_bwd(x, w, dy, "tc", False, True)[1]   # noqa: E731
+            bmm = lambda: torch.bmm(x.transpose(1, 2), dy)   # noqa: E731
+        want = tree()
+        out = torch.empty((g, m, n), dtype=torch.bfloat16, device="cuda")
+        calls, same, repeat = {}, {}, {}
+        for ping, layout in enumerate(GMM_LAYOUTS):
+            cfg = 2 * GMM_PRODUCTS.index(product) + ping
+
+            def call(cfg=cfg):
+                return dll.tune_gmm(cfg, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, g,
+                                    stream)
+
+            out.zero_()
+            err = call()
+            torch.cuda.synchronize()
+            first = out.clone()
+            err = err or call()
+            torch.cuda.synchronize()
+            calls[layout] = call
+            same[layout] = err == 0 and torch.equal(first, want)
+            repeat[layout] = err == 0 and torch.equal(first, out)
+        coop, ping = calls["cooperative"], calls["ping_pong"]
+        c1, p1, p2, c2 = _ms(coop), _ms(ping), _ms(ping), _ms(coop)
+        print(json.dumps({"kernel": "gmm tc", "product": product, "weight": weight,
+                          "shape": [g, m, n, k], "same_bits_as_tree": same,
+                          "same_bits_on_repeat": repeat, "cooperative_ms": [c1, c2],
+                          "ping_pong_ms": [p1, p2], "tree_ms": _ms(tree), "bmm_ms": _ms(bmm)}),
+              flush=True)
+
+
+KERNELS = {"lstm": tune_lstm, "wkv": tune_wkv, "flash_bwd": tune_flash_bwd, "gmm": tune_gmm}
 
 
 def main(argv=None):

@@ -24,9 +24,12 @@ scan (``scan``).  ``wkv6.launches`` counts every launch and
 On CUDA tensors that need a gradient ``wkv6`` runs ``WKV6Function`` from a
 zero state (training; a given state under autograd raises, and the final
 state is not differentiable): the forward kernel, then ``wkv6_bwd``, the
-backward kernels of the same source (one count in ``wkv6_bwd.launches`` a
-call, three kernels), whose plain twin is ``ref.wkv6_bwd_plain``.  On CPU
-tensors autograd runs through ``ref.wkv6_ref``.
+chunk-parallel backward kernels of the same source (one count in
+``wkv6_bwd.launches`` a call; three kernels, two when T <= 64), whose
+arithmetic's plain twin
+is ``ref.wkv6_bwd_chunked_plain``; they are held against the sequential
+``ref.wkv6_bwd_plain``, the CPU path.  On CPU tensors autograd runs through
+``ref.wkv6_ref``.
 """
 from __future__ import annotations
 
@@ -136,8 +139,9 @@ def wkv6_bwd(r, k, v, w, u, dout):
     tensors it launches the backward kernels (or raises); on CPU tensors it
     takes the plain version ``ref.wkv6_bwd_plain``.  Scratch on the card:
     the bytes the C entry asks for (``repro_wkv6_bwd_workspace``), mostly
-    the state at every chunk start, (B H) x (ceil(T / 64) - 1) x hd^2 f32
-    (130 MB at B 4 x T 2048 x H 64 x hd 64)."""
+    the state S at every 64-token chunk start and G = dL/dS at every chunk
+    end, 2 (B H) x (ceil(T / 64) - 1) x hd^2 f32 (260 MB at B 4 x T 2048 x H
+    64 x hd 64)."""
     _check(r, k, v, w, u, None)
     if dout.shape != r.shape:
         raise ValueError(f"dout {tuple(dout.shape)} differs from r {tuple(r.shape)}")
@@ -150,8 +154,8 @@ def wkv6_bwd(r, k, v, w, u, dout):
     dr, dk, dv = (torch.empty(r.shape, dtype=r.dtype, device=dev) for _ in range(3))
     dw = torch.empty(r.shape, dtype=torch.float32, device=dev)
     du = torch.empty((h, hd), dtype=torch.float32, device=dev)
-    fn, size_fn = _bwd_entry or _bind_bwd()
-    n_bytes = size_fn(b, t, h, hd)   # the layout is the C entry's own
+    fn = (_bwd_entry or _bind_bwd())[0]
+    n_bytes = bwd_workspace_bytes(b, t, h, hd)
     workspace = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = fn(*(x.data_ptr() for x in (r, k, v, w, u, dout, dr, dk, dv, dw, du, workspace)),
@@ -161,6 +165,14 @@ def wkv6_bwd(r, k, v, w, u, dout):
         raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err}")
     wkv6_bwd.launches += 1
     return dr, dk, dv, dw, du
+
+
+def bwd_workspace_bytes(b: int, t: int, h: int, hd: int) -> int:
+    """The bytes of scratch ``wkv6_bwd`` allocates on the card for inputs of
+    shape (b, t, h, hd), as the C entry ``repro_wkv6_bwd_workspace`` reports
+    them (the layout is the entry's own); -1 for a shape it does not take.
+    Builds and loads the library on first use."""
+    return (_bwd_entry or _bind_bwd())[1](b, t, h, hd)
 
 
 def _launch(r, k, v, w, u, state, variant: str):

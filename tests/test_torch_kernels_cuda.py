@@ -310,11 +310,17 @@ def test_build_all_builds_every_source(cuda_device):
     assert "registers" in build.build_log("lstm_cell")
 
 
+# G, C, d, F at the edges of the persistent wgmma tile (128 x 256 outputs, k
+# steps of 64) of the bf16 prefill and backward products: M, N and K of each
+# product off those multiples, fewer tiles than SMs, C 1 (dw contracts over
+# one row), G 1 and G 64
+GMM_TILE_EDGES = [(1, 200, 136, 264), (1, 1, 64, 48), (3, 129, 264, 72), (64, 72, 40, 24),
+                  (64, 300, 1024, 8), (2, 2560, 520, 264)]
 # G, C, d, F: the JAX sweep's odd shapes, G = 1, C = 1, d = 1, d and F % 4 != 0,
 # and Granite-3.0-1B-A400M's prefill (capacity 640) and decode (C = 4) products
 GMM_SHAPES = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (1, 20, 64, 64),
               (3, 1, 64, 48), (2, 17, 1, 9), (32, 640, 1024, 512), (32, 640, 512, 1024),
-              (32, 4, 1024, 512), (32, 4, 512, 1024)]
+              (32, 4, 1024, 512), (32, 4, 512, 1024)] + GMM_TILE_EDGES
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
@@ -336,6 +342,7 @@ def test_gmm_kernel_matches_plain_on_card(cuda_device, dtype, g, c, d, f):
     assert TGM.gmm.launches == before + 1
     assert out.shape == (g, c, f) and out.dtype == dtype
     assert float((out.float() - gmm_ref(x, w).float()).abs().max()) < GMM_TOL[dtype]
+    assert torch.equal(TGM.gmm(x, w), out)        # the same bits on a repeat launch
 
 
 @pytest.mark.cuda
@@ -373,11 +380,12 @@ def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 # G, C, d, F of the backward: the forward's odd shapes (FMA kernel at bf16
 # where d or F is no multiple of 8), C = 1, tiles ragged in every dimension
-# of both products (C 300, d 136, F 264), and Granite-3.0-1B-A400M's training
-# products (B 4 x T 2048: capacity 2560; wg/wi and wo)
+# of both products (C 300, d 136, F 264), the persistent tile's edges, and
+# Granite-3.0-1B-A400M's training products (B 4 x T 2048: capacity 2560;
+# wg/wi and wo)
 GMM_BWD_SHAPES = [(8, 37, 130, 70), (4, 100, 192, 160), (1, 1, 1, 1), (3, 1, 64, 48),
                   (2, 17, 1, 9), (2, 300, 136, 264), (32, 2560, 1024, 512),
-                  (32, 2560, 512, 1024)]
+                  (32, 2560, 512, 1024)] + GMM_TILE_EDGES
 BWD_REL_TOL = {"gmm": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
                "wkv6": {torch.float32: 2e-4, torch.bfloat16: 2e-2}}
 
@@ -538,11 +546,13 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         TWK.wkv6(*(x[..., :48].contiguous() for x in (r, k, v, w, u)))
 
 
-# B, T, H, hd of the backward: T under a 16-token sub-chunk, 16, past one,
-# under and over the 64-token chunk (the last partial), hd 32 and 64, and
-# RWKV6-7B's training shape (B 4, T 2048, H 64, hd 64)
-WKV_BWD_SHAPES = [(2, 5, 2, 32), (2, 16, 1, 64), (1, 40, 2, 64), (1, 70, 2, 64),
-                  (2, 130, 2, 32), (4, 2048, 64, 64)]
+# B, T, H, hd of the backward: T 1, under a 16-token sub-chunk, 16, past one,
+# one short of, at and one past the 64-token chunk, over it (the last chunk
+# partial), hd 32 and 64, T 2048 with few heads, and RWKV6-7B's training
+# shape (B 4, T 2048, H 64, hd 64)
+WKV_BWD_SHAPES = [(2, 1, 2, 64), (2, 5, 2, 32), (2, 16, 1, 64), (1, 40, 2, 64),
+                  (1, 63, 2, 32), (1, 64, 2, 64), (2, 65, 2, 64), (1, 70, 2, 64),
+                  (2, 130, 2, 32), (1, 2048, 2, 64), (4, 2048, 64, 64)]
 
 
 def _wkv_do(seed, shape, device):
@@ -569,28 +579,34 @@ def test_wkv6_bwd_kernels_match_plain_on_card(cuda_device, dtype, b, t, h, hd):
 
 
 @pytest.mark.cuda
-def test_wkv6_bwd_kernels_on_strong_decays(cuda_device):
-    """w in [1e-38, 1e-3] over 200 tokens: every gradient finite and held to
-    the plain twin (no factor of the kernels divides by w)."""
-    r, k, v, _, u, _ = _wkv_inputs(11, 1, 200, 2, 64, cuda_device, torch.float32, state=False)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [200, 2048])
+def test_wkv6_bwd_kernels_on_strong_decays(cuda_device, dtype, t):
+    """w in [1e-38, 1e-3] over 200 and 2048 tokens: every gradient finite and
+    held to the plain twin (no factor of the kernels divides by w); a
+    repeat launch gives the same bits."""
+    r, k, v, _, u, _ = _wkv_inputs(11, 1, t, 2, 64, cuda_device, dtype, state=False)
     rng = np.random.default_rng(11)
     w = torch.from_numpy(np.exp(rng.uniform(np.log(1e-38), np.log(1e-3), r.shape))
                          .astype(np.float32)).to(cuda_device)
     do = _wkv_do(12, r.shape, cuda_device)
     got = TWK.wkv6_bwd(r, k, v, w, u, do)
     for x, want in zip(got, wkv6_bwd_plain(r, k, v, w, u, do)):
-        assert torch.isfinite(x).all() and _rel(x, want) < BWD_REL_TOL["wkv6"][torch.float32]
+        assert torch.isfinite(x).all() and _rel(x, want) < BWD_REL_TOL["wkv6"][dtype]
+    assert all(torch.equal(x, y) for x, y in zip(TWK.wkv6_bwd(r, k, v, w, u, do), got))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,hd", [(1, 64, 2, 32), (2, 65, 2, 64), (4, 2048, 64, 64)])
 def test_wkv6_bwd_workspace_is_sized_by_the_entry(cuda_device, b, t, h, hd):
-    """The C entry sizes its own scratch (du's partials and a state every 64
-    tokens after the first) and refuses a workspace one byte short."""
-    fn, size_fn = TWK._bwd_entry or TWK._bind_bwd()
-    n_bytes = size_fn(b, t, h, hd)
-    assert n_bytes == 4 * b * h * hd * (1 + (-(-t // 64) - 1) * hd)
-    assert size_fn(b, t, h, 48) == -1
+    """The C entry sizes its own scratch (du's partials a 64-token chunk, S at
+    every chunk start but the first and G at every chunk end but the last)
+    and refuses a workspace one byte short."""
+    fn = (TWK._bwd_entry or TWK._bind_bwd())[0]
+    n_bytes = TWK.bwd_workspace_bytes(b, t, h, hd)
+    chunks = -(-t // 64)
+    assert n_bytes == 4 * b * h * hd * (chunks + 2 * (chunks - 1) * hd)
+    assert TWK.bwd_workspace_bytes(b, t, h, 48) == -1
     r, k, v, w, u, _ = _wkv_inputs(3, b, t, h, hd, cuda_device, torch.float32, state=False)
     do = _wkv_do(4, r.shape, cuda_device)
     outs = [torch.empty_like(x) for x in (r, r, r, r)] + [torch.empty_like(u)]

@@ -40,3 +40,16 @@ def test_flash_backward_choices_are_ones_the_kernels_take():
 def test_cli_rejects_an_unknown_kernel_before_looking_for_a_card():
     with pytest.raises(SystemExit, match="unknown kernels"):
         tune.main(["flash_fwd"])
+
+
+def test_gmm_harness_instantiates_both_layouts_of_every_product_once():
+    text = tune._harness(["gmm"])
+    assert str(build.CSRC / "moe_gmm.cu") in text and "tune_gmm" in text
+    cases = re.findall(r"case (\d+): return launch_ws<(\w+), (\w+), (\w+)>", text)
+    # cfg = 2 * product + ping, as tune_gmm passes it
+    want = {"forward": ("false", "true"), "dx": ("false", "false"), "dw": ("true", "true")}
+    assert [(int(c), (a, b), p) for c, a, b, p in cases] == [
+        (2 * i + ping, want[prod], ("false", "true")[ping])
+        for i, prod in enumerate(tune.GMM_PRODUCTS) for ping in (0, 1)]
+    assert "moe_gmm.cu" not in tune._harness(["lstm", "wkv", "flash_bwd"])
+    assert {prod for prod, _, _ in tune.GMM_CASES} == set(tune.GMM_PRODUCTS)

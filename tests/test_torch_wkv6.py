@@ -23,13 +23,20 @@ above), against JAX ``wkv_chunked`` and the Pallas kernel where those run
 (w down to 1e-38), where it stays finite and the split exp(cum) factors
 of ``wkv_chunked`` overflow.  ``wkv_variant`` is held to its rule.
 
-``ref.wkv6_bwd_plain``, the plain twin of the backward kernels (the state
-saved at every 64-token chunk, recomputed forward to each 16-token
-sub-chunk, dw summed within a sub-chunk with no division by w), is held
+``ref.wkv6_bwd_plain``, the sequential oracle of the backward kernels (the
+state kept every 64 tokens, each stretch's states recomputed forward from
+it and walked back token by token, no division by w), is held
 against ``jax.vjp`` of JAX ``wkv_scan`` (zero state, the final state
 unused) for dr, dk, dv, dw and du, with T under and over a chunk, hd 32 and
 64, and strong decays (w down to 1e-38), in f32 within 1e-4 of max(1, the
 largest reference value): sums over T and hd in another order.
+``ref.wkv6_bwd_chunked_plain``, the plain twin of the chunk-parallel
+kernels (S at every 64-token chunk start, G = dL/dS at every chunk end, each
+chunk's outputs from those two with the within-sub-chunk decays built from
+1), is held against the same ``jax.vjp`` at T 1, 63, 64, 65 and 300, hd 32
+and 64, in f64 and f32 within 1e-4 of max(1, |ref|) (JAX's scan computes in
+f32 whatever it is given), in f64 also against the sequential twin within
+1e-10, and on strong decays, where every gradient stays finite.
 
 Inputs are drawn with numpy from a seed, as the JAX sweep draws them.  The
 CUDA kernel itself is held against the plain version on the card in
@@ -277,3 +284,65 @@ def test_wkv6_bwd_plain_matches_jax_vjp(b, t, h, hd, decay):
     args = [a.requires_grad_() for a in _t(r, k, v, w, u)]
     auto = torch.autograd.grad(TWK.wkv6(*args)[0], args, torch.from_numpy(do))
     assert all(_err(g, a) < BWD_TOL for g, a in zip(got, auto))
+
+
+F64_TWIN_TOL = 1e-10   # the two plain backwards in f64: round-off apart
+
+
+def _jax_vjp(r, k, v, w, u, do):
+    """``jax.vjp`` of JAX ``wkv_scan`` (zero state, the final state unused)."""
+    _, vjp = jax.vjp(lambda *a: JRW.wkv_scan(*a)[0], *(jnp.asarray(a) for a in (r, k, v, w, u)))
+    return [np.asarray(x, np.float64) for x in vjp(jnp.asarray(do))]
+
+
+def _bwd_case(seed, b, t, h, hd, strong=False):
+    r, k, v, w, u, _ = _inputs(seed, b, t, h, hd)
+    rng = np.random.default_rng(seed + 1)
+    if strong:
+        w = np.exp(rng.uniform(np.log(1e-38), np.log(1e-3), r.shape)).astype(np.float32)
+    do = (rng.standard_normal(r.shape) * 0.5).astype(np.float32)
+    return r, k, v, w, u, do
+
+
+def _check_chunked_bwd(inputs, dtype):
+    args = [torch.from_numpy(a).to(dtype) for a in inputs]
+    got = TR.wkv6_bwd_chunked_plain(*args)
+    want = _jax_vjp(*inputs)
+    r = inputs[0]
+    assert [g.shape for g in got] == [r.shape] * 4 + [inputs[4].shape]
+    assert all(g.dtype == dtype for g in got)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert torch.isfinite(g).all(), name
+        err = float(np.abs(g.double().numpy() - x).max()) / max(1.0, float(np.abs(x).max()))
+        assert err < BWD_TOL, (name, err)
+    if dtype == torch.float64:
+        for name, g, x in zip(("dr", "dk", "dv", "dw", "du"), got, TR.wkv6_bwd_plain(*args)):
+            err = float((g - x).abs().max()) / max(1.0, float(x.abs().max()))
+            assert err < F64_TWIN_TOL, (name, err)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 300])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wkv6_bwd_chunked_plain_matches_jax_vjp(t, hd, dtype):
+    """The chunk-parallel algebra against ``jax.vjp``: T under a sub-chunk,
+    one token short of, at and one past the 64-token chunk, and over four
+    chunks with the last one partial."""
+    _check_chunked_bwd(_bwd_case(t + hd, 1, t, 2, hd), dtype)
+
+
+@pytest.mark.parametrize("t,hd", [(65, 32), (300, 64)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wkv6_bwd_chunked_plain_stays_finite_on_strong_decays(t, hd, dtype):
+    """w in [1e-38, 1e-3]: every decay of the twin is a product of w's from
+    1 (no division by w, which underflows here), so every gradient stays
+    finite and matches ``jax.vjp``."""
+    _check_chunked_bwd(_bwd_case(t * 3 + hd, 1, t, 2, hd, strong=True), dtype)
+
+
+def test_wkv6_bwd_chunked_plain_equals_the_sequential_twin_in_f64():
+    """The two plain backwards, sequential and chunk-parallel, agree to f64
+    round-off over several chunks, the last one partial."""
+    inputs = [torch.from_numpy(a).double() for a in _bwd_case(5, 2, 150, 2, 32)]
+    for a, b in zip(TR.wkv6_bwd_chunked_plain(*inputs), TR.wkv6_bwd_plain(*inputs)):
+        assert float((a - b).abs().max()) < F64_TWIN_TOL * max(1.0, float(b.abs().max()))
