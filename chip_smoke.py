@@ -56,6 +56,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    where B and H are no tile multiples, h' and c' the
    same bits with and without the gates, and the cell's autograd function
    (dx, dh, dc, dWx, dWh, db) against autograd of the plain oracle; the
+   LSTM forward's gx entry (x @ Wx precomputed, as the overlapped tensor-MP
+   layer gives it) at a 2-way MP rank's cells of BigLSTM (B 16, d_h 1024,
+   H 4096, gx a row of the (B, T, 4, H) ring output) and GNMT (B 128, d_h
+   1024, H 512), ``tc`` and ``fma`` forced, against its plain twin (gates
+   within 1e-4, a repeat launch the same bits), timed against its bound and
+   one ``torch.mm`` plus ``_thnn_fused_lstm_cell``, and at edge shapes; the
    grouped matmul at full-width Granite-3.0-1B-A400M's four expert products
    (prefill at capacity 640, decode at C 4), its forward at Granite's
    training products (capacity 2560; bf16 prefill on the persistent TMA
@@ -264,7 +270,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    calls; the loss falls), then time steps and profile one; and ``--arch
    rwkv6_7b --reduced`` through the launcher's command line;
 26. hold RWKV's train step against the CPU at phase 24's cell;
-27. print one JSON line of kernels, then the device line.
+28. tensor MP of the recurrent families on a model pair sharing the card
+   (``phase_tensor_recurrent``): full-width BigLSTM through the launcher at
+   ``mp=2``, gspmd and overlapped with 2 chunks (256 LSTM forward launches
+   a step on ``tc``, of the gx entry when overlapped, and 256 backward),
+   full-width GNMT (800 and 800) and RWKV6-7B at full width on 2 layers (4
+   ``wkv6`` and 4 ``wkv6_bwd``) on 2 ranks, each rank's peak and step ms;
+   then f32 steps of each on a dp 2 x mp 2 run against the single-process
+   card step at phase 15 (d)'s limits;
+29. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
@@ -348,6 +362,16 @@ LSTM_FULL = (TRAIN_B, 1024, 1024, 8192)         # B, d_in, d_h, H of BigLSTM's c
 # layer's [target, zero context] concat) x H 1024, with no projection
 GNMT_B, GNMT_T = 128, 50
 LSTM_GNMT = [(GNMT_B, 1024, 1024, 1024), (GNMT_B, 2048, 1024, 1024)]
+# phase 28: the recurrent families on a tensor-MP pair sharing the card, 2
+# steps each: BigLSTM at phase 6's B 16 x T 64, GNMT at phase 16's B 128 x S =
+# T = 50, RWKV6-7B at phase 25's B 4 x T 2048 on 2 of its 32 layers (4 took
+# 21.6 GiB a rank and 4.5 s a step, most of it host-staged messages, and put
+# the whole script over 1100 s)
+RNN_TP_M, RNN_TP_STEPS, RWKV_TP_LAYERS = 2, 2, 2
+# the gx entry's rows: B, d_h, H of a rank's cell at 2-way MP, BigLSTM's
+# (H 8192 / 2, the 1024 projection as its recurrent input) and GNMT's (H
+# 1024 / 2, h whole)
+LSTM_GX = [(TRAIN_B, 1024, 4096), (GNMT_B, 1024, 512)]
 INCEPTION_B, INCEPTION_PX = 64, 299             # the paper's per-GPU mini-batch, config size
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # tests/test_kernels.py::test_gmm_sweep
 # G, C, d, F of full-width Granite-3.0-1B-A400M's expert products: 32 experts,
@@ -1159,6 +1183,97 @@ def phase_lstm_kernels(lc, ref_mod):
     fwd_rows.append(check_lstm_fwd(lc, [xm, *rest], "B16 din1024 dh1024 H8192, x misaligned")[0])
     grads_err = check_cell_grads(lc, ref_mod, lstm_inputs(gen, *LSTM_FULL, dtype=torch.float32))
     return fwd_rows, bwd_rows, grads_err
+
+
+def check_lstm_gx(lc, args, case, variant, timed=False):
+    """The forward kernel's gx entry (writing its gates, as in training),
+    ``variant`` forced, against its plain twin; the same bits on a repeat
+    launch.  Timed against the plain twin, the bound (gx, h, c, Wh, b read
+    once, h', c' and the gates written once, 2 B d_h 4H FLOPs) and PyTorch's
+    own step from the same pre-activation: one ``torch.mm`` for h @ Wh and
+    ``_thnn_fused_lstm_cell(gx, hgates, c, b)`` (torch.lstm_cell's CUDA
+    path, the forget bias +1 folded into b)."""
+    gx, h, c, wh, b = args
+    dt, (bsz, hh) = h.dtype, c.shape
+
+    def run():
+        outs = [torch.empty((bsz, hh), dtype=dt, device=h.device) for _ in range(2)]
+        gates = torch.empty((bsz, 4, hh), device=h.device)
+        return lc._launch_fwd_gx(gx, h, c, wh, b, *outs, gates, variant)
+
+    (hn, cn, gates), launched = launched_variant(lc.lstm_cell_fwd_gx, run)
+    hn2, cn2, gates2 = run()
+    torch.cuda.synchronize()
+    if launched != variant:
+        raise AssertionError(f"lstm_cell_fwd_gx {case}: launched {launched}")
+    rh, rc, ract = lc.lstm_cell_gx_plain(gx, h, c, wh, b, with_gates=True)
+    row = _lstm_row("lstm_cell_fwd_gx", case, dt, (hn, cn), (rh, rc), TOL[dt])
+    row["variant"] = launched
+    row["gates_max_abs_err"] = float((gates - ract).abs().max())
+    if not row["gates_max_abs_err"] < 1e-4:
+        raise AssertionError(f"lstm_cell_fwd_gx {case}: gates off by "
+                             f"{row['gates_max_abs_err']}")
+    if not (torch.equal(hn, hn2) and torch.equal(cn, cn2) and torch.equal(gates, gates2)):
+        raise AssertionError(f"lstm_cell_fwd_gx {case}: a repeat launch gave other bits")
+    if timed:
+        d_h = h.shape[1]
+        time_into(row, "ms", run)
+        time_into(row, "plain_ms", lambda: lc.lstm_cell_gx_plain(gx, h, c, wh, b,
+                                                                 with_gates=True))
+        wh2 = wh.reshape(d_h, 4 * hh)
+        gx2 = gx.reshape(bsz, 4 * hh)
+        b_fold = b.clone()
+        b_fold[1] += 1.0
+        b_fold = b_fold.reshape(-1).to(dt)
+        zero_b = torch.zeros_like(b_fold)
+
+        def library():
+            return torch.ops.aten._thnn_fused_lstm_cell(gx2, torch.mm(h, wh2), c, b_fold,
+                                                        zero_b)[:2]
+
+        row["library"] = "torch.mm + aten._thnn_fused_lstm_cell (torch.lstm_cell's CUDA path)"
+        row["library_max_abs_err"] = _max_err(library(), (rh, rc))
+        time_into(row, "library_ms", library)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(gx, h, c, wh, b, hn, cn, gates), 2.0 * bsz * d_h * 4 * hh, dt)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_lstm_gx(lc):
+    """Phase 3's rows of the gx entry: a tensor-MP rank's cells (BigLSTM's,
+    gx a row of the (B, T, 4, H) ring output as the overlapped layer reads
+    it, and GNMT's), bf16 on ``tc`` and ``fma``, f32 on ``fma``, then edge
+    shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = torch.device("cuda")
+
+    def inputs(b, d_h, hh, dt, seq=0):
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        gx = rnd(b, seq, 4, hh).to(dt)[:, seq // 2] if seq else rnd(b, 4, hh).to(dt)
+        return [gx, rnd(b, d_h).to(dt), rnd(b, hh, scale=0.5).to(dt),
+                rnd(d_h, 4, hh, scale=d_h ** -0.5).to(dt), rnd(4, hh, scale=0.1)]
+
+    rows = []
+    for (b, d_h, hh), seq in zip(LSTM_GX, (TRAIN_T, 0)):
+        case = f"B{b} dh{d_h} H{hh}" + (f", gx row of (B, {seq}, 4, H)" if seq else "")
+        args = inputs(b, d_h, hh, torch.bfloat16, seq)
+        if lc.lstm_gx_variant(args[1], args[3]) != "tc":
+            raise AssertionError(f"lstm_cell_fwd_gx {case}: the wrapper would not take tc")
+        rows.append(check_lstm_gx(lc, args, case, "tc", timed=True))
+        rows.append(check_lstm_gx(lc, args, case, "fma", timed=True))
+        rows.append(check_lstm_gx(lc, inputs(b, d_h, hh, torch.float32, seq), case, "fma",
+                                  timed=True))
+    for b, d_h, hh in [(1, 16, 72), (5, 40, 8), (17, 24, 136), (3, 12, 33)]:
+        for dt in (torch.float32, torch.bfloat16):
+            args = inputs(b, d_h, hh, dt)
+            case = f"B{b} dh{d_h} H{hh}"
+            for variant in ("tc", "fma"):
+                if variant == "fma" or lc.lstm_gx_variant(args[1], args[3]) == "tc":
+                    rows.append(check_lstm_gx(lc, args, case, variant))
+    return rows
 
 
 def gmm_inputs(gen, g, c, d, f, dtype):
@@ -2855,6 +2970,252 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     return runs, steps, rec
 
 
+def _pair_view(mesh):
+    """A rank of phase 28 (d)'s dp 2 x mp 2 run seen as a run of one
+    replica: its model group, the real process group, computes the whole
+    batch on its own."""
+    from repro_torch.parallel import dist as D
+
+    class PairMesh(D.RankMesh):
+        @property
+        def data_index(self) -> int:
+            return 0
+
+        def members(self, axis):
+            s = self.shape["model"]
+            if axis == "model":
+                return [self.rank // s * s + j for j in range(s)]
+            if axis == "data":
+                return [self.rank]
+            return super().members(axis)
+
+    fields = {f.name: getattr(mesh, f.name) for f in dataclasses.fields(mesh)}
+    return PairMesh(**dict(fields, shape={"data": 1, "model": mesh.shape["model"]}))
+
+
+def _recurrent_rank(mesh, gnmt_cfg, gnmt_batches, rwkv_cfg, cells):
+    """Phase 28 (b)–(d) on one rank of a dp 2 x mp 2 run sharing the card.
+    First the model pair of ranks 0 and 1 alone (the others wait at a
+    barrier, so nothing else runs on the card): 2 bf16 steps of full GNMT
+    (B 128, S = T = 50) and of RWKV6-7B at full width on
+    ``RWKV_TP_LAYERS`` layers (B 4 x T 2048, the launcher's data) through
+    ``init_train_state`` + ``make_train_step`` on the gspmd tensor plan,
+    each from a seeded init: the rank's step ms, peak memory, losses and
+    kernel launches (counters set to 0 just before).  Then (d): one f32
+    step (TF32 off) of each of ``cells`` from the seeded init (seed 0), a
+    dp-1 cell on the first pair, a dp-2 cell on all four ranks: (loss,
+    grad norm, this rank's parameters on the CPU) a cell it ran."""
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import api as api_mod
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.parallel import dist as D
+    from repro_torch.parallel.plan import ParallelPlan
+    from repro_torch.train import init_train_state, make_train_step
+
+    m = mesh.shape["model"]
+    first_pair = mesh.rank < m
+    out = {"runs": {}, "cells": {}}
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd, "lstm_cell_fwd_gx": lc.lstm_cell_fwd_gx,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, "wkv6": wk.wkv6,
+             "wkv6_bwd": wk.wkv6_bwd}
+    rwkv_batches = [_lm_batch(RWKV_T, RWKV_B, epoch=e) for e in range(RNN_TP_STEPS)]
+    runs = (("gnmt", gnmt_cfg, gnmt_batches), ("rwkv6_7b", rwkv_cfg, rwkv_batches))
+    for name, cfg, batches in runs if first_pair else ():
+        view = _pair_view(mesh)
+        plan = ParallelPlan(model_axis="model")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        api = api_mod.build_model(cfg, device=mesh.device)
+        opt = adamw(warmup_cosine(3e-3, 20, RNN_TP_STEPS))
+        state = init_train_state(api, opt, 0, mesh=view, plan=plan)
+        step = make_train_step(api, opt, mesh=view, plan=plan, clip_norm=1.0)
+        reset_counters(every)
+        rec = {"step_ms": [], "losses": []}
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(metrics["loss"]))
+        rec["launches"] = {n: fn.launches for n, fn in every.items()}
+        rec["variant_launches"] = variant_launches(every)
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["runs"][name] = rec
+        del state, step, api
+    torch.cuda.empty_cache()
+    D.barrier(mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, (cfg, batch, dp, comm, chunks) in cells.items():
+        if dp == 1 and not first_pair:
+            continue
+        view = mesh if dp == mesh.shape["data"] else _pair_view(mesh)
+        plan = ParallelPlan(model_axis="model", comm_runtime=comm, comm_chunks=chunks)
+        api = api_mod.build_model(cfg, device=mesh.device)
+        opt = adamw(warmup_cosine(3e-3, 20, 1))
+        state = init_train_state(api, opt, 0, mesh=view, plan=plan)
+        state, metrics = make_train_step(api, opt, mesh=view, plan=plan, clip_norm=1.0)(
+            state, batch)
+        out["cells"][name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                              _tree_to(state.params, "cpu"))
+        del state, api
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rwkv_cfg):
+    """Phase 28: tensor MP of the recurrent families on a model pair sharing
+    the card (gloo, messages through host memory: these step times are not
+    multi-card step times), counters set to 0 just before each run and read
+    just after.
+
+    (a) Full-width, full-depth BigLSTM through the launcher at ``mp=2``,
+    gspmd and overlapped with 2 chunks, B 16 x T 64, 2 steps each: L T m =
+    256 LSTM forward launches a step summed over the ranks, all ``tc``, of
+    ``lstm_cell_fwd`` (gspmd) or of its gx entry (overlapped: x @ Wx on the
+    gather ring), and 256 pointwise backward launches; every rank's losses
+    finite and the same.  (b) Full-width, full-depth GNMT, B 128 x S = T =
+    50, 2 steps through ``make_train_step`` on a model pair: 2 L T m = 800
+    forward launches a step (all ``tc``) and 800 backward.  (c) RWKV6-7B at
+    full width on ``RWKV_TP_LAYERS`` layers, B 4 x T 2048, 2 steps: L m
+    ``wkv6`` launches a step (``chunked``) and L m ``wkv6_bwd``.  (b) and (c)
+    run on the first pair of (d)'s spawn while the second waits.  (d) f32
+    steps (TF32 off) on a dp 2 x mp 2 run against the single-process card
+    step from the same seeded weights and batch, phase 15 (d)'s limits (loss
+    and grad norm within 1e-4 relative, each rank's part within 5e-5 after
+    one AdamW step, replicated leaves the same bits on each model pair):
+    BigLSTM at phase 15 (d)'s cell (2 full-width layers, vocab 32768, B 8 x
+    T 64) at ``mp=2`` gspmd, overlapped with 1 and 2 chunks and
+    ``dp=2,mp=2`` overlapped, GNMT at phase 18's 2 + 2 layer cell (B 16, S =
+    T = 50) and RWKV at phase 24's 2-layer cell (vocab 32768, B 2 x T 128),
+    both ``mp=2`` gspmd."""
+    from repro_torch.parallel import dist as D
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.plan import ParallelPlan
+
+    every = {"lstm_cell_fwd": lc.lstm_cell_fwd, "lstm_cell_fwd_gx": lc.lstm_cell_fwd_gx,
+             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, "wkv6": wk.wkv6,
+             "wkv6_bwd": wk.wkv6_bwd}
+    m, steps = RNN_TP_M, RNN_TP_STEPS
+    out = {"transport": "gloo, ranks sharing the card (host-staged messages)"}
+    per_step = lstm_cfg.n_layers * TRAIN_T * m
+    for comm, extra in (("gspmd", []), ("overlapped", ["--comm-chunks", "2"])):
+        torch.cuda.empty_cache()
+        reset_counters(every)
+        summary = train_launch.main(["--arch", "biglstm", "--parallel", f"mp={m}",
+                                     "--comm-runtime", comm, *extra, "--batch", str(TRAIN_B),
+                                     "--seq", str(TRAIN_T), "--steps", str(steps)])
+        launches, variants = summary["launches"], summary["variants"]
+        fwd = "lstm_cell_fwd_gx" if comm == "overlapped" else "lstm_cell_fwd"
+        want = dict.fromkeys(launches, 0)
+        want.update({fwd: steps * per_step, "lstm_cell_bwd_pointwise": steps * per_step})
+        want_variants = {n: dict.fromkeys(v, 0) for n, v in variants.items()}
+        want_variants[fwd]["tc"] = steps * per_step
+        losses = summary["history"]
+        t = summary["transport"]
+        rec = {"run": f"biglstm --parallel mp={m} --comm-runtime {comm} {' '.join(extra)}",
+               "batch": TRAIN_B, "seq": TRAIN_T, "losses": losses, "launches": launches,
+               "per_step": {fwd: launches[fwd] // steps,
+                            "lstm_cell_bwd_pointwise":
+                                launches["lstm_cell_bwd_pointwise"] // steps},
+               "variant_launches": variants, "transport": t.describe(len(summary["ranks"])),
+               "ranks": [{"rank": r["rank"], "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
+                          "step_ms": r["step_ms"], "losses": r["losses"],
+                          "launches": r["launches"]} for r in summary["ranks"]]}
+        print(json.dumps({f"recurrent_tp_a_{comm}": rec}), flush=True)
+        if launches != want or variants != want_variants:
+            raise AssertionError(f"{rec['run']} launched {launches} {variants}, want {want} "
+                                 f"{want_variants}")
+        if (t.backend, t.placement) != ("gloo", "shared") or len(losses) != steps or \
+                not all(np.isfinite(losses)) or \
+                any(r["losses"] != losses for r in summary["ranks"]):
+            raise AssertionError(f"{rec['run']}: {t}, losses "
+                                 f"{[r['losses'] for r in summary['ranks']]}")
+        out[f"a_biglstm_{comm}"] = rec
+        del summary
+
+    # (d)'s single-process references, then (b)-(d) in one spawn of 4 ranks
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lstm2 = dataclasses.replace(lstm_cfg, vocab_size=32768, dtype="float32")
+    gnmt2 = dataclasses.replace(gnmt_cfg, n_layers=2, encoder_layers=2, dtype="float32")
+    rwkv2 = dataclasses.replace(rwkv_cfg, n_layers=2, vocab_size=32768, dtype="float32")
+    lstm_batch, gnmt_batch = _lm_batch(TRAIN_T, 8), paper_batches(gnmt2, 16, 1, 7)[0]
+    rwkv_batch = _lm_batch(128, 2)
+    cells = {"biglstm mp=2 gspmd": (lstm2, lstm_batch, 1, "gspmd", 1),
+             "biglstm mp=2 overlapped c1": (lstm2, lstm_batch, 1, "overlapped", 1),
+             "biglstm mp=2 overlapped c2": (lstm2, lstm_batch, 1, "overlapped", 2),
+             "gnmt 2+2 mp=2 gspmd": (gnmt2, gnmt_batch, 1, "gspmd", 1),
+             "rwkv 2 layers mp=2 gspmd": (rwkv2, rwkv_batch, 1, "gspmd", 1),
+             "biglstm dp=2,mp=2 overlapped c2": (lstm2, lstm_batch, 2, "overlapped", 2)}
+    single = {}
+    for cfg in (lstm2, gnmt2, rwkv2):
+        batch = next(c[1] for c in cells.values() if c[0] is cfg)
+        single[cfg.name] = paper_step(api_mod, cfg, batch)
+        torch.cuda.empty_cache()
+    rwkv_cut = dataclasses.replace(rwkv_cfg, n_layers=RWKV_TP_LAYERS)
+    gnmt_batches = paper_batches(gnmt_cfg, GNMT_B, steps, 0)
+    ranks = D.spawn_ranks(_recurrent_rank, 2 * m, "cuda",
+                          args=(gnmt_cfg, gnmt_batches, rwkv_cut, cells), stages=m)
+    pair = [r["runs"] for r in ranks[:m]]
+    lstm_cells = 2 * gnmt_cfg.n_layers * GNMT_T * m
+    wkv = RWKV_TP_LAYERS * m
+    for key, name, want in (
+            ("gnmt", f"(b) gnmt mp={m} B{GNMT_B} S=T={GNMT_T}",
+             {"lstm_cell_fwd": lstm_cells, "lstm_cell_bwd_pointwise": lstm_cells}),
+            ("rwkv6_7b", f"(c) rwkv6_7b {RWKV_TP_LAYERS} layers mp={m} B{RWKV_B} T{RWKV_T}",
+             {"wkv6": wkv, "wkv6_bwd": wkv})):
+        summed = {n: sum(r[key]["launches"][n] for r in pair) for n in every}
+        per = {n: c // steps for n, c in summed.items()}
+        variants = {n: {v: sum(r[key]["variant_launches"][n][v] for r in pair) // steps
+                        for v in pair[0][key]["variant_launches"][n]}
+                    for n in pair[0][key]["variant_launches"]}
+        rec = {"run": name, "per_step": per, "variants_per_step": variants,
+               "ranks": [{"rank": r, **{k: res[key][k] for k in ("peak_mem_gib", "step_ms",
+                                                                  "losses", "launches")}}
+                         for r, res in enumerate(pair)]}
+        print(json.dumps({f"recurrent_tp_{key}": rec}), flush=True)
+        full = dict.fromkeys(every, 0)
+        full.update(want)
+        want_var = "tc" if key == "gnmt" else "chunked"
+        var_of = "lstm_cell_fwd" if key == "gnmt" else "wkv6"
+        losses = [r[key]["losses"] for r in pair]
+        if per != full or variants[var_of][want_var] != want[var_of] or \
+                any(x != losses[0] for x in losses) or not all(np.isfinite(losses[0])):
+            raise AssertionError(f"{name}: launches a step {per} {variants}, want {full}; "
+                                 f"losses {losses}")
+        out[key] = rec
+
+    # (d) f32 steps on ranks against the single-process card step
+    tol = {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}
+    results = {}
+    for name, (cfg, _, dp, comm, chunks) in cells.items():
+        rules = SH.ShardingRules(cfg, {"data": dp, "model": m},
+                                 ParallelPlan(model_axis="model", comm_runtime=comm,
+                                              comm_chunks=chunks))
+        ref = single[cfg.name]
+        ran = ranks[:dp * m]
+        errs = [_step_errors(r["cells"][name], (ref[0], ref[1],
+                                                SH.shard_params(ref[2], rules, j % m)))
+                for j, r in enumerate(ran)]
+        worst = {k: max(e[k] for e in errs) for k in tol}
+        same = _replicated_same_bits([r["cells"][name][2] for r in ran],
+                                     [j // m for j in range(dp * m)], cfg, rules)
+        results[name] = dict(worst, replicated_same_bits=same)
+    print(json.dumps({"recurrent_tp_d": results, "tol": tol,
+                      "single": {k: v[:2] for k, v in single.items()}}), flush=True)
+    for name, r in results.items():
+        if not (all(r[k] <= tol[k] for k in tol) and r["replicated_same_bits"]):
+            raise AssertionError(f"{name} on ranks disagrees with the single-process step: {r}")
+    out["d"] = results
+    del ranks
+    torch.cuda.empty_cache()
+    return out
+
+
 def _start_launcher(args):
     """``python -m repro_torch.launch.train`` started in a process of its own."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3384,6 +3745,7 @@ def main():
     rows = phase_kernels(fa)
     rows += phase_kv_lens(fa)
     fwd_rows, bwd_rows, _ = phase_lstm_kernels(lc, ref_mod)
+    gx_rows = phase_lstm_gx(lc)
     gmm_rows = phase_gmm_kernels(gm, ref_mod)
     wkv_rows = phase_wkv_kernels(wk, ref_mod)
     gmm_bwd_rows = phase_gmm_bwd(gm, ref_mod)
@@ -3486,7 +3848,17 @@ def main():
     phase_step_vs_plain(api_mod, moe_mod, rwkv_cfg, counters,
                         {"wkv6": (2, {"chunked": 2}), "wkv6_bwd": (2, None)})
 
-    _phase("27 result")
+    _phase("28 tensor MP of the recurrent families on ranks")
+    rnn_tp = phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rwkv_cfg)
+
+    _phase("29 result")
+    rnn_tp_paths = {"train biglstm mp=2 gspmd (ranks)": rnn_tp["a_biglstm_gspmd"]["launches"],
+                    "train biglstm mp=2 overlapped c=2 (ranks)":
+                        rnn_tp["a_biglstm_overlapped"]["launches"],
+                    "train gnmt mp=2 (ranks)": {n: c * RNN_TP_STEPS for n, c in
+                                                rnn_tp["gnmt"]["per_step"].items()},
+                    f"train rwkv6_7b {RWKV_TP_LAYERS} layers mp=2 (ranks)":
+                        {n: c * RNN_TP_STEPS for n, c in rnn_tp["rwkv6_7b"]["per_step"].items()}}
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
@@ -3547,7 +3919,17 @@ def main():
                               rank_runs["a"]["launches"]["lstm_cell_fwd"],
                           "train biglstm pipe=2 gpipe (ranks)":
                               rank_runs["b"]["launches"]["lstm_cell_fwd"],
-                          **_by_path(paper_paths, "lstm_cell_fwd")}),
+                          **_by_path(paper_paths, "lstm_cell_fwd"),
+                          **_by_path(rnn_tp_paths, "lstm_cell_fwd")}),
+        _kernel_entry("lstm_cell_fwd_gx", lstm_src, "src/repro/kernels/lstm_cell.py:24",
+                      rnn_tp["a_biglstm_overlapped"]["launches"]["lstm_cell_fwd_gx"], gx_rows,
+                      variant_launches=rnn_tp["a_biglstm_overlapped"]["variant_launches"][
+                          "lstm_cell_fwd_gx"],
+                      launches_by_path=_by_path(rnn_tp_paths, "lstm_cell_fwd_gx"),
+                      note="the forward kernel's gx entry (x @ Wx precomputed on the "
+                           "overlapped layer's gather ring), the step of JAX's "
+                           "lstm_layer_overlapped (src/repro/models/lstm.py:81), whose "
+                           "recurrence is plain ops there"),
         _kernel_entry("lstm_cell_bwd_pointwise", lstm_src,
                       "src/repro/kernels/lstm_cell.py:24", train_launches[
                           "lstm_cell_bwd_pointwise"], bwd_rows,
@@ -3561,7 +3943,8 @@ def main():
                               rank_runs["a"]["launches"]["lstm_cell_bwd_pointwise"],
                           "train biglstm pipe=2 gpipe (ranks)":
                               rank_runs["b"]["launches"]["lstm_cell_bwd_pointwise"],
-                          **_by_path(paper_paths, "lstm_cell_bwd_pointwise")},
+                          **_by_path(paper_paths, "lstm_cell_bwd_pointwise"),
+                          **_by_path(rnn_tp_paths, "lstm_cell_bwd_pointwise")},
                       note="no TPU backward kernel: JAX differentiates the plain cell "
                            "(src/repro/models/lstm.py:53)"),
         _kernel_entry("gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -3590,7 +3973,8 @@ def main():
                       launches_by_path={"serve rwkv6_7b": rwkv_launches["wkv6"],
                                         f"train rwkv6_7b {RWKV_LAYERS} layers":
                                             rwkv_train_launches["wkv6"],
-                                        **_by_path(paper_paths, "wkv6")},
+                                        **_by_path(paper_paths, "wkv6"),
+                                        **_by_path(rnn_tp_paths, "wkv6")},
                       variant_launches_by_path={
                           "serve rwkv6_7b": rwkv_variants["wkv6"],
                           f"train rwkv6_7b {RWKV_LAYERS} layers": rwkv_train_variants["wkv6"]}),
@@ -3600,7 +3984,8 @@ def main():
                       launches_by_path={f"train rwkv6_7b {RWKV_LAYERS} layers":
                                             rwkv_train_launches["wkv6_bwd"],
                                         "serve rwkv6_7b": rwkv_launches["wkv6_bwd"],
-                                        **_by_path(paper_paths, "wkv6_bwd")},
+                                        **_by_path(paper_paths, "wkv6_bwd"),
+                                        **_by_path(rnn_tp_paths, "wkv6_bwd")},
                       note="no TPU backward kernel: JAX differentiates the scan "
                            "(src/repro/models/rwkv.py:69, wkv_scan) of the wkv kernel "
                            "(src/repro/kernels/rwkv_scan.py:25)"),

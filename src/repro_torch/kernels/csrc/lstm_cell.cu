@@ -71,6 +71,15 @@
 //   blocks an SM), 16 units with 4-8 stages, and 64 units with 2-8 stages
 //   of 32-128 rows were no faster.
 //
+// The gx entry (`repro_lstm_cell_fwd_gx`) is the same two kernels with no
+// x and no Wx: d_in is 0, so the contraction is h @ Wh alone, and the
+// epilogue adds a precomputed input pre-activation gx (B, 4, H) before the
+// bias.  The overlapped tensor-MP BigLSTM layer computes x @ Wx for all T
+// steps at once on a collective-matmul ring (JAX's lstm_layer_overlapped,
+// src/repro/models/lstm.py:81, whose recurrence is plain ops there) and runs
+// each step on this entry.  At a rank's shape of BigLSTM at 2-way MP (B 16,
+// d_h 1024, H 4096, bf16) a step reads 33.6 MB of Wh: bound by bytes, ~10 us.
+//
 // What is left on the table: x @ Wx does not depend on the recurrence and
 // could be one GEMM over all T steps before the time loop (a second
 // hand-written GEMM; ROADMAP item 16), leaving h @ Wh per step and halving
@@ -136,7 +145,25 @@ struct FwdParams {
   float* gates;  // null: not written
   int64_t ldx, ldh, ldc, ldho, ldco;  // row strides in elements
   int B, d_in, d_h, H;
+  // the gx entry: a precomputed input pre-activation (B, 4, H) with row
+  // stride ldgx, in place of x @ Wx (then d_in is 0 and x, wx are unread)
+  const void* gx = nullptr;
+  int64_t ldgx = 0;
 };
+
+// The gate sum of one (row, gate q, hidden unit) that the cell update
+// takes starts from the bias and adds the products' partial sums; the gx
+// entry starts from gx instead and adds the bias last (gx + h @ Wh + b, in
+// that order, in f32).
+template <typename T>
+__device__ __forceinline__ float gate_start(const FwdParams& p, int row, int q, int hh) {
+  if (p.gx == nullptr) return p.b[q * p.H + hh];
+  return to_f32(static_cast<const T*>(p.gx)[row * p.ldgx + q * p.H + hh]);
+}
+
+__device__ __forceinline__ float gate_end(const FwdParams& p, int q, int hh, float v) {
+  return p.gx == nullptr ? v : v + p.b[q * p.H + hh];
+}
 
 // The cell update of one (row, hidden unit) from its four gate sums (bias
 // included): h', c' and, when asked, the activated gates.
@@ -242,10 +269,10 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_fwd_kernel(FwdParams p) {
     float s[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float v = p.b[q * p.H + hh];
+      float v = gate_start<T>(p, row, q, hh);
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) v += red[(w * kBB + r) * kCols + q * kBH + j];
-      s[q] = v;
+      s[q] = gate_end(p, q, hh, v);
     }
     cell_update<T>(p, row, hh, s);
   }
@@ -362,7 +389,9 @@ __global__ void __launch_bounds__(TcTile<BH, STAGES, KS>::kThreads)
     if (row >= p.B || hh >= p.H) continue;
     float s[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) s[q] = p.b[q * p.H + hh] + red[r * Tile::kRedLd + q * BH + j];
+    for (int q = 0; q < 4; ++q)
+      s[q] = gate_end(p, q, hh,
+                      gate_start<bf16>(p, row, q, hh) + red[r * Tile::kRedLd + q * BH + j]);
     cell_update<bf16>(p, row, hh, s);
   }
 }
@@ -439,6 +468,19 @@ cudaError_t launch_tc(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The forward's variant on checked params: 0 the FMA kernel, 1 the bf16
+// tensor-core tile.
+cudaError_t run_fwd(const FwdParams& p, int dtype, int variant, cudaStream_t s) {
+  if (variant == 1)
+    return dtype == 1 ? launch_tc<kTcBH, kTcStages, kTcKS>(p, s) : cudaErrorInvalidValue;
+  if (variant != 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return dispatch_fwd<float>(p, s);
+    case 1: return dispatch_fwd<__nv_bfloat16>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   const int64_t n = static_cast<int64_t>(p.B) * p.H;
@@ -485,16 +527,45 @@ extern "C" int repro_lstm_cell_fwd(const void* x, int64_t ldx, const void* h, in
   p.d_in = d_in;
   p.d_h = d_h;
   p.H = H;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1)
-    return static_cast<int>(dtype == 1 ? launch_tc<kTcBH, kTcStages, kTcKS>(p, s)
-                                       : cudaErrorInvalidValue);
-  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0: return static_cast<int>(dispatch_fwd<float>(p, s));
-    case 1: return static_cast<int>(dispatch_fwd<__nv_bfloat16>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(run_fwd(p, dtype, variant, static_cast<cudaStream_t>(stream)));
+}
+
+// One LSTM step from a precomputed input pre-activation: gates = gx + h @ Wh
+// + b, then the cell update, as repro_lstm_cell_fwd with x @ Wx replaced by
+// gx (B, 4, H) of the dtype of h, row stride ldgx, unit stride within a row
+// (the overlapped tensor-MP layer computes x @ Wx for all steps at once on a
+// collective-matmul ring).  No x and no Wx are read.  `variant` as above:
+// 1 (tc) needs d_h, H and (for B > 1) ldh multiples of 8 and h, wh 16-byte
+// aligned; gx is read in the epilogue and needs no alignment.
+extern "C" int repro_lstm_cell_fwd_gx(const void* gx, int64_t ldgx, const void* h, int64_t ldh,
+                                      const void* c, int64_t ldc, const void* wh,
+                                      const float* b, void* h_out, int64_t ldho, void* c_out,
+                                      int64_t ldco, float* gates, int dtype, int B, int d_h,
+                                      int H, int variant, void* stream) {
+  if (gx == nullptr || B < 1 || d_h < 1 || H < 1 || (B + kBB - 1) / kBB > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p;
+  p.x = h;     // never read: d_in is 0
+  p.wx = wh;
+  p.h = h;
+  p.c = c;
+  p.wh = wh;
+  p.b = b;
+  p.h_out = h_out;
+  p.c_out = c_out;
+  p.gates = gates;
+  p.ldx = ldh;
+  p.ldh = ldh;
+  p.ldc = ldc;
+  p.ldho = ldho;
+  p.ldco = ldco;
+  p.B = B;
+  p.d_in = 0;
+  p.d_h = d_h;
+  p.H = H;
+  p.gx = gx;
+  p.ldgx = ldgx;
+  return static_cast<int>(run_fwd(p, dtype, variant, static_cast<cudaStream_t>(stream)));
 }
 
 // Pointwise backward of one step.  gates: (B, 4, H) f32; c, dh, dc, dc_prev:

@@ -7,10 +7,16 @@ h (B, d_h), c (B, H), wx (d_in, 4, H), wh (d_h, 4, H), b (4, H); it returns
 kernels are reached through
 
     lstm_cell_fwd(x, h, c, wx, wh, b, want_gates=)  -> (h', c', gates or None)
+    lstm_cell_fwd_gx(gx, h, c, wh, b, want_gates=)  -> (h', c', gates or None)
     lstm_cell_bwd_pointwise(gates, c, dh, dc)        -> (dgates, dc_prev)
 
 each with a launch counter (``.launches``) and a plain twin
-(``lstm_cell_plain``, ``lstm_cell_bwd_pointwise_plain``).  On CPU tensors a
+(``lstm_cell_plain``, ``lstm_cell_gx_plain``,
+``lstm_cell_bwd_pointwise_plain``).  ``lstm_cell_fwd_gx`` is the forward
+kernel's gx entry: the input pre-activation gx (B, 4, H) comes precomputed
+(the overlapped tensor-MP layer's collective-matmul ring gives x @ Wx for
+all steps) and only h @ Wh is computed; its gradient with respect to gx is
+the pointwise backward's dgates.  On CPU tensors a
 wrapper takes its plain twin; on CUDA tensors it launches its kernel or
 raises.  There is no switch that puts the plain version on a CUDA tensor.
 
@@ -18,7 +24,9 @@ The forward kernel has two variants (``VARIANTS``), each a hand-written
 kernel, chosen here by ``lstm_variant`` from the inputs alone: bf16 with
 d_in, d_h and H multiples of 8 and 16-byte rows and bases runs on the tensor
 cores (``tc``), everything else on the FMA kernel (``fma``).
-``lstm_cell_fwd.variant_launches`` counts each variant's launches.
+``lstm_cell_fwd.variant_launches`` counts each variant's launches;
+``lstm_gx_variant`` and ``lstm_cell_fwd_gx.variant_launches`` are the gx
+entry's.
 """
 from __future__ import annotations
 
@@ -87,9 +95,27 @@ def lstm_cell_plain(x, h, c, wx, wh, b, *, with_gates: bool = False):
     gates = (x.to(ct) @ wx.reshape(wx.shape[0], 4 * hh).to(ct)
              + h.to(ct) @ wh.reshape(wh.shape[0], 4 * hh).to(ct)).view(bsz, 4, hh) \
         + b.to(ct).view(4, hh)
+    return _cell_update_plain(gates, h, c, with_gates)
+
+
+def lstm_cell_gx_plain(gx, h, c, wh, b, *, with_gates: bool = False):
+    """Plain version of the gx entry: ``lstm_cell_plain`` with x @ Wx
+    replaced by the precomputed pre-activation gx (B, 4, H), added before
+    the bias: gates = gx + h @ Wh + b, in f32 (f64 for f64 inputs)."""
+    ct = compute_dtype(h.dtype)
+    bsz, hh = c.shape
+    gates = (gx.to(ct) + (h.to(ct) @ wh.reshape(wh.shape[0], 4 * hh).to(ct)).view(bsz, 4, hh)) \
+        + b.to(ct).view(4, hh)
+    return _cell_update_plain(gates, h, c, with_gates)
+
+
+def _cell_update_plain(gates, h, c, with_gates: bool):
+    """The cell update from the pre-activation gates (B, 4, H) in the
+    compute dtype: (h', c') in h's and c's dtypes, and the activated gates
+    with ``with_gates``."""
     act = torch.stack([torch.sigmoid(gates[:, 0]), torch.sigmoid(gates[:, 1] + 1.0),
                        torch.tanh(gates[:, 2]), torch.sigmoid(gates[:, 3])], dim=1)
-    c_new = act[:, 1] * c.to(ct) + act[:, 0] * act[:, 2]
+    c_new = act[:, 1] * c.to(gates.dtype) + act[:, 0] * act[:, 2]
     h_new = act[:, 3] * torch.tanh(c_new)
     out = (h_new.to(h.dtype), c_new.to(c.dtype))
     return out + (act,) if with_gates else out
@@ -159,19 +185,7 @@ def lstm_cell_fwd(x, h, c, wx, wh, b, *, want_gates: bool = False, h_out=None,
         raise ValueError(f"lstm_cell: batch {bsz} is empty or exceeds the launch grid")
     for name, t, d in (("x", x, d_in), ("h", h, d_h), ("c", c, hh)):
         _require_rows(f"lstm_cell {name}", t, (bsz, d), dt)
-    if h_out is None:
-        h_out = torch.empty((bsz, hh), dtype=dt, device=x.device)
-    if c_out is None:
-        c_out = torch.empty((bsz, hh), dtype=dt, device=x.device)
-    _require_rows("lstm_cell h_out", h_out, (bsz, hh), dt)
-    _require_rows("lstm_cell c_out", c_out, (bsz, hh), dt)
-    gates = gates_out
-    if gates is None and want_gates:
-        gates = torch.empty((bsz, 4, hh), dtype=torch.float32, device=x.device)
-    if gates is not None and (tuple(gates.shape) != (bsz, 4, hh) or not gates.is_contiguous()
-                              or gates.dtype != torch.float32):
-        raise ValueError(f"lstm_cell gates_out: expected contiguous ({bsz}, 4, {hh}) "
-                         f"float32, got {tuple(gates.shape)} {gates.dtype}")
+    h_out, c_out, gates = _outputs("lstm_cell", c, dt, want_gates, h_out, c_out, gates_out)
     return _launch_fwd(x, h, c, wx, wh, b, h_out, c_out, gates, lstm_variant(x, h, wx, wh))
 
 
@@ -197,6 +211,111 @@ def _launch_fwd(x, h, c, wx, wh, b, h_out, c_out, gates, variant: str):
 
 lstm_cell_fwd.launches = 0
 lstm_cell_fwd.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def lstm_gx_variant(h, wh) -> str:
+    """The variant ``lstm_cell_fwd_gx`` launches: ``lstm_variant``'s rule
+    for h @ Wh alone (gx is read in the epilogue and needs no alignment)."""
+    rows = h.shape[0] == 1 or h.stride(0) % 8 == 0
+    if not (h.dtype == wh.dtype == torch.bfloat16) or h.shape[1] % 8 or wh.shape[2] % 8 \
+            or not rows or any(t.data_ptr() % 16 for t in (h, wh)):
+        return "fma"
+    return "tc"
+
+
+def lstm_cell_fwd_gx(gx, h, c, wh, b, *, want_gates: bool = False, h_out=None, c_out=None,
+                     gates_out=None):
+    """One LSTM step from a precomputed input pre-activation gx (B, 4, H)
+    (the gx entry of the forward kernel): gates = gx + h @ Wh + b, then the
+    cell update.  Returns (h', c', gates) as ``lstm_cell_fwd`` does; its
+    launches are counted here (``.launches``, ``.variant_launches``), not on
+    ``lstm_cell_fwd``.
+
+    On CUDA: gx, h, c and wh share one dtype (f32 or bf16), b is f32, wh is
+    contiguous (d_h, 4, H), gx a (B, 4, H) tensor whose (4, H) rows are
+    contiguous (a row view of a (B, T, 4, H) tensor will do), h, c row
+    views."""
+    bsz, hh = c.shape
+    d_h = h.shape[1]
+    if tuple(gx.shape) != (bsz, 4, hh) or h.shape[0] != bsz \
+            or tuple(wh.shape) != (d_h, 4, hh) or tuple(b.shape) != (4, hh):
+        raise ValueError(f"lstm_cell_fwd_gx: shapes gx {tuple(gx.shape)}, h {tuple(h.shape)}, "
+                         f"c {tuple(c.shape)}, wh {tuple(wh.shape)}, b {tuple(b.shape)} do not "
+                         f"fit (B, 4, H), (B, d_h), (B, H), (d_h, 4, H), (4, H)")
+    want_gates = want_gates or gates_out is not None
+    if _on_cpu(gx, h, c, wh, b, h_out, c_out, gates_out):
+        hn, cn, *g = lstm_cell_gx_plain(gx, h, c, wh, b, with_gates=want_gates)
+        if h_out is not None:
+            hn = h_out.copy_(hn)
+        if c_out is not None:
+            cn = c_out.copy_(cn)
+        if gates_out is not None:
+            g[0] = gates_out.copy_(g[0])
+        return hn, cn, (g[0] if want_gates else None)
+    _require_cuda("lstm_cell_fwd_gx", gx, h, c, wh, b, h_out, c_out, gates_out)
+    dt = h.dtype
+    if dt not in _DTYPE_CODE or not (gx.dtype == c.dtype == wh.dtype == dt):
+        raise TypeError(f"lstm_cell_fwd_gx takes gx, h, c, wh of one dtype, float32 or "
+                        f"bfloat16; got {gx.dtype}, {h.dtype}, {c.dtype}, {wh.dtype}")
+    if b.dtype != torch.float32 or not b.is_contiguous():
+        raise TypeError(f"lstm_cell_fwd_gx takes a contiguous float32 bias, got {b.dtype}")
+    if not wh.is_contiguous():
+        raise ValueError("lstm_cell_fwd_gx takes contiguous (d_h, 4, H) weights")
+    if gx.stride(2) != 1 or gx.stride(1) != hh:
+        raise ValueError(f"lstm_cell_fwd_gx: gx rows must be contiguous (4, H), got strides "
+                         f"{gx.stride()}")
+    if min(bsz, d_h, hh) < 1 or -(-bsz // _ROWS_PER_BLOCK) > 65535:
+        raise ValueError(f"lstm_cell_fwd_gx: batch {bsz} is empty or exceeds the launch grid")
+    for name, t, d in (("h", h, d_h), ("c", c, hh)):
+        _require_rows(f"lstm_cell_fwd_gx {name}", t, (bsz, d), dt)
+    h_out, c_out, gates = _outputs("lstm_cell_fwd_gx", c, dt, want_gates, h_out, c_out,
+                                   gates_out)
+    variant = lstm_gx_variant(h, wh)
+    return _launch_fwd_gx(gx, h, c, wh, b, h_out, c_out, gates, variant)
+
+
+def _launch_fwd_gx(gx, h, c, wh, b, h_out, c_out, gates, variant: str):
+    """Launch ``variant`` of the gx entry on CUDA tensors that
+    ``lstm_cell_fwd_gx`` has checked."""
+    bsz, hh = c.shape
+    fn = _entries.get("fwd_gx") or _bind()["fwd_gx"]
+    with torch.cuda.device(h.device):
+        err = fn(gx.data_ptr(), gx.stride(0), h.data_ptr(), h.stride(0), c.data_ptr(),
+                 c.stride(0), wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), h_out.stride(0),
+                 c_out.data_ptr(), c_out.stride(0),
+                 gates.data_ptr() if gates is not None else None, _DTYPE_CODE[h.dtype], bsz,
+                 h.shape[1], hh, VARIANTS.index(variant),
+                 torch.cuda.current_stream(h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_cell_fwd_gx kernel launch failed ({variant}): CUDA error "
+                           f"{err}")
+    lstm_cell_fwd_gx.launches += 1
+    lstm_cell_fwd_gx.variant_launches[variant] += 1
+    return h_out, c_out, gates
+
+
+lstm_cell_fwd_gx.launches = 0
+lstm_cell_fwd_gx.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def _outputs(what, c, dt, want_gates, h_out, c_out, gates_out):
+    """(h_out, c_out, gates) of a forward step on the card: the given ones,
+    checked, or new ones (gates only when wanted)."""
+    bsz, hh = c.shape
+    if h_out is None:
+        h_out = torch.empty((bsz, hh), dtype=dt, device=c.device)
+    if c_out is None:
+        c_out = torch.empty((bsz, hh), dtype=dt, device=c.device)
+    _require_rows(f"{what} h_out", h_out, (bsz, hh), dt)
+    _require_rows(f"{what} c_out", c_out, (bsz, hh), dt)
+    gates = gates_out
+    if gates is None and want_gates:
+        gates = torch.empty((bsz, 4, hh), dtype=torch.float32, device=c.device)
+    if gates is not None and (tuple(gates.shape) != (bsz, 4, hh) or not gates.is_contiguous()
+                              or gates.dtype != torch.float32):
+        raise ValueError(f"{what} gates_out: expected contiguous ({bsz}, 4, {hh}) "
+                         f"float32, got {tuple(gates.shape)} {gates.dtype}")
+    return h_out, c_out, gates
 
 
 def lstm_cell_bwd_pointwise(gates, c, dh, dc=None, *, dgates_out=None):
@@ -259,10 +378,14 @@ def _bind():
     fwd.restype = i32
     fwd.argtypes = [vp, i64, vp, i64, vp, i64, vp, vp, vp, vp, i64, vp, i64, vp,
                     i32, i32, i32, i32, i32, i32, vp]
+    fwd_gx = lib.repro_lstm_cell_fwd_gx
+    fwd_gx.restype = i32
+    fwd_gx.argtypes = [vp, i64, vp, i64, vp, i64, vp, vp, vp, i64, vp, i64, vp,
+                       i32, i32, i32, i32, i32, vp]
     bwd = lib.repro_lstm_cell_bwd_pointwise
     bwd.restype = i32
     bwd.argtypes = [vp] * 6 + [i32, i32, i32, vp]
-    _entries.update(fwd=fwd, bwd=bwd)
+    _entries.update(fwd=fwd, fwd_gx=fwd_gx, bwd=bwd)
     return _entries
 
 
@@ -273,10 +396,11 @@ def _bind():
 def weight_grads(x, h, dgates, b_dtype):
     """dWx = xᵀ·dgates, dWh = hᵀ·dgates, db = Σ dgates over the rows, for
     (N, d) inputs and (N, 4, H) gate gradients (N rows: one step's batch, or
-    every step of a layer at once).  Plain GEMMs, as JAX's AD leaves them."""
+    every step of a layer at once); dWx is None for x None (the gx entry's
+    steps).  Plain GEMMs, as JAX's AD leaves them."""
     n, _, hh = dgates.shape
     dg2 = dgates.reshape(n, 4 * hh)
-    dwx = (x.t() @ dg2).view(x.shape[1], 4, hh)
+    dwx = None if x is None else (x.t() @ dg2).view(x.shape[1], 4, hh)
     dwh = (h.t() @ dg2).view(h.shape[1], 4, hh)
     db = dg2.to(compute_dtype(dg2.dtype)).sum(0).view(4, hh).to(b_dtype)
     return dwx, dwh, db

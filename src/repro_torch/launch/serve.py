@@ -36,7 +36,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import TENSOR_MP_REST, unported
+from repro_torch.models.transformer import SERVING_TP, unported
 from repro_torch.serve.continuous import ContinuousEngine, Request
 from repro_torch.serve.engine import ServeEngine
 
@@ -70,7 +70,7 @@ def main(argv=None):
                     help="router health watchdog seconds (item 10)")
     args = ap.parse_args(argv)
     if args.tp > 1:
-        raise unported("the tensor-MP serving tick (--tp > 1)", TENSOR_MP_REST)
+        raise unported("the tensor-MP serving tick (--tp > 1)", SERVING_TP)
     if args.replicas > 1 or args.fault or args.max_queue or args.watchdog:
         raise unported("the multi-replica router (--replicas, --fault, --max-queue, "
                        "--watchdog)", ROUTER)

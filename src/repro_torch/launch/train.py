@@ -13,6 +13,8 @@
         --batch 2 --seq 2048
     python -m repro_torch.launch.train --arch llama3_2_1b --parallel mp=2 \
         --comm-runtime overlapped --comm-chunks 2 --batch 4 --seq 2048
+    python -m repro_torch.launch.train --arch biglstm --parallel mp=2 \
+        --comm-runtime overlapped --comm-chunks 2 --steps 2
 
 Feeds the JAX launcher's data (the order-2 Markov LM over min(V, 64)
 symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
@@ -49,10 +51,12 @@ them.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
 ``[kernels]`` / ``[variants]`` counts summed over the ranks; the launcher
 then prints each rank's peak device memory, pipeline store high-water mark
 and kernel launches (``[ranks]``, each rank's stage, place on the ring or
-on the model axis).  Tensor MP of the LSTM family and RWKV raises
-NotImplementedError naming ROADMAP.md Queue 1 item 7b, of an MoE model item
-15, parameters sharded over DP (fsdp) item 5's remainder and
-``--pipe-runtime ad`` item 6b.
+on the model axis).  Tensor MP trains the dense and RWKV decoders and
+BigLSTM (``--parallel mp=2``; with ``--comm-runtime overlapped`` BigLSTM's
+layers run JAX's overlapped LSTM layer, and RWKV warns and runs the gspmd
+form, as JAX does); tensor MP of an MoE model raises NotImplementedError
+naming ROADMAP.md Queue 1 item 15, parameters sharded over DP (fsdp) item
+5's remainder and ``--pipe-runtime ad`` item 6b.
 
 Fault tolerance, as in JAX: ``--ckpt-dir``/``--ckpt-every`` write
 CRC-manifested checkpoints of the global state in JAX's v2 format
@@ -245,7 +249,7 @@ class RankRun:
 
 
 def _counter_fns():
-    return {"lstm_cell_fwd": lc.lstm_cell_fwd,
+    return {"lstm_cell_fwd": lc.lstm_cell_fwd, "lstm_cell_fwd_gx": lc.lstm_cell_fwd_gx,
             "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise,
             "flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
@@ -256,8 +260,8 @@ def _counter_fns():
 def _launch_counts() -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
     fns = _counter_fns()
     variants = {n: dict(fns[n].variant_launches)
-                for n in ("lstm_cell_fwd", "flash_attention", "flash_attention_bwd", "gmm",
-                          "gmm_bwd", "wkv6")}
+                for n in ("lstm_cell_fwd", "lstm_cell_fwd_gx", "flash_attention",
+                          "flash_attention_bwd", "gmm", "gmm_bwd", "wkv6")}
     return {n: fn.launches for n, fn in fns.items()}, variants
 
 

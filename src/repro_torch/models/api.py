@@ -11,9 +11,9 @@ gradients through ``parallel.pipeline.pipeline_value_and_grad``).  The dense, Mo
 and RWKV decoders go through ``models/transformer.py`` (RWKV's cache holds
 its recurrent state); BigLSTM and GNMT (``models/lstm.py``) and
 Inception-V3 (``models/inception.py``) have a loss and no serving path (as
-in JAX).  Under a tensor-MP ``ParallelCtx`` the dense decoder's and
-Inception-V3's losses are the rank's share of the global masked mean
-(``tensor_mp_loss``; vocab-sharded logits through
+in JAX).  Under a tensor-MP ``ParallelCtx`` the losses of the dense and
+RWKV decoders, BigLSTM, GNMT and Inception-V3 are the rank's share of the
+global masked mean (``tensor_mp_loss``; vocab-sharded logits through
 ``vocab_parallel_nll_sum``), and ``init`` is still the whole seeded init:
 ``parallel.sharding.shard_params`` cuts a rank's part from it.  Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; asking
@@ -292,6 +292,25 @@ def _build_inception(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     return ModelApi(cfg, dev, init, loss_fn, None, None)
 
 
+def _tensor_only(cfg: ModelConfig, pctx):
+    """``pctx`` if it is a tensor-MP ctx (or None); an LSTM model has no
+    context-parallel path."""
+    if pctx is not None and not pctx.is_tensor:
+        raise ValueError(f"{cfg.name}: a context ring needs a decoder")
+    return pctx
+
+
+def _lstm_loss(cfg: ModelConfig, logits, labels, pctx):
+    """The LSTM models' loss: JAX's ``cross_entropy`` over the unmasked
+    logits, or under a tensor ctx this rank's share of the global mean
+    (``tensor_mp_loss``; vocab-sharded logits without a gather)."""
+    if pctx is None:
+        loss = cross_entropy(logits, labels, cfg.vocab_size)
+    else:
+        loss = tensor_mp_loss(logits, labels, cfg, pctx)
+    return loss, {"loss": loss}
+
+
 def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
     if cfg.name == "gnmt":
         def gnmt_init(seed: int = 0, device=None):
@@ -299,9 +318,8 @@ def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
             return lstm_mod.gnmt_init(gen, cfg, device=d)
 
         def gnmt_loss(params, batch, pctx=None):
-            logits = lstm_mod.gnmt_forward(cfg, params, batch)
-            loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
-            return loss, {"loss": loss}
+            logits = lstm_mod.gnmt_forward(cfg, params, batch, pctx=_tensor_only(cfg, pctx))
+            return _lstm_loss(cfg, logits, batch["labels"], pctx)
 
         return ModelApi(cfg, dev, gnmt_init, gnmt_loss, None, None)
 
@@ -310,9 +328,8 @@ def _build_lstm(cfg: ModelConfig, dev: torch.device) -> ModelApi:
         return lstm_mod.biglstm_init(gen, cfg, device=d)
 
     def loss_fn(params, batch, pctx=None):
-        logits = lstm_mod.biglstm_forward(cfg, params, batch, pctx=pctx)
-        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
-        return loss, {"loss": loss}
+        logits = lstm_mod.biglstm_forward(cfg, params, batch, pctx=_tensor_only(cfg, pctx))
+        return _lstm_loss(cfg, logits, batch["labels"], pctx)
 
     api = ModelApi(cfg, dev, init, loss_fn, None, None)
     dt = getattr(torch, cfg.dtype)

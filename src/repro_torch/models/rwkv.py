@@ -18,6 +18,20 @@ Parameters keep the JAX paths and layouts, stacked over layers by ``lead``.
 Two JAX quirks are kept on purpose: ``ln_x`` is an RMS norm over all of d
 (not RWKV's per-head group norm), and every call casts the f32 weights to
 the activation dtype.
+
+Under tensor MP (``tp_time_mix``, ``tp_channel_mix``) a rank holds its part
+of a layer as the rules cut it (``parallel.sharding``): ``tm.wr``, ``wk``,
+``wv``, ``wg`` its whole heads' columns, ``tm.wo`` their rows, ``cm.wk`` and
+``cm.wr`` its columns, ``cm.wv`` its rows, everything else replicated.  JAX
+has no explicit path: GSPMD partitions the plain mixes by those rules.  The
+port writes the Megatron form of the same math: the input enters through
+``copy_to_model``, w is computed for all of d and the rank takes its heads,
+``wkv6`` runs on them, ``ln_x``'s sum of squares over all of d is summed over
+the model group (forward and backward) before the norm, ``wo``'s partial
+product is all-reduced; in the channel mix ``k @ wv`` is reduce-scattered to
+the rank's columns, multiplied by its r and all-gathered.  A replicated leaf
+used only for the rank's columns enters through ``copy_to_model``, so its
+gradient is whole on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import layers as L
+from repro_torch.parallel import collectives as CL
 
 
 def heads(cfg):
@@ -115,3 +130,69 @@ def rwkv_channel_mix(p, x, last_x):
     r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
     return r * (k @ p["wv"].to(x.dtype)), new_last
 
+
+
+# ---------------------------------------------------------------------------
+# tensor MP
+# ---------------------------------------------------------------------------
+
+def tp_time_mix(p, x, cfg, pctx):
+    """The train time mix of a tensor-MP rank from zero state: ``x`` (B, T,
+    d), the normed block input, whole on every rank of the model group;
+    ``p`` the rank's part of the layer.  Returns the whole output, the same
+    on every rank.  Where the rules replicate the projections (heads that
+    do not divide) every rank computes the whole mix."""
+    b, t, d = x.shape
+    n_heads, hd = heads(cfg)
+    if p["wr"].shape[-1] == d:
+        return rwkv_time_mix(p, x, x.new_zeros((b, d)), None, cfg)[0]
+    mesh, axis = pctx.mesh, pctx.model_axis
+    j, m = mesh.ring(axis)[:2]
+    hm, dm = n_heads // m, d // m
+    lo = j * dm
+
+    def whole(name):          # a replicated leaf this rank uses in part
+        return CL.copy_to_model(p[name], mesh, axis)
+
+    x = CL.copy_to_model(x, mesh, axis)
+    prev, _ = _token_shift(x, x.new_zeros((b, d)))
+
+    def mix(mu):
+        return x + (prev - x) * whole(mu).to(x.dtype)
+
+    r = (mix("mu_r") @ p["wr"].to(x.dtype)).view(b, t, hm, hd)
+    k = (mix("mu_k") @ p["wk"].to(x.dtype)).view(b, t, hm, hd)
+    v = (mix("mu_v") @ p["wv"].to(x.dtype)).view(b, t, hm, hd)
+    g = F.silu(mix("mu_g") @ p["wg"].to(x.dtype))
+    xw = mix("mu_w").float()
+    dec = whole("w0") + torch.tanh(xw @ whole("wa1")) @ whole("wa2")
+    w = torch.exp(-torch.exp(dec[..., lo:lo + dm])).contiguous().view(b, t, hm, hd)
+    u = whole("u")[j * hm:(j + 1) * hm].contiguous()
+    o, _ = wkv6(r, k, v, w, u, None)
+    o = o.view(b, t, dm).to(x.dtype)
+    # ln_x: the RMS over all of d, its sum of squares summed over the ranks
+    o32 = o.float()
+    ss = (o32 * o32).sum(-1, keepdim=True)
+    ss = CL.copy_to_model(CL.reduce_from_model(ss, mesh, axis), mesh, axis)
+    normed = (o32 * torch.rsqrt(ss / d + 1e-5) * whole("ln_x")[lo:lo + dm].float()).to(x.dtype)
+    return CL.reduce_from_model((normed * g) @ p["wo"].to(x.dtype), mesh, axis)
+
+
+def tp_channel_mix(p, x, pctx):
+    """The train channel mix of a tensor-MP rank from zero state: ``x`` (B,
+    T, d) whole; returns the whole output.  ``k @ wv`` (partial over the
+    rank's d_ff rows) is reduce-scattered to this rank's d/m columns,
+    multiplied by its columns of r, and the product all-gathered.  Where
+    the rules replicate the projections every rank computes the whole mix."""
+    b, _, d = x.shape
+    if p["wr"].shape[-1] == d:
+        return rwkv_channel_mix(p, x, x.new_zeros((b, d)))[0]
+    mesh, axis = pctx.mesh, pctx.model_axis
+    x = CL.copy_to_model(x, mesh, axis)
+    prev, _ = _token_shift(x, x.new_zeros((b, d)))
+    xk = x + (prev - x) * CL.copy_to_model(p["mu_k"], mesh, axis).to(x.dtype)
+    xr = x + (prev - x) * CL.copy_to_model(p["mu_r"], mesh, axis).to(x.dtype)
+    k = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
+    r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
+    kv = CL.reduce_scatter_sequence(k @ p["wv"].to(x.dtype), mesh, -1, axis)
+    return CL.gather_from_model(r * kv, mesh, -1, axis)

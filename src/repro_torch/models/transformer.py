@@ -63,8 +63,7 @@ from repro_torch.parallel.context import ring_attention
 from repro_torch.tree import tree_leaves
 
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
-TENSOR_MP_REST = ("ROADMAP.md Queue 1 item 7b (tensor MP of the LSTM family and RWKV, "
-                  "and the serving TP)")
+SERVING_TP = "ROADMAP.md Queue 1 item 7b (the serving TP)"
 EXPERT_PARALLEL = "ROADMAP.md Queue 1 item 15 (expert parallelism)"
 CONTEXT_SERVE = ("ROADMAP.md Queue 1 item 8b (context-parallel prefill: "
                  "ring_attention_stats, prefill_chunk_cp)")
@@ -105,14 +104,12 @@ def is_tensor_ctx(pctx) -> bool:
 
 
 def tensor_mp_item(cfg) -> Optional[str]:
-    """None where the port runs a tensor-MP plan of ``cfg`` (the dense
-    decoder and the CNN), else the ROADMAP item that would: the LSTM family
-    and RWKV item 7b, MoE item 15 (JAX shards the experts), the other
-    families item 11."""
-    if cfg.family == "cnn":
+    """None where the port runs a tensor-MP train plan of ``cfg`` (the dense
+    and RWKV decoders, the LSTM family, the CNN), else the ROADMAP item that
+    would: MoE item 15 (JAX shards the experts), the other families item
+    11."""
+    if cfg.family in ("cnn", "rnn") or cfg.rwkv:
         return None
-    if cfg.family == "rnn" or cfg.rwkv:
-        return TENSOR_MP_REST
     if cfg.is_moe:
         return EXPERT_PARALLEL
     if (cfg.family == "hybrid" or cfg.encoder_layers or cfg.n_prefix_embeds
@@ -142,7 +139,7 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
     if pctx is not None:
         if not isinstance(pctx, ParallelCtx):
             raise unported(f"a pctx other than the port's ParallelCtx "
-                           f"({type(pctx).__name__})", TENSOR_MP_REST)
+                           f"({type(pctx).__name__})", SERVING_TP)
         if pctx.is_tensor:
             item = tensor_mp_item(cfg)
             if item is not None:
@@ -535,6 +532,15 @@ def overlapped_block_apply(cfg, p, x, *, pctx, layer: int):
                                       chunks=max(pctx.comm_chunks, 1), layer=layer)
 
 
+def tp_rwkv_block(cfg, p, x, *, pctx, layer: int):
+    """An RWKV block of a tensor-MP rank's train forward (the gspmd form of
+    both runtimes): ``x`` whole on every rank, the norms computed whole (so
+    their weights' gradients are whole), the mixes ``rwkv.tp_time_mix`` and
+    ``rwkv.tp_channel_mix``."""
+    x = x + rwkv_mod.tp_time_mix(p["tm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg, pctx)
+    return x + rwkv_mod.tp_channel_mix(p["cm"], L.rms_norm(x, p["ln2"], cfg.norm_eps), pctx)
+
+
 def _rwkv_block(cfg, p, x, cache):
     if cache is None:
         zero = x.new_zeros((x.shape[0], x.shape[-1]))
@@ -570,20 +576,26 @@ def _head(cfg, params, x):
     return logits
 
 
-def _tp_embed(cfg, params, tokens, pctx):
-    """(x, partial): the embedding of ``tokens`` under a tensor ctx.  A
-    vocab-sharded table looks up this rank's row range and gives zeros
+def tp_lookup(emb, tokens, vocab_padded: int, dt, pctx):
+    """(x, partial): the rows of ``tokens`` under a tensor ctx, in ``dt``.
+    A vocab-sharded table looks up this rank's row range and gives zeros
     elsewhere (``partial``: the sum over the model axis is the embedding); a
     replicated one gives the whole embedding."""
-    emb = params["embed"]
-    dt = getattr(torch, cfg.dtype)
-    scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0
-    if emb.shape[0] == cfg.vocab_padded:
-        return L.embed_lookup(emb, tokens).to(dt) * scale, False
+    if emb.shape[0] == vocab_padded:
+        return L.embed_lookup(emb, tokens).to(dt), False
     n = emb.shape[0]
     local = tokens - _model_place(pctx)[0] * n
     mine = ((local >= 0) & (local < n))[..., None].to(dt)
-    return L.embed_lookup(emb, local.clamp(0, n - 1)).to(dt) * mine * scale, True
+    return L.embed_lookup(emb, local.clamp(0, n - 1)).to(dt) * mine, True
+
+
+def _tp_embed(cfg, params, tokens, pctx):
+    """(x, partial): the decoder's embedding of ``tokens`` under a tensor
+    ctx (``tp_lookup``, scaled as ``_embed`` scales it)."""
+    scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0
+    x, partial = tp_lookup(params["embed"], tokens, cfg.vocab_padded,
+                           getattr(torch, cfg.dtype), pctx)
+    return x * scale, partial
 
 
 def _tp_head(cfg, params, x, pctx, *, seq_sharded: bool):
@@ -620,7 +632,8 @@ def tp_forward(cfg, params, tokens, pctx):
     the head is vocab-sharded.  The overlapped runtime runs
     ``overlapped_block_apply`` where ``overlapped_supported`` holds (the
     embedding reduce-scattered to this rank's rows, gathered again before
-    the head); anything else runs ``tp_block_apply``."""
+    the head); anything else runs ``tp_block_apply`` (an RWKV config
+    ``tp_rwkv_block``)."""
     mesh, axis = pctx.mesh, pctx.model_axis
     m = mesh.shape[axis]
     s = tokens.shape[1]
@@ -639,7 +652,8 @@ def tp_forward(cfg, params, tokens, pctx):
         x = (CL.reduce_scatter_sequence if partial else CL.scatter_sequence)(x, mesh, 1, axis)
     elif partial:
         x = CL.reduce_from_model(x, mesh, axis)
-    block = overlapped_block_apply if overlapped else tp_block_apply
+    block = (overlapped_block_apply if overlapped
+             else tp_rwkv_block if cfg.rwkv else tp_block_apply)
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
         x = block(cfg, layers[i], x, pctx=pctx, layer=i)
@@ -663,7 +677,7 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     check_supported(cfg, window=window, pctx=pctx)
     if pctx is not None and mode == "prefill":
         if pctx.is_tensor:
-            raise unported("tensor-MP prefill (prefill_chunk_tp)", TENSOR_MP_REST)
+            raise unported("tensor-MP prefill (prefill_chunk_tp)", SERVING_TP)
         raise unported("context-parallel prefill", CONTEXT_SERVE)
     tokens = batch["tokens"]
     if pctx is not None and pctx.is_tensor:
@@ -724,7 +738,7 @@ def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
     positions stay on the device: nothing here reads them on the host."""
     if pctx is not None:
         raise unported("decoding over a ParallelCtx (decode_slots_tp, a sequence-sharded "
-                       "cache)", TENSOR_MP_REST)
+                       "cache)", SERVING_TP)
     window = cfg.sliding_window if window_override is None else window_override
     check_supported(cfg, window=window)
     pos = cache["pos"]

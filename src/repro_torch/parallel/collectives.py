@@ -37,7 +37,11 @@ collective the JAX partitioner would insert is written out as a
   through the forward.  Every message has its own tag
   (``dist.tp_message_tag``: layer, op, phase, hop, chunk).  A hop is one
   blocking ``dist.exchange``, so its transfer does not overlap its product
-  (launching it before the product is ROADMAP.md Queue 1 item 16).
+  (launching it before the product is ROADMAP.md Queue 1 item 16);
+- the tensor-MP recurrences' per-step collectives, ``step_all_reduce`` and
+  ``step_all_gather``: one blocking, tagged exchange with every other rank
+  of the group (``dist.rnn_message_tag``), summed or concatenated in model
+  order, so that every rank holds the same bits.
 """
 from __future__ import annotations
 
@@ -243,6 +247,43 @@ def scatter_sequence(x, mesh, dim: int = 1, axis: str = "model"):
     if mesh.size(axis) == 1:
         return x
     return _ScatterToModel.apply(x, mesh, axis, dim % x.dim())
+
+
+# ---------------------------------------------------------------------------
+# tensor MP: the recurrences' per-step messages
+# ---------------------------------------------------------------------------
+
+def _step_parts(mesh, axis: str, t, tag: int) -> List[torch.Tensor]:
+    """Every rank's ``t`` of the ``axis`` group, in model order: one tagged
+    message to and from each other rank, in one blocking exchange."""
+    ranks = mesh.members(axis)
+    t = t.contiguous()
+    peers = [r for r in ranks if r != mesh.rank]
+    got = iter(D.exchange(mesh, [(t, r, tag) for r in peers],
+                          [(t.shape, t.dtype, r, tag) for r in peers]))
+    return [t if r == mesh.rank else next(got) for r in ranks]
+
+
+def step_all_reduce(mesh, axis: str, t, tag: int):
+    """The sum over the ``axis`` group of each rank's ``t``, summed in f32 in
+    model order, so every rank gets the same bits (the recurrence's per-step
+    all-reduce: JAX's ``psum``, a message tagged ``tag``)."""
+    if mesh.size(axis) == 1:
+        return t
+    parts = _step_parts(mesh, axis, t, tag)
+    acc = parts[0].to(torch.float32, copy=True)
+    for p in parts[1:]:
+        acc.add_(p)
+    return acc.to(t.dtype)
+
+
+def step_all_gather(mesh, axis: str, t, tag: int):
+    """Every rank's ``t`` of the ``axis`` group concatenated along the last
+    dim in model order (the recurrence's per-step all-gather, tagged
+    ``tag``)."""
+    if mesh.size(axis) == 1:
+        return t
+    return torch.cat(_step_parts(mesh, axis, t, tag), dim=-1)
 
 
 # ---------------------------------------------------------------------------

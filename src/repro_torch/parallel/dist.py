@@ -10,8 +10,9 @@ rank creates every group, in one fixed order.
 
 ``RankMesh.ring`` gives a rank's neighbours on an axis (the context ring's
 and the tensor-MP rings'), ``message_tag`` the tag of each of the context
-ring's messages and ``tp_message_tag`` that of each tensor-MP ring message,
-in a range of its own.
+ring's messages, ``tp_message_tag`` that of each tensor-MP ring message and
+``rnn_message_tag`` that of each per-step message of a tensor-MP recurrence,
+each in a range of its own.
 
 The transport is chosen by a stated rule before ``init_process_group`` and
 never changed after (``choose_transport``):
@@ -304,9 +305,12 @@ def gather_tree(mesh: RankMesh, tree, axis: str):
 MESSAGE_PARTS, MESSAGE_HOPS = 4, 64
 # the tensor-MP rings' tags start here, above every context-ring tag
 TP_TAG_BASE = 1 << 22
+# the tensor-MP recurrences' per-step messages, above every ring's
+RNN_TAG_BASE = 3 << 28
 # gather_tree's messages: one tag a leaf, above every ring's
 GATHER_TAG_BASE = 1 << 30
 TP_OPS, TP_PHASES, TP_CHUNKS = 8, 3, 16
+RNN_KINDS, RNN_STEPS = 3, 1 << 16
 
 
 def message_tag(layer: int, hop: int, backward: bool, part: int = 0) -> int:
@@ -324,12 +328,26 @@ def tp_message_tag(layer: int, op: int, phase: int, hop: int, chunk: int) -> int
     distinct for every (layer, op, phase, hop, chunk) and from every
     ``message_tag``.  ``op`` numbers the rings of a layer, ``phase`` is 0 for
     the forward ring and 1 or 2 for the backward's two rings."""
-    if not (layer >= 0 and 0 <= op < TP_OPS and 0 <= phase < TP_PHASES
-            and 0 <= hop < MESSAGE_HOPS and 0 <= chunk < TP_CHUNKS):
+    span = TP_OPS * TP_PHASES * MESSAGE_HOPS * TP_CHUNKS
+    if not (0 <= layer < (RNN_TAG_BASE - TP_TAG_BASE) // span and 0 <= op < TP_OPS
+            and 0 <= phase < TP_PHASES and 0 <= hop < MESSAGE_HOPS
+            and 0 <= chunk < TP_CHUNKS):
         raise ValueError(f"no tensor-MP message tag for layer {layer}, op {op}, phase "
                          f"{phase}, hop {hop}, chunk {chunk}")
     return TP_TAG_BASE + ((((layer * TP_OPS + op) * TP_PHASES + phase) * MESSAGE_HOPS + hop)
                           * TP_CHUNKS + chunk)
+
+
+def rnn_message_tag(layer: int, step: int, kind: int) -> int:
+    """The tag of one per-step message of a tensor-MP recurrence
+    (``models.lstm``): distinct for every (layer, step, kind) and from every
+    ring's tag.  ``kind`` 0 is the forward's h at ``step``, 1 the backward's
+    dh, 2 the backward's input gradient (once a layer, step 0)."""
+    if not (0 <= layer < (GATHER_TAG_BASE - RNN_TAG_BASE) // (RNN_KINDS * RNN_STEPS)
+            and 0 <= step < RNN_STEPS and 0 <= kind < RNN_KINDS):
+        raise ValueError(f"no recurrence message tag for layer {layer}, step {step}, "
+                         f"kind {kind}")
+    return RNN_TAG_BASE + (layer * RNN_KINDS + kind) * RNN_STEPS + step
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,13 @@ read a mapping of axis name to size, as ``ParallelPlan.describe`` does.
 
 ``shard_params(params, rules, model_index)`` is a rank's part of a whole
 parameter tree (the contiguous slice of each leaf along its model dim) and
-``gather_params`` its inverse over every rank's part.
+``gather_params`` its inverse over every rank's part.  An LSTM cell's gate
+leaves ``wx`` and ``wh`` (d, 4H) are cut gate-major: a rank takes the
+columns [j H/m, (j + 1) H/m) of each of the four gates, as JAX's overlapped
+layer shards the (d, 4, H) view (``repro/models/lstm.py:114-118``), so each
+rank's cell is whole; a contiguous slice of the 4H columns would give rank
+0 the i and f gates and rank 1 the g and o gates.  The spec tuples stay
+JAX's.
 """
 from __future__ import annotations
 
@@ -247,43 +253,65 @@ def param_specs(cfg, rules: ShardingRules):
     return rules.params_specs(_shape_tree(param_shapes(cfg)))
 
 
-def _map_with_spec(fn, params, specs):
+def _map_with_spec(fn, params, specs, path=()):
     if isinstance(params, dict):
-        return {k: _map_with_spec(fn, params[k], specs[k]) for k in params}
+        return {k: _map_with_spec(fn, params[k], specs[k], path + (k,)) for k in params}
     if isinstance(params, (list, tuple)):
-        return type(params)(_map_with_spec(fn, p, s) for p, s in zip(params, specs))
-    return fn(params, specs)
+        return type(params)(_map_with_spec(fn, p, s, path + (str(i),))
+                            for i, (p, s) in enumerate(zip(params, specs)))
+    return fn(params, specs, path)
+
+
+GATE_LEAVES = ("wx", "wh")
+
+
+def _gate_major(path, leaf, dim) -> bool:
+    """An LSTM gate leaf (d, 4H) cut over its 4H columns."""
+    return bool(path) and path[-1] in GATE_LEAVES and leaf.dim() == 2 and dim == 1
 
 
 def shard_params(params, rules: ShardingRules, model_index: int):
     """Rank ``model_index``'s part of the whole tree ``params``: each leaf
     the rules shard over the model axis cut to its contiguous slice of that
-    dim (a copy), every other leaf as it is."""
+    dim (an LSTM gate leaf to its gate-major columns), a copy; every other
+    leaf as it is."""
     m = rules.msz
 
-    def cut(leaf, spec):
+    def cut(leaf, spec, path):
         dim = rules.model_dim(spec)
         if dim is None or m == 1:
             return leaf
+        if _gate_major(path, leaf, dim):
+            hm = leaf.shape[1] // (4 * m)
+            return leaf.reshape(leaf.shape[0], 4, m * hm).narrow(
+                2, model_index * hm, hm).reshape(leaf.shape[0], 4 * hm).clone()
         n = leaf.shape[dim] // m
         return leaf.narrow(dim, model_index * n, n).clone()
 
     return _map_with_spec(cut, params, rules.params_specs(params))
 
 
-def gather_params(parts: List, rules: ShardingRules, specs):
+def gather_params(parts: List, rules: ShardingRules, specs, path=()):
     """The whole tree from every rank's part (in model order), the inverse
     of ``shard_params``: leaves that ``specs`` (the whole tree's, as
     ``param_specs`` gives them) shard over the model axis are concatenated
-    along that dim, the others taken from the first part."""
+    along that dim (an LSTM gate leaf gate by gate), the others taken from
+    the first part."""
     first = parts[0]
     if isinstance(first, dict):
-        return {k: gather_params([p[k] for p in parts], rules, specs[k]) for k in first}
+        return {k: gather_params([p[k] for p in parts], rules, specs[k], path + (k,))
+                for k in first}
     if isinstance(first, (list, tuple)):
-        return type(first)(gather_params([p[i] for p in parts], rules, specs[i])
+        return type(first)(gather_params([p[i] for p in parts], rules, specs[i],
+                                         path + (str(i),))
                            for i in range(len(first)))
     dim = rules.model_dim(specs)
-    return first if dim is None else torch.cat(list(parts), dim=dim)
+    if dim is None:
+        return first
+    if _gate_major(path, first, dim):
+        d = first.shape[0]
+        return torch.cat([p.reshape(d, 4, -1) for p in parts], dim=2).reshape(d, -1)
+    return torch.cat(list(parts), dim=dim)
 
 
 def replicated_leaves(params, specs, rules: ShardingRules) -> List[bool]:

@@ -52,9 +52,10 @@ The clip sees the global norm: each rank's sum of squares (a tied embedding
 counted once) is summed over the ``model`` group after the DP sync, so the
 clip scale is the single-process one (a context-parallel rank's
 gradients are already whole; a tensor-MP rank sums its sharded leaves over
-``model`` and counts the replicated ones once).  Tensor MP of an arch the
-port does not shard raises naming its item (``check_plan``), and
-parameters sharded over DP raise (item 5's remainder, fsdp).
+``model`` and counts the replicated ones once).  Tensor MP runs the dense
+and RWKV decoders, BigLSTM, GNMT and Inception-V3; of another arch it
+raises naming its item (``check_plan``), and parameters sharded over DP
+raise (item 5's remainder, fsdp).
 
 Checkpoints hold a state's global form, JAX's layout (``interop.
 param_shapes``: stacked (L, ...) decoder leaves, BigLSTM's list of layer
@@ -75,7 +76,7 @@ from typing import Any
 import torch
 
 from repro_torch.models.api import ModelApi, cache_extract_slot, cache_insert_slot
-from repro_torch.models.transformer import (CONTEXT_SERVE, TENSOR_MP_REST, ParallelCtx,
+from repro_torch.models.transformer import (CONTEXT_SERVE, SERVING_TP, ParallelCtx,
                                             cp_arch_supported, cp_supported, is_tensor_ctx,
                                             tensor_mp_item, unported)
 from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
@@ -104,9 +105,9 @@ class TrainState:
 def check_plan(plan, model: int, cfg=None) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a plan the
     port's ranks do not run over a ``model`` axis of that size: tensor MP of
-    an arch other than the dense decoder and the CNN (``cfg``; not checked
-    without one), parameters sharded over DP, the ``ad`` pipeline
-    runtime."""
+    an arch that ``tensor_mp_item`` names (MoE, the other families; ``cfg``,
+    not checked without one), parameters sharded over DP, the ``ad``
+    pipeline runtime."""
     if plan.fsdp_axes:
         raise NotImplementedError(f"parameters sharded over DP are not ported to "
                                   f"repro_torch yet: {FSDP}")
@@ -517,7 +518,7 @@ def make_continuous_steps(api: ModelApi, *, n_slots: int, temperature: float = 0
         raise unported("the context-parallel prefill chunk (prefill_chunk_cp)", CONTEXT_SERVE)
     if mesh is not None or model_axis is not None:
         raise unported("the tensor-MP decode tick and prefill chunk (decode_slots_tp, "
-                       "prefill_chunk_tp)", TENSOR_MP_REST)
+                       "prefill_chunk_tp)", SERVING_TP)
     if n_slots < 1:
         raise ValueError(f"n_slots must be >= 1, got {n_slots}")
 

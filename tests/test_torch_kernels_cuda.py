@@ -824,6 +824,77 @@ def test_lstm_fma_variant_takes_what_the_tensor_cores_do_not(cuda_device, case):
         assert float((got.float() - want.float()).abs().max()) < tol
 
 
+def _gx_inputs(seed, b, d_h, hh, device, dtype, seq=0):
+    """gx (B, 4, H), h, c, wh, b of the gx entry; with ``seq`` gx is the
+    row view ``gxs[:, seq // 2]`` of a (B, seq, 4, H) tensor, as the
+    overlapped layer's time loop reads it."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * scale).astype(np.float32)).to(device)
+    gx = f(b, seq, 4, hh).to(dtype)[:, seq // 2] if seq else f(b, 4, hh).to(dtype)
+    h, c = f(b, d_h).to(dtype), f(b, hh, scale=0.5).to(dtype)
+    return [gx, h, c, f(d_h, 4, hh, scale=d_h ** -0.5).to(dtype), f(4, hh, scale=0.1)]
+
+
+# the gx entry (the overlapped tensor-MP LSTM layer's step): edge shapes,
+# BigLSTM's rank at 2-way MP (B 16, d_h 1024, H 4096) and GNMT's (B 128,
+# d_h 1024, H 512), gx a row of (B, 8, 4, H) or contiguous
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tc", "fma"])
+@pytest.mark.parametrize("b,d_h,hh,seq", [(1, 16, 72, 0), (17, 40, 136, 8),
+                                          (16, 1024, 4096, 8), (128, 1024, 512, 0)])
+def test_lstm_gx_entry_matches_plain_on_card(cuda_device, variant, b, d_h, hh, seq):
+    """Both variants of the gx entry against ``lstm_cell_gx_plain`` (bf16
+    for ``tc``, f32 and bf16 for ``fma``), the same bits on a repeat launch,
+    its own launch and variant counts (``lstm_cell_fwd``'s do not move)."""
+    for dt in ((torch.bfloat16,) if variant == "tc" else (torch.float32, torch.bfloat16)):
+        gx, h, c, wh, bias = _gx_inputs(b * hh + d_h, b, d_h, hh, cuda_device, dt, seq)
+        if variant == "tc":
+            assert TLC.lstm_gx_variant(h, wh) == "tc"
+        fwd_before = TLC.lstm_cell_fwd.launches
+        before = dict(TLC.lstm_cell_fwd_gx.variant_launches)
+        launches = TLC.lstm_cell_fwd_gx.launches
+
+        def run():
+            outs = [torch.empty((b, hh), dtype=dt, device=cuda_device) for _ in range(2)]
+            gates = torch.empty((b, 4, hh), device=cuda_device)
+            return TLC._launch_fwd_gx(gx, h, c, wh, bias, *outs, gates, variant)
+
+        hn, cn, gates = run()
+        hn2, cn2, gates2 = run()
+        torch.cuda.synchronize()
+        assert _moved(TLC.lstm_cell_fwd_gx, before) == {variant: 2}
+        assert TLC.lstm_cell_fwd_gx.launches == launches + 2
+        assert TLC.lstm_cell_fwd.launches == fwd_before
+        rh, rc, ract = TLC.lstm_cell_gx_plain(gx, h, c, wh, bias, with_gates=True)
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        for got, want in ((hn, rh), (cn, rc)):
+            assert float((got.float() - want.float()).abs().max()) < tol
+        assert float((gates - ract).abs().max()) < 1e-4
+        assert torch.equal(hn, hn2) and torch.equal(cn, cn2) and torch.equal(gates, gates2)
+
+
+@pytest.mark.cuda
+def test_lstm_gx_entry_picks_its_variant_and_rejects_what_it_does_not_take(cuda_device):
+    """The wrapper's own choice (``tc`` for aligned bf16, ``fma`` for f32
+    and a misaligned h row) and its checks: a gx whose (4, H) rows are not
+    contiguous, mixed devices and dtypes raise."""
+    gx, h, c, wh, bias = _gx_inputs(5, 4, 16, 72, cuda_device, torch.bfloat16)
+    before = dict(TLC.lstm_cell_fwd_gx.variant_launches)
+    TLC.lstm_cell_fwd_gx(gx, h, c, wh, bias)
+    TLC.lstm_cell_fwd_gx(*(t.float() for t in (gx, h, c, wh)), bias)
+    hm = torch.cat([h, h[:, :4]], 1)[:, :16]            # row stride 20: not 16-byte rows
+    TLC.lstm_cell_fwd_gx(gx, hm, c, wh, bias)
+    torch.cuda.synchronize()
+    assert _moved(TLC.lstm_cell_fwd_gx, before) == {"tc": 1, "fma": 2}
+    with pytest.raises(ValueError, match="contiguous"):
+        TLC.lstm_cell_fwd_gx(gx.transpose(1, 2).contiguous().transpose(1, 2), h, c, wh, bias)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        TLC.lstm_cell_fwd_gx(gx, h.cpu(), c, wh, bias)
+    with pytest.raises(TypeError, match="one dtype"):
+        TLC.lstm_cell_fwd_gx(gx.float(), h, c, wh, bias)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,stride,padding", [("avg", 1, "SAME"), ("max", 2, "VALID")])
 def test_inception_pools_backward_on_card_match_cpu(cuda_device, kind, stride, padding):

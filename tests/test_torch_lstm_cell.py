@@ -195,10 +195,26 @@ def test_model_layer_forward_and_grads_match_jax(d_proj, with_state):
 
 
 def test_unported_lstm_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
-        TM.lstm_layer_overlapped()
+    """The ad pipeline runtime's BigLSTM forward names item 6b; the
+    overlapped tensor-MP layer is ported (its gate takes JAX's answers)."""
+    import types
+
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config as t_get_config
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         TM.biglstm_forward_pipeline()
+    jcfg, tcfg = j_get_config("biglstm").reduced(), t_get_config("biglstm").reduced()
+    for m in (1, 2, 3, 4):
+        for rt in ("overlapped", "gspmd"):
+            for chunks in (1, 2):
+                for t in (6, 16):
+                    ctx = types.SimpleNamespace(
+                        mesh=types.SimpleNamespace(shape={"data": 1, "model": m}),
+                        model_axis="model", comm_runtime=rt, comm_chunks=chunks)
+                    assert TM.lstm_overlapped_ok(tcfg, ctx, t) == \
+                        JM.lstm_overlapped_ok(jcfg, ctx, t), (m, rt, chunks, t)
+    assert not TM.lstm_overlapped_ok(tcfg, None, 16)
 
 
 def _variant_inputs(dtype, b=4, d_in=16, d_h=24, hh=32, x_offset=0, x_ld=None):

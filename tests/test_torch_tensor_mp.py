@@ -2,7 +2,8 @@
 tensor branches of ``models.transformer``, ``models.inception``,
 ``models.api`` and ``train.steps``, and the launcher's ``mp=`` specs)
 against the JAX package, on gloo ranks on the CPU, where attention takes
-the flash kernels' plain versions.  Three rank spawns in all:
+the flash kernels' plain versions.  Five rank spawns in all (the
+launcher's three cases one each):
 
 - the rings at m 2 and 4, chunks 1, 2 and 4, forward and backward, against
   the plain product and autograd within 1e-4 (JAX's
@@ -18,10 +19,11 @@ the flash kernels' plain versions.  Three rank spawns in all:
   Inception-V3 at 75 px on the planner's 256-card tensor plan clamped to
   ``mp=2``: loss and gradients against JAX, and the step against the port's
   single step in f64;
-- the launcher trains ``--parallel mp=2`` (overlapped, 2 chunks) as one
-  process trains, and refuses the tensor plans of BigLSTM, GNMT and RWKV
-  (item 7b) and of an MoE model (item 15), and ``--comm-chunks`` without
-  ``overlapped``.
+- the launcher trains ``--parallel mp=2`` as one process trains (Llama and
+  BigLSTM overlapped with 2 chunks, RWKV gspmd), and refuses the tensor
+  plan of an MoE model (item 15) and ``--comm-chunks`` without
+  ``overlapped``.  The recurrent families' tensor MP against JAX is
+  ``tests/test_torch_tensor_mp_recurrent.py``.
 
 JAX is imported inside the tests only.
 """
@@ -421,17 +423,22 @@ def _main(*args, arch="llama3_2_1b"):
                     "--batch", "4", "--seq", "16", *args])
 
 
-def test_launcher_trains_a_tensor_spec_on_ranks(capfd):
-    """``--parallel mp=2 --comm-runtime overlapped --comm-chunks 2`` trains
-    on 2 gloo ranks, each holding its part of the parameters, and its losses
-    are those of one process."""
-    single = _main()
+@pytest.mark.parametrize("arch,comm,plan_line", [
+    ("llama3_2_1b", ("--comm-runtime", "overlapped", "--comm-chunks", "2"),
+     "[overlapped comm c=2]"),
+    ("biglstm", ("--comm-runtime", "overlapped", "--comm-chunks", "2"), "[overlapped comm c=2]"),
+    ("rwkv6_7b", (), "")])
+def test_launcher_trains_a_tensor_spec_on_ranks(capfd, arch, comm, plan_line):
+    """``--parallel mp=2`` trains on 2 gloo ranks, each holding its part of
+    the parameters, and its losses are those of one process: the dense
+    decoder and BigLSTM (gate-major LSTM cells, x @ Wx on the gather ring)
+    overlapped with 2 chunks, RWKV on the gspmd form."""
+    single = _main(arch=arch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        summary = _main("--parallel", "mp=2", "--comm-runtime", "overlapped",
-                        "--comm-chunks", "2")
+        summary = _main("--parallel", "mp=2", *comm, arch=arch)
     out = capfd.readouterr().out
-    assert "[plan] 1-way DP x 2-way tensor MP [overlapped comm c=2] on cpu" in out
+    assert f"[plan] 1-way DP x 2-way tensor MP {plan_line}".rstrip() + " on cpu" in out
     assert "[dist] backend=gloo ranks=2 cards=0 (cpu)" in out
     assert "[ranks] r0 (data 0, model 0)" in out and "r1 (data 0, model 1)" in out
     assert "launches 0" in out
@@ -440,9 +447,6 @@ def test_launcher_trains_a_tensor_spec_on_ranks(capfd):
 
 
 @pytest.mark.parametrize("arch,args,err,match", [
-    ("biglstm", ("--parallel", "mp=2"), NotImplementedError, "ROADMAP.md Queue 1 item 7b"),
-    ("gnmt", ("--parallel", "mp=2"), NotImplementedError, "ROADMAP.md Queue 1 item 7b"),
-    ("rwkv6_7b", ("--parallel", "mp=2"), NotImplementedError, "ROADMAP.md Queue 1 item 7b"),
     ("granite_moe_1b_a400m", ("--parallel", "dp=2,mp=2"), NotImplementedError,
      "ROADMAP.md Queue 1 item 15"),
     ("llama3_2_1b", ("--parallel", "mp=2", "--comm-chunks", "2"), SystemExit,
@@ -453,15 +457,15 @@ def test_launcher_refuses_what_tensor_mp_does_not_run(arch, args, err, match):
 
 
 def test_unported_tensor_mp_paths_name_their_items():
-    """A caller's tensor ctx over an LSTM model names item 7b, prefill and
-    decoding under a tensor ctx name item 7b."""
+    """A caller's tensor ctx over an MoE model names item 15, prefill and
+    decoding under a tensor ctx name item 7b (the serving TP)."""
     from repro_torch import optim as TO
     from repro_torch.models.api import build_model
     from repro_torch.models.transformer import ParallelCtx
     from repro_torch.train import make_train_step
 
-    api = build_model(t_get_config("biglstm").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
+    api = build_model(t_get_config("granite_moe_1b_a400m").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
         make_train_step(api, TO.sgd(TO.constant_lr(0.1)),
                         pctx=ParallelCtx(mesh=None, model_axis="model"))
     api = build_model(t_get_config("llama3_2_1b").reduced(), device="cpu")

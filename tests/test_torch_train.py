@@ -267,24 +267,29 @@ def test_loop_does_not_retry_a_step_that_failed_in_the_update():
 
 def test_train_step_refuses_multi_device_arguments(biglstm):
     """What of a multi-device step is not ported raises naming its ROADMAP
-    item: a caller's ParallelCtx and a tensor-MP plan over BigLSTM (item 7b:
-    the dense decoder's and the CNN's run, tests/test_torch_tensor_mp.py),
+    item: a tensor-MP plan over an MoE model (item 15: the dense and RWKV
+    decoders', the LSTM family's and the CNN's run,
+    tests/test_torch_tensor_mp.py and tests/test_torch_tensor_mp_recurrent.py),
     parameters sharded over DP (item 5's remainder) and the ad pipeline
     runtime (item 6b).  DP, the scheduled pipeline and context parallelism
     run on ranks (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py,
-    tests/test_torch_context.py); a context plan over an arch the ring
-    cannot run (BigLSTM) raises ValueError."""
+    tests/test_torch_context.py); a caller's ctx that is no tensor-MP
+    ParallelCtx and a context plan over an arch the ring cannot run
+    (BigLSTM) raise ValueError."""
     from repro_torch.parallel.plan import ParallelPlan as TPlan
 
     tapi = biglstm[5]
+    moe_api = t_build_model(t_get_config("granite_moe_1b_a400m").reduced(), device="cpu")
     mesh = TM_Mesh({"data": 1, "model": 2})
-    for kw, item in (({"pctx": object()}, "item 7b"),
-                     ({"mesh": mesh, "plan": TPlan()}, "item 7b"),
-                     ({"plan": TPlan(model_axis=None, fsdp_axes=("data",))}, "item 5"),
-                     ({"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
-                      "item 6b")):
+    for api, kw, item in (
+            (moe_api, {"mesh": mesh, "plan": TPlan()}, "item 15"),
+            (tapi, {"plan": TPlan(model_axis=None, fsdp_axes=("data",))}, "item 5"),
+            (tapi, {"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
+             "item 6b")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-            make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), **kw)
+            make_train_step(api, TO.sgd(TO.constant_lr(0.1)), **kw)
+    with pytest.raises(ValueError, match="tensor-MP ParallelCtx"):
+        make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), pctx=object())
     with pytest.raises(ValueError, match="homogeneous dense decoder"):
         make_train_step(tapi, TO.sgd(TO.constant_lr(0.1)), mesh=mesh,
                         plan=TPlan(mp_kind="context"))
@@ -315,11 +320,23 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
     """What of each multi-device spec is still unported raises naming its
     ROADMAP item: the ad pipeline runtime (item 6b) for the planner's BigLSTM
     plan at 64 H100s and for an explicit pipe= spec, parameters sharded over
-    DP (item 5's remainder) for a dp= spec, BigLSTM's tensor MP (7b; the
-    dense decoder's runs, tests/test_torch_tensor_mp.py) and an unknown key
-    (5-8).  A cp= spec resolves to a context ring, which trains
+    DP (item 5's remainder) for a dp= spec and an unknown key (5-8).  An
+    mp= spec resolves to BigLSTM's tensor plan, which trains
+    (tests/test_torch_tensor_mp_recurrent.py); what is left of item 7, the
+    serving TP, raises naming item 7b.  A cp= spec resolves to a context ring, which trains
     (tests/test_torch_context.py); what is left of item 8, the
     context-parallel prefill, raises naming item 8b."""
+    if item == "item 7":
+        from repro_torch.models.api import build_model
+        from repro_torch.models.transformer import ParallelCtx
+
+        plan, mp, _ = _resolve(spec, devices=64)
+        assert (plan.mp_kind, mp) == ("tensor", 2)
+        api = build_model(t_get_config("llama3_2_1b").reduced(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
+            api.prefill(api.init(0), {"tokens": torch.zeros((1, 16), dtype=torch.long)},
+                        pctx=ParallelCtx(mesh=None, model_axis="model", context_axis=None))
+        return
     if item == "item 8":
         from repro_torch.models.api import build_model
         from repro_torch.models.transformer import ParallelCtx
