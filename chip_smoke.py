@@ -47,6 +47,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    against its plain version, the bound of the keys the rows keep and SDPA
    with the same boolean ``attn_mask``; and one row's output the same bits
    whatever the other rows' lengths;
+   flash attention with an explicit query start (``q_start``) at the
+   sharded serving steps' shapes, bf16: the context-parallel chunk's cache
+   partial (B 1, the 128 rows of ring place 1 of a 256-token chunk against
+   the 1064-slot cache, ``kv_lens = pos``, ``q_start = pos + 128``, not
+   causal) at pos 0 (every row sees no key), 256 and 768, window 0 and 256;
+   a tensor-MP rank's tick (B 8, Tq 1, capacity 1064, H 16/4, ``kv_lens``);
+   the windowed ring's past-block hop at phase 19's hop shape (B 2, T/m
+   1024, H 32/8, window 256, ``q_start`` 1024), forward with lse and the
+   backward given the global output and lse; each timed against its plain
+   version, its bound and SDPA's call (with the boolean mask where the
+   masks are per row); and the bits of a launch with ``q_start = 0`` equal
+   to one without;
    the LSTM cell's forward (tensor-core ``tc`` tile and FMA kernel) and
    pointwise backward at full-width BigLSTM (B 16, d_in 1024, d_h 1024, H
    8192; also at the pipeline's micro-batch rows B 4 and B 1), at GNMT's
@@ -270,6 +282,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    calls; the loss falls), then time steps and profile one; and ``--arch
    rwkv6_7b --reduced`` through the launcher's command line;
 26. hold RWKV's train step against the CPU at phase 24's cell;
+27. sharded continuous serving on a pair sharing the card
+   (``phase_sharded_serving``): (a) full-width, full-depth Llama-3.2-1B,
+   bf16, through the serve launcher's run function (``run_continuous``) on
+   2 gloo ranks: phase 22's engine (8 slots of 1064, chunks of 256) over 8
+   of its requests with 16 new tokens, at ``tp=2``, ``tp=2`` with comm
+   chunks 2 and ``cp=2``; the flash launches of each rank exactly (16 a
+   tick and 16 a chunk on a TP rank; under CP 16 a tick on each rank and,
+   summed over the pair, 16 (3 + 2 [pos > 0]) a chunk), each rank's tick ms,
+   median first-token s, tok/s and peak GiB, and the greedy tokens that
+   differ from phase 22's single-process run (counted, not asserted: bf16
+   sums in another order); (b) 2 full-width layers, f32, vocab 32768: TP
+   with comm chunks 1 and 2, CP and CP with window 64, with prompts whose
+   last chunk the ring's grid pads, each against the single-process card
+   engine: the tokens equal, the logprobs and the first tick's logits
+   within 1e-3 (phase 5's limit);
 28. tensor MP of the recurrent families on a model pair sharing the card
    (``phase_tensor_recurrent``): full-width BigLSTM through the launcher at
    ``mp=2``, gspmd and overlapped with 2 chunks (256 LSTM forward launches
@@ -417,6 +444,13 @@ WKV_BWD_EDGE = [((2, 300, 8, 64), torch.float32, "sweep"), ((2, 130, 4, 32), tor
 # tokens a request, and the requests also served alone
 CONT_SLOTS, CONT_CAP, CONT_CHUNK = 8, 1064, 256
 CONT_REQUESTS, CONT_PROMPTS, CONT_NEW, CONT_SOLO = 16, (64, 1024), 32, 4
+# phase 27: the first SHARD_REQUESTS of phase 22's requests with SHARD_NEW
+# new tokens, on a pair of ranks; its 2-layer f32 cells' prompts (last
+# chunks of 9, 13, 2 and 5 tokens: the grids of 2 and 4 pad them), chunk,
+# new tokens, slots and capacity
+SHARD_REQUESTS, SHARD_NEW = 8, 16
+SHARD_CELL_LENS, SHARD_CELL_CHUNK, SHARD_CELL_NEW = [201, 77, 130, 5], 64, 4
+SHARD_CELL_SLOTS, SHARD_CELL_CAP = 4, 264
 # kernels a decode step on commit f4893cd (the tree that first served all
 # three models), counted by torch.profiler after a warm-up cycle: Llama 1262
 # and RWKV 2957 in each of three profiles, Granite 3254 in two of three (the
@@ -611,7 +645,7 @@ def vec_rel_err(out, ref):
                   / ref.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def check_kv_lens(fa, case, q, k, v, kv_lens, *, causal, window=0, timed=True):
+def check_kv_lens(fa, case, q, k, v, kv_lens, *, causal, window=0, timed=True, q_start=None):
     """The kernel with per-row key lengths against its plain version, each
     row naming the variant it launched: the max abs error within ``TOL`` and
     each output vector's within ``KV_VEC_TOL`` of its own size.  For a
@@ -620,19 +654,22 @@ def check_kv_lens(fa, case, q, k, v, kv_lens, *, causal, window=0, timed=True):
     more (``tile_loss_min_rel``: the least, over those rows, of the plain
     version's move).  Timed against the plain version, the bound of the
     keys the rows keep and SDPA with the same boolean ``attn_mask`` (a
-    yardstick the port never calls)."""
-    call = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,  # noqa: E731
-                                      kv_lens=kv_lens)
+    yardstick the port never calls).  With ``q_start`` the queries sit
+    there (rows that see no key: out 0)."""
+    kw = dict(causal=causal, window=window, kv_lens=kv_lens, q_start=q_start)
+    call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     out, variant = launched_variant(fa.flash_attention, call)
     torch.cuda.synchronize()
-    ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
     err = float((out.float() - ref.float()).abs().max())
     tol, vec_tol = TOL[q.dtype], KV_VEC_TOL[q.dtype]
     vec_err = vec_rel_err(out, ref)
     row = {"shape": case, "dtype": str(q.dtype).removeprefix("torch."), "variant": variant,
            "kv_lens": kv_lens.tolist(), "max_abs_err": err, "tol": tol,
            "vec_rel_err": vec_err, "vec_tol": vec_tol}
-    if q.shape[1] == 1:
+    if q_start is not None:
+        row["q_start"] = q_start.tolist() if isinstance(q_start, torch.Tensor) else q_start
+    if q.shape[1] == 1 and q_start is None:
         long_rows = kv_lens >= 128
         lost = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
                                       kv_lens=torch.where(long_rows, kv_lens - 64, kv_lens))
@@ -649,10 +686,9 @@ def check_kv_lens(fa, case, q, k, v, kv_lens, *, causal, window=0, timed=True):
                              f"vector rel err {vec_err} (tol {vec_tol})")
     if timed:
         from repro_torch.kernels.ref import keep_mask
-        keep = keep_mask(q.shape[1], k.shape[1], causal, window, q.device, kv_lens)
+        keep = keep_mask(q.shape[1], k.shape[1], causal, window, q.device, kv_lens, q_start)
         time_into(row, "ms", call)
-        time_into(row, "plain_ms", lambda: fa.flash_attention_ref(
-            q, k, v, causal=causal, window=window, kv_lens=kv_lens))
+        time_into(row, "plain_ms", lambda: fa.flash_attention_ref(q, k, v, **kw))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         time_into(row, "library_ms", lambda: sdpa(qt, kt, vt, attn_mask=keep[:, None],
@@ -713,6 +749,133 @@ def phase_kv_lens(fa):
             raise AssertionError(f"flash_attention kv_lens ({dt}): row 0's output changed "
                                  f"with the other rows' lengths")
     return rows
+
+
+def phase_q_start(fa):
+    """Flash attention with an explicit query start at the sharded serving
+    steps' shapes (full-width Llama-3.2-1B, hd 64, bf16): the context-
+    parallel chunk's cache partial at pos 0, 256 and 768, window 0 and 256
+    (ring place 1's 128 rows of a CONT_CHUNK chunk, ``kv_lens = pos``,
+    ``q_start = pos + 128``, not causal); a tensor-MP rank's tick (B
+    CONT_SLOTS, Tq 1, H 16/4, phase 3's tick lengths); the windowed ring's
+    past-block hop (B 2, T/m 1024, H 32/8, window 256, ``q_start`` 1024):
+    the forward with lse against its plain output (``TOL``) and lse
+    (``BWD_F32_TOL`` of max(1, |ref|), -inf exactly where a row sees no
+    key), the backward given the global output and lse against the plain
+    backward within 2e-2 of max(1, |ref|).  Each timed against its plain
+    version, its bound and SDPA's call.  Then the bits: ``q_start = 0``
+    (with a window, where its tile skip is on) against none.  Each row
+    carries ``path`` for the launches phase 27 counts."""
+    from repro_torch.kernels.ref import keep_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    fwd_rows, bwd_rows = [], []
+    k, v = rnd(1, CONT_CAP, 8, 64), rnd(1, CONT_CAP, 8, 64)
+    q = rnd(1, CONT_CHUNK // 2, 32, 64)
+    for pos in (0, 256, 768):
+        lens = torch.tensor([pos], dtype=torch.int32, device=dev)
+        starts = torch.tensor([pos + CONT_CHUNK // 2], dtype=torch.int32, device=dev)
+        for window in (0, 256):
+            row = check_kv_lens(fa, f"CP chunk cache partial B1 Tq{CONT_CHUNK // 2} pos{pos} "
+                                    f"cap{CONT_CAP} H32/8 hd64 window={window}", q, k, v, lens,
+                                causal=False, window=window, q_start=starts)
+            fwd_rows.append(dict(row, path="cp_partial" if pos else "cp_partial_pos0"))
+    kt, vt = rnd(CONT_SLOTS, CONT_CAP, 4, 64), rnd(CONT_SLOTS, CONT_CAP, 4, 64)
+    lens = torch.tensor([1, 63, 64, 65, 1063, 1064, 300, 700], dtype=torch.int32, device=dev)
+    row = check_kv_lens(fa, f"tensor-MP rank tick B{CONT_SLOTS} Tq1 cap{CONT_CAP} H16/4 hd64",
+                        rnd(CONT_SLOTS, 1, 16, 64), kt, vt, lens, causal=True)
+    fwd_rows.append(dict(row, path="tp_tick"))
+    del k, v, kt, vt
+
+    # the windowed ring's past-block hop: rank 1's rows against block 0
+    b, t, h, hkv, hd, w = RING_B, RING_T, 32, 8, 64, 256
+    n = t // 2
+    q, k, v, do = rnd(b, t, h, hd), rnd(b, t, hkv, hd), rnd(b, t, hkv, hd), rnd(b, t, h, hd)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True, window=w)
+    qh, oh, doh = (x[:, n:].contiguous() for x in (q, out, do))
+    lseh = lse[:, :, n:].contiguous()
+    kh, vh = k[:, :n].contiguous(), v[:, :n].contiguous()
+    kw = dict(causal=True, window=w, q_start=n)
+    case = f"windowed ring past hop B{b} Tq{n} Tk{n} H{h}/{hkv} hd{hd} window={w} q_start={n}"
+    (o_s, lse_s), variant = launched_variant(fa.flash_attention, lambda: fa.flash_attention_lse(
+        qh, kh, vh, **kw))
+    want_o = fa.flash_attention_ref(qh, kh, vh, **kw)
+    want_lse = fa.flash_attention_lse_plain(qh, kh, **kw)
+    dead = torch.isneginf(want_lse)
+    err = float((o_s.float() - want_o.float()).abs().max())
+    lse_err = float((lse_s - want_lse)[~dead].abs().max()) / max(
+        1.0, float(want_lse[~dead].abs().max()))
+    row = {"shape": case, "dtype": "bfloat16", "variant": variant, "max_abs_err": err,
+           "tol": TOL[bf], "lse_rel_err": lse_err, "lse_tol": BWD_F32_TOL,
+           "rows_without_keys": int(dead.sum()), "path": "ring_past_hop"}
+    if variant != "tc_prefill" or not (err < TOL[bf] and lse_err < BWD_F32_TOL) or \
+            not torch.equal(torch.isneginf(lse_s), dead):
+        raise AssertionError(f"flash_attention_lse {case}: {row}")
+    keep = keep_mask(n, n, True, w, dev, q_start=n)
+    pairs = int(keep.sum())
+    keys = int(keep.any(0).sum())
+    time_into(row, "ms", lambda: fa.flash_attention_lse(qh, kh, vh, **kw))
+    time_into(row, "plain_ms", lambda: (fa.flash_attention_ref(qh, kh, vh, **kw),
+                                        fa.flash_attention_lse_plain(qh, kh, **kw)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (qh, kh, vh))
+    time_into(row, "library_ms", lambda: sdpa(qt, kt, vt, attn_mask=keep, enable_gqa=True))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        _nbytes(qh, o_s, lse_s) + 2 * b * keys * hkv * hd * 2, 4.0 * b * h * pairs * hd, bf)
+    print(json.dumps(row), flush=True)
+    fwd_rows.append(row)
+    grads, variant = launched_variant(fa.flash_attention_bwd, lambda: fa.flash_attention_bwd(
+        qh, kh, vh, oh, doh, lseh, **kw))
+    torch.cuda.synchronize()
+    oracle = fa.flash_attention_bwd_plain(qh.float(), kh.float(), vh.float(), oh.float(),
+                                          doh.float(), lseh, **kw)
+    errs = [float((g.float() - x).abs().max()) for g, x in zip(grads, oracle)]
+    scale = [max(1.0, float(x.abs().max())) for x in oracle]
+    row = {"kernel": "flash_attention_bwd", "shape": case + ", global lse", "dtype": "bfloat16",
+           "variant": variant, "max_abs_err": max(errs),
+           "rel_err": {nm: e / sc for nm, e, sc in zip(("dq", "dk", "dv"), errs, scale)},
+           "tol": TOL[bf], "path": "ring_past_hop"}
+    if variant != "tc" or not all(e / sc < TOL[bf] for e, sc in zip(errs, scale)):
+        raise AssertionError(f"flash_attention_bwd {case}, global lse: {row}")
+    time_into(row, "ms", lambda: fa.flash_attention_bwd(qh, kh, vh, oh, doh, lseh, **kw))
+    time_into(row, "plain_ms", lambda: fa.flash_attention_bwd_plain(
+        qh, kh, vh, oh, doh, lseh, **kw), reps=5)
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (qh, kh, vh))
+    lib = sdpa(ql, kl, vl, attn_mask=keep, enable_gqa=True)
+    time_into(row, "library_ms", lambda: torch.autograd.grad(
+        lib, (ql, kl, vl), doh.transpose(1, 2), retain_graph=True))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2 * _nbytes(qh, oh) + 2 * b * keys * hkv * hd * 2 * 2 + 4 * b * h * n,
+        10.0 * b * h * pairs * hd, bf)
+    print(json.dumps(row), flush=True)
+    bwd_rows.append(row)
+    del lib
+
+    # q_start = 0 against none: the forward (with and without lse, a
+    # window's tile skip on) and the backward
+    qd, kd, vd = q[:, :n], k[:, :n], v[:, :n]
+    same = {}
+    for window in (0, w):
+        a = fa.flash_attention(qd, kd, vd, causal=True, window=window)
+        same[f"forward window={window}"] = torch.equal(
+            a, fa.flash_attention(qd, kd, vd, causal=True, window=window, q_start=0))
+        o1, l1 = fa.flash_attention_lse(qd, kd, vd, causal=True, window=window)
+        o2, l2 = fa.flash_attention_lse(qd, kd, vd, causal=True, window=window, q_start=0)
+        same[f"with lse window={window}"] = torch.equal(o1, o2) and torch.equal(l1, l2)
+        g1 = fa.flash_attention_bwd(qd, kd, vd, o1, doh, l1, causal=True, window=window)
+        g2 = fa.flash_attention_bwd(qd, kd, vd, o1, doh, l1, causal=True, window=window,
+                                    q_start=0)
+        same[f"backward window={window}"] = all(map(torch.equal, g1, g2))
+    print(json.dumps({"check": "q_start=0 the same bits as none", **same}), flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"flash attention with q_start=0 changed its bits: {same}")
+    return fwd_rows, bwd_rows
 
 
 def _keep_pairs(tq, tk, causal, window):
@@ -3602,7 +3765,7 @@ def phase_continuous(counters, api_mod, cont_mod, engine_mod, cfg):
     if cli_launches["flash_attention"] != want or "256 tokens" not in line:
         raise AssertionError(f"the continuous launcher printed {line!r} {cli_launches}, "
                              f"want {want} flash launches and 256 tokens")
-    return launches, variants
+    return launches, variants, results
 
 
 def phase_continuous_vs_plain(api_mod, engine_mod, cfg):
@@ -3678,6 +3841,158 @@ def phase_continuous_vs_plain(api_mod, engine_mod, cfg):
     return res
 
 
+def _cell_prompts(vocab, seed=29):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist() for n in SHARD_CELL_LENS]
+
+
+def _probe_tick(tf_mod, api, eng, prompts, tokens, kw):
+    """The first tick's logits of ``eng`` (a single-process engine, or this
+    rank's with ``kw``'s routing): each prompt prefilled into its slot
+    through the engine's chunk, then one tick over every slot."""
+    with torch.inference_mode():
+        for slot, prompt in enumerate(prompts):
+            for lo in range(0, len(prompt), SHARD_CELL_CHUNK):
+                toks = torch.tensor([prompt[lo:lo + SHARD_CELL_CHUNK]], device="cuda")
+                eng.cache, _ = eng._prefill_chunk(eng.params, eng.cache, toks, slot)
+        batch = {"tokens": tokens[:, None]}
+        if kw.get("model_axis"):
+            logits, _ = tf_mod.decode_slots_tp(
+                api.cfg, eng.params, eng.cache, batch, mesh=eng.mesh, model_axis="model",
+                batch_axes=("data",), comm_chunks=kw.get("comm_chunks", 1),
+                window_override=kw.get("window"))
+        else:
+            logits, _ = api.decode_fn(eng.params, eng.cache, batch, None, kw.get("window"))
+    return logits[:, 0].float().cpu()
+
+
+def _sharded_cell_rank(mesh, cfg2, runs):
+    """Phase 27 (b) on one rank: for each run's routing, the first tick's
+    logits after the cell's prompts and the engine's results on them."""
+    from repro_torch.models import api as api_mod
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.serve import continuous as cont_mod
+
+    api = api_mod.build_model(cfg2, device="cuda")
+    params = api.init(3)
+    prompts = _cell_prompts(cfg2.vocab_size)
+    tokens = torch.ones(SHARD_CELL_SLOTS, dtype=torch.long, device="cuda")
+    out = []
+    for kw in runs:
+        def engine():
+            return cont_mod.ContinuousEngine(
+                api, params, n_slots=SHARD_CELL_SLOTS, capacity=SHARD_CELL_CAP,
+                prefill_chunk=SHARD_CELL_CHUNK, mesh=mesh, batch_axes=("data",), **kw)
+        logits = _probe_tick(tf_mod, api, engine(), prompts, tokens, kw)
+        res = engine().run([cont_mod.Request(rid=i, tokens=p, max_new_tokens=SHARD_CELL_NEW)
+                            for i, p in enumerate(prompts)])
+        out.append((logits, [(r.tokens, r.logprobs) for r in res]))
+    return out
+
+
+def phase_sharded_serving(serve_launch, api_mod, cont_mod, cfg, single):
+    """Phase 27: (a) full-width Llama-3.2-1B through ``run_continuous`` on 2
+    ranks sharing the card, at tp=2, tp=2 with comm chunks 2 and cp=2, the
+    launches of each rank exact and the greedy tokens against phase 22's
+    single-process run (``single``, by rid) counted; (b) the 2-layer f32
+    cells against the single-process card engine.  Returns (a)'s runs."""
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.parallel import dist as D
+
+    L = cfg.n_layers
+    reqs = [dataclasses.replace(r, max_new_tokens=SHARD_NEW)
+            for r in _cont_requests(cont_mod, cfg, CONT_REQUESTS, seed=25)[:SHARD_REQUESTS]]
+    lens = [len(r.tokens) for r in reqs]
+    n_chunks = sum(len(_chunks(n, CONT_CHUNK)) for n in lens)
+    n_keyed = n_chunks - len(lens)             # chunks whose slot already holds keys
+    names = ["tp=2", "tp=2 c=2", "cp=2"]
+    spec = {"cfg": cfg, "seed": 0, "slots": CONT_SLOTS, "capacity": CONT_CAP,
+            "prefill_chunk": CONT_CHUNK, "requests": reqs,
+            "runs": [{"model_axis": "model"}, {"model_axis": "model", "comm_chunks": 2},
+                     {"context_axis": "model"}]}
+    t0 = time.perf_counter()
+    dp, outs = serve_launch.run_continuous(spec, tp=2, device="cuda", timeout_s=600)
+    runs = {}
+    for i, name in enumerate(names):
+        per_rank = [o[i] for o in outs]
+        first = per_rank[0]
+        ticks = first["decode_ticks"]
+        if name.startswith("tp"):
+            want = [L * (ticks + n_chunks)] * 2
+        else:   # rank 0: its diagonal hop (its past block lies in the future)
+            want = [L * (ticks + n_chunks + n_keyed), L * (ticks + 2 * n_chunks + n_keyed)]
+        got = [r["launches"]["flash_attention"] for r in per_rank]
+        same = all([(x["tokens"], x["logprobs"]) for x in r["results"]] ==
+                   [(x["tokens"], x["logprobs"]) for x in first["results"]] for r in per_rank)
+        if got != want or first["prefill_chunks"] != n_chunks or not same or \
+                any(r["launches"]["gmm"] or r["launches"]["wkv6"] for r in per_rank):
+            raise AssertionError(f"phase 27 (a) {name}: flash launches {got}, want {want}; "
+                                 f"{first['prefill_chunks']} chunks of {n_chunks}; ranks "
+                                 f"agree {same}")
+        diff = sum(a != b for r in first["results"]
+                   for a, b in zip(r["tokens"], single[r["rid"]].tokens[:SHARD_NEW]))
+        bad = [r["rid"] for r in first["results"] if len(r["tokens"]) != SHARD_NEW
+               or not all(math.isfinite(x) for x in r["logprobs"])]
+        if bad:
+            raise AssertionError(f"phase 27 (a) {name}: bad results for requests {bad}")
+        toks = sum(len(r["tokens"]) for r in first["results"])
+        run = {"run": name, "dp": dp, "requests": len(reqs), "new": SHARD_NEW,
+               "prompt_lens": lens, "decode_ticks": ticks, "prefill_chunks": n_chunks,
+               "launches_per_rank": got, "flash_variants_per_rank":
+                   [r["flash_variants"] for r in per_rank],
+               "tick_ms": [{"sum": r["tick_ms_sum"], "min": r["tick_ms_min"],
+                            "max": r["tick_ms_max"], "mean": r["tick_ms_sum"] / ticks}
+                           for r in per_rank],
+               "median_first_token_s": [sorted(x["first_token_s"] for x in r["results"])[
+                   len(reqs) // 2] for r in per_rank],
+               "tok_per_s": [toks / r["wall_s"] for r in per_rank],
+               "wall_s": [r["wall_s"] for r in per_rank],
+               "peak_gib": [r["peak_gib"] for r in per_rank],
+               "tokens_differing_from_single_process": diff,
+               "tokens": toks}
+        print(json.dumps(run), flush=True)
+        runs[name] = run
+    print(json.dumps({"phase 27 (a) s": time.perf_counter() - t0}), flush=True)
+
+    # (b) the 2-layer f32 cells against the single-process card engine
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32", vocab_size=32768)
+    cells = [{"model_axis": "model"}, {"model_axis": "model", "comm_chunks": 2},
+             {"context_axis": "model"}, {"context_axis": "model", "window": 64}]
+    ranks = D.spawn_ranks(_sharded_cell_rank, 2, "cuda", args=(cfg2, cells), stages=2,
+                          timeout_s=600)
+    api = api_mod.build_model(cfg2, device="cuda")
+    params = api.init(3)
+    prompts = _cell_prompts(cfg2.vocab_size)
+    tokens = torch.ones(SHARD_CELL_SLOTS, dtype=torch.long, device="cuda")
+    gaps = {}
+    for i, kw in enumerate(cells):
+        def engine():
+            return cont_mod.ContinuousEngine(api, params, n_slots=SHARD_CELL_SLOTS,
+                                             capacity=SHARD_CELL_CAP,
+                                             prefill_chunk=SHARD_CELL_CHUNK,
+                                             window=kw.get("window"))
+        want_logits = _probe_tick(tf_mod, api, engine(), prompts, tokens,
+                                  {"window": kw.get("window")})
+        want = engine().run([cont_mod.Request(rid=j, tokens=p, max_new_tokens=SHARD_CELL_NEW)
+                             for j, p in enumerate(prompts)])
+        name = " ".join(f"{k}={v}" for k, v in kw.items())
+        for r, rank in enumerate(ranks):
+            logits, res = rank[i]
+            lg = float((logits - want_logits).abs().max())
+            lp = max(abs(a - b) for (_, got), w in zip(res, want)
+                     for a, b in zip(got, w.logprobs))
+            same = all(tok == w.tokens for (tok, _), w in zip(res, want))
+            gaps[f"{name} rank {r}"] = {"first_tick_logits": lg, "logprobs": lp,
+                                        "tokens_equal": same}
+    out = {"phase 27 (b)": gaps, "tol": 1e-3, "prompt_lens": SHARD_CELL_LENS,
+           "chunk": SHARD_CELL_CHUNK}
+    print(json.dumps(out), flush=True)
+    if not all(g["tokens_equal"] and g["first_tick_logits"] <= 1e-3 and g["logprobs"] <= 1e-3
+               for g in gaps.values()):
+        raise AssertionError(f"phase 27 (b): a sharded cell disagrees with one process: {out}")
+    return runs
+
+
 def _ckpt_paths(runs, kernel):
     return {f"train {runs['a']['arch']} --resume (process)": runs["a"]["resume_launches"][kernel],
             f"train {runs['a']['arch']} --background-save (process)":
@@ -3715,6 +4030,7 @@ def main():
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import ref as ref_mod
     from repro_torch.kernels import wkv6 as wk
+    from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
     from repro_torch.models import api as api_mod
     from repro_torch.models import moe as moe_mod
@@ -3757,6 +4073,9 @@ def main():
     tp_fwd_rows, tp_bwd_rows = phase_tp_attention(fa)
     rows += tp_fwd_rows
     flash_bwd_rows += tp_bwd_rows
+    qs_fwd_rows, qs_bwd_rows = phase_q_start(fa)
+    rows += qs_fwd_rows
+    flash_bwd_rows += qs_bwd_rows
     counters = {"flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd, "gmm": gm.gmm,
                 "gmm_bwd": gm.gmm_bwd, "wkv6": wk.wkv6, "wkv6_bwd": wk.wkv6_bwd}
@@ -3828,7 +4147,8 @@ def main():
     ckpt_runs = phase_checkpoints(train_launch, api_mod, get_config("smollm_360m"))
 
     _phase("22 continuous batching")
-    cont_launches, cont_variants = phase_continuous(counters, api_mod, cont_mod, engine_mod, cfg)
+    cont_launches, cont_variants, cont_results = phase_continuous(counters, api_mod, cont_mod,
+                                                                  engine_mod, cfg)
 
     _phase("23 train granite_moe_1b_a400m, full width and depth")
     granite_launches, granite_variants, _ = phase_train_granite(train_launch, gm, lc, counters,
@@ -3847,6 +4167,25 @@ def main():
     _phase("26 RWKV train step against its plain path")
     phase_step_vs_plain(api_mod, moe_mod, rwkv_cfg, counters,
                         {"wkv6": (2, {"chunked": 2}), "wkv6_bwd": (2, None)})
+
+    _phase("27 sharded continuous serving on a pair sharing the card")
+    shard_runs = phase_sharded_serving(serve_launch, api_mod, cont_mod, cfg,
+                                       {r.rid: r for r in cont_results})
+    del cont_results
+    # the launches each new phase-3 row's shape makes on phase 27 (a)'s
+    # runs, summed over the pair (the windowed hop: (b)'s window-64 cell)
+    shard_paths = {
+        "tp_tick": {f"serve llama3_2_1b continuous {n} (ranks)":
+                    2 * cfg.n_layers * shard_runs[n]["decode_ticks"]
+                    for n in ("tp=2", "tp=2 c=2")},
+        "cp_partial": {"serve llama3_2_1b continuous cp=2 (ranks)":
+                       2 * cfg.n_layers * (shard_runs["cp=2"]["prefill_chunks"]
+                                           - SHARD_REQUESTS)},
+        "cp_partial_pos0": {"serve llama3_2_1b continuous cp=2 (ranks)": 0},
+        "ring_past_hop": {"serve llama3_2_1b continuous cp=2 (ranks)": 0}}
+    for row in rows + flash_bwd_rows:
+        if "path" in row:
+            row["launches"] = shard_paths[row.pop("path")]
 
     _phase("28 tensor MP of the recurrent families on ranks")
     rnn_tp = phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rwkv_cfg)
@@ -3876,6 +4215,9 @@ def main():
                                         "train llama3_2_1b context ring of 2 (ranks)":
                                             context_run["launches"]["flash_attention"],
                                         **_tp_paths(tp_runs, "flash_attention"),
+                                        **{f"serve llama3_2_1b continuous {n} (ranks)":
+                                               sum(run["launches_per_rank"])
+                                           for n, run in shard_runs.items()},
                                         **_ckpt_paths(ckpt_runs, "flash_attention"),
                                         **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={

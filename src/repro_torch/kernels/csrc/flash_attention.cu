@@ -34,6 +34,19 @@
 // depend on the other rows' lengths.  Without kv_lens each kernel runs as
 // before, to the bit.
 //
+// An explicit query start (`q_mode` 1: one host int `q_off` for every row,
+// as a hop of the windowed context ring passes; 2: `q_start`, B int32 on
+// the device, as the context-parallel prefill chunk's cache partial
+// passes): query i of row b sits at q_start[b] + i, key t is kept iff t <
+// kv_lens[b] (Tk without kv_lens), then t <= qpos when causal, then t >
+// qpos - window.  The two alignments above are q_start = 0 and q_start =
+// kv_lens - Tq.  A row may then see no key at all (a past block wholly left
+// of the window, an empty cache): it writes out 0 and lse -inf, so a merge
+// of partial softmaxes weighs it by exp(-inf) = 0.  The tiles wholly left
+// of the window and past the causal diagonal are skipped; a launch without
+// a query start keeps its bits.  The backward takes the host int (`q_off`),
+// and a row that sees no key has P = 0 there.
+//
 // Three variants, chosen by the wrapper (kernels/flash_attention.py,
 // `variant`), each a kernel of its own:
 //
@@ -203,6 +216,9 @@ struct Params {
   int B, Tq, Tk, H, Hkv;
   int causal, window;
   float sm_scale;
+  int q_mode = 0;                // 0: row_span's alignment; 1: q_off; 2: q_start[b]
+  int q_off = 0;                 // every row's first query position (q_mode 1)
+  const int* q_start = nullptr;  // (B,) each row's first query position (q_mode 2)
 };
 
 // The keys row b attends to and the absolute position of its first query.
@@ -210,25 +226,41 @@ struct Params {
 // aligned top-left).  With kv_lens row b keeps keys [0, kv_lens[b]) and
 // query i sits at kv_lens[b] - Tq + i: causal aligned bottom-right on the
 // row's prefix, as a slotted cache's rows at their own positions need.  The
-// length is read on the device (no host sync) and cut to Tk, so a bad one
-// cannot read past the tensor; the wrapper documents Tq <= kv_lens <= Tk.
+// length is read on the device (no host sync) and cut to [0, Tk], so a bad
+// one cannot read past the tensor; without a query start the wrapper
+// documents Tq <= kv_lens <= Tk.  An explicit query start (q_mode 1 or 2)
+// puts query i at q_start + i whatever the lengths.
 struct RowSpan {
   int tk, qoff;
 };
 
 __device__ __forceinline__ RowSpan row_span(const Params& p, int b) {
-  if (p.kv_lens == nullptr) return {p.Tk, 0};
-  const int tk = min(p.kv_lens[b], p.Tk);
-  return {tk, tk - p.Tq};
+  const int tk = p.kv_lens == nullptr ? p.Tk : max(0, min(p.kv_lens[b], p.Tk));
+  if (p.q_mode == 1) return {tk, p.q_off};
+  if (p.q_mode == 2) return {tk, p.q_start[b]};
+  return {tk, p.kv_lens == nullptr ? 0 : tk - p.Tq};
 }
 
 // The first kv tile of `bk` keys that a query at absolute position `qpos` or
 // later can see under the window.  Tiles before it are wholly masked and
-// skipped; that is done only with kv_lens, so the bits of a launch without
-// it stay as they were (a skipped tile would add exp(-1e30 - m) = 0).
+// skipped; that is done only with kv_lens or a query start, so the bits of
+// a launch with neither stay as they were (a skipped tile would add
+// exp(-1e30 - m) = 0).
 __device__ __forceinline__ int first_tile(const Params& p, int qpos, int bk) {
-  if (p.kv_lens == nullptr || p.window <= 0) return 0;
+  if ((p.kv_lens == nullptr && p.q_mode == 0) || p.window <= 0) return 0;
   return max(0, qpos - p.window + 1) / bk;
+}
+
+// The end of the keys rows [qpos, qpos + n) can see: under the causal mask
+// none past the last row's position (none at all when it is negative).
+__device__ __forceinline__ int kv_end_of(const Params& p, const RowSpan& rs, int qpos, int n) {
+  return p.causal ? max(0, min(rs.tk, qpos + n)) : rs.tk;
+}
+
+// A row that saw no key under an explicit query start writes out 0 and lse
+// -inf (its running max stayed at the -1e30 it started from).
+__device__ __forceinline__ bool dead_row(const Params& p, float m) {
+  return p.q_mode != 0 && m == kNegInf;
 }
 
 template <int HD, int BQ>
@@ -282,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
   // causal block skip: tiles starting past the tile's last query row are
   // fully masked for every row
-  const int kv_end = p.causal ? min(rs.tk, rs.qoff + q0 + BQ) : rs.tk;
+  const int kv_end = kv_end_of(p, rs, rs.qoff + q0, BQ);
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   for (int tile = first_tile(p, rs.qoff + q0, kBK); tile < n_tiles; ++tile) {
@@ -369,14 +401,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     }
   }
 
+  __syncthreads();  // row_m and row_l are final (a row may have run no tile)
   const int t = q0 + ar;
   if (t < p.Tq) {  // padded query rows are dropped
+    const bool dead = dead_row(p, row_m[ar]);
     const float l = fmaxf(row_l[ar], 1e-30f);
     T* og = static_cast<T*>(p.o) + b * p.so.b + t * p.so.t + h * p.so.h;
 #pragma unroll
-    for (int j = 0; j < NACC; ++j) store(og + (ac0 + TPR * j) * p.so.d, acc[j] / l);
+    for (int j = 0; j < NACC; ++j)
+      store(og + (ac0 + TPR * j) * p.so.d, dead ? 0.f : acc[j] / l);
     if (p.lse != nullptr && ac0 == 0)
-      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Tq + t] = row_lse(row_m[ar], row_l[ar]);
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Tq + t] =
+          dead ? -INFINITY : row_lse(row_m[ar], row_l[ar]);
   }
 }
 
@@ -562,7 +598,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_prefill_kernel(Params p) 
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + hk * p.sk.h;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + hk * p.sv.h;
 
-  const int kv_end = p.causal ? min(rs.tk, rs.qoff + q0 + BQ) : rs.tk;
+  const int kv_end = kv_end_of(p, rs, rs.qoff + q0, BQ);
   const int n_tiles = (kv_end + kTcBK - 1) / kTcBK;
   const int tile_lo = first_tile(p, rs.qoff + q0, kTcBK);
   auto load_tile = [&](int tile) {
@@ -613,14 +649,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_prefill_kernel(Params p) 
     float lsum = l[i];
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    const float li = 1.f / fmaxf(lsum, 1e-30f);
+    const bool dead = dead_row(p, m[i]);
+    const float li = dead ? 0.f : 1.f / fmaxf(lsum, 1e-30f);
     const int qrow = q0 + row0 + g + 8 * i;
     if (qrow >= p.Tq) continue;  // padded query rows are dropped
     // m is in log2 units here: the row's lse in natural-log units is
     // (m + log2 l) ln 2, converted once, at the store
     if (p.lse != nullptr && t == 0)
       p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Tq + qrow] =
-          m[i] == kNegInf ? kNegInf : (m[i] + log2f(lsum)) * kLn2;
+          dead ? -INFINITY : m[i] == kNegInf ? kNegInf : (m[i] + log2f(lsum)) * kLn2;
     bf16* og = static_cast<bf16*>(p.o) + b * p.so.b + qrow * p.so.t + h * p.so.h;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
@@ -671,7 +708,7 @@ __global__ void __launch_bounds__(kTcThreads)
   // bits do not depend on the other rows' lengths; this row's run is the
   // split's tiles cut to the tiles the row sees.  A run left empty still
   // writes its partial (m = -1e30, l = 0, o = 0) and arrives on the count.
-  const int kv_end = p.causal ? min(rs.tk, rs.qoff + p.Tq) : rs.tk;
+  const int kv_end = kv_end_of(p, rs, rs.qoff, p.Tq);
   const int n_tiles = (kv_end + kTcBK - 1) / kTcBK;
   const int tile0 = max(split * tiles_per_split, first_tile(p, rs.qoff, kTcBK));
   const int tile1 = min(n_tiles, split * tiles_per_split + tiles_per_split);
@@ -764,7 +801,8 @@ __global__ void __launch_bounds__(kTcThreads)
       acc += f * row[2 + c];
     }
     if (n_split == 1) {
-      if (r < rows) out_ptr(r)[c] = __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
+      if (r < rows)
+        out_ptr(r)[c] = __float2bfloat16(dead_row(p, mx) ? 0.f : acc / fmaxf(lsum, 1e-30f));
     } else {
       float* dst = mine + (split * 16 + r) * PS;
       if (c == 0) {
@@ -797,7 +835,7 @@ __global__ void __launch_bounds__(kTcThreads)
       lsum += f * __ldcg(row + 1);
       acc += f * __ldcg(row + 2 + c);
     }
-    out_ptr(r)[c] = __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
+    out_ptr(r)[c] = __float2bfloat16(dead_row(p, mx) ? 0.f : acc / fmaxf(lsum, 1e-30f));
   }
 }
 
@@ -822,11 +860,13 @@ struct BwdParams {
   int dead_lo;  // the first query row that sees no key (Tq when every row sees one)
   float sm_scale;
   float inv_tk;  // 1 / Tk
+  int q_off = 0;  // query row i sits at position q_off + i (an explicit query start)
 };
 
-// The masks of the forward for one (query, key) pair of the sequence.
-__device__ __forceinline__ bool keeps(const BwdParams& p, int qpos, int kpos) {
-  bool ok = qpos < p.Tq && kpos < p.Tk;
+// The masks of the forward for one (query row, key) pair of the sequence.
+__device__ __forceinline__ bool keeps(const BwdParams& p, int row, int kpos) {
+  const int qpos = row + p.q_off;
+  bool ok = row < p.Tq && kpos < p.Tk;
   if (p.causal) ok = ok && kpos <= qpos;
   if (p.window > 0) ok = ok && kpos > qpos - p.window;
   return ok;
@@ -834,9 +874,10 @@ __device__ __forceinline__ bool keeps(const BwdParams& p, int qpos, int kpos) {
 
 // P of a pair the masks drop: 1/Tk on every key of a row that sees none
 // (the forward's softmax over the finite -1e30 gives such a row uniform
-// weights), 0 elsewhere.
-__device__ __forceinline__ float dropped_p(const BwdParams& p, int qpos, int kpos) {
-  return qpos >= p.dead_lo && qpos < p.Tq && kpos < p.Tk ? p.inv_tk : 0.f;
+// weights), 0 elsewhere.  Under a query start dead_lo is Tq: such a row's
+// output is 0, so its P is 0 too.
+__device__ __forceinline__ float dropped_p(const BwdParams& p, int row, int kpos) {
+  return row >= p.dead_lo && row < p.Tq && kpos < p.Tk ? p.inv_tk : 0.f;
 }
 
 // (a) D = rowsum(dO o O) in f32, from O as stored: one warp per (b, h, t) row.
@@ -886,21 +927,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta_tc_kernel(BwdParams 
 }
 
 // The query rows [q_lo, q_hi) whose P against the keys [k0, k0 + bk) can be
-// non-zero: from k0 under the causal mask, below k0 + bk - 1 + window under
-// the window, and every row down to Tq when some rows see no key (they
-// weigh every key by 1/Tk).
+// non-zero: from position k0 under the causal mask, below position k0 + bk
+// - 1 + window under the window (rows sit at q_off + their index), and
+// every row down to Tq when some rows see no key (they weigh every key by
+// 1/Tk).
 __device__ __forceinline__ void kv_tile_rows(const BwdParams& p, int k0, int bk, int& q_lo,
                                              int& q_hi) {
-  q_lo = p.causal ? min(k0, p.Tq) : 0;
-  q_hi = p.window > 0 && p.dead_lo >= p.Tq ? min(p.Tq, k0 + bk - 1 + p.window) : p.Tq;
+  q_lo = p.causal ? min(max(k0 - p.q_off, 0), p.Tq) : 0;
+  q_hi = p.window > 0 && p.dead_lo >= p.Tq
+             ? min(p.Tq, max(0, k0 + bk - 1 + p.window - p.q_off))
+             : p.Tq;
   q_hi = max(q_hi, q_lo);
 }
 
 // The kv tiles [tile0, tile1) of width bk that rows [q0, q0 + bq) see.
 __device__ __forceinline__ void q_tile_keys(const BwdParams& p, int q0, int bq, int bk,
                                             int& tile0, int& tile1) {
-  const int kv_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int kv_hi = p.causal ? min(p.Tk, q0 + bq) : p.Tk;
+  const int qa = q0 + p.q_off;  // the rows' first position
+  const int kv_lo = p.window > 0 ? max(0, qa - p.window + 1) : 0;
+  const int kv_hi = p.causal ? max(0, min(p.Tk, qa + bq)) : p.Tk;
   tile0 = min(kv_lo, kv_hi) / bk;
   tile1 = (kv_hi + bk - 1) / bk;
 }
@@ -1402,7 +1447,7 @@ __global__ void __launch_bounds__(128 * NWG, MIN_BLOCKS)
       const float* ls = lse_s + stage * BQ;
       const float* dl = del_s + stage * BQ;
       const bool need_mask = q0 + BQ > p.Tq || kw0 + kWgRows > p.Tk || p.window > 0 ||
-                             (p.causal && kw0 + kWgRows - 1 > q0);
+                             (p.causal && kw0 + kWgRows - 1 > q0 + p.q_off);
       // one branch a tile: the masks' code is a second copy of the loop
       if (!need_mask) {
 #pragma unroll
@@ -1574,7 +1619,7 @@ __global__ void __launch_bounds__(128 * NWG, MIN_BLOCKS)
     const int k0 = (tile0 + i) * BK;
     {
       const bool need_mask = qw0 + kWgRows > p.Tq || k0 + BK > p.Tk || p.window > 0 ||
-                             (p.causal && k0 + BK - 1 > qw0);
+                             (p.causal && k0 + BK - 1 > qw0 + p.q_off);
       if (!need_mask) {
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j)
@@ -1800,14 +1845,17 @@ cudaError_t bwd_dispatch(int hd, const BwdParams& p, int variant, cudaStream_t s
 // Hkv * n_split * 16 * (hd + 2) floats, and `counters`, B * Hkv ints that are
 // 0 and are left 0.  `kv_lens`, null or B int32 on the device, gives each
 // row's keys (row_span: Tq <= kv_lens[b] <= Tk, its queries aligned to the
-// end of them); the split is still planned from Tk.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// end of them); the split is still planned from Tk.  `q_mode` 1 puts every
+// row's first query at `q_off`, 2 row b's at `q_start`[b] (B int32 on the
+// device); 0 keeps the alignment above.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          float* lse, int dtype, int B, int Tq, int Tk, int H, int Hkv,
                                          int hd, const int64_t* strides, int causal,
                                          int window, float sm_scale, int variant, int n_split,
                                          int tiles_per_split, void* ws, void* counters,
-                                         const void* kv_lens, void* stream) {
+                                         const void* kv_lens, int q_mode, int q_off,
+                                         const void* q_start, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1827,7 +1875,12 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   p.causal = causal;
   p.window = window;
   p.sm_scale = sm_scale;
-  if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || H % Hkv != 0 || (lse != nullptr && variant == 2))
+  p.q_mode = q_mode;
+  p.q_off = q_off;
+  p.q_start = static_cast<const int*>(q_start);
+  if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || H % Hkv != 0 ||
+      (lse != nullptr && variant == 2) || q_mode < 0 || q_mode > 2 ||
+      (q_mode == 2 && q_start == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{variant, n_split, tiles_per_split, static_cast<float*>(ws),
                  static_cast<int*>(counters)};
@@ -1849,15 +1902,17 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
 // of 1 and 16-byte aligned rows; the caller checks the alignment).  Launches
 // three kernels on `stream` (D, then dK and dV, then dQ), each output written
 // by one block in a fixed order, and returns cudaGetLastError() (0 on
-// success).
+// success).  `q_mode` 1 puts query row i at position `q_off` + i (the
+// forward's host-int query start: a row that sees no key has P = 0).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const float* lse,
                                          void* dq, void* dk, void* dv, float* delta, int dtype,
                                          int B, int Tq, int Tk, int H, int Hkv, int hd,
                                          const int64_t* strides, int causal, int window,
-                                         float sm_scale, int variant, void* stream) {
+                                         float sm_scale, int variant, int q_mode, int q_off,
+                                         void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || H % Hkv != 0 || window < 0 || lse == nullptr ||
-      delta == nullptr)
+      delta == nullptr || q_mode < 0 || q_mode > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
   p.q = q;
@@ -1880,9 +1935,12 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   p.Hkv = Hkv;
   p.causal = causal;
   p.window = window;
-  // rows from Tk + window - 1 on see no key, under either mask
-  const int64_t dead_lo = window > 0 ? static_cast<int64_t>(Tk) + window - 1 : Tq;
+  // rows from Tk + window - 1 on see no key, under either mask; under a
+  // query start such a row's output is 0 and its P is 0 (dead_lo = Tq)
+  const int64_t dead_lo =
+      window > 0 && q_mode == 0 ? static_cast<int64_t>(Tk) + window - 1 : Tq;
   p.dead_lo = dead_lo < Tq ? static_cast<int>(dead_lo) : Tq;
+  p.q_off = q_mode == 1 ? q_off : 0;
   p.sm_scale = sm_scale;
   p.inv_tk = 1.f / Tk;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -38,6 +38,17 @@ counted from there).  Every variant reads the lengths on the device; the
 decode tile's split is still planned from the static Tk, so a row's bits do
 not depend on the other rows' lengths.  It has no backward
 (``SERVING_REST``).
+
+``q_start`` places the queries explicitly: query i of row b sits at
+q_start[b] + i (a (B,) int32 tensor on q's device, read there, or one host
+int for every row, as a hop of the windowed context ring passes), key t is
+kept iff t < kv_lens[b] (Tk without kv_lens), then t <= qpos when causal,
+then t > qpos - window.  The two alignments above are q_start = 0 and
+q_start = kv_lens - Tq.  A row may then see no key at all (the cache partial
+of a slot at position 0, a past block wholly left of the window): it
+returns 0 and lse -inf, never NaN, so ``parallel.context.merge_attention``
+weighs it by 0.  The backward takes the host int (``flash_attention_bwd``),
+where such a row has P = 0.
 """
 from __future__ import annotations
 
@@ -55,41 +66,54 @@ BWD_VARIANTS = ("fma", "tc")                    # the backward entry's codes 0, 
 DECODE_ROWS = 16     # rows of the decode tile: (H / Hkv) * Tq query rows packed
 KV_TILE = 64         # keys per kv tile of the tensor-core kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SERVING_REST = ("ROADMAP.md Queue 1 item 3b (sliding windows under a ParallelCtx, "
-                "the flash backward with kv_lens)")
+SERVING_REST = "ROADMAP.md Queue 1 item 3b (the flash backward with kv_lens)"
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None,
+                        q_start=None):
     """Plain version: repeat the KV heads, then the dense f32 oracle (with
-    ``kv_lens``, each row's slot-mode mask)."""
+    ``kv_lens``, each row's slot-mode mask; with ``q_start``, the queries
+    placed there and a row that sees no key 0)."""
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    return attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+    return attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens,
+                         q_start=q_start)
 
 
-def _scores(q, k, causal: bool, window: int):
+def _scores(q, k, causal: bool, window: int, kv_lens=None, q_start=None):
     """Scaled scores (B, H, Tq, Tk) in f32 over repeated KV heads, masked to
-    the finite -1e30, and the keep mask."""
+    the finite -1e30, and the keep mask ((Tq, Tk), or (B, 1, Tq, Tk) with
+    per-row lengths or starts)."""
     rep = q.shape[2] // k.shape[2]
     k = torch.repeat_interleave(k, rep, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(q.shape[-1])
-    keep = keep_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    keep = keep_mask(q.shape[1], k.shape[1], causal, window, q.device, kv_lens, q_start)
+    if keep.dim() == 3:
+        keep = keep[:, None]
     return torch.where(keep, s, torch.full_like(s, -1e30)), keep
 
 
-def flash_attention_lse_plain(q, k, *, causal: bool = True, window: int = 0):
+def flash_attention_lse_plain(q, k, *, causal: bool = True, window: int = 0, kv_lens=None,
+                              q_start=None):
     """Plain version of the forward's ``lse``: (B, H, Tq) f32, the
     log-sum-exp in natural-log units of each row's scaled, masked scores (a
-    row that sees no key has -1e30 + log Tk, which is -1e30 in f32)."""
-    return torch.logsumexp(_scores(q, k, causal, window)[0], dim=-1)
+    row that sees no key has -1e30 + log Tk, which is -1e30 in f32; under a
+    ``q_start`` it has -inf)."""
+    s, keep = _scores(q, k, causal, window, kv_lens, q_start)
+    lse = torch.logsumexp(s, dim=-1)
+    if q_start is not None:
+        lse = torch.where(keep.any(-1), lse, torch.full_like(lse, -math.inf))
+    return lse
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0):
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
+                              q_start=None):
     """Plain version of the backward kernels, step by step in f32: P =
     exp(S - lse) where the masks keep a pair, 1/Tk on every key of a row that
-    sees none (the forward's softmax over the finite -1e30), 0 elsewhere;
+    sees none (the forward's softmax over the finite -1e30; 0 under a
+    ``q_start``, whose forward gives such a row 0), 0 elsewhere;
     D = rowsum(dO o O) from O as stored; dV = P^T dO, dP = dO V^T, dS = P o
     (dP - D) on kept pairs (0 elsewhere), dQ = dS K / sqrt(hd), dK = dS^T Q /
     sqrt(hd), the query heads of each KV head summed.  Returns (dq, dk, dv)
@@ -97,8 +121,10 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True, windo
     b, tq, h, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
-    s, keep = _scores(q, k, causal, window)
-    dead = ~keep.any(-1)[:, None]                                  # (Tq, 1)
+    s, keep = _scores(q, k, causal, window, q_start=q_start)
+    dead = ~keep.any(-1, keepdim=True)
+    if q_start is not None:
+        dead = torch.zeros_like(dead)
     p = torch.where(keep, torch.exp(s - lse[..., None]),
                     torch.where(dead, 1.0 / tk, 0.0).to(s.dtype))
     dof = do.float()
@@ -214,25 +240,44 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _check_kv_lens(q, k, kv_lens) -> None:
-    """kv_lens must be a contiguous (B,) int32 tensor on q's device (the
-    kernel reads it by pointer).  On the CPU its values are
-    checked too: Tq <= kv_lens[b] <= Tk, so every query sees at least its own
-    key.  On the card that check would need a host sync, so the kernel takes
-    the lengths as given (cut to Tk)."""
-    b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
-    if not isinstance(kv_lens, torch.Tensor) or kv_lens.shape != (b,) or \
-            kv_lens.dtype != torch.int32 or not kv_lens.is_contiguous():
-        raise ValueError(f"kv_lens must be a contiguous ({b},) int32 tensor, got "
-                         f"{getattr(kv_lens, 'dtype', type(kv_lens).__name__)} "
-                         f"{tuple(getattr(kv_lens, 'shape', ()))}")
-    if kv_lens.device != q.device:
-        raise ValueError(f"kv_lens on {kv_lens.device}, q on {q.device}")
+def _check_rows(q, t, name: str) -> None:
+    """``t`` must be a contiguous (B,) int32 tensor on q's device (the
+    kernel reads it by pointer)."""
+    b = q.shape[0]
+    if not isinstance(t, torch.Tensor) or t.shape != (b,) or \
+            t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({b},) int32 tensor, got "
+                         f"{getattr(t, 'dtype', type(t).__name__)} "
+                         f"{tuple(getattr(t, 'shape', ()))}")
+    if t.device != q.device:
+        raise ValueError(f"{name} on {t.device}, q on {q.device}")
+
+
+def _check_kv_lens(q, k, kv_lens, q_start=None) -> None:
+    """kv_lens must be a contiguous (B,) int32 tensor on q's device.  On the
+    CPU its values are checked too: Tq <= kv_lens[b] <= Tk, so every query
+    sees at least its own key (with a ``q_start``, 0 <= kv_lens[b] <= Tk: a
+    row may see none).  On the card that check would need a host sync, so
+    the kernel takes the lengths as given (cut to [0, Tk])."""
+    tq, tk = q.shape[1], k.shape[1]
+    _check_rows(q, kv_lens, "kv_lens")
     if kv_lens.device.type == "cpu":
         lo, hi = int(kv_lens.min()), int(kv_lens.max())
-        if lo < tq or hi > tk:
+        if q_start is not None and (lo < 0 or hi > tk):
+            raise ValueError(f"kv_lens must lie in [0, Tk] = [0, {tk}]; got "
+                             f"{kv_lens.tolist()}")
+        if q_start is None and (lo < tq or hi > tk):
             raise ValueError(f"kv_lens must lie in [Tq, Tk] = [{tq}, {tk}] (every query "
                              f"sees its own key); got {kv_lens.tolist()}")
+
+
+def _check_q_start(q, q_start) -> None:
+    """A host int, or a (B,) int32 tensor on q's device."""
+    if isinstance(q_start, torch.Tensor):
+        _check_rows(q, q_start, "q_start")
+    elif not isinstance(q_start, int) or isinstance(q_start, bool):
+        raise ValueError(f"q_start must be an int or a ({q.shape[0]},) int32 tensor, got "
+                         f"{type(q_start).__name__}")
 
 
 def _on_cpu(*ts) -> bool:
@@ -254,7 +299,16 @@ def _check_cuda(q, k, v) -> None:
         raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None):
+def _check_args(q, k, v, window: int, kv_lens, q_start) -> None:
+    _check(q, k, v, window)
+    if q_start is not None:
+        _check_q_start(q, q_start)
+    if kv_lens is not None:
+        _check_kv_lens(q, k, kv_lens, q_start)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None,
+                    q_start=None):
     """q: (B, Tq, H, hd); k, v: (B, Tk, Hkv, hd), any strides.
 
     Returns (B, Tq, H, hd) in q's dtype.  Causal masking is aligned top-left
@@ -263,38 +317,44 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=No
     ``kv_lens`` (B,) int32 on q's device, row b attends to its first
     kv_lens[b] keys and its queries sit at the last Tq of those positions
     (Tq <= kv_lens[b] <= Tk: checked on the CPU, taken as given on the card,
-    where checking would sync).  Differentiable without ``kv_lens``: on CUDA
-    tensors that need a gradient it runs ``FlashAttentionFunction``."""
-    _check(q, k, v, window)
-    if kv_lens is not None:
-        _check_kv_lens(q, k, kv_lens)
+    where checking would sync).  ``q_start`` (a host int or (B,) int32 on
+    q's device) puts query i at q_start + i instead, and a row that sees no
+    key returns 0.  Differentiable without ``kv_lens`` and with a host-int
+    or no ``q_start``: on CUDA tensors that need a gradient it runs
+    ``FlashAttentionFunction``."""
+    _check_args(q, k, v, window, kv_lens, q_start)
     if _on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, kv_lens=kv_lens,
+                                   q_start=q_start)
     _check_cuda(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if kv_lens is not None:
-            raise NotImplementedError(f"the flash backward with kv_lens is not ported to "
-                                      f"repro_torch yet: {SERVING_REST}")
-        return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, want_lse=False, kv_lens=kv_lens)[0]
+        if kv_lens is not None or isinstance(q_start, torch.Tensor):
+            raise NotImplementedError(f"the flash backward with kv_lens or per-row q_start "
+                                      f"is not ported to repro_torch yet: {SERVING_REST}")
+        return FlashAttentionFunction.apply(q, k, v, causal, window, q_start)
+    return _forward(q, k, v, causal, window, want_lse=False, kv_lens=kv_lens,
+                    q_start=q_start)[0]
 
 
-def flash_attention_lse(q, k, v, *, causal: bool = True):
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None,
+                        q_start=None):
     """The forward and its rows' log-sum-exp: (out (B, Tq, H, hd) in q's
     dtype, lse (B, H, Tq) f32), the partial softmax a hop of the context
-    ring folds in (``parallel.context``).  On CUDA tensors it launches what
+    ring folds in (``parallel.context``), with ``window``, ``kv_lens`` and
+    ``q_start`` as ``flash_attention`` takes them (a row that sees no key
+    under a ``q_start``: out 0, lse -inf).  On CUDA tensors it launches what
     ``FlashAttentionFunction.forward`` launches (``tc_prefill`` for bf16
     rows that take 16-byte copies, else ``fma``), counted in
     ``flash_attention.launches`` and ``.variant_launches``; on CPU tensors
     it takes ``flash_attention_ref`` and ``flash_attention_lse_plain``.  Not
     differentiable: the ring's backward calls ``flash_attention_bwd``."""
-    _check(q, k, v, 0)
+    _check_args(q, k, v, window, kv_lens, q_start)
     if _on_cpu(q, k, v):
-        return (flash_attention_ref(q, k, v, causal=causal),
-                flash_attention_lse_plain(q, k, causal=causal))
+        kw = dict(causal=causal, window=window, kv_lens=kv_lens, q_start=q_start)
+        return flash_attention_ref(q, k, v, **kw), flash_attention_lse_plain(q, k, **kw)
     _check_cuda(q, k, v)
-    return _forward(q, k, v, causal, 0, want_lse=True)
+    return _forward(q, k, v, causal, window, want_lse=True, kv_lens=kv_lens, q_start=q_start)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -303,26 +363,38 @@ class FlashAttentionFunction(torch.autograd.Function):
     kernels recompute P from it (nothing of size Tq x Tk is kept)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        out, lse = _forward(q, k, v, causal, window, want_lse=True)
+    def forward(ctx, q, k, v, causal: bool, window: int, q_start=None):
+        out, lse = _forward(q, k, v, causal, window, want_lse=True, q_start=q_start)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_start = causal, window, q_start
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
-                                         causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, window=ctx.window,
+                                         q_start=ctx.q_start)
+        return dq, dk, dv, None, None, None
+
+
+def _q_mode(q_start):
+    """(q_mode, q_off, q_start pointer) of the C entries: 0 without a query
+    start, 1 for a host int, 2 for a (B,) device tensor."""
+    if q_start is None:
+        return 0, 0, None
+    if isinstance(q_start, torch.Tensor):
+        return 2, 0, q_start.data_ptr()
+    return 1, int(q_start), None
 
 
 def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None,
-             kv_lens=None):
+             kv_lens=None, q_start=None):
     """Launch the forward kernel, through the variant ``flash_variant`` picks
     or, for a test, ``variant`` forced; returns (out, lse or None), lse (B,
     H, Tq) f32 when ``want_lse``.  The decode tile's split is planned from
-    Tk (with ``kv_lens``, the whole capacity), never from the lengths."""
+    Tk (with ``kv_lens`` or a ``q_start``, the whole capacity), never from
+    the lengths or starts."""
     b, tq, h, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     variant = variant or flash_variant(q, k, v, want_lse=want_lse)
@@ -334,7 +406,7 @@ def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None
     with torch.cuda.device(q.device):   # the kernel launches on the current device
         stream = torch.cuda.current_stream(q.device)
         if variant == "tc_decode":
-            kv_end = min(tk, tq) if causal and kv_lens is None else tk
+            kv_end = min(tk, tq) if causal and kv_lens is None and q_start is None else tk
             n_tiles = -(-kv_end // KV_TILE)
             n_split, per = decode_split(b, hkv, n_tiles, _sm_count(q.device))
             if n_split > 1:
@@ -348,7 +420,7 @@ def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None
                  VARIANTS.index(variant), n_split, per,
                  None if ws is None else ws.data_ptr(),
                  None if counters is None else counters.data_ptr(),
-                 None if kv_lens is None else kv_lens.data_ptr(),
+                 None if kv_lens is None else kv_lens.data_ptr(), *_q_mode(q_start),
                  stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({variant}): "
@@ -358,13 +430,19 @@ def _forward(q, k, v, causal: bool, window: int, *, want_lse: bool, variant=None
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0):
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
+                        q_start=None):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` at its output
     ``o`` and the forward's ``lse`` (B, H, Tq), for the output gradient
-    ``do`` (B, Tq, H, hd); in the inputs' dtypes.  On CUDA tensors it
-    launches the backward kernels (or raises); on CPU tensors it takes the
-    plain version ``flash_attention_bwd_plain``."""
+    ``do`` (B, Tq, H, hd); in the inputs' dtypes.  ``q_start``, a host int,
+    places the queries as the forward's did (a row that sees no key has P =
+    0).  On CUDA tensors it launches the backward kernels (or raises); on CPU
+    tensors it takes the plain version ``flash_attention_bwd_plain``."""
     _check(q, k, v, window)
+    if q_start is not None and (isinstance(q_start, (torch.Tensor, bool))
+                                or not isinstance(q_start, int)):
+        raise ValueError(f"flash_attention_bwd takes a host-int q_start, got "
+                         f"{type(q_start).__name__} ({SERVING_REST})")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must have q's "
                          f"shape {tuple(q.shape)}")
@@ -373,17 +451,20 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int
         raise ValueError(f"lse must be float32 of shape {(b, h, tq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     if _on_cpu(q, k, v, o, do, lse):
-        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal, window=window)
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal, window=window,
+                                         q_start=q_start)
     _check_cuda(q, k, v)
     if not all(t.device == q.device for t in (o, do, lse)):
         raise ValueError("flash_attention_bwd needs every tensor on q's device")
     if not all(t.dtype == q.dtype for t in (k, v, o, do)):
         raise TypeError(f"flash_attention_bwd takes q, k, v, o, dO of one dtype; got "
                         f"{[t.dtype for t in (q, k, v, o, do)]}")
-    return _launch_bwd(q, k, v, o, do, lse, causal, window, flash_bwd_variant(q, k, v, o, do))
+    return _launch_bwd(q, k, v, o, do, lse, causal, window, flash_bwd_variant(q, k, v, o, do),
+                       q_start=q_start)
 
 
-def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: int, variant: str):
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: int, variant: str, *,
+                q_start=None):
     """Launch the backward kernels of ``variant`` (a test may force ``fma``
     on inputs that ``tc`` takes); returns (dq, dk, dv)."""
     b, tq, h, hd = q.shape
@@ -402,7 +483,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: int, variant: str):
                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  delta.data_ptr(), _DTYPE_CODE[q.dtype], b, tq, tk, h, hkv, hd, strides,
                  int(causal), int(window), 1.0 / math.sqrt(hd), BWD_VARIANTS.index(variant),
-                 stream.cuda_stream)
+                 *_q_mode(q_start)[:2], stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed ({variant}): "
                            f"CUDA error {err}")
@@ -448,7 +529,8 @@ def _bind():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+                      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
     _entry = fn
     return fn
 
@@ -459,6 +541,6 @@ def _bind_bwd():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     _bwd_entry = fn
     return fn

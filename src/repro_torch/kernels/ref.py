@@ -9,20 +9,28 @@ import math
 import torch
 
 
-def keep_mask(tq: int, tk: int, causal: bool, window: int, device, kv_lens=None):
+def keep_mask(tq: int, tk: int, causal: bool, window: int, device, kv_lens=None,
+              q_start=None):
     """The (query, key) pairs the masks keep: (Tq, Tk) bool, or (B, Tq, Tk)
-    with per-row key lengths ``kv_lens`` (B,).  Without them query i sits at
-    position i (causal aligned top-left); with them row b keeps keys
-    [0, kv_lens[b]) and its query i sits at kv_lens[b] - Tq + i (causal
-    aligned bottom-right on the row's prefix).  ``window`` keeps keys
-    j > qpos - window."""
+    with per-row key lengths ``kv_lens`` (B,) or per-row query starts.
+    Without them query i sits at position i (causal aligned top-left); with
+    ``kv_lens`` row b keeps keys [0, kv_lens[b]) and its query i sits at
+    kv_lens[b] - Tq + i (causal aligned bottom-right on the row's prefix).
+    An explicit ``q_start`` (an int, or (B,) per row) puts query i at
+    q_start + i whatever the lengths.  ``window`` keeps keys j > qpos -
+    window."""
     qpos = torch.arange(tq, device=device)[:, None]
     kpos = torch.arange(tk, device=device)[None, :]
     keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
     if kv_lens is not None:
         lens = kv_lens.to(device=device, dtype=torch.long)[:, None, None]
-        qpos = qpos[None] + lens - tq                                # (B, Tq, 1)
         keep = kpos[None] < lens
+        if q_start is None:
+            qpos = qpos[None] + lens - tq                            # (B, Tq, 1)
+    if isinstance(q_start, torch.Tensor):
+        qpos = qpos + q_start.to(device=device, dtype=torch.long)[:, None, None]
+    elif q_start is not None:
+        qpos = qpos + int(q_start)
     if causal:
         keep = keep & (kpos <= qpos)
     if window > 0:
@@ -30,19 +38,25 @@ def keep_mask(tq: int, tk: int, causal: bool, window: int, device, kv_lens=None)
     return keep
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None):
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, kv_lens=None,
+                  q_start=None):
     """q: (B,Tq,H,hd); k,v: (B,Tk,H,hd) — dense softmax attention in f32,
     returned in ``q.dtype``.  Masks as the JAX oracle (``keep_mask``):
     causal is aligned top-left (query i sees keys j <= i) and ``window``
     keeps keys j > i - w; with ``kv_lens`` each row's mask is JAX's
-    slot-mode mask over its first kv_lens[b] keys."""
+    slot-mode mask over its first kv_lens[b] keys; with ``q_start`` query i
+    sits at q_start + i (JAX's ``attention(q_start=)``), and a row that sees
+    no key gives 0 (JAX's dense softmax averages V over its -1e30 scores
+    there; the kernel's partial is merged by its lse, -inf)."""
     tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
-    mask = keep_mask(tq, tk, causal, window, q.device, kv_lens)
-    if kv_lens is not None:
+    mask = keep_mask(tq, tk, causal, window, q.device, kv_lens, q_start)
+    if mask.dim() == 3:
         mask = mask[:, None]                                         # (B, 1, Tq, Tk)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
+    if q_start is not None:
+        p = torch.where(mask.any(-1, keepdim=True), p, torch.zeros_like(p))
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 

@@ -213,20 +213,22 @@ def slot_capable(cfg: ModelConfig) -> bool:
 
 
 def make_slot_cache(cfg: ModelConfig, n_slots: int, capacity: int, *, dtype=None,
-                    device="cuda"):
+                    device="cuda", kv_heads=None):
     """A slotted KV cache for continuous batching: ``n_slots`` independent
     request slots over a LINEAR cache of ``capacity`` positions each, with
     per-slot write positions (``pos`` is (n_slots,) int32 on the device,
     which is what routes ``decode_step`` into slot mode).  A sliding-window
     arch still gets full linear capacity: the window is a mask, so requests
-    at different positions share a batch."""
+    at different positions share a batch.  ``kv_heads`` (default all) holds a
+    tensor-MP rank's part of the KV heads (``parallel.sharding.slot_cache_part``)."""
     if not slot_capable(cfg):
         raise ValueError(
             f"slotted KV serving supports homogeneous KV-cache decoders; "
             f"{cfg.name} (family={cfg.family}) carries recurrent/cross-attn "
             f"state that has no per-position slot layout")
     dev = resolve_device(device)
-    cache = tf_mod.make_cache(cfg, n_slots, capacity, window=0, dtype=dtype, device=dev)
+    cache = tf_mod.make_cache(cfg, n_slots, capacity, window=0, dtype=dtype, device=dev,
+                              kv_heads=kv_heads)
     cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
     return cache
 

@@ -45,6 +45,26 @@ one whose rank-local use makes its gradient a partial sum enters through
 ``copy_to_model``, so every replicated leaf's gradient is whole on every
 rank.  Configs and modes the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
+
+The continuous engine's sharded steps (JAX's ``decode_slots_tp``,
+``prefill_chunk_tp`` and ``prefill_chunk_cp``) run on one rank's part of
+the slot cache (``parallel.sharding.slot_cache_part``), each rank calling
+them with the same arguments:
+
+- ``decode_slots_tp``: one tick of its data group's slots under tensor MP,
+  the slot dim in the ring-row role: the residual stream slot-sharded over
+  the model axis between blocks, every Megatron product on the collective-
+  matmul rings, attention per slot on the flash kernel with ``kv_lens``
+  over the rank's head slice of the cache, one ``ring_all_gather`` before
+  the replicated head;
+- ``prefill_chunk_tp``: one slot's chunk the same way, its sequence dim in
+  the ring-row role;
+- ``prefill_chunk_cp``: one slot's chunk context-parallel: its rows
+  sequence-sharded over the ring, in-chunk attention on
+  ``parallel.context.ring_attention_stats``, the cache's part one flash
+  launch with ``kv_lens = pos`` and ``q_start = pos + j t/m`` merged in by
+  lse, the chunk's new K/V reassembled by ``ring_all_gather`` for the
+  replicated cache.
 """
 from __future__ import annotations
 
@@ -54,19 +74,18 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import SERVING_REST, flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.parallel import collectives as CL
-from repro_torch.parallel.context import ring_attention
+from repro_torch.parallel.context import merge_attention, ring_attention, ring_attention_stats
 from repro_torch.tree import tree_leaves
 
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
-SERVING_TP = "ROADMAP.md Queue 1 item 7b (the serving TP)"
+SERVING_TP = ("ROADMAP.md Queue 1 item 7b (the static ServeEngine's prefill and decode "
+              "under a ParallelCtx)")
 EXPERT_PARALLEL = "ROADMAP.md Queue 1 item 15 (expert parallelism)"
-CONTEXT_SERVE = ("ROADMAP.md Queue 1 item 8b (context-parallel prefill: "
-                 "ring_attention_stats, prefill_chunk_cp)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +143,11 @@ def unported(what: str, item: str):
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
     """Raise NotImplementedError for any config or mode outside the dense,
-    MoE or RWKV decoder the port runs (on one device, with or without a
-    sliding window, or a full-attention dense decoder on a context ring or
-    under tensor MP: other archs under a tensor ctx name ``tensor_mp_item``,
-    a window under any ctx item 3b), and ValueError for the CNN and LSTM
-    families, which other modules run, and for a context ring over an arch
-    that ``cp_arch_supported`` rejects."""
+    MoE or RWKV decoder the port runs (on one device, or a dense decoder on
+    a context ring or under tensor MP, with or without a sliding window:
+    other archs under a tensor ctx name ``tensor_mp_item``), and ValueError
+    for the CNN and LSTM families, which other modules run, and for a
+    context ring over an arch that ``cp_arch_supported`` rejects."""
     if cfg.family == "cnn":
         raise ValueError(f"{cfg.name} is a CNN: models.inception runs it, not the "
                          f"transformer stack")
@@ -148,9 +166,6 @@ def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
             raise ValueError(f"{cfg.name}: context parallelism needs a homogeneous dense "
                              f"decoder without logit softcap (cp_arch_supported); the "
                              f"port has no GSPMD to fall back to")
-    if pctx is not None and (window or cfg.sliding_window):
-        raise unported(f"sliding-window attention under a ParallelCtx ({cfg.name})",
-                       SERVING_REST)
     for flag, what, item in (
             (cfg.family == "hybrid", "the hybrid SSM block", FAMILIES),
             (cfg.encoder_layers, "the encoder-decoder path", FAMILIES),
@@ -252,13 +267,15 @@ def model_init(gen: torch.Generator, cfg, *, device=None, keep=None):
     return params
 
 
-def make_cache(cfg, batch: int, capacity: int, *, window: int = 0, dtype=None, device=None):
+def make_cache(cfg, batch: int, capacity: int, *, window: int = 0, dtype=None, device=None,
+               kv_heads: Optional[int] = None):
     """Linear decode cache stacked over layers: k, v (L, B, cap, KV, hd) and
     the scalar write position ``pos`` (a Python int); with ``window`` > 0 a
-    shift-left ring of ``window`` slots instead of cap.  An RWKV cache holds
-    the recurrent state instead, for any capacity: wkv_S (L, B, H, hd, hd)
-    f32 and the last normed inputs of the time and channel mixes, tm_x and
-    cm_x (L, B, d), all zeros."""
+    shift-left ring of ``window`` slots instead of cap; ``kv_heads`` (default
+    ``n_kv_heads``) holds a tensor-MP rank's part of the KV heads.  An RWKV
+    cache holds the recurrent state instead, for any capacity: wkv_S (L, B,
+    H, hd, hd) f32 and the last normed inputs of the time and channel mixes,
+    tm_x and cm_x (L, B, d), all zeros."""
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
     if cfg.rwkv:
@@ -269,7 +286,7 @@ def make_cache(cfg, batch: int, capacity: int, *, window: int = 0, dtype=None, d
                                      dtype=torch.float32, device=device),
                 "tm_x": torch.zeros(x_shape, dtype=dtype, device=device),
                 "cm_x": torch.zeros(x_shape, dtype=dtype, device=device)}
-    shape = (cfg.n_layers, batch, window or capacity, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, window or capacity, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {"pos": 0,
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -394,15 +411,16 @@ def block_apply(cfg, p, x, *, mode: str, pos0=0, window: int = 0, cache=None,
     return x + mlp_out, cache, cfg.router_aux_loss * moe_aux
 
 
-def cp_block_apply(cfg, p, x, *, pctx, layer: int):
+def cp_block_apply(cfg, p, x, *, pctx, layer: int, window: int = 0):
     """``block_apply``'s dense train path on this rank's T/m rows of the
     residual stream: RoPE at positions j T/m + arange(T/m) for ring place j,
-    attention on the KV ring (``parallel.context.ring_attention``); every
-    weight is replicated, so the projections and the MLP are local."""
+    attention on the KV ring (``parallel.context.ring_attention``, windowed
+    when asked); every weight is replicated, so the projections and the MLP
+    are local."""
     j = pctx.mesh.ring(pctx.context_axis)[0]
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=j * x.shape[1], pctx=pctx,
-                                  layer=layer)
+    attn_out, _ = _self_attention(p["attn"], h, cfg, pos0=j * x.shape[1], window=window,
+                                  pctx=pctx, layer=layer)
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
@@ -441,7 +459,7 @@ def _kv_weights(p, kv_sharded: bool, pctx):
     return tuple(CL.copy_to_model(p[n], pctx.mesh, pctx.model_axis) for n in ("wk", "wv"))
 
 
-def _tp_attention(p, h, cfg, pctx):
+def _tp_attention(p, h, cfg, pctx, window: int = 0):
     """Megatron attention over replicated ``h`` (B, T, d): this rank's query
     heads (and KV heads, or the slice of the replicated ones) on the flash
     kernels, the row-parallel ``wo`` summed over the model axis.  Where the
@@ -449,7 +467,7 @@ def _tp_attention(p, h, cfg, pctx):
     b, t, _ = h.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if p["wq"].shape[-1] == nh * hd:
-        return _self_attention(p, h, cfg, pos0=0)[0]
+        return _self_attention(p, h, cfg, pos0=0, window=window)[0]
     mesh, axis = pctx.mesh, pctx.model_axis
     j, m = _model_place(pctx)
     hpm = nh // m
@@ -462,7 +480,7 @@ def _tp_attention(p, h, cfg, pctx):
     q, k = _rope_heads(q, k, cfg)
     if not kv_sharded:
         k, v = _kv_slice(k, v, cfg, j, hpm)
-    out = flash_attention(q, k, v, causal=True).reshape(b, t, hpm * hd)
+    out = flash_attention(q, k, v, causal=True, window=window).reshape(b, t, hpm * hd)
     return CL.reduce_from_model(out @ p["wo"].to(h.dtype), mesh, axis)
 
 
@@ -476,18 +494,18 @@ def _tp_mlp(p, h, cfg, pctx):
                                 mesh, axis)
 
 
-def tp_block_apply(cfg, p, x, *, pctx, layer: int):
+def tp_block_apply(cfg, p, x, *, pctx, layer: int, window: int = 0):
     """The ``gspmd`` tensor-MP block (and the overlapped runtime's
     fallback): ``block_apply``'s dense train path with replicated
     activations, Megatron attention and MLP, one all-reduce after each
     row-parallel product."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _tp_attention(p["attn"], h, cfg, pctx)
+    x = x + _tp_attention(p["attn"], h, cfg, pctx, window)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _tp_mlp(p["mlp"], h2, cfg, pctx)
 
 
-def _self_attention_overlapped(p, x, cfg, *, pctx, layer: int):
+def _self_attention_overlapped(p, x, cfg, *, pctx, layer: int, window: int = 0):
     """Self-attention with q/k/v/o on the collective-matmul rings (JAX's
     ``_self_attention_overlapped``).  ``x``: (B, T/m, d), this rank's rows.
     One gather ring computes this rank's query heads and its KV heads (or
@@ -511,12 +529,12 @@ def _self_attention_overlapped(p, x, cfg, *, pctx, layer: int):
     q, k = _rope_heads(q, k, cfg)
     if not kv_sharded:
         k, v = _kv_slice(k, v, cfg, j, hpm)
-    out = flash_attention(q, k, v, causal=True).reshape(b, t, hpm * hd)
+    out = flash_attention(q, k, v, causal=True, window=window).reshape(b, t, hpm * hd)
     return CL.matmul_reduce_scatter(out, p["wo"].to(x.dtype), mesh=mesh, axis=axis,
                                     chunks=chunks, tag=(layer, 1))
 
 
-def overlapped_block_apply(cfg, p, x, *, pctx, layer: int):
+def overlapped_block_apply(cfg, p, x, *, pctx, layer: int, window: int = 0):
     """One dense decoder block with every Megatron product on the chunked
     collective-matmul rings (JAX's ``overlapped_block_apply``): ``x`` enters
     and leaves as this rank's (B, T/m, d) rows of the residual stream.  The
@@ -526,17 +544,17 @@ def overlapped_block_apply(cfg, p, x, *, pctx, layer: int):
     ln1 = CL.copy_to_model(p["ln1"], mesh, axis)
     ln2 = CL.copy_to_model(p["ln2"], mesh, axis)
     x = x + _self_attention_overlapped(p["attn"], L.rms_norm(x, ln1, cfg.norm_eps), cfg,
-                                       pctx=pctx, layer=layer)
+                                       pctx=pctx, layer=layer, window=window)
     return x + L.mlp_apply_overlapped(p["mlp"], L.rms_norm(x, ln2, cfg.norm_eps),
                                       cfg.mlp_kind, mesh=mesh, axis=axis,
                                       chunks=max(pctx.comm_chunks, 1), layer=layer)
 
 
-def tp_rwkv_block(cfg, p, x, *, pctx, layer: int):
+def tp_rwkv_block(cfg, p, x, *, pctx, layer: int, window: int = 0):
     """An RWKV block of a tensor-MP rank's train forward (the gspmd form of
     both runtimes): ``x`` whole on every rank, the norms computed whole (so
     their weights' gradients are whole), the mixes ``rwkv.tp_time_mix`` and
-    ``rwkv.tp_channel_mix``."""
+    ``rwkv.tp_channel_mix`` (no attention, so no ``window``)."""
     x = x + rwkv_mod.tp_time_mix(p["tm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg, pctx)
     return x + rwkv_mod.tp_channel_mix(p["cm"], L.rms_norm(x, p["ln2"], cfg.norm_eps), pctx)
 
@@ -626,7 +644,7 @@ def _tp_head(cfg, params, x, pctx, *, seq_sharded: bool):
     return logits
 
 
-def tp_forward(cfg, params, tokens, pctx):
+def tp_forward(cfg, params, tokens, pctx, window: int = 0):
     """The train forward of one tensor-MP rank: ``params`` its part, the
     tokens (B, S) of its data shard.  Returns its logits, (B, S, V/m) where
     the head is vocab-sharded.  The overlapped runtime runs
@@ -656,7 +674,7 @@ def tp_forward(cfg, params, tokens, pctx):
              else tp_rwkv_block if cfg.rwkv else tp_block_apply)
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
-        x = block(cfg, layers[i], x, pctx=pctx, layer=i)
+        x = block(cfg, layers[i], x, pctx=pctx, layer=i, window=window)
     return _tp_head(cfg, params, x, pctx, seq_sharded=overlapped)
 
 
@@ -676,12 +694,11 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     window = cfg.sliding_window if window_override is None else window_override
     check_supported(cfg, window=window, pctx=pctx)
     if pctx is not None and mode == "prefill":
-        if pctx.is_tensor:
-            raise unported("tensor-MP prefill (prefill_chunk_tp)", SERVING_TP)
-        raise unported("context-parallel prefill", CONTEXT_SERVE)
+        raise unported("prefill under a ParallelCtx (the continuous engine's sharded chunks "
+                       "serve instead: prefill_chunk_tp, prefill_chunk_cp)", SERVING_TP)
     tokens = batch["tokens"]
     if pctx is not None and pctx.is_tensor:
-        return tp_forward(cfg, params, tokens, pctx), torch.zeros(
+        return tp_forward(cfg, params, tokens, pctx, window), torch.zeros(
             (), dtype=torch.float32, device=tokens.device)
     x = _embed(cfg, params, tokens)
     b, s = tokens.shape
@@ -695,7 +712,7 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
         if pctx is not None:
-            x = cp_block_apply(cfg, layers[i], x, pctx=pctx, layer=i)
+            x = cp_block_apply(cfg, layers[i], x, pctx=pctx, layer=i, window=window)
             continue
         csl = None if cache is None else _cache_layer(cache, i)
         x, _, a = block_apply(cfg, layers[i], x, mode=mode, window=window, cache=csl,
@@ -737,8 +754,8 @@ def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
     t > 1 is the chunked-prefill extend step (causal within the chunk).  The
     positions stay on the device: nothing here reads them on the host."""
     if pctx is not None:
-        raise unported("decoding over a ParallelCtx (decode_slots_tp, a sequence-sharded "
-                       "cache)", SERVING_TP)
+        raise unported("decoding over a ParallelCtx (the continuous engine's sharded tick "
+                       "serves instead: decode_slots_tp)", SERVING_TP)
     window = cfg.sliding_window if window_override is None else window_override
     check_supported(cfg, window=window)
     pos = cache["pos"]
@@ -760,3 +777,211 @@ def decode_step(cfg, params, cache, batch, *, window_override=None, pctx=None):
                               cache=csl)
     logits = _head(cfg, params, x)
     return logits, {**cache, "pos": pos + batch["tokens"].shape[1]}
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's sharded steps
+# ---------------------------------------------------------------------------
+
+def _axes_size(mesh, axes) -> int:
+    n = 1
+    for a in (axes or ()):
+        if a:
+            n *= mesh.size(a)
+    return n
+
+
+def decode_slots_tp_supported(cfg, mesh, model_axis, batch_axes, n_slots: int,
+                              chunks: int = 1) -> bool:
+    """Can the slot tick run on this (arch, mesh, slots) (JAX's
+    ``decode_slots_tp_supported``)?  ``overlapped_supported`` with the slot
+    dim in the sequence's role: a model axis of more than one rank, an
+    ``overlapped_arch_supported`` arch, query heads and the FFN hidden
+    divisible by the axis, and n_slots divisible over dp x mp x chunks."""
+    if mesh is None or model_axis is None:
+        return False
+    msz = mesh.size(model_axis)
+    if msz <= 1 or not overlapped_arch_supported(cfg):
+        return False
+    dp = _axes_size(mesh, batch_axes)
+    return (cfg.n_heads > 0 and cfg.n_heads % msz == 0 and cfg.d_ff % msz == 0
+            and n_slots % (dp * msz) == 0 and (n_slots // (dp * msz)) % max(chunks, 1) == 0)
+
+
+def prefill_chunk_tp_supported(cfg, mesh, model_axis, t: int, chunks: int = 1) -> bool:
+    """Can one slot's chunk of ``t`` tokens run on the collective-matmul
+    rings (JAX's ``prefill_chunk_tp_supported``: the training block's
+    conditions with t the chunk length)?"""
+    if mesh is None or model_axis is None:
+        return False
+    msz = mesh.size(model_axis)
+    if msz <= 1 or not overlapped_arch_supported(cfg):
+        return False
+    return (cfg.n_heads > 0 and cfg.n_heads % msz == 0 and cfg.d_ff % msz == 0
+            and t % msz == 0 and (t // msz) % max(chunks, 1) == 0)
+
+
+def prefill_chunk_cp_supported(cfg, mesh, context_axis, t: int) -> bool:
+    """Can one slot's chunk of ``t`` tokens run context-parallel (JAX's
+    ``prefill_chunk_cp_supported``): a ring of more than one rank, a
+    ``cp_arch_supported`` arch and t divisible by the ring."""
+    if mesh is None or context_axis is None:
+        return False
+    csz = mesh.size(context_axis)
+    return csz > 1 and cp_arch_supported(cfg) and t % csz == 0
+
+
+def _tp_slot_attention(p, x, cfg, cache_kv, pos, positions, shape, *, mesh, axis: str,
+                       chunks: int, window: int, layer: int):
+    """Slot-mode attention of a tensor-MP rank (the body of JAX's
+    ``decode_slots_tp`` / ``prefill_chunk_tp`` layer): ``x`` (..., R/m, d),
+    this rank's rows; one gather ring gives its query heads' and its KV
+    heads' (or all KV heads') columns for all R rows, viewed as ``shape`` =
+    (B, T); RoPE at ``positions`` (B, T); the new K/V written at ``pos`` of
+    the rank's cache; the flash kernel over its head slice with ``kv_lens =
+    pos + T`` (causal within the new tokens, windowed); ``wo`` back through
+    the reduce ring to (..., R/m, d)."""
+    j, m = mesh.ring(axis)[:2]
+    b, t = shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hpm = nh // m
+    kvh = p["wk"].shape[-1] // hd
+    w_qkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=-1).to(x.dtype)
+    qkv = CL.all_gather_matmul(x, w_qkv, mesh=mesh, axis=axis, chunks=chunks, tag=(layer, 0))
+    lead = qkv.shape[:-1]
+    qkv = qkv.reshape(b, t, -1)
+    q = qkv[..., :hpm * hd].view(b, t, hpm, hd)
+    k = qkv[..., hpm * hd:(hpm + kvh) * hd].view(b, t, kvh, hd)
+    v = qkv[..., (hpm + kvh) * hd:].view(b, t, kvh, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    L.cache_insert_at(cache_kv, k, v, pos)
+    kc, vc = cache_kv["k"], cache_kv["v"]
+    if nkv % m:             # replicated KV: this rank's q-aligned slice (JAX's, a copy)
+        kc, vc = _kv_slice(kc, vc, cfg, j, hpm)
+    out = flash_attention(q, kc, vc, causal=True, window=window, kv_lens=pos + t)
+    return CL.matmul_reduce_scatter(out.reshape(*lead, hpm * hd), p["wo"].to(x.dtype),
+                                    mesh=mesh, axis=axis, chunks=chunks, tag=(layer, 1))
+
+
+def _tp_slot_stack(cfg, params, cache, xl, pos, positions, shape, *, mesh, axis: str,
+                   chunks: int, window: int):
+    """The layer stack of the tensor-MP tick or chunk on this rank's rows
+    ``xl``; returns the rows after the last block, gathered whole by
+    ``ring_all_gather``."""
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        h = L.rms_norm(xl, lp["ln1"], cfg.norm_eps)
+        xl = xl + _tp_slot_attention(lp["attn"], h, cfg, _cache_layer(cache, i), pos,
+                                     positions, shape, mesh=mesh, axis=axis, chunks=chunks,
+                                     window=window, layer=i)
+        h2 = L.rms_norm(xl, lp["ln2"], cfg.norm_eps)
+        xl = xl + L.mlp_apply_overlapped(lp["mlp"], h2, cfg.mlp_kind, mesh=mesh, axis=axis,
+                                         chunks=chunks, layer=i)
+    return CL.ring_all_gather(xl, mesh=mesh, axis=axis, chunks=chunks, layer=cfg.n_layers)
+
+
+@torch.inference_mode()
+def decode_slots_tp(cfg, params, cache, batch, *, mesh, model_axis: str = "model",
+                    batch_axes=(), comm_chunks: int = 1, window_override=None):
+    """One continuous-batching decode tick of this rank's data group's
+    slots under tensor MP (JAX's ``decode_slots_tp``).  ``params``: the
+    rank's part of the weights (``parallel.sharding.serve_tp_part``);
+    ``cache``: its part of the slot cache (its data group's B_loc slots,
+    its KV heads where they divide over the model axis, else all), ``pos``
+    (B_loc,) int32 on the device; batch: dict(tokens (B_loc, 1)), the same
+    on every model rank.  Model rank j takes slot rows [j B_loc/m, (j + 1)
+    B_loc/m) of the residual stream; each block's products ride the rings
+    (``_tp_slot_attention``, ``layers.mlp_apply_overlapped``) and one
+    ``ring_all_gather`` before the replicated head reassembles every slot,
+    so every model rank computes the same logits.  Writes the new K/V in
+    place and returns (logits (B_loc, 1, V), cache with pos + 1)."""
+    window = cfg.sliding_window if window_override is None else window_override
+    tokens, pos = batch["tokens"], cache["pos"]
+    j, m = mesh.ring(model_axis)[:2]
+    b_loc = tokens.shape[0]
+    rows = b_loc // m
+    x = _embed(cfg, params, tokens)[:, 0]                      # (B_loc, d)
+    xl = x[j * rows:(j + 1) * rows]
+    x_full = _tp_slot_stack(cfg, params, cache, xl, pos, pos.long()[:, None], (b_loc, 1),
+                            mesh=mesh, axis=model_axis, chunks=max(comm_chunks, 1),
+                            window=window)
+    return _head(cfg, params, x_full[:, None]), {**cache, "pos": pos + 1}
+
+
+@torch.inference_mode()
+def prefill_chunk_tp(cfg, params, cache, batch, *, mesh, model_axis: str = "model",
+                     comm_chunks: int = 1, window_override=None,
+                     n_valid: Optional[int] = None):
+    """One slot's chunked-prefill extend step under tensor MP (JAX's
+    ``prefill_chunk_tp``): the chunk's sequence dim in the ring-row role,
+    model rank j holding rows [j t/m, (j + 1) t/m) between the blocks.
+    ``cache``: the rank's part of one slot (``models.api.cache_extract_slot``
+    of its slot cache part, ``pos`` (1,)); batch: dict(tokens (1, t)).
+    ``n_valid`` (default t) marks a padded chunk: only the first n_valid
+    tokens are real, the logits are taken at n_valid - 1 and ``pos``
+    advances by n_valid (the pad rows written past it are masked by every
+    later step's ``kv_lens`` and overwritten by the next insert).  Returns
+    (logits (1, 1, V), slot cache)."""
+    window = cfg.sliding_window if window_override is None else window_override
+    tokens, pos = batch["tokens"], cache["pos"]
+    b, t = tokens.shape
+    nv = t if n_valid is None else int(n_valid)
+    j, m = mesh.ring(model_axis)[:2]
+    t_loc = t // m
+    x = _embed(cfg, params, tokens)                            # (1, t, d)
+    xl = x[:, j * t_loc:(j + 1) * t_loc]
+    positions = pos.long()[:, None] + torch.arange(t, device=tokens.device)[None]
+    x_full = _tp_slot_stack(cfg, params, cache, xl, pos, positions, (b, t), mesh=mesh,
+                            axis=model_axis, chunks=max(comm_chunks, 1), window=window)
+    return _head(cfg, params, x_full[:, nv - 1:nv]), {**cache, "pos": pos + nv}
+
+
+@torch.inference_mode()
+def prefill_chunk_cp(cfg, params, cache, batch, *, mesh, context_axis: str = "model",
+                     window_override=None, n_valid: Optional[int] = None):
+    """One slot's chunked-prefill extend step context-parallel (JAX's
+    ``prefill_chunk_cp``): ring place j holds the chunk's rows [j t/m,
+    (j + 1) t/m) at positions pos + j t/m + i; weights and the slot cache
+    are whole on every rank.  Per block, in-chunk attention rides
+    ``ring_attention_stats`` (chunk-relative positions: the request's offset
+    cancels in the masks), the cache's part is one flash launch over the
+    keys [0, pos) with ``kv_lens = pos`` and ``q_start = pos + j t/m`` (not
+    causal: every cache key is older; windowed when asked), skipped while
+    the slot holds no key, and the two are merged by lse; the chunk's new
+    K/V rows are reassembled by ``ring_all_gather`` and written into the
+    cache at pos on every rank.  Same arguments and ``n_valid`` contract as
+    ``prefill_chunk_tp`` (pad rows land on the ring's tail ranks).  Returns
+    (logits (1, 1, V), slot cache)."""
+    window = cfg.sliding_window if window_override is None else window_override
+    tokens, pos = batch["tokens"], cache["pos"]
+    b, t = tokens.shape
+    nv = t if n_valid is None else int(n_valid)
+    j, m = mesh.ring(context_axis)[:2]
+    t_loc = t // m
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    has_keys = bool((pos > 0).any())       # one host read a chunk: the slot's position
+    x = _embed(cfg, params, tokens)[:, j * t_loc:(j + 1) * t_loc]
+    q_start = (pos + j * t_loc).to(torch.int32)
+    positions = q_start.long()[:, None] + torch.arange(t_loc, device=tokens.device)[None]
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        p, csl = lp["attn"], _cache_layer(cache, i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q = (h @ p["wq"].to(h.dtype)).view(b, t_loc, nh, hd)
+        k = (h @ p["wk"].to(h.dtype)).view(b, t_loc, nkv, hd)
+        v = (h @ p["wv"].to(h.dtype)).view(b, t_loc, nkv, hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        out, lse = ring_attention_stats(q, k, v, mesh=mesh, axis=context_axis, causal=True,
+                                        window=window, layer=i)
+        if has_keys:
+            o_c, lse_c = flash_attention_lse(q, csl["k"], csl["v"], causal=False,
+                                             window=window, kv_lens=pos, q_start=q_start)
+            out, lse = merge_attention(out, lse, o_c, lse_c)
+        x = x + out.to(x.dtype).reshape(b, t_loc, nh * hd) @ p["wo"].to(x.dtype)
+        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], h2, cfg.mlp_kind)
+        kv = CL.ring_all_gather(torch.cat([k, v], dim=2).reshape(b, t_loc, 2 * nkv * hd),
+                                mesh=mesh, axis=context_axis, layer=i).view(b, t, 2 * nkv, hd)
+        L.cache_insert_at(csl, kv[:, :, :nkv], kv[:, :, nkv:], pos)
+    x_full = CL.ring_all_gather(x, mesh=mesh, axis=context_axis, layer=cfg.n_layers)
+    return _head(cfg, params, x_full[:, nv - 1:nv]), {**cache, "pos": pos + nv}

@@ -38,6 +38,10 @@ collective the JAX partitioner would insert is written out as a
   (``dist.tp_message_tag``: layer, op, phase, hop, chunk).  A hop is one
   blocking ``dist.exchange``, so its transfer does not overlap its product
   (launching it before the product is ROADMAP.md Queue 1 item 16);
+- ``ring_all_gather``, the gather ring without a product (JAX's
+  ``ring_all_gather``, inference only): the serving steps' one full
+  reassembly of the residual stream before the replicated head, and the
+  context-parallel prefill chunk's new K/V rows;
 - the tensor-MP recurrences' per-step collectives, ``step_all_reduce`` and
   ``step_all_gather``: one blocking, tagged exchange with every other rank
   of the group (``dist.rnn_message_tag``), summed or concatenated in model
@@ -396,6 +400,27 @@ class _MatmulReduceScatter(torch.autograd.Function):
 
         _gather_ring(ctx.mesh, ctx.axis, ctx.chunks, dy.contiguous(), ctx.tag, 1, visit)
         return dh.to(h.dtype), dw.to(w.dtype), None, None, None, None
+
+
+@torch.no_grad()
+def ring_all_gather(x, *, mesh, axis: str = "model", chunks: int = 1, layer: int = 0):
+    """``all_gather(x, axis)`` over the row dim on the chunked ring of
+    ``all_gather_matmul``, in JAX's hop order, each hop's pieces written
+    straight into their output rows.  ``x``: (..., T/m, d), this rank's rows;
+    returns (..., T, d), the same bits on every rank.  Inference only (no
+    backward); its messages are tagged (``layer``, ``dist.TP_OP_GATHER``)."""
+    m = mesh.size(axis)
+    if m <= 1:
+        return x
+    if x.shape[-2] % chunks:
+        raise ValueError(f"chunks={chunks} must divide the local row count {x.shape[-2]}")
+    out = x.new_empty((*x.shape[:-2], x.shape[-2] * m, x.shape[-1]))
+
+    def visit(start, p):
+        _rows(out, start, p.shape[-2]).copy_(p)
+
+    _gather_ring(mesh, axis, chunks, x.contiguous(), (layer, D.TP_OP_GATHER), 0, visit)
+    return out
 
 
 def all_gather_matmul(x, w, *, mesh, axis: str = "model", chunks: int = 1,

@@ -310,6 +310,9 @@ RNN_TAG_BASE = 3 << 28
 # gather_tree's messages: one tag a leaf, above every ring's
 GATHER_TAG_BASE = 1 << 30
 TP_OPS, TP_PHASES, TP_CHUNKS = 8, 3, 16
+# the tensor-MP ops of a layer: the qkv gather ring, the wo reduce ring, the
+# MLP's gather and reduce rings, and ``collectives.ring_all_gather``
+TP_OP_GATHER = 4
 RNN_KINDS, RNN_STEPS = 3, 1 << 16
 
 

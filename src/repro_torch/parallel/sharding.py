@@ -15,7 +15,11 @@ read a mapping of axis name to size, as ``ParallelPlan.describe`` does.
 
 ``shard_params(params, rules, model_index)`` is a rank's part of a whole
 parameter tree (the contiguous slice of each leaf along its model dim) and
-``gather_params`` its inverse over every rank's part.  An LSTM cell's gate
+``gather_params`` its inverse over every rank's part.  The continuous
+engine's ranks hold JAX's serving layouts instead: ``serve_tp_part`` is a
+tensor-MP rank's part of the weights under ``decode_slots_tp``'s specs, and
+``slot_cache_part`` a rank's part of the slot cache (``slot_range`` its
+slots).  An LSTM cell's gate
 leaves ``wx`` and ``wh`` (d, 4H) are cut gate-major: a rank takes the
 columns [j H/m, (j + 1) H/m) of each of the four gates, as JAX's overlapped
 layer shards the (d, 4, H) view (``repro/models/lstm.py:114-118``), so each
@@ -25,6 +29,7 @@ JAX's.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import List, Mapping, Optional, Tuple
 
@@ -322,3 +327,65 @@ def replicated_leaves(params, specs, rules: ShardingRules) -> List[bool]:
 
     return tree_leaves(tree_map(lambda _, spec: rules.model_dim(spec) is None,
                                 params, specs))
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's ranks
+# ---------------------------------------------------------------------------
+
+def _batch_size(mesh, batch_axes) -> int:
+    return 1 if mesh is None else math.prod(mesh.size(a) for a in (batch_axes or ()) if a)
+
+
+def slot_range(n_slots: int, mesh=None, batch_axes=()) -> Tuple[int, int]:
+    """(first slot, slots) of the engine's ``n_slots`` that this rank's data
+    group holds: the slots split over the data axes in contiguous blocks
+    (JAX's ``P(bspec)`` of the slot dim), all of them without a mesh."""
+    dp = _batch_size(mesh, batch_axes)
+    if n_slots % dp:
+        raise ValueError(f"{n_slots} slots do not split over {dp} data groups")
+    n = n_slots // dp
+    return (mesh.data_index * n if dp > 1 else 0), n
+
+
+def slot_cache_part(cfg, n_slots: int, capacity: int, *, mesh=None, model_axis=None,
+                    batch_axes=(), dtype=None, device="cuda"):
+    """This rank's part of a slotted cache of ``n_slots`` x ``capacity``
+    (JAX's ``c_spec`` of ``decode_slots_tp``): its data group's slots
+    (``slot_range``), and of the KV heads its contiguous 1/m where
+    n_kv_heads divides over a tensor-MP ``model_axis`` of m ranks, else
+    all of them.  Under a context axis (no ``model_axis``) the cache is
+    replicated over the ring.  ``pos`` is (slots,) int32 on the device."""
+    from repro_torch.models.api import make_slot_cache
+
+    _, n = slot_range(n_slots, mesh, batch_axes)
+    m = mesh.size(model_axis) if mesh is not None and model_axis is not None else 1
+    kv_heads = cfg.n_kv_heads // m if m > 1 and cfg.n_kv_heads % m == 0 else None
+    return make_slot_cache(cfg, n, capacity, dtype=dtype, device=device, kv_heads=kv_heads)
+
+
+def serve_tp_part(params, cfg, model_index: int, m: int):
+    """Model rank ``model_index``'s part of the whole serving weights under
+    the specs of JAX's ``decode_slots_tp`` (and ``prefill_chunk_tp``): the
+    column slices of ``wq`` and the MLP's ``wi`` / ``wg``, the row slices of
+    the ``wo``s, the column slices of ``wk`` / ``wv`` where n_kv_heads
+    divides by m (else whole), every other leaf (the embedding, the norms,
+    the head) whole.  Sliced leaves are copies."""
+    if m <= 1:
+        return params
+
+    def cols(t):
+        n = t.shape[-1] // m
+        return t.narrow(-1, model_index * n, n).clone()
+
+    def rows(t):
+        n = t.shape[-2] // m
+        return t.narrow(-2, model_index * n, n).clone()
+
+    layers = params["layers"]
+    attn = layers["attn"]
+    kv = cols if cfg.n_kv_heads % m == 0 else (lambda t: t)
+    part = {"wq": cols(attn["wq"]), "wk": kv(attn["wk"]), "wv": kv(attn["wv"]),
+            "wo": rows(attn["wo"])}
+    mlp = {k: rows(t) if k == "wo" else cols(t) for k, t in layers["mlp"].items()}
+    return {**params, "layers": {**layers, "attn": part, "mlp": mlp}}

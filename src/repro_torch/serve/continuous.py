@@ -26,11 +26,36 @@ row's attention reads only its own keys (the flash kernel's per-row key
 lengths, its split planned from the capacity), so joining requests never
 perturb the tokens of requests already in flight.
 
-The tick and the chunk are ``train.steps.make_continuous_steps``'s, on one
-device: both run attention on the hand-written flash kernel with per-row
-key lengths (``kernels.flash_attention``, ``kv_lens``).  The tensor-MP tick
-and chunk are ROADMAP.md item 7b, the context-parallel chunk item 8b, and
-the multi-replica router item 10.
+The tick and the chunk are ``train.steps.make_continuous_steps``'s: both
+run attention on the hand-written flash kernel with per-row key lengths
+(``kernels.flash_attention``, ``kv_lens``).  The multi-replica router is
+ROADMAP.md item 10.
+
+On ranks
+========
+
+With ``mesh`` (this rank's ``parallel.dist.RankMesh``) every rank of the
+mesh runs an engine with the same arguments and the same requests; each
+holds its part of the slot cache (``parallel.sharding.slot_cache_part``:
+its data group's slots, its KV heads under tensor MP) and, under a
+``model_axis``, its part of the weights (``serve_tp_part`` of the whole
+tree it is given).  The tick runs on the tensor-MP rings (or whole on each
+rank of a context ring), a chunk on the data group that holds its slot
+(tensor-MP or context-parallel).  JAX's single controller takes every
+decision once; here each rank takes them itself, so they must agree or the
+rings hang:
+
+- the scheduler reads one clock: rank 0's, broadcast to every rank at each
+  ``step()`` and at each ``submit()`` of a request with a deadline, so
+  admission, eviction, shedding and expiry are the same everywhere;
+- each data group samples only its own slots and the tokens and logprobs
+  are all-gathered over the data axes before any engine reads them (the
+  tick's return), and a chunk's last logits come from the group that holds
+  the slot; under tensor MP every model rank computes the head on the same
+  gathered rows, so it samples the same bits.
+
+A sharded prefill pads a chunk to the ring's grid; ``submit`` refuses a
+request whose padded prompt would overflow its slot (JAX's guard).
 
 Sampling: greedy is argmax, as JAX's (the same tokens on the same logits).
 With a temperature each draw comes from a ``torch.Generator`` seeded from
@@ -47,7 +72,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models.api import ModelApi, cache_evict_slot, make_slot_cache
+from repro_torch.models.api import ModelApi, cache_evict_slot
+from repro_torch.parallel import dist as D
+from repro_torch.parallel.sharding import serve_tp_part, slot_cache_part, slot_range
 from repro_torch.train.steps import make_continuous_steps, sample_tokens
 
 
@@ -101,8 +128,11 @@ class _Active:
 class ContinuousEngine:
     """See module docstring.  ``prefill_chunk=0`` prefills each prompt in
     one shot (still interleaved with decode ticks); > 0 caps the tokens per
-    prefill step.  ``mesh``/``model_axis``/``context_axis`` raise (items 7b
-    and 8b).  ``clock`` drives the deadlines (injectable for tests).
+    prefill step.  ``mesh`` / ``model_axis`` / ``batch_axes`` /
+    ``comm_chunks`` put the tick (and the chunk) on the tensor-MP rings,
+    ``context_axis`` the chunk on the context ring (``make_continuous_steps``
+    routes).  ``params`` is the whole tree on every rank.  ``clock`` drives
+    the deadlines (injectable for tests; on ranks, rank 0's is read).
 
     Host-clock timings, kept for the launcher and the chip run, in bounded
     state: ``tick_ms_sum`` / ``tick_ms_min`` / ``tick_ms_max`` over the
@@ -112,11 +142,12 @@ class ContinuousEngine:
     def __init__(self, api: ModelApi, params, *, n_slots: int, capacity: int,
                  prefill_chunk: int = 0, temperature: float = 0.0,
                  seed: int = 0, mesh=None, model_axis: Optional[str] = None,
+                 batch_axes=(), comm_chunks: int = 1,
                  window=None, context_axis: Optional[str] = None,
                  max_queue: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic):
         self.api = api
-        self.params = params
+        self.mesh = mesh
         self.device = api.device
         self.n_slots = n_slots
         self.capacity = capacity
@@ -129,8 +160,16 @@ class ContinuousEngine:
         (self._decode_tick, self._prefill_chunk,
          self._prefill_grid) = make_continuous_steps(
             api, n_slots=n_slots, temperature=temperature, mesh=mesh,
-            model_axis=model_axis, window=window, context_axis=context_axis)
-        self.cache = make_slot_cache(api.cfg, n_slots, capacity, device=self.device)
+            model_axis=model_axis, batch_axes=batch_axes, comm_chunks=comm_chunks,
+            window=window, context_axis=context_axis)
+        if mesh is not None and model_axis is not None:
+            j, m = mesh.ring(model_axis)[:2]
+            params = serve_tp_part(params, api.cfg, j, m)
+        self.params = params
+        self._slots = slot_range(n_slots, mesh, batch_axes)
+        self.cache = slot_cache_part(api.cfg, n_slots, capacity, mesh=mesh,
+                                     model_axis=model_axis, batch_axes=batch_axes,
+                                     device=self.device)
         self.queue: List[Request] = []
         self.active: Dict[int, _Active] = {}       # slot -> state
         self.results: List[RequestResult] = []
@@ -174,13 +213,25 @@ class ContinuousEngine:
             raise ValueError(
                 f"request {req.rid}: {len(req.replay_tokens)} replay tokens "
                 f"exceed max_new_tokens ({req.max_new_tokens})")
+        if self._prefill_grid > 1:
+            # a sharded prefill pads the final chunk up to the ring's grid;
+            # the pad rows must still land inside the slot's linear region
+            t_f = (n if self.prefill_chunk <= 0
+                   else (n % self.prefill_chunk or self.prefill_chunk))
+            pad = -t_f % self._prefill_grid
+            if n + pad > self.capacity:
+                raise ValueError(
+                    f"request {req.rid}: prompt ({n}) + sharded-prefill pad "
+                    f"({pad}, grid {self._prefill_grid}) exceeds slot "
+                    f"capacity {self.capacity} — grow capacity by the pad "
+                    f"slack or align the prompt to the chunk grid")
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             res = RequestResult(rid=req.rid, prompt_len=n, tokens=[],
                                 logprobs=[], finished_reason="shed")
             self.results.append(res)
             return res
         if req.deadline_s is not None:
-            self._deadline[req.rid] = self._clock() + req.deadline_s
+            self._deadline[req.rid] = self._now() + req.deadline_s
         self._submitted[req.rid] = time.perf_counter()
         self.queue.append(req)
         return None
@@ -200,10 +251,18 @@ class ContinuousEngine:
         Consumed only by ticks that decode."""
         self._poison_ticks += n
 
+    def _now(self) -> float:
+        """The scheduler's clock: ``clock()``, on ranks rank 0's (broadcast to
+        every rank, so every rank's decisions agree)."""
+        if self.mesh is None:
+            return self._clock()
+        t = torch.tensor([self._clock()], dtype=torch.float64, device=self.mesh.device)
+        return float(D.broadcast(self.mesh, t, None))
+
     def _expire(self):
         """Evict every request past its deadline: mid-flight requests free
         their slot (partial tokens returned), queued ones never admit."""
-        now = self._clock()
+        now = self._now()
         for st in list(self.active.values()):
             dl = self._deadline.get(st.req.rid)
             if dl is not None and now >= dl:
@@ -226,7 +285,9 @@ class ContinuousEngine:
         while free and self.queue:
             slot = free.pop(0)
             req = self.queue.pop(0)
-            cache_evict_slot(self.cache, slot)
+            lo, n = self._slots
+            if lo <= slot < lo + n:           # this rank's data group holds the slot
+                cache_evict_slot(self.cache, slot - lo)
             self.active[slot] = _Active(req=req, slot=slot,
                                         submitted=self._submitted.pop(req.rid))
 

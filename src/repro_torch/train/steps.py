@@ -66,7 +66,8 @@ global state, and ``checkpoint_saver`` is the loop's saver on ranks.
 
 ``make_continuous_steps`` is the serving side's pair of steps (JAX keeps it
 here too): the continuous engine's decode tick and prefill chunk over a
-slotted cache, on one device.
+slotted cache, on one device or on a rank's part of it (the tensor-MP tick
+and chunk, the context-parallel chunk).
 """
 from __future__ import annotations
 
@@ -75,10 +76,10 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import transformer as tf_mod
 from repro_torch.models.api import ModelApi, cache_extract_slot, cache_insert_slot
-from repro_torch.models.transformer import (CONTEXT_SERVE, SERVING_TP, ParallelCtx,
-                                            cp_arch_supported, cp_supported, is_tensor_ctx,
-                                            tensor_mp_item, unported)
+from repro_torch.models.transformer import (ParallelCtx, cp_arch_supported, cp_supported,
+                                            is_tensor_ctx, tensor_mp_item, unported)
 from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
                                           sum_of_squares)
 from repro_torch.parallel import dist as D
@@ -492,51 +493,130 @@ def sample_tokens(logits, temperature: float, generators=None):
 
 
 def make_continuous_steps(api: ModelApi, *, n_slots: int, temperature: float = 0.0,
-                          mesh=None, model_axis=None, window=None, context_axis=None):
+                          mesh=None, model_axis=None, batch_axes=(), comm_chunks: int = 1,
+                          window=None, context_axis=None):
     """``(decode_tick, prefill_chunk, prefill_grid)`` for the continuous
-    engine (``serve.continuous``), on one device (JAX's
-    ``make_continuous_steps`` without a mesh; ``prefill_grid`` is 1).
+    engine (``serve.continuous``), on one device or, with ``mesh`` (this
+    rank's ``parallel.dist.RankMesh``), on this rank's part of the slot
+    cache (``parallel.sharding.slot_cache_part``), routed as JAX's
+    ``make_continuous_steps`` routes:
 
+    - the tick runs ``transformer.decode_slots_tp`` when a ``model_axis`` of
+      more than one rank is given (``decode_slots_tp_supported`` must hold:
+      the port has no GSPMD to fall back to, so a mesh it cannot shard
+      raises), else the one-device tick on the rank's slots (under a
+      ``context_axis``, on every rank of the ring);
+    - the chunk runs ``prefill_chunk_cp`` under a ``context_axis`` whose
+      ring ``prefill_chunk_cp_supported`` accepts, else ``prefill_chunk_tp``
+      under the model axis, else the one-device extend step;
+    - a sharded chunk that does not divide ``prefill_grid`` (m x
+      ``comm_chunks`` for TP, m for CP) is padded up to it and runs the same
+      sharded path with ``n_valid``; ``prefill_grid`` (1 unsharded) is
+      returned for the engine's pad guard.
+
+    Every rank calls the steps with the same arguments.
     ``decode_tick(params, cache, tokens, active, generators)`` runs ONE
-    token step for every slot of a slotted cache (``tokens`` and ``active``
-    (n_slots,) on the cache's device), samples on the device
-    (``sample_tokens``, ``generators`` a list of per-slot generators or
-    None) and advances ``pos`` only for ``active`` slots.  An inactive
-    slot's write at its frozen position is overwritten at its next
-    admission or chunk; it writes at min(pos, capacity - 1) so that a slot
-    whose request filled its capacity exactly, and is evicted this step,
-    cannot write past it.  ``prefill_chunk(params, cache, tokens (1, t),
-    slot)`` extends one slot by a chunk (slot mode with t > 1, causal within
-    the chunk) and returns the chunk's last-position logits (1, V).  Both
-    update the cache in place and return it.
-
-    The tensor-MP tick and chunk (``decode_slots_tp``, ``prefill_chunk_tp``)
-    are item 7b and the context-parallel chunk (``prefill_chunk_cp``) item
-    8b: any ``mesh`` or ``model_axis`` raises naming 7b, a ``context_axis``
-    8b (JAX's ``batch_axes`` and ``comm_chunks`` come with item 7b)."""
-    if context_axis is not None:
-        raise unported("the context-parallel prefill chunk (prefill_chunk_cp)", CONTEXT_SERVE)
-    if mesh is not None or model_axis is not None:
-        raise unported("the tensor-MP decode tick and prefill chunk (decode_slots_tp, "
-                       "prefill_chunk_tp)", SERVING_TP)
+    token step for every slot (``tokens`` and ``active`` (n_slots,) on the
+    device, ``generators`` a list of n_slots per-slot generators or None):
+    each data group ticks and samples its own slots (``sample_tokens``) and
+    the tokens and logprobs are all-gathered over the data axes, so every
+    rank returns the same (n_slots,) pair.  ``pos`` advances only for
+    ``active`` slots; an inactive slot writes at min(pos, capacity - 1) (its
+    write is overwritten at its next admission or chunk).
+    ``prefill_chunk(params, cache, tokens (1, t), slot)`` extends global
+    slot ``slot`` by a chunk on the data group that holds it and returns the
+    chunk's last-position logits (1, V) on every rank (summed over the data
+    axes with the other groups' zeros).  Both update the cache in place and
+    return it.  ``params`` is this rank's part: the whole tree, or under TP
+    ``parallel.sharding.serve_tp_part``'s."""
+    cfg = api.cfg
+    chunks = max(comm_chunks, 1)
     if n_slots < 1:
         raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+    if mesh is None and (model_axis is not None or context_axis is not None):
+        raise ValueError("model_axis and context_axis shard over a mesh; none was given")
+    if model_axis is not None and context_axis is not None:
+        raise ValueError(f"model_axis {model_axis!r} and context_axis {context_axis!r}: the "
+                         f"port's rank mesh has one axis beside the data axis, so a run "
+                         f"shards the model or the context, not both")
+    if mesh is not None and model_axis is None and context_axis is None and not batch_axes:
+        raise ValueError("a mesh with no model_axis, context_axis or batch_axes shards "
+                         "nothing: name the axes the engine runs over")
+    lo, n_loc = SH.slot_range(n_slots, mesh, batch_axes)
+    dp = n_slots // n_loc
+    use_tp = model_axis is not None and mesh.size(model_axis) > 1
+    if use_tp and tensor_mp_item(cfg) is not None:
+        raise unported(f"tensor-MP serving of {cfg.name}", tensor_mp_item(cfg))
+    if use_tp and not tf_mod.decode_slots_tp_supported(cfg, mesh, model_axis, batch_axes,
+                                                       n_slots, chunks):
+        raise ValueError(
+            f"{cfg.name}: the tensor-MP tick needs a homogeneous dense decoder with n_heads "
+            f"({cfg.n_heads}) and d_ff ({cfg.d_ff}) divisible by the "
+            f"{mesh.size(model_axis)}-way model axis and n_slots ({n_slots}) divisible over "
+            f"dp x mp x comm_chunks ({dp} x {mesh.size(model_axis)} x {chunks}) "
+            f"(decode_slots_tp_supported); the port has no GSPMD to fall back to")
+    cp_grid = tp_grid = 0
+    if context_axis is not None and tf_mod.prefill_chunk_cp_supported(
+            cfg, mesh, context_axis, mesh.size(context_axis)):
+        cp_grid = mesh.size(context_axis)
+    if use_tp and tf_mod.prefill_chunk_tp_supported(
+            cfg, mesh, model_axis, mesh.size(model_axis) * chunks, chunks):
+        tp_grid = mesh.size(model_axis) * chunks
+
+    def gather_slots(nxt, lp):
+        """Every data group's (token, logprob) pairs, in slot order."""
+        if dp == 1:
+            return nxt, lp
+        mine = torch.stack([nxt.double(), lp.double()], dim=1)       # exact in f64
+        out = mine.new_empty((n_slots, 2))
+        D.all_gather(mesh, out, mine, "data")
+        return out[:, 0].long(), out[:, 1].float()
 
     @torch.inference_mode()
     def decode_tick(params, cache, tokens, active, generators=None):
+        tok, act = tokens[lo:lo + n_loc], active[lo:lo + n_loc]
         pos = cache["pos"]
         cap = cache["k"].shape[2]
-        write = torch.where(active, pos, pos.clamp(max=cap - 1))
-        logits, _ = api.decode_fn(params, {**cache, "pos": write}, {"tokens": tokens[:, None]},
-                                  None, window)
-        nxt, lp = sample_tokens(logits[:, -1], temperature, generators)
-        cache["pos"] = torch.where(active, pos + 1, pos)
-        return cache, nxt, lp
+        write = {**cache, "pos": torch.where(act, pos, pos.clamp(max=cap - 1))}
+        if use_tp:
+            logits, _ = tf_mod.decode_slots_tp(cfg, params, write, {"tokens": tok[:, None]},
+                                               mesh=mesh, model_axis=model_axis,
+                                               batch_axes=batch_axes, comm_chunks=chunks,
+                                               window_override=window)
+        else:
+            logits, _ = api.decode_fn(params, write, {"tokens": tok[:, None]}, None, window)
+        gens = None if generators is None else list(generators)[lo:lo + n_loc]
+        nxt, lp = sample_tokens(logits[:, -1], temperature, gens)
+        cache["pos"] = torch.where(act, pos + 1, pos)
+        return (cache, *gather_slots(nxt, lp))
 
     @torch.inference_mode()
     def prefill_chunk(params, cache, tokens, slot: int):
-        sl = cache_extract_slot(cache, slot)
-        logits, sl = api.decode_fn(params, sl, {"tokens": tokens}, None, window)
-        return cache_insert_slot(cache, sl, slot), logits[:, -1]
+        last = None
+        if lo <= slot < lo + n_loc:
+            sl = cache_extract_slot(cache, slot - lo)
+            t = tokens.shape[1]
+            grid = cp_grid or tp_grid
+            if grid:
+                t_pad = -(-t // grid) * grid
+                toks = torch.nn.functional.pad(tokens, (0, t_pad - t)) if t_pad != t else tokens
+                kw = dict(mesh=mesh, window_override=window, n_valid=t)
+                if cp_grid:
+                    logits, sl = tf_mod.prefill_chunk_cp(cfg, params, sl, {"tokens": toks},
+                                                         context_axis=context_axis, **kw)
+                else:
+                    logits, sl = tf_mod.prefill_chunk_tp(cfg, params, sl, {"tokens": toks},
+                                                         model_axis=model_axis,
+                                                         comm_chunks=chunks, **kw)
+            else:
+                logits, sl = api.decode_fn(params, sl, {"tokens": tokens}, None, window)
+            cache = cache_insert_slot(cache, sl, slot - lo)
+            last = logits[:, -1]
+        if dp > 1:      # the holder's logits on every data group: the others add zeros
+            part = (last.float() if last is not None else
+                    torch.zeros((1, cfg.vocab_padded), dtype=torch.float32,
+                                device=cache["pos"].device))
+            last = D.all_reduce(mesh, part.contiguous(), "data")
+        return cache, last
 
-    return decode_tick, prefill_chunk, 1
+    return decode_tick, prefill_chunk, cp_grid or tp_grid or 1

@@ -8,8 +8,8 @@ backward take their plain versions.
   partials;
 - the ring at m = 2 and 4 (JAX's grid of tests/test_context_parallel.py:
   B 2, T 32, Hq 4 over Hkv 2, causal and not) against JAX's unsharded
-  ``layers.attention`` and ``jax.vjp``, at JAX's limits; a window raises,
-  naming ROADMAP item 3;
+  ``layers.attention`` and ``jax.vjp``, at JAX's limits; a negative window
+  is refused;
 - one AdamW step of reduced Llama at B 4 x T 64 at ``cp=2`` and
   ``dp=2,cp=2``, with and without labels at -1, against JAX's
   single-device ``make_train_step`` from the same weights, at JAX's limits;
@@ -136,10 +136,22 @@ def test_ring_attention_matches_jax(jax_attention, m):
             assert err < RING_TOL["grads"], (m, causal, "qkv"[i], err)
 
 
+class _One:
+    """A ring of one rank."""
+
+    def size(self, axis):
+        return 1
+
+
 def test_ring_attention_refuses_a_window():
+    """A window no ring can take (negative) is refused; a window on a ring
+    of one rank is the flash kernel's (the windowed rings of m 2 and 4 are
+    tests/test_torch_serving_parallel.py's)."""
     q, k, v = (torch.from_numpy(x) for x in _qkv())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        C.ring_attention(q, k, v, mesh=None, causal=True, window=8)
+    with pytest.raises(ValueError, match="window must be >= 0"):
+        C.ring_attention(q, k, v, mesh=_One(), causal=True, window=-1)
+    assert torch.equal(C.ring_attention(q, k, v, mesh=_One(), causal=True, window=8),
+                       fa.flash_attention(q, k, v, causal=True, window=8))
 
 
 def test_ring_tags_are_distinct():

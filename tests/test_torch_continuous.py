@@ -532,21 +532,46 @@ def test_poisoned_ticks_return_nan(port):
 # routes the port does not run yet, and the launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object(), "model_axis": "model"}, "item 7b"),
-                                     ({"context_axis": "model"}, "item 8b"),
-                                     ({"mesh": object()}, "item 7b")])
-def test_sharded_steps_raise_their_items(port, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        make_continuous_steps(port[0], n_slots=2, **kw)
+class _Pair:
+    """What ``make_continuous_steps`` reads of a mesh before any message:
+    place 0 of a model axis of 2, one data group."""
+    shape = {"data": 1, "model": 2}
+    data_index = 0
+
+    def size(self, axis):
+        return self.shape[axis]
+
+    def ring(self, axis):
+        return 0, 2, 1, 1
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    ({"arch": "granite_moe_1b_a400m", "model_axis": "model"}, NotImplementedError,
+     "ROADMAP.md Queue 1 item 15"),
+    ({"model_axis": "model", "context_axis": "model"}, ValueError,
+     "one axis beside the data axis"),
+    ({"mesh": None, "model_axis": "model"}, ValueError, "none was given")])
+def test_sharded_steps_raise_their_items(port, kw, err, match):
+    """What the sharded steps do not run: an MoE model under tensor MP names
+    item 15 (expert parallelism), and a model and a context axis together,
+    or an axis without a mesh, are refused."""
+    kw = dict(kw)
+    api = port[0]
+    if "arch" in kw:
+        api = t_build_model(t_get_config(kw.pop("arch")).reduced(), device="cpu")
+    kw.setdefault("mesh", _Pair())
+    with pytest.raises(err, match=match):
+        make_continuous_steps(api, n_slots=2, **kw)
 
 
 def test_engine_refuses_a_mesh(port):
     # no sharding argument is ignored: a mesh alone raises before any cache is made
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
+    with pytest.raises(ValueError, match="shards nothing"):
         ContinuousEngine(port[0], None, n_slots=2, capacity=32, mesh=object())
 
 
-@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "item 7b"), (["--replicas", "2"], "item 10"),
+@pytest.mark.parametrize("flag,item", [(["--tp", "2", "--replicas", "2"], "item 10"),
+                                       (["--replicas", "2"], "item 10"),
                                        (["--fault", "kill@5:0"], "item 10"),
                                        (["--max-queue", "4"], "item 10"),
                                        (["--watchdog", "1"], "item 10")])
@@ -554,6 +579,18 @@ def test_launch_serve_refuses_unported_flags(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         launch_serve.main(["--arch", "llama3_2_1b", "--reduced", "--device", "cpu",
                            "--continuous", *flag])
+
+
+def test_launcher_serves_on_ranks(capfd):
+    """``--continuous --tp 2`` on the CPU: 2 gloo ranks, rank 0's line with
+    tp=2, the kernels' launches summed over the ranks (0 on the CPU)."""
+    launch_serve.main(["--arch", "llama3_2_1b", "--reduced", "--device", "cpu", "--continuous",
+                       "--tp", "2", "--slots", "2", "--prefill-chunk", "4", "--batch", "3",
+                       "--prompt-len", "7", "--max-new", "3"])
+    out = capfd.readouterr().out
+    assert "[dist] backend=gloo ranks=2 cards=0 (cpu)" in out
+    assert "[serve] continuous llama3.2-1b on cpu" in out and "tp=2 dp=1" in out
+    assert "9 tokens" in out and "[kernels] flash_attention=0" in out
 
 
 def test_launch_serve_continuous_cli_runs_on_cpu():

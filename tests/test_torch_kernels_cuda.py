@@ -22,6 +22,8 @@ wkv6 backwards (no TPU kernel) are held against their plain twins, and
 forward, within 1e-4 (gmm) and 2e-4 (wkv6) of max(1, the largest reference
 value) in f32, the forwards' tolerances, and 2e-2 of it in bf16 (outputs
 rounded to bf16, 2^-8 of the value); a repeat launch gives the same bits.
+The flash kernels with an explicit query start (``q_start``) are held at
+the same tolerances, forward, lse and backward.
 """
 import numpy as np
 import pytest
@@ -147,6 +149,102 @@ def test_kernel_with_kv_lens_matches_plain_on_card(cuda_device, dtype, tol, b, t
         fma, _ = TFA._forward(q, k, v, causal, window, want_lse=False, variant="fma",
                               kv_lens=kv_lens)
         assert float((fma.float() - ref.float()).abs().max()) < tol
+
+
+# b, tq, tk, h, hkv, hd, causal, window, query starts (an int: one for every
+# row; a list: one a row), per-row key lengths or None.  The context-parallel
+# chunk's cache partial at pos 0 (every row sees no key), 256 and 768, with
+# and without a window; the windowed ring's past-block hop and a block the
+# window leaves wholly behind; a tick with starts past its window; negative
+# and zero starts.
+Q_START_CASES = [
+    (1, 128, 1064, 32, 8, 64, False, 0, [128], [0]),
+    (1, 128, 1064, 32, 8, 64, False, 0, [384], [256]),
+    (1, 128, 1064, 32, 8, 64, False, 256, [896], [768]),
+    (1, 128, 1064, 32, 8, 64, False, 256, [384], [256]),
+    (2, 256, 256, 8, 2, 64, True, 64, 256, None),
+    (2, 128, 128, 8, 2, 64, True, 64, 256, None),
+    (8, 1, 300, 32, 8, 64, True, 16, [0, 5, 63, 64, 280, 299, 320, 100],
+     [1, 6, 64, 65, 281, 300, 300, 101]),
+    (2, 40, 70, 4, 2, 32, True, 0, -10, None), (2, 40, 70, 4, 2, 128, True, 8, 0, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,tq,tk,h,hkv,hd,causal,window,starts,lens", Q_START_CASES)
+def test_kernel_with_q_start_matches_plain_on_card(cuda_device, dtype, tol, b, tq, tk, h, hkv,
+                                                   hd, causal, window, starts, lens):
+    """An explicit query start on the variant the wrapper picks and, for
+    bf16, on the FMA kernel forced; with lse (rows that see no key: out 0,
+    lse -inf), out the same bits with and without it; a start of 0 the same
+    bits as none."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(tq + tk + hd, b, tq, tk, h, hkv, hd))
+    dev = cuda_device
+    qs = torch.tensor(starts, dtype=torch.int32, device=dev) if isinstance(starts, list) \
+        else starts
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, window=window, kv_lens=kv_lens, q_start=qs)
+    ref = TFA.flash_attention_ref(q, k, v, **kw)
+    want_lse = TFA.flash_attention_lse_plain(q, k, **kw)
+    before = dict(TFA.flash_attention.variant_launches)
+    out = TFA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    variant = _variant_of(dtype, tq, h, hkv)
+    assert _moved(TFA.flash_attention, before) == {variant: 1}
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    dead = torch.isneginf(want_lse)                               # (B, H, Tq)
+    assert not out.transpose(1, 2)[dead].any()
+    variants = (variant, "fma") if dtype == torch.bfloat16 else (variant,)
+    for var in variants:
+        if var == "tc_decode":
+            continue
+        o_l, lse = TFA._forward(q, k, v, causal, window, want_lse=True, variant=var,
+                                kv_lens=kv_lens, q_start=qs)
+        o_p, _ = TFA._forward(q, k, v, causal, window, want_lse=False, variant=var,
+                              kv_lens=kv_lens, q_start=qs)
+        torch.cuda.synchronize()
+        assert torch.equal(o_l, o_p), var
+        assert float((o_l.float() - ref.float()).abs().max()) < tol, var
+        assert torch.equal(torch.isneginf(lse), dead), var
+        if (~dead).any():
+            assert _rel(lse[~dead], want_lse[~dead]) < BWD_F32_TOL, var
+    if lens is None and starts == 0:
+        assert torch.equal(out, TFA.flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,hkv,hd,causal,window,start", [
+    (2, 256, 256, 8, 2, 64, True, 64, 256), (1, 130, 70, 4, 2, 32, True, 16, 40),
+    (2, 65, 65, 4, 1, 128, False, 8, -20), (1, 64, 64, 4, 2, 64, True, 0, 0)])
+def test_flash_bwd_with_q_start_matches_plain_on_card(cuda_device, dtype, b, tq, tk, h, hkv,
+                                                      hd, causal, window, start):
+    """The backward with a host-int query start (the windowed ring's
+    past-block hop), each variant that takes the inputs, against the plain
+    backward (rows that see no key have P = 0) and, through
+    ``FlashAttentionFunction``, autograd of the plain forward."""
+    q, k, v, do = _bwd_inputs(tq + start, b, tq, tk, h, hkv, hd, cuda_device, dtype)
+    kw = dict(causal=causal, window=window, q_start=start)
+    out, lse = TFA._forward(q, k, v, causal, window, want_lse=True, q_start=start)
+    oracle = TFA.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(),
+                                           do.float(), lse, **kw)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    base = torch.autograd.grad(TFA.flash_attention_ref(*leaves, **kw), leaves, do)
+    picked = TFA.flash_bwd_variant(q, k, v, out, do)
+    for variant in (picked, "fma") if picked == "tc" else (picked,):
+        grads = TFA._launch_bwd(q, k, v, out, do, lse, causal, window, variant, q_start=start)
+        torch.cuda.synchronize()
+        for name, g, w, bse in zip(("dq", "dk", "dv"), grads, oracle, base):
+            assert torch.isfinite(g).all(), (variant, name)
+            if dtype == torch.float32:
+                assert _rel(g, w) < BWD_F32_TOL, (variant, name)
+            else:
+                assert _bf16_within(g, bse, w), (variant, name)
+    got = torch.autograd.grad(TFA.flash_attention(*leaves, **kw), leaves, do)
+    for g, w, bse in zip(got, oracle, base):
+        assert _bf16_within(g, bse, w) if dtype == torch.bfloat16 else _rel(g, w) < BWD_F32_TOL
 
 
 @pytest.mark.cuda

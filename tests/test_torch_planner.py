@@ -351,8 +351,10 @@ def test_launcher_auto_names_the_item_of_a_multi_card_plan(arch, item):
     """At 64 H100s the planner picks pipeline MP for BigLSTM, which trains
     on ranks through the scheduled runtime and names item 6b only under
     ``--pipe-runtime ad``; context parallelism for Llama, whose ring trains
-    (tests/test_torch_context.py) and whose context-parallel prefill names
-    item 8b; at 256 tensor MP for Inception-V3, which the port runs
+    (tests/test_torch_context.py) and serves the continuous engine's chunks
+    (tests/test_torch_serving_parallel.py), while the static engine's
+    prefill under the ctx names item 7b; at 256 tensor MP for Inception-V3,
+    which the port runs
     (item 7; tests/test_torch_tensor_mp.py trains this plan clamped to 2
     ranks): the plan passes, its clamp to a 2-rank model axis builds a
     step, and the launcher refuses Inception only for its data format."""
@@ -365,7 +367,7 @@ def test_launcher_auto_names_the_item_of_a_multi_card_plan(arch, item):
         assert (plan.mp_kind, mp) == ("context", 8)
         TL.check_plan(plan, mp)
         api = build_model(t_get_config(arch).reduced(), device="cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
             api.prefill(api.init(0), {"tokens": torch.zeros((1, 16), dtype=torch.long)},
                         pctx=ParallelCtx(mesh=None))
         return

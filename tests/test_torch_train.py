@@ -323,9 +323,10 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
     DP (item 5's remainder) for a dp= spec and an unknown key (5-8).  An
     mp= spec resolves to BigLSTM's tensor plan, which trains
     (tests/test_torch_tensor_mp_recurrent.py); what is left of item 7, the
-    serving TP, raises naming item 7b.  A cp= spec resolves to a context ring, which trains
-    (tests/test_torch_context.py); what is left of item 8, the
-    context-parallel prefill, raises naming item 8b."""
+    static engine's prefill under a ctx, raises naming item 7b.  A cp= spec resolves to a
+    context ring, which trains (tests/test_torch_context.py) and serves through the
+    continuous engine's chunk; the static engine's prefill under it raises naming item
+    7b too."""
     if item == "item 7":
         from repro_torch.models.api import build_model
         from repro_torch.models.transformer import ParallelCtx
@@ -344,7 +345,7 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
         plan, mp, _ = _resolve(spec, devices=64)
         assert (plan.mp_kind, mp) == ("context", 2)
         api = build_model(t_get_config("llama3_2_1b").reduced(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7b"):
             api.prefill(api.init(0), {"tokens": torch.zeros((1, 16), dtype=torch.long)},
                         pctx=ParallelCtx(mesh=None))
         return
