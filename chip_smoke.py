@@ -305,12 +305,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``wkv6`` and 4 ``wkv6_bwd``) on 2 ranks, each rank's peak and step ms;
    then f32 steps of each on a dp 2 x mp 2 run against the single-process
    card step at phase 15 (d)'s limits;
-29. print one JSON line of kernels, then the device line.
+29. the multi-replica router (``phase_router``): (a) full-width Llama-3.2-1B
+   on two replicas of phase 22's engine in one process, sharing the card
+   and the weights, on phase 22's 16 requests: unfaulted, then a kill, NaN
+   logits and a stall past the watchdog at a tick picked from the
+   unfaulted run, each with phase 22 (a)'s tokens and logprobs bit for bit,
+   exact stats, states and fault log, and L flash launches a decode tick
+   and a chunk of every engine, dead ones included; (b) the launcher's
+   ``--replicas 2 --fault kill@5:0`` in a process of its own, beside (c)'s
+   ranks (its checks are exact; its rate is taken on a shared card); (c)
+   replicas 2 x tp 2 on 4 ranks sharing the card, 2 full-width layers in
+   f32: a kill with the bits of an unfaulted tensor-MP engine on replica
+   group 1, each rank's launches exact;
+30. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
@@ -451,6 +464,14 @@ CONT_REQUESTS, CONT_PROMPTS, CONT_NEW, CONT_SOLO = 16, (64, 1024), 32, 4
 SHARD_REQUESTS, SHARD_NEW = 8, 16
 SHARD_CELL_LENS, SHARD_CELL_CHUNK, SHARD_CELL_NEW = [201, 77, 130, 5], 64, 4
 SHARD_CELL_SLOTS, SHARD_CELL_CAP = 4, 264
+# phase 29: two replicas of phase 22's engine; the stall and the watchdog
+# (seconds, far above a healthy step's 0.02-0.04); (c)'s 2-layer f32 cell
+# on replica groups of a tensor-MP pair: prompts (replica 0 takes the first
+# and third: one decodes, one waits to prefill when the kill fires before
+# tick ROUTER_CELL_KILL), chunk, new tokens, slots a replica, capacity
+ROUTER_REPLICAS, ROUTER_STALL_S, ROUTER_WATCHDOG_S = 2, 2.0, 1.0
+ROUTER_CELL_LENS, ROUTER_CELL_CHUNK, ROUTER_CELL_NEW = [70, 33, 90, 20], 64, 8
+ROUTER_CELL_SLOTS, ROUTER_CELL_CAP, ROUTER_CELL_KILL = 4, 128, 3
 # kernels a decode step on commit f4893cd (the tree that first served all
 # three models), counted by torch.profiler after a warm-up cycle: Llama 1262
 # and RWKV 2957 in each of three profiles, Granite 3254 in two of three (the
@@ -2517,19 +2538,22 @@ def check_rank_run(summary, name, cfg, *, steps, stages, micro, dp=1, seq=TRAIN_
 
 def phase_ranks(train_launch, lc, lstm_cfg):
     """Phase 15 (a)-(c): full-width DP and pipeline runs through the
-    launcher on ranks that share the card, beside the planner's memory
-    model and bubble fraction."""
+    launcher on ranks that share the card ((a) and (b) planned by the
+    launcher and run one after the other on one spawn), beside the
+    planner's memory model and bubble fraction."""
     from repro_torch.configs import get_config
     from repro_torch.core import planner as planner_mod
     from repro_torch.parallel.pipeline import pipeline_bubble_fraction
 
     runs = {}
-    for tag, sched, mark in (("a", "1f1b", 2), ("b", "gpipe", 4)):
-        torch.cuda.empty_cache()
+    pipes = (("a", "1f1b", 2), ("b", "gpipe", 4))
+    torch.cuda.empty_cache()
+    summaries, _ = _launcher_runs(train_launch, [
+        ["--arch", "biglstm", "--parallel", f"pipe=2,micro=4,sched={sched}", "--batch",
+         str(TRAIN_B), "--seq", str(TRAIN_T), "--steps", str(RANK_STEPS)]
+        for _, sched, _ in pipes])
+    for (tag, sched, mark), summary in zip(pipes, summaries):
         spec = f"pipe=2,micro=4,sched={sched}"
-        summary = train_launch.main(["--arch", "biglstm", "--parallel", spec, "--batch",
-                                     str(TRAIN_B), "--seq", str(TRAIN_T), "--steps",
-                                     str(RANK_STEPS)])
         rec = check_rank_run(summary, f"({tag}) biglstm {spec}", lstm_cfg, steps=RANK_STEPS,
                              stages=2, micro=4, lstm=True, high_water=mark)
         rec["planner_per_device_mem_gib"] = planner_mod.per_device_mem_bytes(
@@ -2599,16 +2623,71 @@ def phase_ranks_vs_plain(train_launch, api_mod, cfg):
         ("dp=2 overlapped", "dp=2,mp=1", "overlapped")], "ranks_vs_single")
 
 
+def _concurrently(*thunks):
+    """Call each of ``thunks`` on a thread of its own (each starts processes
+    and waits on them) and return their results in order; the first that
+    raised raises here once all have ended."""
+    with concurrent.futures.ThreadPoolExecutor(len(thunks)) as pool:
+        futures = [pool.submit(fn) for fn in thunks]
+        concurrent.futures.wait(futures)
+    return [f.result() for f in futures]
+
+
+def _train_runs_rank(mesh, runs, then=None, then_args=()):
+    """Each of ``runs`` in turn through the launcher's rank body
+    (``launch.train._train``) on this rank's mesh, then ``then(mesh,
+    *then_args)`` if given; the launch counters set to 0 before each, and
+    one run's memory freed before the next: one spawn for several runs on
+    one mesh shape.  Returns {"runs": each run's rank result, "then": ...}."""
+    import gc
+
+    from repro_torch.launch import train as train_launch
+
+    out = {"runs": [], "then": None}
+    for run in runs:
+        reset_counters(train_launch._counter_fns())
+        out["runs"].append(train_launch._train(mesh, run))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if then is not None:
+        reset_counters(train_launch._counter_fns())
+        out["then"] = then(mesh, *then_args)
+    return out
+
+
+def _launcher_runs(train_launch, argvs, then=None, then_args=()):
+    """The launcher's runs of ``argvs``, planned as its ``main`` plans them
+    (``plan_run``: the flags, the plan, the ``[plan]`` line), on one spawn of
+    the mesh they share, one after another, then ``then`` on that spawn
+    (``_train_runs_rank``).  Returns (each run's summary as ``main`` returns
+    it, ``then``'s result on each rank)."""
+    from repro_torch.parallel import dist as D
+
+    planned = [train_launch.plan_run(argv) for argv in argvs]
+    shapes = {(dp, stages) for _, dp, stages in planned}
+    if len(shapes) != 1:
+        raise ValueError(f"runs on more than one mesh: {shapes}")
+    (dp, stages), = shapes
+    runs = [run for run, _, _ in planned]
+    ranks = D.spawn_ranks(_train_runs_rank, dp * stages, "cuda", args=(runs, then, then_args),
+                          stages=stages)
+    return ([train_launch.rank_summary(run, [r["runs"][i] for r in ranks])
+             for i, run in enumerate(runs)], [r["then"] for r in ranks])
+
+
 def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     """One step of each of ``specs`` ((name, --parallel spec, comm runtime or
-    None[, ring chunks])) through the launcher's ranks, sharing the card,
-    against the single-process step on the card from the same seeded weights
-    (the launcher's seed 0) and batch: loss and grad norm within 1e-4
-    relative, every rank's parameters (a pipelined rank's stage, a tensor-MP
-    rank's part) within ``RANK_PARAMS_TOL``, and on a tensor-MP group every
-    leaf the rules replicate the same bits on each of its ranks; TF32 off.
-    Prints ``{key: results}``."""
+    None[, ring chunks])) through the launcher's rank body, sharing the
+    card, against the single-process step on the card from the same seeded
+    weights (the launcher's seed 0) and batch: loss and grad norm within
+    1e-4 relative, every rank's parameters (a pipelined rank's stage, a
+    tensor-MP rank's part) within ``RANK_PARAMS_TOL``, and on a tensor-MP
+    group every leaf the rules replicate the same bits on each of its
+    ranks; TF32 off.  The specs of one mesh shape share a spawn, and the
+    spawns run at once (these cells check values, not times).  Prints
+    ``{key: results}``."""
     from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.parallel import dist as D
     from repro_torch.parallel import sharding as SH
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.tree import tree_leaves
@@ -2625,7 +2704,7 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
            _tree_to(state.params, "cpu"))
     del state, metrics, batch
     torch.cuda.empty_cache()
-    results = {}
+    cells, shapes = [], {}
     for name, spec, comm, *chunks in specs:
         plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
         plan = dataclasses.replace(plan, dp_axes=("data",),
@@ -2635,27 +2714,42 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
         stages = mp if plan.is_pipeline or plan.is_context or tensor else 1
         run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=1, batch=batch_size,
                                    seq=seq, lr=lr, return_params=True)
-        summary = train_launch.run_ranks(run, dp, stages, "cuda")
-        loss, gnorm = summary["history"][0], summary["grad_norms"][0]
+        shapes.setdefault((dp, stages), []).append(len(cells))
+        cells.append((name, plan, mp, dp, stages, tensor, run))
+    spawned = _concurrently(*(
+        (lambda dp=dp, stages=stages, idx=idx: D.spawn_ranks(
+            _train_runs_rank, dp * stages, "cuda",
+            args=([cells[i][-1] for i in idx],), stages=stages))
+        for (dp, stages), idx in shapes.items()))
+    per_cell = {}
+    for ((dp, stages), idx), ranks in zip(shapes.items(), spawned):
+        for n, i in enumerate(idx):
+            per_cell[i] = [r["runs"][n] for r in ranks]
+    results = {}
+    for i, (name, plan, mp, dp, stages, tensor, run) in enumerate(cells):
+        ranks = per_cell[i]
+        loss, gnorm = ranks[0]["history"][0], ranks[0]["grad_norms"][0]
         rules = SH.ShardingRules(cfg2, {"data": dp, "model": mp}, plan) if tensor else None
         err = 0.0
-        for r, params in zip(summary["ranks"], summary["rank_params"]):
+        for r in ranks:
             if plan.is_pipeline:
-                want = api.pipeline_stage_params(ref[2], stages, 1, r["stage"])
+                want = api.pipeline_stage_params(ref[2], stages, 1, r["rank"]["stage"])
             elif tensor:
-                want = SH.shard_params(ref[2], rules, r["stage"])
+                want = SH.shard_params(ref[2], rules, r["rank"]["stage"])
             else:
                 want = ref[2]
-            err = max(err, _max_err(tree_leaves(params), tree_leaves(want)))
+            err = max(err, _max_err(tree_leaves(r["params"]), tree_leaves(want)))
         results[name] = {"loss_rel": abs(loss - ref[0]) / abs(ref[0]),
                          "grad_norm_rel": abs(gnorm - ref[1]) / abs(ref[1]),
                          "params_max_abs": err, "loss": loss, "grad_norm": gnorm,
-                         "transport": summary["transport"].describe(dp * stages)}
+                         "transport": ranks[0]["transport"].describe(dp * stages)}
         if tensor:
             results[name]["replicated_same_bits"] = _replicated_same_bits(
-                summary["rank_params"], [r["data"] for r in summary["ranks"]], cfg2, rules)
+                [r["params"] for r in ranks], [r["rank"]["data"] for r in ranks], cfg2, rules)
     out = {key: results, "single": {"loss": ref[0], "grad_norm": ref[1]},
-           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL}}
+           "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL},
+           "spawns": [{"mesh": list(shape), "cells": [cells[i][0] for i in idx]}
+                      for shape, idx in shapes.items()]}
     print(json.dumps(out), flush=True)
     for name, r in results.items():
         if not (r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4
@@ -2867,7 +2961,7 @@ def _ring_rank(mesh, cfg):
     ``ring_attention`` and back, in bf16 and f32; the output rows and dq, dk,
     dv on the CPU, and this rank's flash launches.  Then the wall time of
     (a)'s gradient sync alone: one all-reduce a leaf over every rank of
-    ``cfg``'s f32 parameters (through host memory, as in (a)), twice."""
+    ``cfg``'s f32 parameters (through host memory, as in (a)), once."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.api import build_model
     from repro_torch.parallel.collectives import all_reduce_grads
@@ -2885,7 +2979,7 @@ def _ring_rank(mesh, cfg):
     out["launches"] = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
     leaves = build_model(cfg, device=mesh.device).init(0)   # the values do not matter
     out["grad_sync_ms"] = []
-    for _ in range(2):
+    for _ in range(1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         all_reduce_grads(leaves, mesh, axis=None)
@@ -2917,10 +3011,12 @@ def phase_context(train_launch, lc, counters, api_mod, cfg):
              "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
     torch.cuda.empty_cache()
     reset_counters(every)
-    summary = train_launch.main(["--arch", "llama3_2_1b", "--parallel", "auto", "--devices",
-                                 "8", "--batch", str(RING_B), "--seq", str(RING_T),
-                                 "--steps", str(RING_STEPS)])
     ring = 2
+    # (a), then (b)'s ring and gradient sync on the same spawn
+    (summary,), ranks = _launcher_runs(
+        train_launch, [["--arch", "llama3_2_1b", "--parallel", "auto", "--devices", "8",
+                        "--batch", str(RING_B), "--seq", str(RING_T), "--steps",
+                        str(RING_STEPS)]], then=_ring_rank, then_args=(cfg,))
     rec = check_rank_run(summary, "(a) llama3_2_1b --parallel auto --devices 8", cfg,
                          steps=RING_STEPS, stages=ring, micro=1, seq=RING_T, lstm=False,
                          high_water=0, ring=True)
@@ -2933,7 +3029,6 @@ def phase_context(train_launch, lc, counters, api_mod, cfg):
     torch.cuda.empty_cache()
 
     # (b) the ring alone against one process
-    ranks = D.spawn_ranks(_ring_rank, ring, "cuda", args=(cfg,), stages=ring)
     ring_check = {"launches_a_rank": [r["launches"] for r in ranks],
                   "grad_sync_ms_a_rank": [r["grad_sync_ms"] for r in ranks]}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2963,12 +3058,14 @@ def phase_context(train_launch, lc, counters, api_mod, cfg):
     return rec, ring_check, steps
 
 
-def _tensor_inception_rank(mesh, plan, cfg, cfg64, cell_batch):
-    """Phase 20 (c) on one rank: 2 bf16 steps of full Inception-V3 at B 64 x
-    299 on the planner's tensor plan (its part of the seeded init; step ms,
-    peak, losses, its kernel launches), then one f64 step of ``cfg64`` at
-    ``cell_batch`` from seed 0 (TF32 off): loss, grad norm, its part on the
-    CPU."""
+def _tensor_inception_rank(mesh, plan, cfg, cfg64, cell_batch, d_model):
+    """Phase 20 (c) on one rank of (a)'s spawn, after (a)'s runs and (a)'s
+    messages alone (``_tp_comm_rank`` at Llama's ``d_model``; nothing else
+    runs on the card meanwhile): 2 bf16 steps of full Inception-V3 at B
+    64 x 299 on the planner's tensor plan (its part of the seeded init; step
+    ms, peak, losses, its kernel launches), then one f64 step of ``cfg64``
+    at ``cell_batch`` from seed 0 (TF32 off): loss, grad norm, its part on
+    the CPU."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lstm_cell as lc
     from repro_torch.kernels import moe_gmm as gm
@@ -2977,6 +3074,8 @@ def _tensor_inception_rank(mesh, plan, cfg, cfg64, cell_batch):
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import init_train_state, make_train_step
 
+    out = {"messages": _tp_comm_rank(mesh, d_model), "step_ms": [], "losses": []}
+    torch.cuda.empty_cache()
     api = api_mod.build_model(cfg, device=mesh.device)
     opt = adamw(warmup_cosine(3e-3, 20, TP_STEPS))
     state = init_train_state(api, opt, 0, mesh=mesh, plan=plan)
@@ -2986,7 +3085,6 @@ def _tensor_inception_rank(mesh, plan, cfg, cfg64, cell_batch):
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    out = {"step_ms": [], "losses": []}
     for b in batches:
         sync()
         t0 = time.perf_counter()
@@ -3016,9 +3114,9 @@ def _tensor_inception_rank(mesh, plan, cfg, cfg64, cell_batch):
 
 def _tp_comm_rank(mesh, d_model):
     """The wall time of phase 20 (a)'s messages alone on ranks sharing the
-    card: an all-reduce of a (B, T, d) bf16 activation (the gspmd block's,
-    after each row-parallel product and in each ``copy_to_model``
-    backward) and one ring hop of a chunk of rows (B, T / 2m, d), the
+    card (on (a)'s spawn, after its runs): an all-reduce of a (B, T, d) bf16
+    activation (the gspmd block's, after each row-parallel product and in
+    each ``copy_to_model`` backward) and one ring hop of a chunk of rows (B, T / 2m, d), the
     overlapped block's message at 2 chunks; 2 warm-ups, then 5 of each."""
     from repro_torch.parallel import collectives as CL
     from repro_torch.parallel import dist as D
@@ -3050,49 +3148,19 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     over the ranks (``tc_prefill``) and as many backward calls (``tc``),
     every rank's losses finite and the same, its peak and step ms, and the
     wall time of one all-reduce and one ring hop of those runs' messages
-    alone (``_tp_comm_rank``).  (b) 2 full-width f32 layers, vocab 32768, B
+    alone (``_tp_comm_rank``); both runs, the messages and (c) on one spawn,
+    one after another.  (b) 2 full-width f32 layers, vocab 32768, B
     4 x T 512, at ``mp=2`` gspmd, overlapped with 1 and 2 chunks and
     ``dp=2,mp=2`` overlapped against the single-process card step.  (c)
     Inception-V3's 256-card plan clamped to 2 ranks: 2 bf16 steps at B 64 x
     299, and an f64 step at phase 18 (b)'s cell against the single card
     step (phase 15 (d)'s limits, replicated leaves the same bits)."""
     from repro_torch.core.planner import HybridPlanner, default_epoch_model
-    from repro_torch.parallel import dist as D
     from repro_torch.parallel import sharding as SH
-    from repro_torch.tree import tree_leaves
 
     every = {"lstm_cell_fwd": lc.lstm_cell_fwd,
              "lstm_cell_bwd_pointwise": lc.lstm_cell_bwd_pointwise, **counters}
-    runs = {}
-    for comm, extra in (("overlapped", ["--comm-chunks", "2"]), ("gspmd", [])):
-        torch.cuda.empty_cache()
-        reset_counters(every)
-        name = f"(a) llama3_2_1b --parallel mp={TP_M} --comm-runtime {comm} {' '.join(extra)}"
-        summary = train_launch.main(["--arch", "llama3_2_1b", "--parallel", f"mp={TP_M}",
-                                     "--comm-runtime", comm, *extra, "--batch", str(TP_B),
-                                     "--seq", str(TP_T), "--steps", str(TP_STEPS)])
-        rec = check_rank_run(summary, name, cfg, steps=TP_STEPS, stages=TP_M, micro=1,
-                             seq=TP_T, lstm=False, high_water=0, tensor=True)
-        rec["per_step"] = {"flash_attention": rec["launches"]["flash_attention"] // TP_STEPS,
-                           "flash_attention_bwd":
-                               rec["launches"]["flash_attention_bwd"] // TP_STEPS}
-        rec["batch"], rec["seq"] = TP_B, TP_T
-        print(json.dumps({f"tensor_a_{comm}": rec}), flush=True)
-        runs[comm] = rec
-        del summary
-    torch.cuda.empty_cache()
-    comm_ms = D.spawn_ranks(_tp_comm_rank, TP_M, "cuda", args=(cfg.d_model,), stages=TP_M)
-    print(json.dumps({"tensor_a_messages": comm_ms}), flush=True)
-
-    # (b) steps on ranks against one process, in f32
-    cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
-    steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T, [
-        ("mp=2 gspmd", "mp=2", "gspmd"), ("mp=2 overlapped c1", "mp=2", "overlapped", 1),
-        ("mp=2 overlapped c2", "mp=2", "overlapped", 2),
-        ("dp=2,mp=2 overlapped c2", "dp=2,mp=2", "overlapped", 2)], "tensor_b")
-    torch.cuda.empty_cache()
-
-    # (c) Inception-V3's planned tensor plan, clamped to a model axis of 2
+    # (c)'s plan and single-process f64 step first: (c) runs on (a)'s spawn
     choice = HybridPlanner(inc_cfg, epoch_model=default_epoch_model(inc_cfg)).choices(256)[0]
     plan = dataclasses.replace(choice.plan, dp_axes=("data",))
     if choice.mp_kind != "tensor":
@@ -3103,8 +3171,41 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     single = paper_step(api_mod, cfg64, cell_batch)
-    ranks = D.spawn_ranks(_tensor_inception_rank, TP_M, "cuda",
-                          args=(plan, inc_cfg, cfg64, cell_batch), stages=TP_M)
+    torch.cuda.empty_cache()
+
+    # (a) both runtimes planned by the launcher, one after the other on one
+    # spawn, then on it (a)'s messages alone and (c) (``_tensor_inception_rank``)
+    runs = {}
+    comms = (("overlapped", ["--comm-chunks", "2"]), ("gspmd", []))
+    reset_counters(every)
+    summaries, ranks = _launcher_runs(
+        train_launch, [["--arch", "llama3_2_1b", "--parallel", f"mp={TP_M}", "--comm-runtime",
+                        comm, *extra, "--batch", str(TP_B), "--seq", str(TP_T), "--steps",
+                        str(TP_STEPS)] for comm, extra in comms],
+        then=_tensor_inception_rank, then_args=(plan, inc_cfg, cfg64, cell_batch, cfg.d_model))
+    for (comm, extra), summary in zip(comms, summaries):
+        name = f"(a) llama3_2_1b --parallel mp={TP_M} --comm-runtime {comm} {' '.join(extra)}"
+        rec = check_rank_run(summary, name, cfg, steps=TP_STEPS, stages=TP_M, micro=1,
+                             seq=TP_T, lstm=False, high_water=0, tensor=True)
+        rec["per_step"] = {"flash_attention": rec["launches"]["flash_attention"] // TP_STEPS,
+                           "flash_attention_bwd":
+                               rec["launches"]["flash_attention_bwd"] // TP_STEPS}
+        rec["batch"], rec["seq"] = TP_B, TP_T
+        print(json.dumps({f"tensor_a_{comm}": rec}), flush=True)
+        runs[comm] = rec
+    del summaries
+    print(json.dumps({"tensor_a_messages": [r["messages"] for r in ranks]}), flush=True)
+
+    # (b) steps on ranks against one process, in f32
+    cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
+    steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T, [
+        ("mp=2 gspmd", "mp=2", "gspmd"), ("mp=2 overlapped c1", "mp=2", "overlapped", 1),
+        ("mp=2 overlapped c2", "mp=2", "overlapped", 2),
+        ("dp=2,mp=2 overlapped c2", "dp=2,mp=2", "overlapped", 2)], "tensor_b")
+    torch.cuda.empty_cache()
+
+    # (c) Inception-V3's planned tensor plan, clamped to a model axis of 2,
+    # against the single f64 step
     rules = SH.ShardingRules(inc_cfg, {"data": 1, "model": TP_M}, plan)
     errs = []
     for j, r in enumerate(ranks):
@@ -3235,7 +3336,8 @@ def phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rw
     just after.
 
     (a) Full-width, full-depth BigLSTM through the launcher at ``mp=2``,
-    gspmd and overlapped with 2 chunks, B 16 x T 64, 2 steps each: L T m =
+    gspmd and overlapped with 2 chunks (planned by the launcher, one after
+    the other on one spawn), B 16 x T 64, 2 steps each: L T m =
     256 LSTM forward launches a step summed over the ranks, all ``tc``, of
     ``lstm_cell_fwd`` (gspmd) or of its gx entry (overlapped: x @ Wx on the
     gather ring), and 256 pointwise backward launches; every rank's losses
@@ -3264,12 +3366,14 @@ def phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rw
     m, steps = RNN_TP_M, RNN_TP_STEPS
     out = {"transport": "gloo, ranks sharing the card (host-staged messages)"}
     per_step = lstm_cfg.n_layers * TRAIN_T * m
-    for comm, extra in (("gspmd", []), ("overlapped", ["--comm-chunks", "2"])):
-        torch.cuda.empty_cache()
-        reset_counters(every)
-        summary = train_launch.main(["--arch", "biglstm", "--parallel", f"mp={m}",
-                                     "--comm-runtime", comm, *extra, "--batch", str(TRAIN_B),
-                                     "--seq", str(TRAIN_T), "--steps", str(steps)])
+    comms = (("gspmd", []), ("overlapped", ["--comm-chunks", "2"]))
+    torch.cuda.empty_cache()
+    reset_counters(every)
+    summaries, _ = _launcher_runs(train_launch, [
+        ["--arch", "biglstm", "--parallel", f"mp={m}", "--comm-runtime", comm, *extra,
+         "--batch", str(TRAIN_B), "--seq", str(TRAIN_T), "--steps", str(steps)]
+        for comm, extra in comms])
+    for (comm, extra), summary in zip(comms, summaries):
         launches, variants = summary["launches"], summary["variants"]
         fwd = "lstm_cell_fwd_gx" if comm == "overlapped" else "lstm_cell_fwd"
         want = dict.fromkeys(launches, 0)
@@ -3297,7 +3401,7 @@ def phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rw
             raise AssertionError(f"{rec['run']}: {t}, losses "
                                  f"{[r['losses'] for r in summary['ranks']]}")
         out[f"a_biglstm_{comm}"] = rec
-        del summary
+    del summaries
 
     # (d)'s single-process references, then (b)-(d) in one spawn of 4 ranks
     torch.cuda.empty_cache()
@@ -3571,19 +3675,24 @@ def phase_checkpoints(train_launch, api_mod, cfg):
         shutil.rmtree(f"{root}/sync")
         torch.cuda.empty_cache()
 
-        # (b) dp=2 and pipe=2 files of 2 f32 layers restored in one process
+        # (b) dp=2 and pipe=2 files of 2 f32 layers restored in one process;
+        # the two rank runs at once (they write files, their times unused)
         cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
         api2 = api_mod.build_model(cfg2, device="cuda")
         opt2 = adamw(warmup_cosine(3e-3, 20, CKPT_STEPS))
-        for spec in ("dp=2,mp=1", "pipe=2,micro=2,sched=1f1b"):
+        cells = []
+        for i, spec in enumerate(("dp=2,mp=1", "pipe=2,micro=2,sched=1f1b")):
             plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
             plan = dataclasses.replace(plan, dp_axes=("data",))
             stages = mp if plan.is_pipeline else 1
-            ranks_dir, one_dir = f"{root}/ranks", f"{root}/one"
             run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=CKPT_STEPS, batch=SMOL_B,
-                                       seq=SMOL_T, lr=3e-3, ckpt_dir=ranks_dir,
+                                       seq=SMOL_T, lr=3e-3, ckpt_dir=f"{root}/ranks_{i}",
                                        ckpt_every=CKPT_EVERY)
-            train_launch.run_ranks(run, dp, stages, "cuda")
+            cells.append((spec, dp, stages, run, f"{root}/one_{i}"))
+        _concurrently(*(lambda c=c: train_launch.run_ranks(c[3], c[1], c[2], "cuda")
+                        for c in cells))
+        for spec, dp, stages, run, one_dir in cells:
+            ranks_dir = run.ckpt_dir
             mid = f"{ranks_dir}/ckpt_{CKPT_EVERY:08d}.msgpack"
             state = C.restore_checkpoint(mid, eval_train_state(api2, opt2),
                                          lambda s: place_state(s, api2))
@@ -3993,6 +4102,225 @@ def phase_sharded_serving(serve_launch, api_mod, cont_mod, cfg, single):
     return runs
 
 
+def _drive_router(rt, reqs, counters):
+    """Every request through router ``rt`` from counters at 0: the results
+    by rid, each rid's finish second, the rids that failed over, after each
+    tick the (decoding, waiting) requests on each replica, the wall seconds
+    and peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    for r in reqs:
+        rt.submit(r)
+    done_at, ticks, failed = {}, [], set()
+    try:
+        more = True
+        while more:
+            more = rt.step()
+            now = time.perf_counter() - t0
+            for res in rt.results[len(done_at):]:
+                done_at[res.rid] = now
+            failed |= {rid for rid, tr in rt.tracked.items() if tr.failovers}
+            ticks.append([(sum(1 for tr in rt.tracked.values() if tr.replica == i and tr.tokens),
+                           sum(1 for tr in rt.tracked.values()
+                               if tr.replica == i and not tr.tokens))
+                          for i in range(len(rt.replicas))])
+    finally:
+        rt.close()
+    return ({r.rid: r for r in rt.results}, done_at, sorted(failed), ticks,
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _router_cell_rank(mesh, cfg2):
+    """Phase 29 (c) on one rank: the router over replica groups of this
+    mesh under a kill of replica 0, then on replica group 1 the unfaulted
+    tensor-MP engine; each with this rank's flash launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api as api_mod
+    from repro_torch.serve import continuous as cont_mod
+    from repro_torch.serve import router as router_mod
+    from repro_torch.train.fault import parse_fault_schedule
+
+    api = api_mod.build_model(cfg2, device="cuda")
+    params = api.init(3)
+    gen = torch.Generator().manual_seed(31)
+    reqs = [cont_mod.Request(rid=i, tokens=torch.randint(0, cfg2.vocab_size, (n,),
+                                                         generator=gen).tolist(),
+                             max_new_tokens=ROUTER_CELL_NEW)
+            for i, n in enumerate(ROUTER_CELL_LENS)]
+    kw = dict(n_slots=ROUTER_CELL_SLOTS, capacity=ROUTER_CELL_CAP,
+              prefill_chunk=ROUTER_CELL_CHUNK)
+    before = fa.flash_attention.launches
+    rt = router_mod.ReplicaRouter(
+        api, params, replicas=mesh.shape["data"], mesh=mesh, retry_backoff_s=0.0,
+        faults=parse_fault_schedule(f"kill@{ROUTER_CELL_KILL}:0"), **kw)
+    res = rt.run(reqs)
+    out = {"results": [(r.rid, r.tokens, r.logprobs) for r in res], "stats": rt.stats,
+           "states": rt.replica_states, "fault_log": rt.fault_log,
+           "engines": [(r.decode_ticks, r.prefill_chunks) for r in rt.replicas],
+           "launches": fa.flash_attention.launches - before}
+    if mesh.data_index == 1:
+        eng = cont_mod.ContinuousEngine(api, params, mesh=mesh, model_axis="model",
+                                        batch_axes=(), **kw)
+        before = fa.flash_attention.launches
+        out["group_1"] = [(r.rid, r.tokens, r.logprobs) for r in eng.run(reqs)]
+        out["group_1_launches"] = fa.flash_attention.launches - before
+        out["group_1_engine"] = (eng.decode_ticks, eng.prefill_chunks)
+    return out
+
+
+def phase_router(counters, api_mod, cont_mod, router_mod, cfg, single):
+    """Phase 29: (a) the router in this process, two replicas of phase 22's
+    engine on its requests (``single``: phase 22 (a)'s results by rid),
+    unfaulted, then kill, NaN logits and a stall at tick K; (b) the
+    launcher's router run, started beside (c) (exact checks; its rate is
+    taken on a card (c)'s ranks share); (c) replicas 2 x tp 2 on 4 ranks
+    sharing the card.  Returns (a)'s runs."""
+    from repro_torch.parallel import dist as D
+    from repro_torch.train.fault import parse_fault_schedule
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    rep = cfg.n_heads // cfg.n_kv_heads
+    reqs = _cont_requests(cont_mod, cfg, CONT_REQUESTS, seed=25)
+    # every chunk of these prompts takes the prefill tile (none fits the
+    # decode tile's 16 rows), so a run's launches split by its own counts
+    if any(rep * t <= 16 for r in reqs for t in _chunks(len(r.tokens), CONT_CHUNK)):
+        raise AssertionError("phase 29: a prompt's last chunk would take the decode tile")
+    api = api_mod.build_model(cfg, device="cuda")
+    params = api.init(0)
+
+    def router(faults="", **kw):
+        return router_mod.ReplicaRouter(
+            api, params, replicas=ROUTER_REPLICAS, n_slots=CONT_SLOTS, capacity=CONT_CAP,
+            prefill_chunk=CONT_CHUNK, retry_backoff_s=0.0,
+            faults=parse_fault_schedule(faults) if faults else (), **kw)
+
+    router().run(_cont_requests(cont_mod, cfg, 4, seed=26))       # warm up
+    runs, base = {}, None
+    for name in ("none", "kill", "nanlogits", "stall"):
+        if name == "none":
+            faults, kw = "", {}
+        else:
+            k = base["K"]
+            faults, kw = {"kill": (f"kill@{k}:0", {}),
+                          "nanlogits": (f"nanlogits@{k}:1", {}),
+                          "stall": (f"stall@{k}:0:{ROUTER_STALL_S}",
+                                    {"watchdog_timeout_s": ROUTER_WATCHDOG_S})}[name]
+        rt = router(faults, **kw)
+        results, done_at, failed_over, ticks, wall, peak = _drive_router(rt, reqs, counters)
+        if name == "none":
+            # K: the first armed tick before which replica 0 holds a decoding
+            # and a waiting request and replica 1 a decoding one
+            k = next(t for t in range(3, len(ticks) + 1)
+                     if min(ticks[t - 2][0]) > 0 and ticks[t - 2][1][0] > 0)
+            base = {"K": k, "done_at": done_at, "ticks": ticks}
+        k = base["K"]
+        want_failovers = {"none": 0, "kill": sum(base["ticks"][k - 2][0]),
+                          "nanlogits": sum(base["ticks"][k - 2][1]),
+                          "stall": sum(base["ticks"][k - 1][0])}[name]
+        want_states = {"none": ["healthy", "healthy"], "kill": ["dead", "healthy"],
+                       "nanlogits": ["healthy", "degraded"],
+                       "stall": ["degraded", "healthy"]}[name]
+        want_log = [] if name == "none" else [(name, k, 1 if name == "nanlogits" else 0)]
+        want_stats = {"completed": CONT_REQUESTS, "shed": 0, "timed_out": 0,
+                      "failovers": want_failovers}
+        launches = {n: fn.launches for n, fn in counters.items()}
+        variants = variant_launches(counters)["flash_attention"]
+        want_variants = dict.fromkeys(variants, 0)
+        want_variants.update(tc_decode=L * rt.decode_ticks, tc_prefill=L * rt.prefill_chunks)
+        want_launches = dict.fromkeys(launches, 0)
+        want_launches["flash_attention"] = L * (rt.decode_ticks + rt.prefill_chunks)
+        differ = [rid for rid, r in results.items()
+                  if (r.tokens, r.logprobs) != (single[rid].tokens, single[rid].logprobs)]
+        recover = [done_at[rid] - base["done_at"][rid] for rid in failed_over]
+        toks = sum(len(r.tokens) for r in results.values())
+        ttft = sorted(r.first_token_s for r in results.values())
+        run = {"run": name, "faults": faults, "K": k, "tok_per_s": toks / wall, "wall_s": wall,
+               "router_ticks": rt.ticks, "ms_per_router_tick": wall / rt.ticks * 1e3,
+               "decode_ticks": rt.decode_ticks, "prefill_chunks": rt.prefill_chunks,
+               "engine_ms_per_tick": [r.engine.tick_ms_sum / max(r.engine.decode_ticks, 1)
+                                      if r.engine is not None else None
+                                      for r in rt.replicas],
+               "median_first_token_s": ttft[len(ttft) // 2],
+               "first_token_s_min_max": [ttft[0], ttft[-1]], "stats": rt.stats,
+               "states": rt.replica_states, "fault_log": rt.fault_log,
+               "failed_over": failed_over, "recover_s_max": max(recover, default=0.0),
+               "recover_s_mean": sum(recover) / len(recover) if recover else 0.0,
+               "peak_gib": peak, "launches": launches, "flash_variants": variants,
+               "requests_differing_from_phase_22": differ}
+        print(json.dumps(run), flush=True)
+        if differ or len(results) != CONT_REQUESTS or rt.stats != want_stats or \
+                rt.replica_states != want_states or rt.fault_log != want_log or \
+                len(failed_over) != want_failovers or launches != want_launches or \
+                variants != want_variants:
+            raise AssertionError(f"phase 29 (a) {name}: want stats {want_stats}, states "
+                                 f"{want_states}, fault log {want_log}, launches "
+                                 f"{want_launches} {want_variants}: {run}")
+        runs[name] = run
+    del api, params
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase 29 (a) s": time.perf_counter() - t_phase}), flush=True)
+
+    # (b) beside (c)
+    cli = _start_serve_launcher(["--arch", "llama3_2_1b", "--continuous", "--replicas", "2",
+                                 "--slots", str(CONT_SLOTS), "--prefill-chunk", str(CONT_CHUNK),
+                                 "--batch", "16", "--prompt-len", "512", "--max-new", "32",
+                                 "--fault", "kill@5:0"])
+    try:
+        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32", vocab_size=32768)
+        ranks = D.spawn_ranks(_router_cell_rank, 4, "cuda", args=(cfg2,), stages=2,
+                              timeout_s=300)
+    finally:
+        proc, args, t_cli = cli
+        try:
+            cli_out, cli_err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    first, group_1 = ranks[0], ranks[2]
+    want_launches = [cfg2.n_layers * sum(first["engines"][r // 2]) for r in range(4)]
+    cell = {"phase 29 (c)": {
+        "stats": first["stats"], "states": first["states"], "fault_log": first["fault_log"],
+        "engines": first["engines"], "launches_per_rank": [r["launches"] for r in ranks],
+        "ranks_agree": all(r["results"] == first["results"] and r["stats"] == first["stats"]
+                           for r in ranks),
+        "same_bits_as_group_1": first["results"] == group_1["group_1"],
+        "group_1_launches": [group_1["group_1_launches"], ranks[3]["group_1_launches"]],
+        "group_1_engine": group_1["group_1_engine"]}}
+    print(json.dumps(cell), flush=True)
+    c = cell["phase 29 (c)"]
+    if not (c["ranks_agree"] and c["same_bits_as_group_1"]
+            and c["launches_per_rank"] == want_launches
+            and first["states"] == ["dead", "healthy"] and first["stats"]["failovers"] > 0
+            and first["stats"]["completed"] == len(ROUTER_CELL_LENS)
+            and c["group_1_launches"] == [cfg2.n_layers * sum(group_1["group_1_engine"])] * 2):
+        raise AssertionError(f"phase 29 (c): want launches {want_launches}: {cell}")
+
+    cli_wall = time.perf_counter() - t_cli
+    if proc.returncode != 0:
+        raise AssertionError(f"serve launcher {args} exited {proc.returncode}:\n"
+                             f"{cli_out[-3000:]}\n{cli_err[-3000:]}")
+    line = next(x for x in cli_out.splitlines() if x.startswith("[serve] router:"))
+    kernels_line = next(x for x in cli_out.splitlines() if x.startswith("[kernels] "))
+    cli_launches = {k: int(v) for k, v in (w.split("=") for w in kernels_line.split()[1:])}
+    fields = dict(w.rstrip(",").split("=", 1) for w in line.split() if "=" in w)
+    want = L * (int(fields["decode_ticks"]) + int(fields["prefill_chunks"]))
+    print(json.dumps({"launcher": "serve --continuous --replicas 2 --fault kill@5:0",
+                      "wall_s": cli_wall, "line": line, "launches": cli_launches}), flush=True)
+    if cli_launches["flash_attention"] != want or "completed=16," not in line or \
+            int(fields["failovers"]) <= 0 or "states=['dead', 'healthy']" not in line:
+        raise AssertionError(f"the router launcher printed {line!r} {cli_launches}, want "
+                             f"{want} flash launches, completed=16, failovers > 0 and "
+                             f"states=['dead', 'healthy']")
+    runs["launcher"] = {"launches": cli_launches["flash_attention"], "line": line}
+    runs["ranks"] = {"launches": sum(c["launches_per_rank"])}
+    print(json.dumps({"phase 29 s": time.perf_counter() - t_phase}), flush=True)
+    return runs
+
+
 def _ckpt_paths(runs, kernel):
     return {f"train {runs['a']['arch']} --resume (process)": runs["a"]["resume_launches"][kernel],
             f"train {runs['a']['arch']} --background-save (process)":
@@ -4036,6 +4364,7 @@ def main():
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve import continuous as cont_mod
     from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import router as router_mod
 
     _phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4171,7 +4500,6 @@ def main():
     _phase("27 sharded continuous serving on a pair sharing the card")
     shard_runs = phase_sharded_serving(serve_launch, api_mod, cont_mod, cfg,
                                        {r.rid: r for r in cont_results})
-    del cont_results
     # the launches each new phase-3 row's shape makes on phase 27 (a)'s
     # runs, summed over the pair (the windowed hop: (b)'s window-64 cell)
     shard_paths = {
@@ -4190,7 +4518,12 @@ def main():
     _phase("28 tensor MP of the recurrent families on ranks")
     rnn_tp = phase_tensor_recurrent(train_launch, lc, wk, api_mod, lstm_cfg, gnmt_cfg, rwkv_cfg)
 
-    _phase("29 result")
+    _phase("29 the multi-replica router")
+    router_runs = phase_router(counters, api_mod, cont_mod, router_mod, cfg,
+                               {r.rid: r for r in cont_results})
+    del cont_results
+
+    _phase("30 result")
     rnn_tp_paths = {"train biglstm mp=2 gspmd (ranks)": rnn_tp["a_biglstm_gspmd"]["launches"],
                     "train biglstm mp=2 overlapped c=2 (ranks)":
                         rnn_tp["a_biglstm_overlapped"]["launches"],
@@ -4218,6 +4551,13 @@ def main():
                                         **{f"serve llama3_2_1b continuous {n} (ranks)":
                                                sum(run["launches_per_rank"])
                                            for n, run in shard_runs.items()},
+                                        **{f"serve llama3_2_1b router 2 replicas {n}":
+                                               router_runs[n]["launches"]["flash_attention"]
+                                           for n in ("none", "kill", "nanlogits", "stall")},
+                                        "serve llama3_2_1b router --fault kill@5:0 (process)":
+                                            router_runs["launcher"]["launches"],
+                                        "serve llama3_2_1b 2 layers f32 router 2 x tp 2 "
+                                        "kill (ranks)": router_runs["ranks"]["launches"],
                                         **_ckpt_paths(ckpt_runs, "flash_attention"),
                                         **_by_path(paper_paths, "flash_attention")},
                       variant_launches_by_path={
@@ -4227,7 +4567,10 @@ def main():
                           "train llama3_2_1b": llama_variants["flash_attention"],
                           "train llama3_2_1b context ring of 2 (ranks)":
                               context_run["variant_launches"]["flash_attention"],
-                          **_tp_paths(tp_runs, "flash_attention", "variant_launches")}),
+                          **_tp_paths(tp_runs, "flash_attention", "variant_launches"),
+                          **{f"serve llama3_2_1b router 2 replicas {n}":
+                                 router_runs[n]["flash_variants"]
+                             for n in ("none", "kill", "nanlogits", "stall")}}),
         _kernel_entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/models/layers.py:160",
                       llama_launches["flash_attention_bwd"], flash_bwd_rows,

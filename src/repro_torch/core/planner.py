@@ -69,8 +69,6 @@ from repro_torch.parallel.pipeline import (pipeline_activation_residency,
                                            pipeline_step_speedup)
 from repro_torch.parallel.plan import ParallelPlan, serve_plan
 
-MULTI_REPLICA = "ROADMAP.md Queue 1 item 10 (multi-replica serving)"
-
 # interleaved virtual chunks per device the planner searches (Megatron's v)
 INTERLEAVE_CHUNKS = 2
 
@@ -116,11 +114,16 @@ class InferenceChoice:
         return self.replicas * self.tp
 
     def build_router(self, api, params, *, capacity: int, **kw):
-        """The JAX package executes this choice behind a fault-tolerant
-        replica router; the port has none yet."""
-        raise NotImplementedError(
-            f"InferenceChoice.build_router is not ported to repro_torch yet: "
-            f"{MULTI_REPLICA}")
+        """Execute this choice rather than just reporting it: the
+        ``replicas`` x ``tp`` engine groups with ``slots`` lanes each behind
+        a fault-tolerant ``serve.router.ReplicaRouter`` (least-loaded
+        dispatch, health checks, mid-flight failover).  ``capacity`` is the
+        per-slot KV budget in positions; ``kw`` forwards to the router
+        (faults, watchdog, max_queue, ...; at tp > 1 the caller's
+        ``mesh``).  Lazy import: ``core`` stays importable without the
+        serving stack."""
+        from repro_torch.serve.router import ReplicaRouter
+        return ReplicaRouter.from_choice(api, params, self, capacity=capacity, **kw)
 
 
 def kv_bytes(cfg: ModelConfig, slots: int, context: int) -> float:

@@ -32,8 +32,26 @@ the tick and the prefill chunks on the tensor-MP rings.  Rank 0's line
 carries ``tp=`` and the ``[kernels]`` counts are summed over the ranks.
 The context-parallel chunk is the engine's ``context_axis``, which the
 rank function takes and the command line does not (JAX's launcher has no
-such flag).  The multi-replica router (``--replicas``, ``--fault``,
-``--max-queue``, ``--watchdog``) is ROADMAP.md Queue 1 item 10.
+such flag).
+
+``--continuous`` with ``--replicas N`` (N > 1), ``--fault`` or
+``--max-queue`` serves through ``serve.router.ReplicaRouter`` (JAX's
+condition): N engine replicas behind least-loaded dispatch, a replica-keyed
+fault schedule (``kill@5:0``, ``stall@7:1:0.5``, ``nanlogits@9:0``), a bound
+on each replica's queue and, with ``--watchdog SECS``, a health watchdog
+(alone, ``--watchdog`` is refused: it watches a router's replicas)::
+
+    python -m repro_torch.launch.serve --arch llama3_2_1b --continuous \
+        --replicas 2 --slots 8 --prefill-chunk 256 --batch 16 --prompt-len 512 \
+        --max-new 32 --fault kill@5:0
+
+At ``--tp 1`` the replicas share this process, its card and one weight
+tree; with ``--tp N`` each replica is a tensor-MP group of N ranks
+(``run_router``: replicas x N ranks, sharing the card where cards are
+fewer).  Rank 0 prints JAX's ``[serve] router:`` line, then the ticks of
+the router and the decode ticks and prefill chunks of every engine it ran
+(dead ones included); the ``[kernels]`` counts are those engines' launches,
+summed over the ranks.
 """
 from __future__ import annotations
 
@@ -48,12 +66,11 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import unported
 from repro_torch.parallel import dist as D
 from repro_torch.serve.continuous import ContinuousEngine, Request
 from repro_torch.serve.engine import ServeEngine
-
-ROUTER = "ROADMAP.md Queue 1 item 10 (multi-replica serving: serve/router.py)"
+from repro_torch.serve.router import ReplicaRouter
+from repro_torch.train.fault import parse_fault_schedule
 
 
 def main(argv=None):
@@ -75,24 +92,30 @@ def main(argv=None):
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-MP ways of the continuous engine's tick and chunks (ranks)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas behind a router (item 10)")
-    ap.add_argument("--fault", default="", help="replica fault schedule (item 10)")
+                    help="continuous-engine replicas (tp ranks each) behind the "
+                    "fault-tolerant router")
+    ap.add_argument("--fault", default="",
+                    help="replica-keyed fault schedule, e.g. "
+                    "'kill@5:0, stall@7:1:0.5, nanlogits@9:0'")
     ap.add_argument("--max-queue", type=int, default=0,
-                    help="bound on queued requests per replica (item 10)")
+                    help="bound on queued requests per replica; overflow is shed "
+                    "(0 = unbounded)")
     ap.add_argument("--watchdog", type=float, default=0.0,
-                    help="router health watchdog seconds (item 10)")
+                    help="router health watchdog seconds (0 = off)")
     args = ap.parse_args(argv)
-    if args.tp > 1 and not args.continuous:
-        raise SystemExit("--tp shards the continuous engine: add --continuous")
-    if args.replicas > 1 or args.fault or args.max_queue or args.watchdog:
-        raise unported("the multi-replica router (--replicas, --fault, --max-queue, "
-                       "--watchdog)", ROUTER)
+    router = bool(args.replicas > 1 or args.fault or args.max_queue)
+    if (args.tp > 1 or router) and not args.continuous:
+        raise SystemExit("--tp, --replicas, --fault and --max-queue serve through the "
+                         "continuous engine: add --continuous")
+    if args.watchdog and not router:
+        raise SystemExit("--watchdog watches the replicas of a router: add --replicas N "
+                         "(N > 1), --fault or --max-queue")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.tp > 1:
-        return _continuous_ranks(args, cfg)
+        return _router_ranks(args, cfg) if router else _continuous_ranks(args, cfg)
     api = build_model(cfg, device=args.device)
     params = api.init(args.seed)
     tokens = _prompts(args, cfg).to(api.device)
@@ -101,7 +124,9 @@ def main(argv=None):
     before = {name: fn.launches for name, fn in counters.items()}
     by_variant = {name: dict(fn.variant_launches) for name, fn in counters.items()
                   if hasattr(fn, "variant_launches")}
-    if args.continuous:
+    if router:
+        res = _router(args, cfg, api, params, tokens)
+    elif args.continuous:
         res = _continuous(args, cfg, api, params, tokens)
     else:
         res = _static(args, cfg, api, params, tokens)
@@ -197,8 +222,7 @@ def _continuous_ranks(args, cfg):
     spec = {"cfg": cfg, "seed": args.seed, "slots": args.slots,
             "capacity": args.prompt_len + args.max_new + 8,
             "prefill_chunk": args.prefill_chunk, "temperature": args.temperature,
-            "requests": [Request(rid=i, tokens=tokens[i].tolist(), max_new_tokens=args.max_new)
-                         for i in range(args.batch)],
+            "requests": _requests(args, tokens),
             "runs": [{"model_axis": "model"}]}
     dp, outs = run_continuous(spec, tp=args.tp, device=args.device)
     first = outs[0][0]
@@ -211,11 +235,7 @@ def _continuous_ranks(args, cfg):
           f"decode_ticks={first['decode_ticks']} prefill_chunks={first['prefill_chunks']}  "
           f"{first['tick_ms_sum'] / max(first['decode_ticks'], 1):.3f} ms/tick")
     print("first sequence:", first["results"][0]["tokens"])
-    launched = {n: sum(o[0]["launches"][n] for o in outs) for n in first["launches"]}
-    variants = {v: sum(o[0]["flash_variants"][v] for o in outs)
-                for v in first["flash_variants"]}
-    print("[kernels] " + " ".join(f"{n}={c}" for n, c in launched.items()))
-    print("[variants] flash_attention: " + " ".join(f"{v}={c}" for v, c in variants.items()))
+    _print_launches([o[0] for o in outs])
     return outs
 
 
@@ -226,10 +246,8 @@ def _continuous(args, cfg, api, params, tokens):
     engine = ContinuousEngine(api, params, n_slots=args.slots, capacity=capacity,
                               prefill_chunk=args.prefill_chunk,
                               temperature=args.temperature, seed=args.seed)
-    reqs = [Request(rid=i, tokens=tokens[i].tolist(), max_new_tokens=args.max_new)
-            for i in range(args.batch)]
     t0 = time.perf_counter()
-    results = engine.run(reqs)
+    results = engine.run(_requests(args, tokens))
     dt = time.perf_counter() - t0
     toks = sum(len(r.tokens) for r in results)
     tick_ms = engine.tick_ms_sum / max(engine.decode_ticks, 1)
@@ -241,6 +259,120 @@ def _continuous(args, cfg, api, params, tokens):
           f"{tick_ms:.3f} ms/tick")
     print("first sequence:", results[0].tokens)
     return results
+
+
+def _router_kw(args):
+    """The router's arguments from the command line (JAX's capacity)."""
+    return dict(n_slots=args.slots, capacity=args.prompt_len + args.max_new + 8,
+                prefill_chunk=args.prefill_chunk, temperature=args.temperature,
+                seed=args.seed, max_queue=args.max_queue or None,
+                faults=parse_fault_schedule(args.fault) if args.fault else (),
+                watchdog_timeout_s=args.watchdog or None)
+
+
+def _requests(args, tokens):
+    """Every prompt a request of ``--max-new`` tokens."""
+    return [Request(rid=i, tokens=tokens[i].tolist(), max_new_tokens=args.max_new)
+            for i in range(args.batch)]
+
+
+def _print_router(args, run):
+    """JAX's ``[serve] router:`` line of ``run`` (a ``router_rank`` result),
+    then the router's ticks and every engine's decode ticks and chunks."""
+    toks = sum(len(r["tokens"]) for r in run["results"])
+    dt, stats = run["wall_s"], run["stats"]
+    print(f"[serve] router: {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s, "
+          f"replicas={args.replicas}, tp={args.tp}, completed={stats['completed']}, "
+          f"shed={stats['shed']}, timed_out={stats['timed_out']}, "
+          f"failovers={stats['failovers']}, states={run['states']})  "
+          f"ticks={run['ticks']} decode_ticks={run['decode_ticks']} "
+          f"prefill_chunks={run['prefill_chunks']}")
+    print("first sequence:", run["results"][0]["tokens"])
+
+
+def _serve_router(router, requests, cuda):
+    """``router.run(requests)`` timed, as a ``router_rank`` result without
+    the launches."""
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = router.run(requests)
+    finally:
+        router.close()
+    return {"results": [dataclasses.asdict(r) for r in results],
+            "wall_s": time.perf_counter() - t0, "stats": dict(router.stats),
+            "states": router.replica_states, "fault_log": list(router.fault_log),
+            "ticks": router.ticks, "decode_ticks": router.decode_ticks,
+            "prefill_chunks": router.prefill_chunks,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+
+
+def router_rank(mesh, spec):
+    """One rank of a router run on replica groups: the model of
+    ``spec["cfg"]`` from ``spec["seed"]`` on this rank's device, a
+    ``ReplicaRouter`` of ``mesh.shape["data"]`` replicas of
+    ``mesh.shape["model"]`` tensor-MP ranks with ``spec["router"]``'s
+    arguments, run on ``spec["requests"]``.  Returns the results (as
+    dicts), the wall seconds, stats, replica states, fault log, the router's
+    ticks and its engines' decode ticks and chunks, this rank's kernel
+    launches of the run (per flash variant too) and its peak device GiB
+    (None on the CPU)."""
+    cfg = spec["cfg"]
+    api = build_model(cfg, device=mesh.device)
+    params = api.init(spec["seed"])
+    counters = {"flash_attention": fa.flash_attention, "gmm": moe_gmm.gmm, "wkv6": wk.wkv6}
+    before = {n: fn.launches for n, fn in counters.items()}
+    variants = dict(fa.flash_attention.variant_launches)
+    router = ReplicaRouter(api, params, replicas=mesh.shape["data"], mesh=mesh,
+                           log_fn=print if mesh.rank == 0 else (lambda m: None),
+                           **spec["router"])
+    out = _serve_router(router, spec["requests"], mesh.device.type == "cuda")
+    out["launches"] = {n: fn.launches - before[n] for n, fn in counters.items()}
+    out["flash_variants"] = {v: c - variants[v]
+                             for v, c in fa.flash_attention.variant_launches.items()}
+    return out
+
+
+def run_router(spec, *, replicas: int, tp: int, device="cuda",
+               timeout_s: float = D.DEFAULT_TIMEOUT_S):
+    """``router_rank`` on replicas x tp ranks (``spawn_ranks`` with
+    ``stages=tp``: replica r is the ranks r tp ... r tp + tp - 1), which
+    share the card where cards are fewer.  Returns every rank's result in
+    rank order."""
+    return D.spawn_ranks(router_rank, replicas * tp, device=device, args=(spec,), stages=tp,
+                         timeout_s=timeout_s)
+
+
+def _print_launches(outs):
+    first = outs[0]
+    launched = {n: sum(o["launches"][n] for o in outs) for n in first["launches"]}
+    variants = {v: sum(o["flash_variants"][v] for o in outs) for v in first["flash_variants"]}
+    print("[kernels] " + " ".join(f"{n}={c}" for n, c in launched.items()))
+    print("[variants] flash_attention: " + " ".join(f"{v}={c}" for v, c in variants.items()))
+
+
+def _router_ranks(args, cfg):
+    """``--continuous --tp N`` with a router: ``--replicas`` groups of N
+    ranks (``run_router``); rank 0's run printed, the launches summed over
+    the ranks."""
+    spec = {"cfg": cfg, "seed": args.seed, "router": _router_kw(args),
+            "requests": _requests(args, _prompts(args, cfg))}
+    outs = run_router(spec, replicas=args.replicas, tp=args.tp, device=args.device)
+    _print_router(args, outs[0])
+    _print_launches(outs)
+    return outs
+
+
+def _router(args, cfg, api, params, tokens):
+    """The router in this process: ``--replicas`` engines sharing the
+    device and the weights."""
+    router = ReplicaRouter(api, params, replicas=args.replicas, log_fn=print,
+                           **_router_kw(args))
+    run = _serve_router(router, _requests(args, tokens), api.device.type == "cuda")
+    _print_router(args, run)
+    return run
 
 
 if __name__ == "__main__":

@@ -402,7 +402,13 @@ def run_ranks(run: RankRun, dp: int, stages: int, device) -> dict:
     times (``ranks``) and, with ``run.return_params``, every rank's
     parameters on the CPU (``rank_params``), and prints the ``[ranks]``
     line."""
-    results = D.spawn_ranks(_train, dp * stages, device, args=(run,), stages=stages)
+    return rank_summary(run, D.spawn_ranks(_train, dp * stages, device, args=(run,),
+                                           stages=stages))
+
+
+def rank_summary(run: RankRun, results: list) -> dict:
+    """``run_ranks``'s summary of every rank's ``_train`` result, in rank
+    order, with its ``[ranks]`` line."""
     summary = dict(results[0])
     summary.pop("params", None)
     summary["ranks"] = [r["rank"] for r in results]
@@ -420,6 +426,21 @@ def run_ranks(run: RankRun, dp: int, stages: int, device) -> dict:
 
 
 def main(argv=None):
+    run, dp, stages = plan_run(argv)
+    if dp * stages > 1:
+        try:
+            return run_ranks(run, dp, stages, run.device)
+        except D.RankExitError as e:     # an injected kill ends every rank
+            if e.exit_code <= 0:
+                raise
+            sys.exit(e.exit_code)
+    return _train(None, run)
+
+
+def plan_run(argv=None) -> Tuple[RankRun, int, int]:
+    """The command line's run and its mesh: (``RankRun``, dp, stages), with
+    the ``[plan]`` line; ``main`` runs it on dp x stages ranks, or in this
+    process when that is 1."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true", help="2-layer small config (CPU)")
@@ -572,14 +593,7 @@ def main(argv=None):
                   background_save=args.background_save, resume=args.resume,
                   max_retries=args.max_retries, max_restarts=args.max_restarts,
                   watchdog=args.watchdog, fault=args.fault)
-    if dp * stages > 1:
-        try:
-            return run_ranks(run, dp, stages, device)
-        except D.RankExitError as e:     # an injected kill ends every rank
-            if e.exit_code <= 0:
-                raise
-            sys.exit(e.exit_code)
-    return _train(None, run)
+    return run, dp, stages
 
 if __name__ == "__main__":
     main()

@@ -37,12 +37,15 @@ carry a ``timeout`` so that no rank waits forever on a dead peer.
 ``gather_tree`` brings every rank's tree of an axis group to the group's
 first rank, and ``barrier`` waits for every rank: what a checkpoint of a
 run on ranks needs (``train.steps.checkpoint_saver``).
+``all_gather_objects`` gives every rank of a group each rank's small host
+record (the serving router's, once a tick).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
 import os
+import pickle
 import tempfile
 import time
 import traceback
@@ -243,6 +246,25 @@ def all_gather(mesh: RankMesh, out: torch.Tensor, inp: torch.Tensor, axis: str):
     if wo is not out:
         out.copy_(wo)
     return out
+
+
+def all_gather_objects(mesh: RankMesh, obj, axis: Optional[str] = None) -> List:
+    """The picklable ``obj`` of every rank of ``axis`` (all ranks for None), in
+    group order, on every rank of the group: each pickled to uint8, the
+    lengths gathered, each padded to the longest, then gathered."""
+    ranks = mesh.members(axis)
+    if len(ranks) == 1:
+        return [obj]
+    data = pickle.dumps(obj)
+    lens = torch.empty(len(ranks), dtype=torch.int64)
+    all_gather(mesh, lens, torch.tensor([len(data)], dtype=torch.int64), axis)
+    width = int(lens.max())
+    mine = torch.zeros(width, dtype=torch.uint8)
+    mine[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    out = torch.empty(len(ranks) * width, dtype=torch.uint8)
+    all_gather(mesh, out, mine, axis)
+    rows = out.view(len(ranks), width).numpy()
+    return [pickle.loads(rows[i, :int(n)].tobytes()) for i, n in enumerate(lens.tolist())]
 
 
 def exchange(mesh: RankMesh, sends: Sequence[Tuple[torch.Tensor, int, int]],

@@ -28,8 +28,9 @@ perturb the tokens of requests already in flight.
 
 The tick and the chunk are ``train.steps.make_continuous_steps``'s: both
 run attention on the hand-written flash kernel with per-row key lengths
-(``kernels.flash_attention``, ``kv_lens``).  The multi-replica router is
-ROADMAP.md item 10.
+(``kernels.flash_attention``, ``kv_lens``).  ``serve.router.ReplicaRouter``
+puts several engines behind one front door and fails their requests over
+(``Request.replay_tokens``, ``poison_decode_ticks``).
 
 On ranks
 ========
@@ -45,9 +46,12 @@ rank of a context ring), a chunk on the data group that holds its slot
 decision once; here each rank takes them itself, so they must agree or the
 rings hang:
 
-- the scheduler reads one clock: rank 0's, broadcast to every rank at each
-  ``step()`` and at each ``submit()`` of a request with a deadline, so
-  admission, eviction, shedding and expiry are the same everywhere;
+- the scheduler reads one clock: that of the first rank of the ranks the
+  engine spans (its ``model_axis``, ``context_axis`` and ``batch_axes``),
+  broadcast over them at each ``step()`` and at each ``submit()`` of a
+  request with a deadline, so admission, eviction, shedding and expiry are
+  the same everywhere.  Only those ranks take part: under a router each
+  replica group steps its own engine, and a dead group steps none;
 - each data group samples only its own slots and the tokens and logprobs
   are all-gathered over the data axes before any engine reads them (the
   tick's return), and a chunk's last logits come from the group that holds
@@ -108,6 +112,41 @@ class RequestResult:
     first_token_s: Optional[float] = None
 
 
+def check_request(req: Request, capacity: int, prefill_chunk: int = 0,
+                  prefill_grid: int = 1) -> None:
+    """Raise ``ValueError`` for a request that no engine of this geometry
+    (slot ``capacity``, ``prefill_chunk``, the sharded prefill's
+    ``prefill_grid``) can serve: a prompt and budget over the capacity,
+    replay tokens without one logprob each or over the budget, a padded
+    sharded prefill past the slot's end."""
+    n = len(req.tokens)
+    if n + req.max_new_tokens > capacity:
+        raise ValueError(
+            f"request {req.rid}: prompt ({n}) + max_new_tokens "
+            f"({req.max_new_tokens}) = {n + req.max_new_tokens} exceeds "
+            f"slot capacity {capacity}")
+    if len(req.replay_tokens) != len(req.replay_logprobs):
+        raise ValueError(
+            f"request {req.rid}: {len(req.replay_tokens)} replay tokens "
+            f"but {len(req.replay_logprobs)} replay logprobs — the "
+            f"failover resume needs one logprob per replayed token")
+    if len(req.replay_tokens) > req.max_new_tokens:
+        raise ValueError(
+            f"request {req.rid}: {len(req.replay_tokens)} replay tokens "
+            f"exceed max_new_tokens ({req.max_new_tokens})")
+    if prefill_grid > 1:
+        # a sharded prefill pads the final chunk up to the ring's grid;
+        # the pad rows must still land inside the slot's linear region
+        t_f = n if prefill_chunk <= 0 else (n % prefill_chunk or prefill_chunk)
+        pad = -t_f % prefill_grid
+        if n + pad > capacity:
+            raise ValueError(
+                f"request {req.rid}: prompt ({n}) + sharded-prefill pad "
+                f"({pad}, grid {prefill_grid}) exceeds slot "
+                f"capacity {capacity} — grow capacity by the pad "
+                f"slack or align the prompt to the chunk grid")
+
+
 @dataclasses.dataclass
 class _Active:
     req: Request
@@ -156,6 +195,9 @@ class ContinuousEngine:
         self.seed = seed
         self.max_queue = max_queue    # bound on queued (not yet admitted) requests
         self._clock = clock
+        # the ranks the engine spans: one axis of the mesh, or all of it (None)
+        axes = {a for a in (model_axis, context_axis, *batch_axes) if a}
+        self._clock_axis = axes.pop() if len(axes) == 1 else None
         self._deadline: Dict[int, float] = {}    # rid -> absolute deadline
         (self._decode_tick, self._prefill_chunk,
          self._prefill_grid) = make_continuous_steps(
@@ -198,33 +240,8 @@ class ContinuousEngine:
                 f"in flight (queued or holding a slot) — rids key deadlines "
                 f"and results, so submit each rid at most once until its "
                 f"result is returned")
+        check_request(req, self.capacity, self.prefill_chunk, self._prefill_grid)
         n = len(req.tokens)
-        if n + req.max_new_tokens > self.capacity:
-            raise ValueError(
-                f"request {req.rid}: prompt ({n}) + max_new_tokens "
-                f"({req.max_new_tokens}) = {n + req.max_new_tokens} exceeds "
-                f"slot capacity {self.capacity}")
-        if len(req.replay_tokens) != len(req.replay_logprobs):
-            raise ValueError(
-                f"request {req.rid}: {len(req.replay_tokens)} replay tokens "
-                f"but {len(req.replay_logprobs)} replay logprobs — the "
-                f"failover resume needs one logprob per replayed token")
-        if len(req.replay_tokens) > req.max_new_tokens:
-            raise ValueError(
-                f"request {req.rid}: {len(req.replay_tokens)} replay tokens "
-                f"exceed max_new_tokens ({req.max_new_tokens})")
-        if self._prefill_grid > 1:
-            # a sharded prefill pads the final chunk up to the ring's grid;
-            # the pad rows must still land inside the slot's linear region
-            t_f = (n if self.prefill_chunk <= 0
-                   else (n % self.prefill_chunk or self.prefill_chunk))
-            pad = -t_f % self._prefill_grid
-            if n + pad > self.capacity:
-                raise ValueError(
-                    f"request {req.rid}: prompt ({n}) + sharded-prefill pad "
-                    f"({pad}, grid {self._prefill_grid}) exceeds slot "
-                    f"capacity {self.capacity} — grow capacity by the pad "
-                    f"slack or align the prompt to the chunk grid")
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             res = RequestResult(rid=req.rid, prompt_len=n, tokens=[],
                                 logprobs=[], finished_reason="shed")
@@ -252,12 +269,13 @@ class ContinuousEngine:
         self._poison_ticks += n
 
     def _now(self) -> float:
-        """The scheduler's clock: ``clock()``, on ranks rank 0's (broadcast to
-        every rank, so every rank's decisions agree)."""
+        """The scheduler's clock: ``clock()``, on ranks that of the first rank
+        the engine spans (broadcast over its ranks, so their decisions
+        agree)."""
         if self.mesh is None:
             return self._clock()
         t = torch.tensor([self._clock()], dtype=torch.float64, device=self.mesh.device)
-        return float(D.broadcast(self.mesh, t, None))
+        return float(D.broadcast(self.mesh, t, self._clock_axis))
 
     def _expire(self):
         """Evict every request past its deadline: mid-flight requests free

@@ -33,10 +33,11 @@ A fault at step N fires when step N is *about to run* (the last completed
 step is N-1), so "kill@N, resume" and an uninterrupted run execute the
 exact same sequence of step transitions.
 
-**Replica-keyed serving faults** (JAX's ``serve.router``; the port's router
-is ROADMAP.md Queue 1 item 10, so these forms only parse for now): the same
-grammar addresses a replica group instead of the training loop — ``N`` is the
-router tick about to run, ``R`` the replica index:
+**Replica-keyed serving faults** (run by ``serve.router.ReplicaRouter``,
+in one process and on replica groups of ranks, and by ``launch.serve
+--continuous --fault``): the same grammar addresses a replica group instead
+of the training loop — ``N`` is the router tick about to run, ``R`` the
+replica index:
 
 - ``kill@N:R`` — replica R dies before router tick N (its engine is gone;
   in-flight requests fail over to a healthy replica).

@@ -570,15 +570,33 @@ def test_engine_refuses_a_mesh(port):
         ContinuousEngine(port[0], None, n_slots=2, capacity=32, mesh=object())
 
 
-@pytest.mark.parametrize("flag,item", [(["--tp", "2", "--replicas", "2"], "item 10"),
-                                       (["--replicas", "2"], "item 10"),
-                                       (["--fault", "kill@5:0"], "item 10"),
-                                       (["--max-queue", "4"], "item 10"),
-                                       (["--watchdog", "1"], "item 10")])
-def test_launch_serve_refuses_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+@pytest.mark.parametrize("flag,want", [
+    (["--replicas", "2"], "replicas=2, tp=1, completed=3, shed=0, timed_out=0, failovers=0, "
+                          "states=['healthy', 'healthy']"),
+    (["--replicas", "2", "--fault", "kill@2:0"], "failovers=2, states=['dead', 'healthy']"),
+    (["--fault", "stall@2:0:0.01"], "replicas=1, tp=1, completed=3"),
+    (["--max-queue", "1"], "completed=1, shed=2"),
+    (["--watchdog", "1"], SystemExit)])
+def test_launch_serve_refuses_unported_flags(flag, want, capsys):
+    """The router's flags: ``--replicas``, ``--fault`` and ``--max-queue``
+    each serve through ``ReplicaRouter`` on the CPU (JAX's line, with the
+    stats and states of the run); ``--watchdog`` alone exits naming the
+    flags that build a router."""
+    argv = ["--arch", "llama3_2_1b", "--reduced", "--device", "cpu", "--continuous",
+            "--slots", "1", "--batch", "3", "--prompt-len", "5", "--max-new", "3", *flag]
+    if want is SystemExit:
+        with pytest.raises(SystemExit, match="--replicas N .*--fault or --max-queue"):
+            launch_serve.main(argv)
+        return
+    launch_serve.main(argv)
+    line = next(x for x in capsys.readouterr().out.splitlines() if x.startswith("[serve] router:"))
+    assert want in line, line
+
+
+def test_launch_serve_router_needs_the_continuous_engine():
+    with pytest.raises(SystemExit, match="add --continuous"):
         launch_serve.main(["--arch", "llama3_2_1b", "--reduced", "--device", "cpu",
-                           "--continuous", *flag])
+                           "--replicas", "2"])
 
 
 def test_launcher_serves_on_ranks(capfd):

@@ -203,10 +203,23 @@ def test_plan_validation_and_describe_match_jax():
 
 
 def test_build_router_names_its_roadmap_item():
+    """``InferenceChoice.build_router`` executes the planner's choice: at tp 1
+    a router of ``choice.replicas`` engines of ``choice.slots`` slots in this
+    process; at tp > 1 without a rank mesh of (replicas, tp) it raises
+    naming the ranks the choice needs."""
+    from repro_torch.models.api import build_model
+
     _, tp = _planners("llama3_2_1b")
     choice = tp.best_inference(8, slo_ms=20.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        choice.build_router(None, None, capacity=128)
+    api = build_model(t_get_config("llama3_2_1b").reduced(), device="cpu")
+    params = api.init(0)
+    wide = dataclasses.replace(choice, tp=2)
+    with pytest.raises(ValueError, match=rf"{wide.replicas} x 2 = {2 * wide.replicas} ranks"):
+        wide.build_router(api, params, capacity=128)
+    one = dataclasses.replace(choice, tp=1, replicas=2, slots=3)
+    rt = one.build_router(api, params, capacity=128)
+    assert [r.engine.n_slots for r in rt.replicas] == [3, 3]
+    assert all(r.engine.params is params for r in rt.replicas)
 
 
 def test_unknown_runtimes_raise():
