@@ -243,8 +243,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    save takes to return (the step's stall) and ``restore_latest_valid``'s
    time until the state is on the card, bit-equal to the saved state; (b)
    2 full-width SmolLM layers in f32 on ranks sharing the card, 4 steps at
-   ``dp=2`` and at ``pipe=2,micro=2,sched=1f1b`` with a checkpoint every 2:
-   the step-2 file restores in one process bit-equal to the file (the
+   ``dp=2`` and at ``pipe=2,micro=2,sched=1f1b`` with a checkpoint every 2,
+   run while (a)'s launchers run: the step-2 file restores in one process bit-equal to the file (the
    stage gather gives JAX's layout), and one process resumed from it to
    step 4 ends within JAX's elastic tolerance (rtol 2e-4, atol 1e-5) of
    the ranks' step-4 file;
@@ -317,12 +317,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    replicas 2 x tp 2 on 4 ranks sharing the card, 2 full-width layers in
    f32: a kill with the bits of an unfaulted tensor-MP engine on replica
    group 1, each rank's launches exact;
-30. print one JSON line of kernels, then the device line.
+30. the fsdp plans on ranks sharing the card (``phase_fsdp``): (a) the
+   planner's 2-card RWKV6-7B plan (DP, the parameters and AdamW state
+   sharded over ``data``) through the launcher at full width on 2 of 32
+   layers, B 4 x T 2048, 3 steps, then plain ``dp=2`` for 1 on the same
+   spawn: exact ``wkv6`` / ``wkv6_bwd`` launches, each rank's resident
+   state within 5 % of its shard's 12 B a parameter and below plain
+   dp=2's, its peak beside the planner's model and the launcher's floor
+   for the port's fsdp step (``fsdp_step_bytes``); (b) f32 fsdp steps against
+   the single-process card step at phase 15 (d)'s limits, run on the
+   spawns of phases 15 (d) (BigLSTM ``dp=2``), 19 (c) (Llama ``dp=2,cp=2``)
+   and 20 (b) (Llama ``dp=2``, ``dp=2,mp=2`` both runtimes);
+31. print one JSON line of kernels, then the device line.
 
 Needs one card and exits non-zero, printing no result, without one.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -447,6 +459,11 @@ GMM_BWD_EDGE = [(8, 37, 130, 70), (1, 1, 1, 1), (3, 1, 64, 48), (2, 17, 1, 9),
 # layers (2.4 B parameters: 38 GB of parameters and AdamW state; the whole
 # model's 120 GB does not fit the card), B 4 x T 2048
 RWKV_B, RWKV_T, RWKV_LAYERS = 4, 2048, 8
+# phase 30 (a): the planner's RWKV6-7B plan, 2 steps after one, beside plain
+# dp=2's first (2 layers, not 4: host-staged fsdp steps take 28 s a step at
+# 4, and the script must stay under 1100 s)
+FSDP_LAYERS, FSDP_B, FSDP_T, FSDP_STEPS, FSDP_PLAIN_STEPS = 2, 4, 2048, 3, 1
+FSDP_RESIDENT_TOL = 0.05
 # the WKV backward rows besides the training shape: T no multiple of the
 # 64-token chunk, hd 32, strong decays (w down to 1e-38) over T 2048
 WKV_BWD_EDGE = [((2, 300, 8, 64), torch.float32, "sweep"), ((2, 130, 4, 32), torch.float32, "sweep"),
@@ -2614,13 +2631,15 @@ def phase_ranks(train_launch, lc, lstm_cfg):
 
 def phase_ranks_vs_plain(train_launch, api_mod, cfg):
     """Phase 15 (d): one pipelined step and one DP step (bucketed sync) on
-    ranks sharing the card, each against the single-process step on the
+    ranks sharing the card, and phase 30 (b)'s DP step with the state
+    sharded over ``data`` (fsdp), each against the single-process step on the
     card from the same seeded weights (the launcher's seed 0) and batch, in
     phase 7's cell and within its limits."""
     cfg2 = dataclasses.replace(cfg, vocab_size=32768, dtype="float32")
     return ranks_vs_single(train_launch, api_mod, cfg2, 8, TRAIN_T, [
-        ("pipe=2,micro=4,sched=1f1b", "pipe=2,micro=4,sched=1f1b", None),
-        ("dp=2 overlapped", "dp=2,mp=1", "overlapped")], "ranks_vs_single")
+        RankCell("pipe=2,micro=4,sched=1f1b", "pipe=2,micro=4,sched=1f1b"),
+        RankCell("dp=2 overlapped", "dp=2,mp=1", "overlapped"),
+        RankCell("dp=2 fsdp (phase 30 (b))", "dp=2,mp=1", fsdp=True)], "ranks_vs_single")
 
 
 def _concurrently(*thunks):
@@ -2655,10 +2674,12 @@ def _train_runs_rank(mesh, runs, then=None, then_args=()):
     return out
 
 
-def _launcher_runs(train_launch, argvs, then=None, then_args=()):
+def _launcher_runs(train_launch, argvs, then=None, then_args=(), edit=None):
     """The launcher's runs of ``argvs``, planned as its ``main`` plans them
-    (``plan_run``: the flags, the plan, the ``[plan]`` line), on one spawn of
-    the mesh they share, one after another, then ``then`` on that spawn
+    (``plan_run``: the flags, the plan, the ``[plan]`` line), each passed
+    through ``edit`` if given (a cut in depth) and then, as in ``main``,
+    ``check_fsdp_fits``, on one spawn of the mesh
+    they share, one after another, then ``then`` on that spawn
     (``_train_runs_rank``).  Returns (each run's summary as ``main`` returns
     it, ``then``'s result on each rank)."""
     from repro_torch.parallel import dist as D
@@ -2668,24 +2689,33 @@ def _launcher_runs(train_launch, argvs, then=None, then_args=()):
     if len(shapes) != 1:
         raise ValueError(f"runs on more than one mesh: {shapes}")
     (dp, stages), = shapes
-    runs = [run for run, _, _ in planned]
+    runs = [edit(run) if edit else run for run, _, _ in planned]
+    for run in runs:
+        train_launch.check_fsdp_fits(run, dp, stages)
     ranks = D.spawn_ranks(_train_runs_rank, dp * stages, "cuda", args=(runs, then, then_args),
                           stages=stages)
     return ([train_launch.rank_summary(run, [r["runs"][i] for r in ranks])
              for i, run in enumerate(runs)], [r["then"] for r in ranks])
 
 
+# a cell of ``ranks_vs_single``: its name, its --parallel spec, the comm
+# runtime (None: the spec's), the ring chunks, and whether the plan shards
+# the state over ``data`` (fsdp)
+RankCell = collections.namedtuple("RankCell", "name spec comm chunks fsdp",
+                                  defaults=(None, 1, False))
+
+
 def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
-    """One step of each of ``specs`` ((name, --parallel spec, comm runtime or
-    None[, ring chunks])) through the launcher's rank body, sharing the
-    card, against the single-process step on the card from the same seeded
-    weights (the launcher's seed 0) and batch: loss and grad norm within
-    1e-4 relative, every rank's parameters (a pipelined rank's stage, a
-    tensor-MP rank's part) within ``RANK_PARAMS_TOL``, and on a tensor-MP
-    group every leaf the rules replicate the same bits on each of its
-    ranks; TF32 off.  The specs of one mesh shape share a spawn, and the
-    spawns run at once (these cells check values, not times).  Prints
-    ``{key: results}``."""
+    """One step of each of ``specs`` (``RankCell`` records) through the
+    launcher's rank body, sharing the card, against the single-process step
+    on the card from the same seeded weights (the launcher's seed 0) and
+    batch: loss and grad norm within 1e-4 relative, every rank's parameters
+    (a pipelined rank's stage, a tensor-MP rank's part, and under a true
+    ``fsdp`` the plan sharding the state over ``data``: the rank's data
+    shard of that) within ``RANK_PARAMS_TOL``, and on a tensor-MP group
+    every leaf the rules replicate the same bits on each of its ranks; TF32
+    off.  The specs of one mesh shape share a spawn, and the spawns run at
+    once (these cells check values, not times).  Prints ``{key: results}``."""
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.parallel import dist as D
     from repro_torch.parallel import sharding as SH
@@ -2705,11 +2735,11 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     del state, metrics, batch
     torch.cuda.empty_cache()
     cells, shapes = [], {}
-    for name, spec, comm, *chunks in specs:
+    for name, spec, comm, chunks, fsdp in specs:
         plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
         plan = dataclasses.replace(plan, dp_axes=("data",),
                                    comm_runtime=comm or plan.comm_runtime,
-                                   comm_chunks=chunks[0] if chunks else 1)
+                                   comm_chunks=chunks, fsdp_axes=("data",) if fsdp else ())
         tensor = plan.mp_kind == "tensor" and mp > 1
         stages = mp if plan.is_pipeline or plan.is_context or tensor else 1
         run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=1, batch=batch_size,
@@ -2729,7 +2759,8 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     for i, (name, plan, mp, dp, stages, tensor, run) in enumerate(cells):
         ranks = per_cell[i]
         loss, gnorm = ranks[0]["history"][0], ranks[0]["grad_norms"][0]
-        rules = SH.ShardingRules(cfg2, {"data": dp, "model": mp}, plan) if tensor else None
+        rules = (SH.ShardingRules(cfg2, {"data": dp, "model": mp}, plan)
+                 if tensor or plan.fsdp_axes else None)
         err = 0.0
         for r in ranks:
             if plan.is_pipeline:
@@ -2738,6 +2769,8 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
                 want = SH.shard_params(ref[2], rules, r["rank"]["stage"])
             else:
                 want = ref[2]
+            if plan.fsdp_axes:
+                want = SH.shard_fsdp(want, rules, r["rank"]["data"], SH.param_specs(cfg2, rules))
             err = max(err, _max_err(tree_leaves(r["params"]), tree_leaves(want)))
         results[name] = {"loss_rel": abs(loss - ref[0]) / abs(ref[0]),
                          "grad_norm_rel": abs(gnorm - ref[1]) / abs(ref[1]),
@@ -3001,8 +3034,8 @@ def phase_context(train_launch, lc, counters, api_mod, cfg):
     within 2e-2 of max(1, |ref|), f32 within ``BWD_F32_TOL``; and the wall
     time of (a)'s gradient sync alone on those ranks.  (c) 2
     full-width layers in f32, vocab 32768, B 4 x T 512: one step at ``cp=2``
-    and one at ``dp=2,cp=2`` (4 ranks) against the single-process card step
-    (phase 15 (d)'s limits)."""
+    and one at ``dp=2,cp=2`` (4 ranks), with and without fsdp (phase 30
+    (b)), against the single-process card step (phase 15 (d)'s limits)."""
     from repro_torch.core import planner as planner_mod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.parallel import dist as D
@@ -3052,7 +3085,8 @@ def phase_context(train_launch, lc, counters, api_mod, cfg):
     # (c) the step on ranks against one process, in f32
     cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
     steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T,
-                            [("cp=2", "cp=2", None), ("dp=2,cp=2", "dp=2,cp=2", None)],
+                            [RankCell("cp=2", "cp=2"), RankCell("dp=2,cp=2", "dp=2,cp=2"),
+                             RankCell("dp=2,cp=2 fsdp (phase 30 (b))", "dp=2,cp=2", fsdp=True)],
                             "context_c")
     torch.cuda.empty_cache()
     return rec, ring_check, steps
@@ -3151,7 +3185,9 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     alone (``_tp_comm_rank``); both runs, the messages and (c) on one spawn,
     one after another.  (b) 2 full-width f32 layers, vocab 32768, B
     4 x T 512, at ``mp=2`` gspmd, overlapped with 1 and 2 chunks and
-    ``dp=2,mp=2`` overlapped against the single-process card step.  (c)
+    ``dp=2,mp=2`` overlapped, and phase 30 (b)'s fsdp cells (``dp=2``,
+    ``dp=2,mp=2`` gspmd and overlapped c 2), against the single-process card
+    step.  (c)
     Inception-V3's 256-card plan clamped to 2 ranks: 2 bf16 steps at B 64 x
     299, and an f64 step at phase 18 (b)'s cell against the single card
     step (phase 15 (d)'s limits, replicated leaves the same bits)."""
@@ -3199,9 +3235,15 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     # (b) steps on ranks against one process, in f32
     cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
     steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T, [
-        ("mp=2 gspmd", "mp=2", "gspmd"), ("mp=2 overlapped c1", "mp=2", "overlapped", 1),
-        ("mp=2 overlapped c2", "mp=2", "overlapped", 2),
-        ("dp=2,mp=2 overlapped c2", "dp=2,mp=2", "overlapped", 2)], "tensor_b")
+        RankCell("mp=2 gspmd", "mp=2", "gspmd"),
+        RankCell("mp=2 overlapped c1", "mp=2", "overlapped", chunks=1),
+        RankCell("mp=2 overlapped c2", "mp=2", "overlapped", chunks=2),
+        RankCell("dp=2,mp=2 overlapped c2", "dp=2,mp=2", "overlapped", chunks=2),
+        RankCell("dp=2 fsdp (phase 30 (b))", "dp=2,mp=1", fsdp=True),
+        RankCell("dp=2,mp=2 gspmd fsdp (phase 30 (b))", "dp=2,mp=2", "gspmd", fsdp=True),
+        RankCell("dp=2,mp=2 overlapped c2 fsdp (phase 30 (b))", "dp=2,mp=2", "overlapped",
+                 chunks=2, fsdp=True)],
+        "tensor_b")
     torch.cuda.empty_cache()
 
     # (c) Inception-V3's planned tensor plan, clamped to a model axis of 2,
@@ -3572,8 +3614,8 @@ def phase_checkpoints(train_launch, api_mod, cfg):
     """Phase 21: (a) SmolLM-360M's kill, resume and straight runs through the
     launcher in processes of their own, then the save, stall and restore
     times of its state in this process; (b) the dp=2 and pipe=2 files of 2
-    f32 layers on ranks sharing the card, restored and continued in one
-    process."""
+    f32 layers on ranks sharing the card, written while (a)'s launchers run,
+    restored and continued in one process."""
     import shutil
     import tempfile
 
@@ -3589,25 +3631,47 @@ def phase_checkpoints(train_launch, api_mod, cfg):
         out["temp_dir"] = {"free_bytes": shutil.disk_usage(root).free, "mount": mount,
                            "fstype": fstype}
         print(json.dumps({"checkpoints_temp_dir": out["temp_dir"]}), flush=True)
+        # (b)'s two rank runs (dp=2 and pipe=2 files of 2 f32 layers, their
+        # times unused) start first and write their files while (a)'s
+        # launchers run: both spend most of their wall starting processes
+        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        cells = []
+        for i, spec in enumerate(("dp=2,mp=1", "pipe=2,micro=2,sched=1f1b")):
+            plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
+            plan = dataclasses.replace(plan, dp_axes=("data",))
+            stages = mp if plan.is_pipeline else 1
+            run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=CKPT_STEPS, batch=SMOL_B,
+                                       seq=SMOL_T, lr=3e-3, ckpt_dir=f"{root}/ranks_{i}",
+                                       ckpt_every=CKPT_EVERY)
+            cells.append((spec, dp, stages, run, f"{root}/one_{i}"))
+
         # (a) kill at step 4, resume, straight with background saves
         base = ["--arch", cfg.name, "--batch", str(SMOL_B), "--seq", str(SMOL_T), "--steps",
                 str(CKPT_STEPS), "--ckpt-every", str(CKPT_EVERY), "--keep-last", "1"]
         kill_dir, straight_dir = f"{root}/kill", f"{root}/straight"
-        # the straight run shares the card with the kill and resume runs
-        straight = _start_launcher(base + ["--ckpt-dir", straight_dir, "--background-save"])
-        try:
-            _, counts, _, kill_s = _launcher_result(_start_launcher(
-                base + ["--ckpt-dir", kill_dir, "--fault", f"kill@{CKPT_STEPS}"]), expect_rc=17)
-            left = [os.path.basename(f) for f in C.list_checkpoints(kill_dir)]
-            if counts is not None or left != [f"ckpt_{CKPT_EVERY:08d}.msgpack"]:
-                raise AssertionError(f"the killed run left {left} and counts {counts}")
-            text, res_launches, res_variants, resume_s = _launcher_result(_start_launcher(
-                base + ["--ckpt-dir", kill_dir, "--resume"]))
-        except BaseException:
-            straight[0].kill()
-            straight[0].wait()
-            raise
-        _, st_launches, st_variants, straight_s = _launcher_result(straight)
+
+        def launchers():
+            # the straight run shares the card with the kill and resume runs
+            straight = _start_launcher(base + ["--ckpt-dir", straight_dir, "--background-save"])
+            try:
+                _, counts, _, kill_s = _launcher_result(_start_launcher(
+                    base + ["--ckpt-dir", kill_dir, "--fault", f"kill@{CKPT_STEPS}"]),
+                    expect_rc=17)
+                left = [os.path.basename(f) for f in C.list_checkpoints(kill_dir)]
+                if counts is not None or left != [f"ckpt_{CKPT_EVERY:08d}.msgpack"]:
+                    raise AssertionError(f"the killed run left {left} and counts {counts}")
+                resumed = _launcher_result(_start_launcher(
+                    base + ["--ckpt-dir", kill_dir, "--resume"]))
+            except BaseException:
+                straight[0].kill()
+                straight[0].wait()
+                raise
+            return kill_s, resumed, _launcher_result(straight)
+
+        (kill_s, (text, res_launches, res_variants, resume_s),
+         (_, st_launches, st_variants, straight_s)), _ = _concurrently(
+            launchers, lambda: _concurrently(*(
+                lambda c=c: train_launch.run_ranks(c[3], c[1], c[2], "cuda") for c in cells)))
         if (f"restored ckpt_{CKPT_EVERY:08d}" not in text
                 or f"resuming at step {CKPT_EVERY}" not in text):
             raise AssertionError(f"the resumed run did not restore step {CKPT_EVERY}:\n"
@@ -3675,22 +3739,9 @@ def phase_checkpoints(train_launch, api_mod, cfg):
         shutil.rmtree(f"{root}/sync")
         torch.cuda.empty_cache()
 
-        # (b) dp=2 and pipe=2 files of 2 f32 layers restored in one process;
-        # the two rank runs at once (they write files, their times unused)
-        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        # (b) the rank runs' files restored and continued in one process
         api2 = api_mod.build_model(cfg2, device="cuda")
         opt2 = adamw(warmup_cosine(3e-3, 20, CKPT_STEPS))
-        cells = []
-        for i, spec in enumerate(("dp=2,mp=1", "pipe=2,micro=2,sched=1f1b")):
-            plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
-            plan = dataclasses.replace(plan, dp_axes=("data",))
-            stages = mp if plan.is_pipeline else 1
-            run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=CKPT_STEPS, batch=SMOL_B,
-                                       seq=SMOL_T, lr=3e-3, ckpt_dir=f"{root}/ranks_{i}",
-                                       ckpt_every=CKPT_EVERY)
-            cells.append((spec, dp, stages, run, f"{root}/one_{i}"))
-        _concurrently(*(lambda c=c: train_launch.run_ranks(c[3], c[1], c[2], "cuda")
-                        for c in cells))
         for spec, dp, stages, run, one_dir in cells:
             ranks_dir = run.ckpt_dir
             mid = f"{ranks_dir}/ckpt_{CKPT_EVERY:08d}.msgpack"
@@ -4321,6 +4372,94 @@ def phase_router(counters, api_mod, cont_mod, router_mod, cfg, single):
     return runs
 
 
+def phase_fsdp(train_launch, wk, api_mod, rwkv_cfg):
+    """Phase 30: the fsdp plans on ranks sharing the card.  (a) The
+    planner's 2-card plan of RWKV6-7B (DP with the parameters and AdamW
+    state sharded over ``data``) through the launcher, at full width on
+    ``FSDP_LAYERS`` of its 32 layers, B 4 x T 2048 global, bf16, AdamW, clip
+    1.0, ``FSDP_STEPS`` steps, then plain ``dp=2`` on the same spawn, the
+    ``wkv6`` / ``wkv6_bwd`` counters set to 0 just before each and read just
+    after (exact: a call a layer a step a rank).  Per rank: the memory
+    allocated after the last step (the resident state) within
+    ``FSDP_RESIDENT_TOL`` of 12 B x P_div / 2 + 12 B x P_whole (P_div the
+    parameters of the leaves JAX's rules shard over ``data``) and below
+    plain dp=2's, the peak beside the planner's ``per_device_mem_bytes(
+    fsdp=2)`` and the launcher's floor for the port's step
+    (``fsdp_step_bytes``, which its check passes), step ms.  Plain dp=2 runs ``FSDP_PLAIN_STEPS`` steps: its
+    resident state and peak are those of its first step.  (b), the f32
+    value cells of the fsdp plans, run on the spawns of the cells they sit
+    beside: BigLSTM ``dp=2`` + fsdp in phase 15 (d), Llama ``dp=2,cp=2`` +
+    fsdp in 19 (c), Llama ``dp=2`` and ``dp=2,mp=2`` (both runtimes) + fsdp
+    in 20 (b)."""
+    from repro_torch.core.planner import (HybridPlanner, default_epoch_model,
+                                          per_device_mem_bytes)
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.tree import tree_leaves
+
+    choice = HybridPlanner(rwkv_cfg, epoch_model=default_epoch_model(rwkv_cfg)).best(2)
+    if not (choice.plan.fsdp_axes and choice.mp == 1 and choice.pods * choice.dp == 2):
+        raise AssertionError(f"the planner's 2-card RWKV6-7B plan is {choice.mesh_shape} "
+                             f"{choice.mp_kind} fsdp={choice.plan.fsdp_axes}, not DP + fsdp")
+    cfg4 = dataclasses.replace(rwkv_cfg, n_layers=FSDP_LAYERS)
+    rules = SH.ShardingRules(cfg4, {"data": 2, "model": 1},
+                             dataclasses.replace(choice.plan, fsdp_axes=("data",)))
+    meta = api_mod.build_model(cfg4, device="cpu").init(0, device="meta")
+    dims = SH.fsdp_dims(meta, SH.param_specs(cfg4, rules), rules)
+    p_div = sum(t.numel() for t, d in zip(tree_leaves(meta), dims) if d is not None)
+    p_whole = sum(t.numel() for t, d in zip(tree_leaves(meta), dims) if d is None)
+    want_resident = 12 * p_div / 2 + 12 * p_whole
+    model_peak = per_device_mem_bytes(cfg4, mp=1, fsdp=2, mini_batch=FSDP_B // 2,
+                                      seq_len=FSDP_T)
+    port_floor = train_launch.fsdp_step_bytes(
+        train_launch.RankRun(cfg=cfg4, plan=rules.plan, steps=FSDP_STEPS, batch=FSDP_B,
+                             seq=FSDP_T, lr=3e-3), 2, 1)
+    common = ["--arch", "rwkv6_7b", "--batch", str(FSDP_B), "--seq", str(FSDP_T),
+              "--max-local-devices", "2"]
+    names, steps = ("auto +fsdp", "dp=2"), (FSDP_STEPS, FSDP_PLAIN_STEPS)
+    summaries, _ = _launcher_runs(
+        train_launch, [common + ["--parallel", "auto", "--devices", "2", "--steps",
+                                 str(FSDP_STEPS)],
+                       common + ["--parallel", "dp=2,mp=1", "--steps", str(FSDP_PLAIN_STEPS)]],
+        edit=lambda run: dataclasses.replace(run, cfg=cfg4))
+    rec = {"planner_2": {"mesh": list(choice.mesh_shape), "kind": choice.mp_kind,
+                         "fsdp": list(choice.plan.fsdp_axes), "speedup": choice.speedup,
+                         "mem_gib": choice.mem_bytes / 2**30},
+           "layers": FSDP_LAYERS, "batch": FSDP_B, "seq": FSDP_T, "steps": dict(zip(names, steps)),
+           "p_div": p_div, "p_whole": p_whole, "want_resident_gib": want_resident / 2**30,
+           "planner_peak_gib": model_peak / 2**30, "port_peak_floor_gib": port_floor / 2**30,
+           "runs": {}}
+    for name, n_steps, summary in zip(names, steps, summaries):
+        per = n_steps * FSDP_LAYERS * 2
+        t = summary["transport"]
+        got = {n: summary["launches"][n] for n in ("wkv6", "wkv6_bwd")}
+        if (t.backend, t.placement, len(summary["ranks"])) != ("gloo", "shared", 2) or \
+                got != {"wkv6": per, "wkv6_bwd": per} or \
+                summary["variants"]["wkv6"].get("chunked") != per or \
+                not all(np.isfinite(summary["history"])):
+            raise AssertionError(f"(a) rwkv6_7b {name}: {t}, launches {got} "
+                                 f"{summary['variants']['wkv6']} (want {per} of each, all "
+                                 f"chunked), losses {summary['history']}")
+        rec["runs"][name] = {
+            "losses": summary["history"], "launches": got,
+            "ranks": [{"rank": r["rank"], "resident_gib": r["resident_bytes"] / 2**30,
+                       "peak_gib": r["peak_mem_bytes"] / 2**30, "step_ms": r["step_ms"],
+                       "median_step_ms_after_first": (float(np.median(r["step_ms"][1:]))
+                                                      if len(r["step_ms"]) > 1 else None)}
+                      for r in summary["ranks"]]}
+    fs, plain = (rec["runs"][n]["ranks"] for n in names)
+    rec["resident_rel_err"] = [abs(r["resident_gib"] * 2**30 - want_resident) / want_resident
+                               for r in fs]
+    print(json.dumps({"fsdp_a": rec}), flush=True)
+    if not all(e <= FSDP_RESIDENT_TOL for e in rec["resident_rel_err"]) or \
+            not all(f["resident_gib"] < p["resident_gib"] for f, p in zip(fs, plain)):
+        raise AssertionError(f"(a) a fsdp rank's resident state is not its shard: "
+                             f"{[r['resident_gib'] for r in fs]} GiB, want "
+                             f"{want_resident / 2**30:.3f} within {FSDP_RESIDENT_TOL} and below "
+                             f"plain dp=2's {[r['resident_gib'] for r in plain]}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _ckpt_paths(runs, kernel):
     return {f"train {runs['a']['arch']} --resume (process)": runs["a"]["resume_launches"][kernel],
             f"train {runs['a']['arch']} --background-save (process)":
@@ -4523,7 +4662,10 @@ def main():
                                {r.rid: r for r in cont_results})
     del cont_results
 
-    _phase("30 result")
+    _phase("30 the fsdp plans on ranks")
+    fsdp_a = phase_fsdp(train_launch, wk, api_mod, rwkv_cfg)
+
+    _phase("31 result")
     rnn_tp_paths = {"train biglstm mp=2 gspmd (ranks)": rnn_tp["a_biglstm_gspmd"]["launches"],
                     "train biglstm mp=2 overlapped c=2 (ranks)":
                         rnn_tp["a_biglstm_overlapped"]["launches"],
@@ -4532,6 +4674,8 @@ def main():
                     f"train rwkv6_7b {RWKV_TP_LAYERS} layers mp=2 (ranks)":
                         {n: c * RNN_TP_STEPS for n, c in rnn_tp["rwkv6_7b"]["per_step"].items()}}
     paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
+    fsdp_paths = {f"train rwkv6_7b {FSDP_LAYERS} layers {n} (ranks)": run["launches"]
+                  for n, run in fsdp_a["runs"].items()}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     kernels = [
         _kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4659,7 +4803,8 @@ def main():
                                         f"train rwkv6_7b {RWKV_LAYERS} layers":
                                             rwkv_train_launches["wkv6"],
                                         **_by_path(paper_paths, "wkv6"),
-                                        **_by_path(rnn_tp_paths, "wkv6")},
+                                        **_by_path(rnn_tp_paths, "wkv6"),
+                                        **_by_path(fsdp_paths, "wkv6")},
                       variant_launches_by_path={
                           "serve rwkv6_7b": rwkv_variants["wkv6"],
                           f"train rwkv6_7b {RWKV_LAYERS} layers": rwkv_train_variants["wkv6"]}),
@@ -4670,7 +4815,8 @@ def main():
                                             rwkv_train_launches["wkv6_bwd"],
                                         "serve rwkv6_7b": rwkv_launches["wkv6_bwd"],
                                         **_by_path(paper_paths, "wkv6_bwd"),
-                                        **_by_path(rnn_tp_paths, "wkv6_bwd")},
+                                        **_by_path(rnn_tp_paths, "wkv6_bwd"),
+                                        **_by_path(fsdp_paths, "wkv6_bwd")},
                       note="no TPU backward kernel: JAX differentiates the scan "
                            "(src/repro/models/rwkv.py:69, wkv_scan) of the wkv kernel "
                            "(src/repro/kernels/rwkv_scan.py:25)"),

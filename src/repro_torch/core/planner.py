@@ -37,10 +37,11 @@ paper's §4.4 implementation for GNMT and BigLSTM).  For each point it
     ``model_axis``, pipeline plans additionally with ``mp_kind="pipeline"``,
     ``microbatches=K``, ``schedule``, ``virtual_stages``) + mesh shape.
 
-``launch/train.py --parallel auto`` calls this and runs the winning plan
-when it is one card's (M = 1, DP clamped to the card); a plan with M > 1
-raises NotImplementedError naming the runtime it needs (ROADMAP.md Queue 1
-items 6-8).
+``launch/train.py --parallel auto`` calls this and runs the winning plan on
+ranks (``parallel.dist.spawn_ranks``): DP clamped to the local budget, a
+plan with M > 1 on dp x M ranks (pipeline stages, a context ring or a
+tensor-MP group), and a plan with ``fsdp_axes`` with the parameters and
+optimizer state sharded over DP (``train.steps``).
 
 Two inputs are explicit here where the JAX planner reads module state: the
 collective overlap table (``overlap``, default ``comm.MEASURED_OVERLAP``)

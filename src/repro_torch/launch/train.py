@@ -51,12 +51,20 @@ them.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
 ``[kernels]`` / ``[variants]`` counts summed over the ranks; the launcher
 then prints each rank's peak device memory, pipeline store high-water mark
 and kernel launches (``[ranks]``, each rank's stage, place on the ring or
-on the model axis).  Tensor MP trains the dense and RWKV decoders and
+on the model axis, and its memory allocated after its last step: the
+resident state).  Tensor MP trains the dense and RWKV decoders and
 BigLSTM (``--parallel mp=2``; with ``--comm-runtime overlapped`` BigLSTM's
 layers run JAX's overlapped LSTM layer, and RWKV warns and runs the gspmd
 form, as JAX does); tensor MP of an MoE model raises NotImplementedError
-naming ROADMAP.md Queue 1 item 15, parameters sharded over DP (fsdp) item
-5's remainder and ``--pipe-runtime ad`` item 6b.
+naming ROADMAP.md Queue 1 item 15 and ``--pipe-runtime ad`` item 6b.  A
+planner's plan that shards the parameters and optimizer state over DP
+(``+fsdp`` in the ``[plan]`` line; its ``("pod", "data")`` narrows to the
+ranks' ``data`` axis) runs so on the ranks (``train.steps``), where the JAX
+launcher drops ``fsdp_axes``: the numbers are those of plain DP, and each
+rank holds 1/dp of the sharded state.  The step gathers the whole tree and
+keeps full-size gradients, so a run whose step cannot fit a rank's memory
+(``fsdp_step_bytes``: the planner's full-depth RWKV6-7B and StableLM-12B
+plans) exits naming ROADMAP.md Queue 1 item 23.
 
 Fault tolerance, as in JAX: ``--ckpt-dir``/``--ckpt-every`` write
 CRC-manifested checkpoints of the global state in JAX's v2 format
@@ -101,7 +109,8 @@ import torch
 
 from repro_torch.checkpoint import restore_latest_valid, wait_for_saves
 from repro_torch.configs import get_config
-from repro_torch.core.planner import HybridPlanner, default_epoch_model
+from repro_torch.core.comm import HardwareModel
+from repro_torch.core.planner import HybridPlanner, default_epoch_model, per_device_mem_bytes
 from repro_torch.data import DataPipeline, make_lm_dataset
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
@@ -130,7 +139,7 @@ def parse_parallel(spec: str, devices: int, cfg, comm_runtime: str = "gspmd",
     ``devices`` (``comm_runtime`` keys its overlap terms,
     ``context_parallel`` keeps only context points); an explicit spec reads
     its ``dp=/mp=/accum=``, ``pipe=/micro=/sched=/v=`` or ``cp=`` keys.  A
-    key the JAX launcher does not know raises NotImplementedError."""
+    key the JAX launcher does not know exits naming the keys it knows."""
     if spec == "auto":
         planner = HybridPlanner(cfg, epoch_model=default_epoch_model(cfg),
                                 comm_runtime=comm_runtime)
@@ -163,9 +172,8 @@ def parse_parallel(spec: str, devices: int, cfg, comm_runtime: str = "gspmd",
         kv = dict(p.split("=") for p in spec.split(","))
         unknown = sorted(set(kv) - set(SPEC_KEYS))
         if unknown:
-            raise NotImplementedError(
-                f"--parallel keys {unknown} are not ported to repro_torch yet: "
-                f"ROADMAP.md Queue 1 items 5-8")
+            raise SystemExit(f"[plan] --parallel keys {unknown} are unknown: the JAX launcher "
+                             f"reads only {', '.join(SPEC_KEYS)} (and ignores the rest)")
         pipe = int(kv.get("pipe", 0))
         cp = int(kv.get("cp", 0))
         if context_parallel and cp <= 1:
@@ -287,7 +295,7 @@ def _train(mesh, run: RankRun) -> dict:
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    step_ms, grad_norms, high_water = [], [], [0]
+    step_ms, grad_norms, high_water, resident = [], [], [0], [0]
 
     def timed_step(st, batch):
         if cuda:
@@ -296,6 +304,7 @@ def _train(mesh, run: RankRun) -> dict:
         out = step_fn(st, batch)
         if cuda:
             torch.cuda.synchronize(device)
+            resident[0] = torch.cuda.memory_allocated(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         grad_norms.append(float(out[1]["grad_norm"]))
         high_water[0] = max(high_water[0], int(out[1].get("store_high_water", 0)))
@@ -330,6 +339,7 @@ def _train(mesh, run: RankRun) -> dict:
     out = dict(summary, transport=mesh.transport, rank={
         "rank": mesh.rank, "data": mesh.data_index, "stage": mesh.model_index,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0,
+        "resident_bytes": resident[0],
         "store_high_water": high_water[0], "step_ms": step_ms, "launches": own_launches,
         "losses": list(summary["history"])})
     if run.return_params:
@@ -417,7 +427,8 @@ def rank_summary(run: RankRun, results: list) -> dict:
     place = {"context": "ring", "tensor": "model"}.get(run.plan.mp_kind, "stage")
     print("[ranks] " + " | ".join(
         f"r{r['rank']} (data {r['data']}, {place} {r['stage']}): peak "
-        f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, store high-water {r['store_high_water']}, "
+        f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, resident {r['resident_bytes'] / 2**30:.2f} "
+        f"GiB, store high-water {r['store_high_water']}, "
         f"median step after the first {statistics.median(r['step_ms'][1:] or r['step_ms']):.1f}"
         f" ms, launches " + (" ".join(f"{n}={c}" for n, c in r["launches"].items() if c)
                              or "0")
@@ -425,8 +436,48 @@ def rank_summary(run: RankRun, results: list) -> dict:
     return summary
 
 
+FSDP_RESIDENCY = "ROADMAP.md Queue 1 item 23 (fsdp residency: a layer at a time)"
+
+
+def fsdp_step_bytes(run: RankRun, dp: int, stages: int) -> float:
+    """A lower bound on a fsdp rank's step peak in the port: the planner's
+    ZeRO-2 working set (``per_device_mem_bytes``: the rank's shard of the
+    f32 parameters and AdamW state, its gradient shard, the activations
+    remat keeps) plus what the port holds beyond it, the rank's f32
+    parameters gathered whole once a step and its gradients at full size
+    until they are reduce-scattered."""
+    tensor = run.plan.mp_kind == "tensor" and stages > 1
+    p = float(run.cfg.n_params()) / (stages if tensor else 1)
+    zero2 = per_device_mem_bytes(run.cfg, mp=stages, mp_kind=run.plan.mp_kind, fsdp=dp,
+                                 mini_batch=max(run.batch // dp, 1), seq_len=run.seq)
+    return zero2 + 4.0 * p + 4.0 * p * (1.0 - 1.0 / dp)
+
+
+def check_fsdp_fits(run: RankRun, dp: int, stages: int) -> None:
+    """Exit, naming the ROADMAP item that would make it fit, where a fsdp
+    run's ``fsdp_step_bytes`` exceed a rank's memory: its card's share
+    (ranks sharing a card split it), or on the CPU the budget of the card
+    the planner plans for (``HardwareModel.hbm_bytes``)."""
+    if not run.plan.fsdp_axes or dp == 1:
+        return
+    need = fsdp_step_bytes(run, dp, stages)
+    device = torch.device(run.device)
+    if device.type == "cuda":
+        sharing = -(-dp * stages // max(torch.cuda.device_count(), 1))
+        have = torch.cuda.get_device_properties(device.index or 0).total_memory / sharing
+    else:
+        have = HardwareModel().hbm_bytes
+    if need > have:
+        raise SystemExit(
+            f"[plan] {run.cfg.name} +fsdp on {dp} x {stages} ranks: the port's fsdp step "
+            f"gathers the whole tree and keeps full-size gradients, at least "
+            f"{need / 2**30:.1f} GiB a rank against {have / 2**30:.1f} GiB; it fits only "
+            f"with a layer-at-a-time gather: {FSDP_RESIDENCY}")
+
+
 def main(argv=None):
     run, dp, stages = plan_run(argv)
+    check_fsdp_fits(run, dp, stages)
     if dp * stages > 1:
         try:
             return run_ranks(run, dp, stages, run.device)
@@ -584,8 +635,7 @@ def plan_run(argv=None) -> Tuple[RankRun, int, int]:
         dp = clamp_dp(dp_hint, mp, args.batch, max_local, f"{mp}-way MP") \
             if dp_hint > 1 else 1
     stages = mp if pipeline or context or tensor else 1
-    # DP narrows to the local ranks' data axis: drop the planner's pod axis
-    plan = dataclasses.replace(plan, dp_axes=("data",))
+    plan = plan.one_pod()       # the planner's pod axis narrows to the ranks' data axis
     print(f"[plan] {plan.describe({'data': dp, 'model': stages})} on {device}")
     run = RankRun(cfg=cfg, plan=plan, steps=args.steps, batch=args.batch, seq=args.seq,
                   lr=args.lr, device=str(device), ckpt_dir=args.ckpt_dir,

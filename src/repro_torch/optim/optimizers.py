@@ -27,6 +27,9 @@ from repro_torch.tree import tree_leaves, tree_map
 class Optimizer:
     init: Callable
     update: Callable          # (grads, state, params, step) -> (updates, state)
+    # each element's update reads only that element's gradient, state and
+    # parameter, so it runs on any shard of a leaf (Adafactor's does not)
+    elementwise: bool = True
 
 
 def _f32(x) -> torch.Tensor:
@@ -185,7 +188,7 @@ def adafactor(lr: Callable, decay: float = 0.8, eps: float = 1e-30,
 
         return tree_map(upd, grads, state["acc"]), state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 OPTIMIZERS = {

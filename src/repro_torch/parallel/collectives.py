@@ -15,6 +15,12 @@ The DP gradient sync, in the two forms a ``ParallelPlan``'s
 - ``"gspmd"``: ``all_reduce_grads``, one all-reduce a leaf (the monolithic
   sync the JAX partitioner inserts).
 
+A fsdp plan's rank holds a shard of each leaf the sharding rules cut over
+``data``: ``fsdp_all_gather`` gathers them into its working leaves once a
+step, and ``fsdp_grad_sync`` reduce-scatters each such leaf's gradient back
+to the shard (the other leaves are all-reduced), one collective a leaf under
+either runtime, as JAX keeps GSPMD's sync for fsdp plans.
+
 Tensor MP over the ``model`` group.  The port has no GSPMD, so every
 collective the JAX partitioner would insert is written out as a
 ``torch.autograd.Function``:
@@ -54,7 +60,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.parallel import dist as D
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 # Size target for one DP gradient bucket (torch-DDP-style default: large
 # enough to amortize per-collective latency, small enough that several
@@ -115,6 +121,27 @@ def all_reduce_grads(grads, mesh, *, axis: str = "data"):
     for g in tree_leaves(grads):
         D.all_reduce(mesh, g, axis)
     return grads
+
+
+@torch.no_grad()
+def fsdp_all_gather(shards, dims, mesh, *, axis: str = "data"):
+    """A fsdp rank's working leaves: each leaf of ``shards`` whose entry of
+    ``dims`` (one a leaf, in ``tree_leaves`` order) is a dim, all-gathered
+    over the ``axis`` group along it (in group order, contiguous); a leaf
+    whose entry is None as it is."""
+    return tree_unflatten(shards, [t if d is None else _gather_dim(mesh, t, d, axis).contiguous()
+                                   for t, d in zip(tree_leaves(shards), dims)])
+
+
+@torch.no_grad()
+def fsdp_grad_sync(grads, dims, mesh, *, axis: str = "data"):
+    """Sum each gradient leaf over the ``axis`` group: a leaf with a dim in
+    ``dims`` reduce-scattered to this rank's contiguous 1/n slice along it
+    (the shard ``fsdp_all_gather`` gathered), the others all-reduced in
+    place.  Returns the tree of shards and whole leaves."""
+    return tree_unflatten(grads, [D.all_reduce(mesh, g, axis) if d is None
+                                  else _reduce_scatter_dim(mesh, g, d, axis).contiguous()
+                                  for g, d in zip(tree_leaves(grads), dims)])
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ never changed after (``choose_transport``):
 - ``gloo`` on the CPU;
 - ``gloo`` when ranks share a card.  NCCL refuses two ranks on one device,
   and gloo carries CPU tensors only, so the helpers below copy CUDA tensors
-  through host buffers: the ranks compute on the card and their messages
+  through host buffers (a collective through pinned buffers the rank keeps,
+  ``RankMesh.staging``): the ranks compute on the card and their messages
   cross host memory.  This is the torch form of JAX's forced host devices,
   and step times of such ranks are not multi-card step times.
 
@@ -44,7 +45,6 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import os
 import pickle
 import tempfile
 import time
@@ -108,6 +108,10 @@ class RankMesh:
     transport: Transport
     device: torch.device
     groups: Dict[str, Optional[dist.ProcessGroup]] = dataclasses.field(repr=False)
+    # gloo ranks on a card: a pinned host buffer a slot ("in", "out"), grown
+    # to the largest message a collective stages (``_staged``)
+    staging: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False,
+                                                         compare=False)
 
     @property
     def world(self) -> int:
@@ -191,6 +195,38 @@ def _wire(mesh: RankMesh, t: torch.Tensor) -> torch.Tensor:
     return t if t.device == want else t.to(want)
 
 
+def _empty_host_cache() -> None:
+    """Give the pinned blocks torch's caching host allocator holds unused
+    back to the system (``torch.accelerator.memory.empty_host_cache``, the
+    private call before torch had it)."""
+    empty = getattr(getattr(torch.accelerator, "memory", None), "empty_host_cache", None)
+    (empty or torch._C._host_emptyCache)()
+
+
+def _staged(mesh: RankMesh, t: torch.Tensor, slot: str, copy: bool = True) -> torch.Tensor:
+    """``t`` where the backend carries it, for one collective: ``t`` itself
+    where it lies there already; a CUDA tensor on gloo in this rank's pinned
+    host buffer ``slot`` (its values where ``copy``, else room for an output
+    the collective overwrites).  One buffer a slot, grown to the largest
+    message: a pageable copy into a fresh host allocation costs more than
+    the message's trip through gloo.  When a slot grows, the outgrown buffer
+    goes back to the system, not to torch's host cache, so a rank pins no
+    more than its two slots.  ``_wire`` otherwise."""
+    if t.device.type != "cuda" or mesh.transport.backend == "nccl":
+        return _wire(mesh, t)
+    n = t.numel() * t.element_size()
+    buf = mesh.staging.get(slot)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            del mesh.staging[slot], buf
+            _empty_host_cache()
+        buf = mesh.staging[slot] = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    w = buf[:n].view(t.dtype).view(t.shape)
+    if copy:
+        w.copy_(t)
+    return w
+
+
 def _group(mesh: RankMesh, axis: Optional[str]):
     return None if axis is None else mesh.groups[axis]
 
@@ -201,7 +237,7 @@ def all_reduce(mesh: RankMesh, t: torch.Tensor, axis: Optional[str] = None,
     take the elementwise max with ``op="max"``."""
     if mesh.size(axis) == 1:
         return t
-    w = _wire(mesh, t)
+    w = _staged(mesh, t, "in")
     dist.all_reduce(w, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
                     group=_group(mesh, axis))
     if w is not t:
@@ -215,7 +251,7 @@ def broadcast(mesh: RankMesh, t: torch.Tensor, axis: str) -> torch.Tensor:
     ranks = mesh.members(axis)
     if len(ranks) == 1:
         return t
-    w = _wire(mesh, t)
+    w = _staged(mesh, t, "in")
     dist.broadcast(w, src=ranks[0], group=_group(mesh, axis))
     if w is not t:
         t.copy_(w)
@@ -226,7 +262,7 @@ def reduce_scatter(mesh: RankMesh, out: torch.Tensor, inp: torch.Tensor, axis: s
     """``out`` = this rank's 1/n part of the sum of ``inp`` over ``axis``."""
     if mesh.size(axis) == 1:
         return out.copy_(inp)
-    wo, wi = _wire(mesh, out), _wire(mesh, inp)
+    wo, wi = _staged(mesh, out, "out", copy=False), _staged(mesh, inp, "in")
     with warnings.catch_warnings():   # the torch 2.11 names, deprecated later
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(wo, wi, group=_group(mesh, axis))
@@ -239,7 +275,7 @@ def all_gather(mesh: RankMesh, out: torch.Tensor, inp: torch.Tensor, axis: str):
     """``out`` = the ``inp`` of every rank of ``axis``, concatenated."""
     if mesh.size(axis) == 1:
         return out.copy_(inp)
-    wo, wi = _wire(mesh, out), _wire(mesh, inp)
+    wo, wi = _staged(mesh, out, "out", copy=False), _staged(mesh, inp, "in")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(wo, wi, group=_group(mesh, axis))
@@ -275,7 +311,10 @@ def exchange(mesh: RankMesh, sends: Sequence[Tuple[torch.Tensor, int, int]],
     Every op is posted before any is waited on, so two ranks that list each
     other's messages in the same order cannot deadlock.  Returns the
     received tensors on this rank's device (``to_device``) or where the
-    transport carried them."""
+    transport carried them.  A CUDA message on gloo takes a pageable host
+    copy of its own (``_wire``), not a ``_staged`` slot: all of a batch's
+    messages are in flight at once, and a slot each would keep a rank's
+    every ring hop and stage boundary page-locked."""
     if not sends and not recvs:
         return []
     ops, bufs = [], []
@@ -409,15 +448,15 @@ def spawn_ranks(fn: Callable, world: int, device="cpu", args: tuple = (), *,
     the traceback of the rank that failed first, a rank that exits without
     an error with ``RankExitError`` (its exit code), and the others are
     stopped.  Rank 0 prints the transport (``Transport.describe``).
-    ``threads`` caps each CPU rank's intra-op threads (default: the host's
-    cores shared out, at least one)."""
+    ``threads`` caps each CPU rank's intra-op threads (default: this
+    process's intra-op threads shared out, at least one)."""
     if world % stages:
         raise ValueError(f"{world} ranks do not form replicas of {stages} stages")
     dev = torch.device(device)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     transport = choose_transport(dev.type, world, cards)
     if threads is None:
-        threads = max(1, (os.cpu_count() or 1) // world)
+        threads = max(1, torch.get_num_threads() // world)
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as rundir:
         try:
             torch.multiprocessing.start_processes(

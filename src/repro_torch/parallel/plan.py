@@ -10,8 +10,8 @@ baseline keeps it off).
 
 The JAX plan reads its degrees off a ``jax.sharding.Mesh``; here
 ``describe`` and ``plan_degrees`` take a mapping of axis name to size (the
-planner's ``mesh_shape`` named ``("pod", "data", "model")``), since the port
-has no mesh until the multi-card runtimes (ROADMAP.md Queue 1 items 5-8).
+planner's ``mesh_shape`` named ``("pod", "data", "model")``): the port's
+ranks form a ``parallel.dist.RankMesh`` of one pod, not a JAX mesh.
 """
 from __future__ import annotations
 
@@ -86,6 +86,15 @@ class ParallelPlan:
     @property
     def is_context(self) -> bool:
         return self.mp_kind == "context" and self.model_axis is not None
+
+    def one_pod(self) -> "ParallelPlan":
+        """This plan on the port's one-pod ranks: the planner's DP and fsdp
+        axes ``("pod", "data")`` narrow to ``("data",)``."""
+        if not set(self.fsdp_axes) <= {"pod", "data"}:
+            raise ValueError(f"fsdp axes {self.fsdp_axes}: the port's ranks shard the state "
+                             f"over the data axis only")
+        return dataclasses.replace(self, dp_axes=("data",),
+                                   fsdp_axes=("data",) if self.fsdp_axes else ())
 
     def describe(self, axis_sizes: Mapping[str, int]) -> str:
         dp, mp = plan_degrees(self, axis_sizes)

@@ -15,7 +15,11 @@ read a mapping of axis name to size, as ``ParallelPlan.describe`` does.
 
 ``shard_params(params, rules, model_index)`` is a rank's part of a whole
 parameter tree (the contiguous slice of each leaf along its model dim) and
-``gather_params`` its inverse over every rank's part.  The continuous
+``gather_params`` its inverse over every rank's part; ``shard_fsdp`` and
+``gather_fsdp`` are their counterparts over the data axis (a fsdp plan's
+rank holds the contiguous 1/dp slice of each leaf along the dim the rules
+give the fsdp axes, cut out of its tensor-MP part where it has one, and
+``fsdp_dims`` lists those dims a leaf).  The continuous
 engine's ranks hold JAX's serving layouts instead: ``serve_tp_part`` is a
 tensor-MP rank's part of the weights under ``decode_slots_tp``'s specs, and
 ``slot_cache_part`` a rank's part of the slot cache (``slot_range`` its
@@ -234,6 +238,14 @@ class ShardingRules:
                 return i
         return None
 
+    def fsdp_dim(self, spec: tuple) -> Optional[int]:
+        """The dim of ``spec`` sharded over the fsdp axes, or None (no fsdp
+        axes, or one rank on them)."""
+        if not self.fs or self.fsz == 1:
+            return None
+        want = self.fs[0] if len(self.fs) == 1 else tuple(self.fs)
+        return next((i for i, s in enumerate(spec) if s == want), None)
+
 
 class _Shape:
     """A leaf of a shape tree: what ``params_specs`` reads of a tensor."""
@@ -296,27 +308,74 @@ def shard_params(params, rules: ShardingRules, model_index: int):
     return _map_with_spec(cut, params, rules.params_specs(params))
 
 
-def gather_params(parts: List, rules: ShardingRules, specs, path=()):
+def _join_parts(fn, parts: List, specs, path=()):
+    """``fn(leaves, spec, path)`` over the matching leaves of every tree of
+    ``parts``: one tree."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _join_parts(fn, [p[k] for p in parts], specs[k], path + (k,))
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_join_parts(fn, [p[i] for p in parts], specs[i], path + (str(i),))
+                           for i in range(len(first)))
+    return fn(parts, specs, path)
+
+
+def gather_params(parts: List, rules: ShardingRules, specs):
     """The whole tree from every rank's part (in model order), the inverse
     of ``shard_params``: leaves that ``specs`` (the whole tree's, as
     ``param_specs`` gives them) shard over the model axis are concatenated
     along that dim (an LSTM gate leaf gate by gate), the others taken from
     the first part."""
-    first = parts[0]
-    if isinstance(first, dict):
-        return {k: gather_params([p[k] for p in parts], rules, specs[k], path + (k,))
-                for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(gather_params([p[i] for p in parts], rules, specs[i],
-                                         path + (str(i),))
-                           for i in range(len(first)))
-    dim = rules.model_dim(specs)
-    if dim is None:
-        return first
-    if _gate_major(path, first, dim):
-        d = first.shape[0]
-        return torch.cat([p.reshape(d, 4, -1) for p in parts], dim=2).reshape(d, -1)
-    return torch.cat(list(parts), dim=dim)
+    def join(leaves, spec, path):
+        first, dim = leaves[0], rules.model_dim(spec)
+        if dim is None:
+            return first
+        if _gate_major(path, first, dim):
+            d = first.shape[0]
+            return torch.cat([p.reshape(d, 4, -1) for p in leaves], dim=2).reshape(d, -1)
+        return torch.cat(list(leaves), dim=dim)
+
+    return _join_parts(join, parts, specs)
+
+
+def shard_fsdp(tree, rules: ShardingRules, data_index: int, specs=None):
+    """Data rank ``data_index``'s shard of ``tree`` (the whole tree, or a
+    tensor-MP rank's part of it): each leaf that the rules shard over the
+    fsdp axes cut to its contiguous 1/dp slice of that dim, a copy; every
+    other leaf as it is.  ``specs`` are the whole tree's (``param_specs``;
+    default ``tree``'s own).  An LSTM gate leaf keeps its gate-major model
+    cut, and its fsdp cut falls on its rows (JAX's ``P(fsdp, model)``)."""
+    n = rules.fsz
+
+    def cut(leaf, spec, path):
+        dim = rules.fsdp_dim(spec)
+        if dim is None:
+            return leaf
+        k = leaf.shape[dim] // n
+        return leaf.narrow(dim, data_index * k, k).clone()
+
+    return _map_with_spec(cut, tree, rules.params_specs(tree) if specs is None else specs)
+
+
+def gather_fsdp(parts: List, rules: ShardingRules, specs):
+    """The tree the shards ``parts`` (every data rank's, in data order) were
+    cut from, the inverse of ``shard_fsdp``: fsdp-sharded leaves
+    concatenated along their fsdp dim, the others taken from the first."""
+    def join(leaves, spec, path):
+        dim = rules.fsdp_dim(spec)
+        return leaves[0] if dim is None else torch.cat(list(leaves), dim=dim)
+
+    return _join_parts(join, parts, specs)
+
+
+def fsdp_dims(tree, specs, rules: ShardingRules) -> List[Optional[int]]:
+    """For each leaf of ``tree`` (whole, a part or a shard), in
+    ``tree_leaves`` order: its fsdp dim under ``specs`` (the whole tree's),
+    or None."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    return tree_leaves(tree_map(lambda _, spec: rules.fsdp_dim(spec), tree, specs))
 
 
 def replicated_leaves(params, specs, rules: ShardingRules) -> List[bool]:

@@ -48,14 +48,27 @@ DP shard (rows of its ``data`` index):
   is averaged (pure DP) or summed (pipelined) over DP, as JAX's ``pmean``
   and ``psum`` do.
 
-The clip sees the global norm: each rank's sum of squares (a tied embedding
-counted once) is summed over the ``model`` group after the DP sync, so the
-clip scale is the single-process one (a context-parallel rank's
-gradients are already whole; a tensor-MP rank sums its sharded leaves over
-``model`` and counts the replicated ones once).  Tensor MP runs the dense
-and RWKV decoders, BigLSTM, GNMT and Inception-V3; of another arch it
-raises naming its item (``check_plan``), and parameters sharded over DP
-raise (item 5's remainder, fsdp).
+A plan with ``fsdp_axes`` (pure DP, tensor MP or context; the planner's
+``("pod", "data")`` narrows to the one-pod mesh's ``data``) also shards the
+state over DP, as JAX's ``ShardingRules`` place it: the rank holds its data
+shard (``sharding.shard_fsdp``, cut out of its tensor-MP part) of every
+leaf the rules give an fsdp dim, f32 master parameters and AdamW's ``m`` and
+``v`` alike, and the other leaves whole.  A step gathers the shards into
+the rank's working leaves over ``data`` (``collectives.fsdp_all_gather``),
+runs the loss and gradient path above on them, and in place of the sum
+over ``data`` reduce-scatters each sharded leaf's gradient to the shard
+(``collectives.fsdp_grad_sync``, under either runtime: JAX keeps GSPMD's
+sync for fsdp plans); the optimizer then updates the shards.  An optimizer
+that is not elementwise (Adafactor) and a pipelined plan with fsdp raise
+naming ROADMAP.md Queue 1 item 5b.
+
+The clip sees the global norm, the single-process one: each rank's sum of
+squares of a leaf is summed over the axes that shard the leaf (``data`` for
+a fsdp shard, ``model`` for a tensor-MP part, and on a pipelined rank over
+the stages, a tied embedding counted once); a leaf that is whole on every
+rank is counted once (a context-parallel rank's gradients are already
+whole).  Tensor MP runs the dense and RWKV decoders, BigLSTM, GNMT and
+Inception-V3; of another arch it raises naming its item (``check_plan``).
 
 Checkpoints hold a state's global form, JAX's layout (``interop.
 param_shapes``: stacked (L, ...) decoder leaves, BigLSTM's list of layer
@@ -85,12 +98,14 @@ from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_glob
 from repro_torch.parallel import dist as D
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.collectives import (DEFAULT_BUCKET_BYTES, all_reduce_grads,
-                                              bucketed_grad_sync)
+                                              bucketed_grad_sync, fsdp_all_gather,
+                                              fsdp_grad_sync)
 from repro_torch.parallel.pipeline import AD_RUNTIME, stages_to_stack
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-FSDP = "ROADMAP.md Queue 1 item 5 (data parallelism: the fsdp plans are its remainder)"
+FSDP_REST = ("ROADMAP.md Queue 1 item 5b (the fsdp plans: Adafactor under fsdp and "
+             "pipelined plans with fsdp)")
 
 
 @dataclasses.dataclass
@@ -103,15 +118,22 @@ class TrainState:
     in_update: bool = False
 
 
-def check_plan(plan, model: int, cfg=None) -> None:
+def check_plan(plan, model: int, cfg=None, optimizer=None) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a plan the
     port's ranks do not run over a ``model`` axis of that size: tensor MP of
     an arch that ``tensor_mp_item`` names (MoE, the other families; ``cfg``,
-    not checked without one), parameters sharded over DP, the ``ad``
-    pipeline runtime."""
+    not checked without one), parameters sharded over DP under an optimizer
+    that is not elementwise (``optimizer``, not checked without one) or
+    across pipeline stages, the ``ad`` pipeline runtime."""
     if plan.fsdp_axes:
-        raise NotImplementedError(f"parameters sharded over DP are not ported to "
-                                  f"repro_torch yet: {FSDP}")
+        if optimizer is not None and not optimizer.elementwise:
+            raise NotImplementedError(
+                f"parameters sharded over DP under an optimizer whose update is not "
+                f"elementwise (Adafactor: its factored statistics reduce over the sharded "
+                f"dim) are not ported to repro_torch yet: {FSDP_REST}")
+        if plan.is_pipeline and model > 1:
+            raise NotImplementedError(f"a pipelined plan with parameters sharded over DP is "
+                                      f"not ported to repro_torch yet: {FSDP_REST}")
     if plan.model_axis is None or model == 1:
         return
     if plan.mp_kind == "tensor":
@@ -146,23 +168,36 @@ def _make_pctx(mesh, plan):
     return None
 
 
-def _tensor_rules(cfg, mesh, plan) -> SH.ShardingRules:
-    return SH.ShardingRules(cfg, dict(mesh.shape), plan or ParallelPlan())
+def _rules(cfg, mesh, plan) -> SH.ShardingRules:
+    return SH.ShardingRules(cfg, dict(mesh.shape), (plan or ParallelPlan()).one_pod())
+
+
+def _fsdp_rules(cfg, mesh, plan):
+    """The sharding rules of a plan that shards the state over more than one
+    data rank, else None."""
+    if mesh is None or plan is None or not plan.fsdp_axes or mesh.shape["data"] == 1:
+        return None
+    return _rules(cfg, mesh, plan)
 
 
 def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0, *,
                      mesh=None, plan=None) -> TrainState:
     """The seeded init and its optimizer state; a pipelined rank's holds
     only its stage (``api.init_pipeline_stage``), a tensor-MP rank only its
-    part (``parallel.sharding.shard_params`` of the whole seeded init)."""
+    part (``parallel.sharding.shard_params`` of the whole seeded init), and
+    a fsdp rank only its data shard of that (``sharding.shard_fsdp``)."""
     if _pipelined(plan, mesh):
         params = api.init_pipeline_stage(seed, mesh.shape["model"], plan.virtual_stages,
                                          mesh.model_index)
     elif is_tensor_ctx(_make_pctx(mesh, plan)):
-        params = SH.shard_params(api.init(seed), _tensor_rules(api.cfg, mesh, plan),
+        params = SH.shard_params(api.init(seed), _rules(api.cfg, mesh, plan),
                                  mesh.model_index)
     else:
         params = api.init(seed)
+    frules = _fsdp_rules(api.cfg, mesh, plan)
+    if frules is not None:
+        params = SH.shard_fsdp(params, frules, mesh.data_index,
+                               SH.param_specs(api.cfg, frules))
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
@@ -229,12 +264,27 @@ def _stages_to_global(parts, cfg, n_stages: int, v: int):
     return {k: out[k] for k in sorted(out)}
 
 
+def _gathered(state: TrainState, mesh, axis: str, join) -> TrainState | None:
+    """``state`` joined over this rank's ``axis`` group on the group's first
+    rank (``join(parts)`` a tree of ``_state_trees``, the parts in group
+    order, on the host); None on the others."""
+    trees = _state_trees(state)
+    parts = D.gather_tree(mesh, trees, axis)
+    if parts is None:
+        return None
+    # the peers' parts arrive where the transport carries them: assemble on
+    # the host, where the writer reads every leaf anyway
+    parts = [tree_map(lambda t: t.detach().cpu(), p) for p in parts]
+    return _from_trees({k: join([p[k] for p in parts]) for k in trees}, state)
+
+
 def global_state(state: TrainState, api: ModelApi, mesh, plan):
     """The whole state in JAX's layout on the writing rank (rank 0; on the
     host where it was gathered), None on every other rank.  Every rank calls
-    it at the same step: the gathers are collectives.  DP and context ranks
-    hold replicas (rank 0's is the state); a tensor-MP rank's parts are
-    gathered over the model group of the first replica
+    it at the same step: the gathers are collectives.  A fsdp rank's shards
+    are first gathered over its data group (``sharding.gather_fsdp``); DP and
+    context ranks then hold replicas (rank 0's is the state); a tensor-MP
+    rank's parts are gathered over the model group of the first replica
     (``sharding.gather_params``); a pipeline stage's are sent to rank 0 and
     reassembled (``pipeline.stages_to_stack``).  In one process (``mesh``
     None) it is the state itself."""
@@ -243,25 +293,23 @@ def global_state(state: TrainState, api: ModelApi, mesh, plan):
     if plan is not None:
         check_plan(plan, mesh.shape["model"], api.cfg)
     pipelined, tensor = _pipelined(plan, mesh), is_tensor_ctx(_make_pctx(mesh, plan))
+    frules = _fsdp_rules(api.cfg, mesh, plan)
+    if frules is not None:
+        specs = SH.param_specs(api.cfg, frules)
+        state = _gathered(state, mesh, "data",
+                          lambda parts: SH.gather_fsdp(parts, frules, specs))
+        if state is None:
+            return None
     if not (pipelined or tensor):
         return state if mesh.rank == 0 else None
     if mesh.data_index != 0:
         return None
-    trees = _state_trees(state)
-    parts = D.gather_tree(mesh, trees, "model")
-    if parts is None:
-        return None
-    # the peers' parts arrive where the transport carries them: assemble on
-    # the host, where the writer reads every leaf anyway
-    parts = [tree_map(lambda t: t.detach().cpu(), p) for p in parts]
     if pipelined:
-        whole = {k: _stages_to_global([p[k] for p in parts], api.cfg, mesh.shape["model"],
-                                      max(plan.virtual_stages, 1)) for k in trees}
-    else:
-        rules = _tensor_rules(api.cfg, mesh, plan)
-        specs = SH.param_specs(api.cfg, rules)
-        whole = {k: SH.gather_params([p[k] for p in parts], rules, specs) for k in trees}
-    return _from_trees(whole, state)
+        return _gathered(state, mesh, "model", lambda parts: _stages_to_global(
+            parts, api.cfg, mesh.shape["model"], max(plan.virtual_stages, 1)))
+    rules = _rules(api.cfg, mesh, plan)
+    specs = SH.param_specs(api.cfg, rules)
+    return _gathered(state, mesh, "model", lambda parts: SH.gather_params(parts, rules, specs))
 
 
 def place_state(state: TrainState, api: ModelApi, mesh=None, plan=None) -> TrainState:
@@ -269,7 +317,8 @@ def place_state(state: TrainState, api: ModelApi, mesh=None, plan=None) -> Train
     ``init_train_state`` cuts the init: a pipeline stage's pieces
     (``api.pipeline_stage_params``), a tensor-MP rank's slices
     (``sharding.shard_params``), or the whole tree (one process, DP and
-    context ranks).  Cuts are made on the host, then moved."""
+    context ranks), and of that a fsdp rank's data shard
+    (``sharding.shard_fsdp``).  Cuts are made on the host, then moved."""
     device = api.device if mesh is None else mesh.device
     trees = _state_trees(state)
     if _pipelined(plan, mesh):
@@ -277,8 +326,12 @@ def place_state(state: TrainState, api: ModelApi, mesh=None, plan=None) -> Train
         trees = {k: api.pipeline_stage_params(t, s, v, mesh.model_index)
                  for k, t in trees.items()}
     elif is_tensor_ctx(_make_pctx(mesh, plan)):
-        rules = _tensor_rules(api.cfg, mesh, plan)
+        rules = _rules(api.cfg, mesh, plan)
         trees = {k: SH.shard_params(t, rules, mesh.model_index) for k, t in trees.items()}
+    frules = _fsdp_rules(api.cfg, mesh, plan)
+    if frules is not None:
+        specs = SH.param_specs(api.cfg, frules)
+        trees = {k: SH.shard_fsdp(t, frules, mesh.data_index, specs) for k, t in trees.items()}
     trees = tree_map(lambda t: t.to(device), trees)
     return _from_trees(trees, state)
 
@@ -346,7 +399,7 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
                                     comm_runtime=pctx.comm_runtime,
                                     comm_chunks=pctx.comm_chunks)
     if plan is not None:
-        check_plan(plan, mesh.shape["model"] if mesh is not None else 1, api.cfg)
+        check_plan(plan, mesh.shape["model"] if mesh is not None else 1, api.cfg, optimizer)
     pipelined = _pipelined(plan, mesh)
     pctx = pctx or _make_pctx(mesh, plan)
     tensor = is_tensor_ctx(pctx)
@@ -366,10 +419,11 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
     # a tied embedding lives on the first and the last stage: count it once
     skip_in_norm = ("embed",) if (pipelined and api.cfg.tie_embeddings
                                   and mesh.model_index == mesh.shape["model"] - 1) else ()
-    if tensor:
-        rules = _tensor_rules(api.cfg, mesh, plan)
+    replicated, fdims = [], []  # per leaf, in tree_leaves order; set at the first step
+    frules = _fsdp_rules(api.cfg, mesh, plan)
+    if tensor or frules is not None:
+        rules = _rules(api.cfg, mesh, plan)
         specs = SH.param_specs(api.cfg, rules)
-        replicated = []         # per leaf, in tree_leaves order; set at the first step
 
     def grads_of(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -407,6 +461,16 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         loss = torch.stack(losses).mean()
         return loss, {"loss": loss}, acc
 
+    def data_sum(grads):
+        """The gradients summed over the data group: a fsdp leaf's
+        reduce-scattered to the rank's shard, the rest bucket by bucket or
+        one all-reduce a leaf."""
+        if frules is not None:
+            return fsdp_grad_sync(grads, fdims, mesh)
+        if comm == "overlapped":
+            return bucketed_grad_sync(grads, mesh, bucket_bytes=bkt)
+        return all_reduce_grads(grads, mesh)
+
     def synced_grads(params, batch):
         """The rank's loss and gradients, summed over DP (and the ring)."""
         if mesh is None:
@@ -419,26 +483,21 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         loss, metrics, grads = total_grads(params, batch)
         if tensor:              # shares of the global mean: sum over the data shards
             if dp > 1:
-                if comm == "overlapped":
-                    bucketed_grad_sync(grads, mesh, bucket_bytes=bkt)
-                else:
-                    all_reduce_grads(grads, mesh)
+                grads = data_sum(grads)
                 loss = D.all_reduce(mesh, loss.detach().clone(), "data")
-            if not replicated:
-                replicated.extend(SH.replicated_leaves(grads, specs, rules))
             for g, rep in zip(tree_leaves(grads), replicated):
                 if rep:         # whole on every rank: give them the same bits
                     D.broadcast(mesh, g, "model")
             return loss, dict(metrics, loss=loss), grads
         if pctx is not None:    # shares of the global mean: sum over every rank
-            all_reduce_grads(grads, mesh, axis=None)
+            if frules is not None:
+                grads = data_sum(all_reduce_grads(grads, mesh, axis="model"))
+            else:
+                all_reduce_grads(grads, mesh, axis=None)
             loss = D.all_reduce(mesh, loss.detach().clone())
             return loss, dict(metrics, loss=loss), grads
         if dp > 1:
-            if comm == "overlapped":
-                bucketed_grad_sync(grads, mesh, bucket_bytes=bkt)
-            else:
-                all_reduce_grads(grads, mesh)
+            grads = data_sum(grads)
             loss = D.all_reduce(mesh, loss.detach().clone(), "data")
             if not pipelined:       # the mean of the shards' mean losses
                 tree_map(lambda g: g.div_(dp), grads)
@@ -447,22 +506,42 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         return loss, metrics, grads
 
     def global_norm(grads) -> torch.Tensor:
-        if tensor:      # sharded leaves summed over the model group, replicated once
-            leaves = tree_leaves(grads)
-            zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            sharded = [g for g, rep in zip(leaves, replicated) if not rep]
-            whole = [g for g, rep in zip(leaves, replicated) if rep]
-            sq = D.all_reduce(mesh, (sum_of_squares(sharded) if sharded else zero).clone(),
-                              "model")
-            return torch.sqrt(sq + (sum_of_squares(whole) if whole else zero))
-        sq = sum_of_squares({k: g for k, g in grads.items() if k not in skip_in_norm})
-        return torch.sqrt(D.all_reduce(mesh, sq, "model"))
+        if pipelined:
+            sq = sum_of_squares({k: g for k, g in grads.items() if k not in skip_in_norm})
+            return torch.sqrt(D.all_reduce(mesh, sq, "model"))
+        # each leaf's squares summed over the axes that shard it, a whole leaf once
+        leaves = tree_leaves(grads)
+        zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        on_data = fdims or [None] * len(leaves)
+        on_model = [not rep for rep in replicated] if tensor else [False] * len(leaves)
+
+        def squares(data: bool, model: bool):
+            sel = [g for g, d, m in zip(leaves, on_data, on_model)
+                   if (d is not None) == data and m == model]
+            return (sum_of_squares(sel) if sel else zero).clone()
+
+        total = squares(False, False)
+        if any(on_model):
+            total = D.all_reduce(mesh, squares(False, True), "model") + total
+        if any(d is not None for d in on_data):
+            part = squares(True, False)
+            if any(on_model):
+                part = part + D.all_reduce(mesh, squares(True, True), "model")
+            total = total + D.all_reduce(mesh, part, "data")
+        return torch.sqrt(total)
 
     def train_step(state: TrainState, batch):
         params = state.params
-        loss, metrics, grads = synced_grads(params, batch)
+        if (tensor or frules is not None) and not replicated:
+            replicated.extend(SH.replicated_leaves(params, specs, rules))
+            if frules is not None:
+                fdims.extend(SH.fsdp_dims(params, specs, rules))
+        if frules is not None:      # the shards gathered into the working leaves
+            loss, metrics, grads = synced_grads(fsdp_all_gather(params, fdims, mesh), batch)
+        else:
+            loss, metrics, grads = synced_grads(params, batch)
         if clip_norm:
-            norm = global_norm(grads) if pipelined or tensor else None
+            norm = global_norm(grads) if pipelined or tensor or frules is not None else None
             grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=norm)
             metrics = dict(metrics, grad_norm=gnorm)
         state.in_update = True

@@ -37,6 +37,7 @@ from repro_torch.optim import adamw as t_adamw
 from repro_torch.optim import constant_lr as t_constant_lr
 from repro_torch.train.fault import corrupt_checkpoint
 from repro_torch.train.steps import TrainState, eval_train_state, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _tiny_state(step=4):

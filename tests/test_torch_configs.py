@@ -5,6 +5,7 @@ import pytest
 
 from repro.configs import base as JB
 from repro_torch.configs import base as TB
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ARCHS = JB.ARCH_IDS + JB.PAPER_IDS
 

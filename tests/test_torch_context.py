@@ -29,6 +29,7 @@ from repro_torch.launch import train as TL
 from repro_torch.parallel import context as C
 from repro_torch.parallel import dist as D
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # tests/test_context_parallel.py's limits: the ring's loss relative, its
 # grads absolute; one train step's loss absolute, parameters norm-relative

@@ -11,7 +11,6 @@ cache and attends over it with per-row key lengths, where JAX concatenates
 the new keys under an explicit mask).  Greedy tokens must be equal.
 """
 import dataclasses
-import os
 import subprocess
 import sys
 
@@ -41,6 +40,7 @@ from repro_torch.models.api import build_model as t_build_model
 from repro_torch.serve.continuous import ContinuousEngine, Request
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.steps import make_continuous_steps
+from torch_threads import cli_env, one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 B, S = 3, 12
@@ -612,7 +612,7 @@ def test_launcher_serves_on_ranks(capfd):
 
 
 def test_launch_serve_continuous_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    env = cli_env()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "llama3_2_1b",
          "--reduced", "--device", "cpu", "--continuous", "--slots", "2",

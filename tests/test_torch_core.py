@@ -32,6 +32,7 @@ from repro_torch.core import stateff as TS
 from repro_torch.interop import params_from_jax
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.train import TrainState, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REL = 1e-12
 ROOT = os.path.join(os.path.dirname(__file__), "..")

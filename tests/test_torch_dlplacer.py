@@ -14,6 +14,7 @@ import pytest
 from repro.core import dlplacer as JD
 from repro_torch.core import dlplacer as TD
 from repro_torch.models.inception import inception_dfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _pair(nodes, edges):

@@ -30,6 +30,7 @@ from repro_torch.launch import train as TL
 from repro_torch.parallel import collectives as TC
 from repro_torch.parallel import dist as D
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # one train step: loss and grad norm relative; the updated parameters
 # absolute, below one AdamW step at lr(0) = 1.5e-4 (the first step moves an

@@ -41,8 +41,8 @@ from repro_torch.train.fault import (KILL_EXIT_CODE, Fault, FaultInjector, Injec
                                      run_supervised)
 from repro_torch.train.steps import (TrainState, eval_train_state, init_train_state,
                                      make_train_step, place_state)
+from torch_threads import cli_env, one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
-SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ELASTIC_TOL = {"rtol": 2e-4, "atol": 1e-5}       # tests/test_fault.py's
 SILENT = {"log_fn": lambda m: None}
 
@@ -299,7 +299,7 @@ def test_supervisor_replans_before_every_attempt(tmp_path):
 # -- the launcher, through subprocesses ---------------------------------------
 
 def _run_cli(args, expect_rc=0, timeout=300):
-    env = dict(os.environ, PYTHONPATH=SRC)
+    env = cli_env()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + args,
                        capture_output=True, text=True, env=env, timeout=timeout)
     assert r.returncode == expect_rc, (f"rc={r.returncode} (expected {expect_rc})\n"
@@ -340,7 +340,7 @@ def test_cli_kill_and_resume_bit_equal(tmp_path):
 def test_cli_refusals_and_an_elastic_fresh_resume(tmp_path):
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
                         "llama3_2_1b", "--reduced", "--device", "cpu", "--resume"],
-                       capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=SRC),
+                       capture_output=True, text=True, env=cli_env(),
                        timeout=120)
     assert r.returncode == 1 and "[resume] --resume needs --ckpt-dir" in r.stderr
     out = _run_cli(_cli_base(tmp_path, ["--resume", "--steps", "2", "--max-retries", "1",

@@ -29,6 +29,7 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.parallel import dist as D
 from repro_torch.train.steps import global_state, init_train_state
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 STEPS = 6
 FAULTS = "fail@5x3, corrupt@4:bitflip"

@@ -18,6 +18,7 @@ from repro.kernels import ref as JR
 from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import ref as TR
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 

@@ -20,6 +20,7 @@ import torch
 
 from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as TFA
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 2e-5
 

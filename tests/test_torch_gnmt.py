@@ -31,6 +31,7 @@ from repro_torch.models import lstm as TM
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.train import TrainState, make_train_step
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 LOSS_TOL = 1e-5

@@ -37,6 +37,7 @@ from repro_torch.launch import train as TL
 from repro_torch.models import inception as TI
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 LOSS_TOL = 1e-5

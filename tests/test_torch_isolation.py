@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

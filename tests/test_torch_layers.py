@@ -8,6 +8,7 @@ import torch
 
 from repro.models import layers as JL
 from repro_torch.models import layers as TL
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 

@@ -23,6 +23,7 @@ from repro.models import lstm as JM
 from repro_torch.kernels import lstm_cell as TLC
 from repro_torch.kernels import ref as TR
 from repro_torch.models import lstm as TM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 SHAPES = [(5, 24, 16, 70), (1, 16, 40, 33), (17, 8, 12, 130)]   # B, d_in, d_h, H

@@ -19,6 +19,7 @@ from repro.configs import get_config as j_get_config
 from repro.models import moe as JM
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import moe as TM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 

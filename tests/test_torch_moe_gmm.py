@@ -22,6 +22,7 @@ from repro.kernels import moe_gmm as JGM
 from repro.kernels import ref as JR
 from repro_torch.kernels import moe_gmm as TGM
 from repro_torch.kernels import ref as TR
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 SHAPES = [(8, 37, 130, 70), (2, 64, 64, 64), (3, 1, 5, 9)]   # G, C, d, F

@@ -16,6 +16,7 @@ from repro import optim as JO
 from repro.optim import optimizers as JOO
 from repro_torch import optim as TO
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-6
 

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.parallel import dist as D
 from repro_torch.parallel import pipeline as TP
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 KINDS = ("gpipe", "1f1b", "interleaved")
 TABLE_GRID = [(kind, S, K) for kind in KINDS for S in (2, 4) for K in (2, 4, 8)]

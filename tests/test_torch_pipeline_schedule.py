@@ -11,6 +11,7 @@ import pytest
 
 from repro.parallel import pipeline as JP
 from repro_torch.parallel import pipeline as TP
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MICROS = range(1, 17)
 

@@ -29,6 +29,7 @@ from repro_torch.core import dlplacer as TD
 from repro_torch.core import planner as TP
 from repro_torch.launch import train as TL
 from repro_torch.parallel import plan as TPL
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REL = 1e-12
 ARCHS = ["inception_v3", "gnmt", "biglstm", "llama3_2_1b", "smollm_360m",
@@ -346,16 +347,19 @@ def test_launcher_auto_trains_one_device_on_cpu(capsys):
 def test_launcher_auto_clamps_dp_to_the_card(capsys):
     """The planner's DP degree is clamped to the ranks this run may realise
     (``--max-local-devices``: the cards on the card's machine), as the JAX
-    launcher clamps it to its local devices; parameters sharded over DP raise
-    naming item 5's remainder."""
+    launcher clamps it to its local devices; parameters sharded over DP pass
+    (tests/test_torch_fsdp.py runs them), and across pipeline stages raise
+    naming item 5b."""
     plan, mp, dp = TL.parse_parallel("auto", 8, t_get_config("biglstm"))
     assert mp == 1 and dp == 8 and not plan.fsdp_axes
     assert TL.clamp_dp(dp, mp, 16, 1, f"{mp}-way MP") == 1
     assert "[plan] clamped DP 8 -> 1" in capsys.readouterr().out
     assert TL.clamp_dp(dp, mp, 16, 8, f"{mp}-way MP") == 8
     assert TL.clamp_dp(dp, mp, 12, 8, f"{mp}-way MP") == 6      # dp divides the batch
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        TL.check_plan(dataclasses.replace(plan, fsdp_axes=("data",)), 1)
+    fsdp = dataclasses.replace(plan, fsdp_axes=("data",))
+    TL.check_plan(fsdp, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5b"):
+        TL.check_plan(dataclasses.replace(fsdp, mp_kind="pipeline", model_axis="model"), 2)
 
 
 @pytest.mark.parametrize("arch,item", [("biglstm", "item 6"), ("llama3_2_1b", "item 8"),

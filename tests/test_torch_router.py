@@ -32,6 +32,7 @@ from repro_torch.models.api import build_model as t_build_model
 from repro_torch.parallel.plan import serve_plan
 from repro_torch.serve import ContinuousEngine, ReplicaRouter, Request
 from repro_torch.train.fault import Fault, parse_fault_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 STALL = "stall@3:0:1.5"          # a stall of 1.5 s under a 0.5 s watchdog

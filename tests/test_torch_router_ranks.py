@@ -34,6 +34,7 @@ from repro_torch.parallel import dist as D
 from repro_torch.parallel.plan import serve_plan
 from repro_torch.serve import ContinuousEngine, Request
 from repro_torch.train.fault import parse_fault_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LP_TOL = 2e-4
 SPAWN_S = 180

@@ -16,6 +16,7 @@ from repro.configs import get_config as j_get_config
 from repro.models import rwkv as JRW
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import rwkv as TRW
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 B = 2

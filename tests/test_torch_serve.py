@@ -8,7 +8,6 @@ order (and the port's decode inserts into the cache before attending, where
 JAX concatenates under a mask).
 """
 import dataclasses
-import os
 import subprocess
 import sys
 
@@ -25,6 +24,7 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.interop import params_from_jax, params_to_numpy
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.serve.engine import ServeEngine as TServeEngine
+from torch_threads import cli_env, one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 B, S, NEW = 2, 12, 6
@@ -206,7 +206,7 @@ def test_unported_modes_raise(models, case):
 
 
 def test_launch_serve_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    env = cli_env()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "llama3_2_1b",
          "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "8",

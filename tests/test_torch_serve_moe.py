@@ -9,7 +9,6 @@ ones) while decode never drops.  Tolerance 1e-4 on the loss, logits, caches
 and logprobs, as in tests/test_torch_serve.py: fp32 sums in another order
 through 2 layers.
 """
-import os
 import subprocess
 import sys
 
@@ -27,6 +26,7 @@ from repro_torch.interop import params_from_jax, params_to_numpy
 from repro_torch.launch import train as TL
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.serve.engine import ServeEngine as TServeEngine
+from torch_threads import cli_env, one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 ARCH = "granite_moe_1b_a400m"
@@ -178,7 +178,7 @@ def test_moe_training_is_accepted_on_both_devices(monkeypatch):
 
 
 def test_launch_serve_granite_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    env = cli_env()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "8",

@@ -11,7 +11,6 @@ tensors).  Tolerance 1e-4 on the loss, gradients, logits, caches and
 logprobs, as in tests/test_torch_serve.py: fp32 sums in another order
 through 2 layers.
 """
-import os
 import subprocess
 import sys
 
@@ -29,6 +28,7 @@ from repro_torch.interop import params_from_jax, params_to_numpy
 from repro_torch.launch import train as TL
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.serve.engine import ServeEngine as TServeEngine
+from torch_threads import cli_env, one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 ARCH = "rwkv6_7b"
@@ -182,7 +182,7 @@ def test_rwkv_training_is_accepted_on_both_devices(monkeypatch):
 
 
 def test_launch_serve_rwkv_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    env = cli_env()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "12",

@@ -44,6 +44,7 @@ from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.serve.continuous import ContinuousEngine, Request
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LP_TOL = 2e-4
 RING_TOL = {"loss": 1e-5, "grads": 1e-4}       # tests/test_torch_context.py's

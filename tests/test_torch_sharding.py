@@ -25,6 +25,7 @@ from repro_torch.configs import ARCH_IDS, PAPER_IDS
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel.plan import ParallelPlan as TPlan
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODEL_SIZES = (2, 4, 8, 32)
 

@@ -41,6 +41,7 @@ from repro_torch.parallel import dist as D
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.tree import tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 RING_TOL = 1e-4
 GRID_TOL = {"loss": 5e-5, "grads": 5e-4}

@@ -13,7 +13,6 @@ of the other sign.  Also the data pipeline's batches and resume arithmetic,
 the loop, and the launcher on the CPU.
 """
 import dataclasses
-import os
 import subprocess
 import sys
 
@@ -38,6 +37,7 @@ from repro_torch.launch import train as TL
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.train import LoopConfig, TrainState, make_train_step, train_loop
 from repro_torch.tree import tree_leaves
+from torch_threads import cli_env, one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-4
 B, T = 4, 16
@@ -270,8 +270,8 @@ def test_train_step_refuses_multi_device_arguments(biglstm):
     item: a tensor-MP plan over an MoE model (item 15: the dense and RWKV
     decoders', the LSTM family's and the CNN's run,
     tests/test_torch_tensor_mp.py and tests/test_torch_tensor_mp_recurrent.py),
-    parameters sharded over DP (item 5's remainder) and the ad pipeline
-    runtime (item 6b).  DP, the scheduled pipeline and context parallelism
+    parameters sharded over DP across pipeline stages (item 5b) and the ad
+    pipeline runtime (item 6b).  DP, the scheduled pipeline and context parallelism
     run on ranks (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py,
     tests/test_torch_context.py); a caller's ctx that is no tensor-MP
     ParallelCtx and a context plan over an arch the ring cannot run
@@ -283,7 +283,8 @@ def test_train_step_refuses_multi_device_arguments(biglstm):
     mesh = TM_Mesh({"data": 1, "model": 2})
     for api, kw, item in (
             (moe_api, {"mesh": mesh, "plan": TPlan()}, "item 15"),
-            (tapi, {"plan": TPlan(model_axis=None, fsdp_axes=("data",))}, "item 5"),
+            (tapi, {"mesh": mesh, "plan": TPlan(mp_kind="pipeline", fsdp_axes=("data",))},
+             "item 5b"),
             (tapi, {"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
              "item 6b")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
@@ -319,14 +320,28 @@ def _resolve(spec, devices=1, arch="biglstm", runtime=None):
 def test_parallel_specs_other_than_single_device_raise(spec, item):
     """What of each multi-device spec is still unported raises naming its
     ROADMAP item: the ad pipeline runtime (item 6b) for the planner's BigLSTM
-    plan at 64 H100s and for an explicit pipe= spec, parameters sharded over
-    DP (item 5's remainder) for a dp= spec and an unknown key (5-8).  An
+    plan at 64 H100s and for an explicit pipe= spec.  A dp= spec with its
+    parameters sharded over DP resolves and trains (tests/test_torch_fsdp.py);
+    what is left of item 5, Adafactor under fsdp, raises naming item 5b.  An
+    unknown key exits naming the keys the JAX launcher reads.  An
     mp= spec resolves to BigLSTM's tensor plan, which trains
     (tests/test_torch_tensor_mp_recurrent.py); what is left of item 7, the
     static engine's prefill under a ctx, raises naming item 7b.  A cp= spec resolves to a
     context ring, which trains (tests/test_torch_context.py) and serves through the
     continuous engine's chunk; the static engine's prefill under it raises naming item
     7b too."""
+    if item == "item 5":
+        from repro_torch import optim as TO
+
+        plan, mp, dp = _resolve(spec, devices=64)
+        assert plan.fsdp_axes == ("data",) and (mp, dp) == (1, 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5b"):
+            TL.check_plan(plan, mp, t_get_config("biglstm"), TO.adafactor(TO.constant_lr(0.1)))
+        return
+    if item == "items 5-8":
+        with pytest.raises(SystemExit, match=r"keys \['zz'\] are unknown: the JAX launcher"):
+            _resolve(spec, devices=64)
+        return
     if item == "item 7":
         from repro_torch.models.api import build_model
         from repro_torch.models.transformer import ParallelCtx
@@ -387,7 +402,7 @@ def test_gnmt_and_biglstm_serving_are_not_ported():
 
 @pytest.mark.parametrize("arch", ["biglstm", "llama3_2_1b"])
 def test_launch_train_cli_runs_on_cpu(arch):
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    env = cli_env()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
          "--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16"],

@@ -7,6 +7,7 @@ import re
 import pytest
 
 from repro_torch.kernels import build, tune
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def test_harness_instantiates_every_flash_backward_choice_once():

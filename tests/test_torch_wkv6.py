@@ -52,6 +52,7 @@ from repro.kernels import rwkv_scan as JWK
 from repro.models import rwkv as JRW
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import wkv6 as TWK
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PALLAS_TOL = 2e-4
 SCAN_TOL = 1e-5
