@@ -87,7 +87,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    and final state; the grouped matmul's backward (dx = dy w^T and dw = x^T
    dy, a launch each) at Granite's training products (B 4 x T 2048: capacity
    2560; bf16 on the persistent wgmma tile ``tc``, then the FMA kernel forced on the
-   same inputs; f32; a misaligned bf16 x) and at edge shapes (C 1, odd d and
+   same inputs; f32; a misaligned bf16 x), at an expert-parallel rank's
+   products (16 of the 32 experts, phase 20 (a); forward and backward on the
+   wgmma tile, timed against ``torch.bmm``) and at edge shapes (C 1, odd d and
    F, tiles ragged in every dimension), against the plain twin within 1e-4
    (f32) or 2e-2 (bf16) of max(1, |ref|), timed against ``torch.bmm``; the
    WKV backward (dr, dk, dv, dw, du) at RWKV6-7B's training shape (B 4, T
@@ -227,7 +229,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    planner (tensor 1 x 8 x 32) clamped to a model axis of 2 ranks: 2 bf16
    steps at B 64 x 299 (peak, step ms, no hand-written kernel), and one
    step in f64 at phase 18 (b)'s cell (B 4 x 299) against the single card
-   step (phase 15 (d)'s limits; replicated leaves the same bits);
+   step (phase 15 (d)'s limits; replicated leaves the same bits).  Expert
+   parallelism on the same spawns: (a) full-width, full-depth
+   Granite-3.0-1B-A400M through ``--parallel auto --devices 8`` (the
+   planner's tensor 4 x 2, clamped to 1 DP x a model axis of 2), B 4 x T
+   2048, 2 steps after the Llama runs: each rank's own launches exact a
+   step (3 L gmm forward on its 16 experts, ``tc_prefill``, 3 L ``tc_dx``
+   and 3 L ``tc_dw``, L flash forward and L backward calls), the losses
+   finite and equal on both ranks, each rank's peak and step ms; (b) 2
+   full-width Granite layers in f32, vocab 32768: ``mp=2`` at the default
+   capacity and ``dp=2,mp=2`` with and without fsdp at capacity None, each
+   against the single-process card step of that capacity; (c) f32
+   Adafactor steps of (b)'s Llama cell at ``mp=2``, ``pipe=2`` and ``dp=2``
+   with fsdp against the single-process card Adafactor step (all at phase
+   15 (d)'s limits);
 21. checkpoints and fault tolerance: (a) full-width, full-depth SmolLM-360M
    (B 8 x T 512, 4 steps, a checkpoint every 2) through the launcher in
    three processes (the third beside the first two on the card):
@@ -453,6 +468,9 @@ WKV_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # 2048, capacity ceil(8192 * 8 / 32 * 1.25) = 2560
 GRANITE_B, GRANITE_T = 4, 2048
 GMM_TRAIN = [("train wg/wi", (32, 2560, 1024, 512)), ("train wo", (32, 2560, 512, 1024))]
+# an expert-parallel rank's products at B 4 x T 2048 (phase 20 (a)): 16 of 32 experts
+GMM_EP = [("train EP rank wg/wi", (16, 2560, 1024, 512)), ("train EP rank wo",
+                                                         (16, 2560, 512, 1024))]
 GMM_BWD_EDGE = [(8, 37, 130, 70), (1, 1, 1, 1), (3, 1, 64, 48), (2, 17, 1, 9),
                 (2, 300, 136, 264)]
 # RWKV6-7B's training cell: full width (d 4096, H 64, hd 64), 8 of its 32
@@ -1536,8 +1554,9 @@ def phase_gmm_kernels(gm, ref_mod):
     rows = []
     print("gmm forward tile (tc_prefill): the persistent wgmma tile fed by TMA "
           "(gmm_ws_kernel), as the backward's tc products", flush=True)
-    # bf16 timed first: the main path's dtype; serving, then Granite's training products
-    for case, (g, c, d, f) in GMM_SERVE + GMM_TRAIN:
+    # bf16 timed first: the main path's dtype; serving, then Granite's training
+    # products, whole and on an expert-parallel rank
+    for case, (g, c, d, f) in GMM_SERVE + GMM_TRAIN + GMM_EP:
         rows.append(check_gmm(gm, ref_mod, case, *gmm_inputs(gen, g, c, d, f, torch.bfloat16),
                               gen, timed=True))
     for case, (g, c, d, f) in GMM_SERVE:   # the FMA kernel: f32 (phase 9's path)
@@ -1701,8 +1720,9 @@ def check_gmm_bwd(gm, ref_mod, case, x, w, dy, timed=False, variant=None):
 
 def phase_gmm_bwd(gm, ref_mod):
     """The gmm backward at Granite's training products (bf16 on the wgmma
-    tile, then the FMA kernel forced on the same inputs), in f32 and with a
-    misaligned bf16 x (the FMA kernel), and at edge shapes."""
+    tile, then the FMA kernel forced on the same inputs) and at an
+    expert-parallel rank's (the wgmma tile), in f32 and with a misaligned
+    bf16 x (the FMA kernel), and at edge shapes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
 
@@ -1715,6 +1735,8 @@ def phase_gmm_bwd(gm, ref_mod):
         x, w, dy = inputs(*shape, bf)
         rows += check_gmm_bwd(gm, ref_mod, case, x, w, dy, timed=True)
         rows += check_gmm_bwd(gm, ref_mod, case, x, w, dy, timed=True, variant="fma")
+    for case, shape in GMM_EP:      # an expert-parallel rank's products (phase 20 (a))
+        rows += check_gmm_bwd(gm, ref_mod, case, *inputs(*shape, bf), timed=True)
     case, shape = GMM_TRAIN[0]
     rows += check_gmm_bwd(gm, ref_mod, case, *inputs(*shape, f32), timed=True)
     x, w, dy = inputs(*shape, bf)
@@ -2699,24 +2721,26 @@ def _launcher_runs(train_launch, argvs, then=None, then_args=(), edit=None):
 
 
 # a cell of ``ranks_vs_single``: its name, its --parallel spec, the comm
-# runtime (None: the spec's), the ring chunks, and whether the plan shards
-# the state over ``data`` (fsdp)
-RankCell = collections.namedtuple("RankCell", "name spec comm chunks fsdp",
-                                  defaults=(None, 1, False))
+# runtime (None: the spec's), the ring chunks, whether the plan shards the
+# state over ``data`` (fsdp), its config (None: the call's), an MoE model's
+# capacity factor and the optimizer
+RankCell = collections.namedtuple("RankCell", "name spec comm chunks fsdp cfg capacity opt",
+                                  defaults=(None, 1, False, None, 1.25, "adamw"))
 
 
 def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     """One step of each of ``specs`` (``RankCell`` records) through the
     launcher's rank body, sharing the card, against the single-process step
-    on the card from the same seeded weights (the launcher's seed 0) and
-    batch: loss and grad norm within 1e-4 relative, every rank's parameters
-    (a pipelined rank's stage, a tensor-MP rank's part, and under a true
-    ``fsdp`` the plan sharding the state over ``data``: the rank's data
-    shard of that) within ``RANK_PARAMS_TOL``, and on a tensor-MP group
-    every leaf the rules replicate the same bits on each of its ranks; TF32
-    off.  The specs of one mesh shape share a spawn, and the spawns run at
-    once (these cells check values, not times).  Prints ``{key: results}``."""
-    from repro_torch.optim import adamw, warmup_cosine
+    on the card of the cell's config, capacity and optimizer from the same
+    seeded weights (the launcher's seed 0) and batch: loss and grad norm
+    within 1e-4 relative, every rank's parameters (a pipelined rank's
+    stage, a tensor-MP rank's part, and under a true ``fsdp`` the plan
+    sharding the state over ``data``: the rank's data shard of that) within
+    ``RANK_PARAMS_TOL``, and on a tensor-MP group every leaf the rules
+    replicate the same bits on each of its ranks; TF32 off.  The specs of
+    one mesh shape share a spawn, and the spawns run at once (these cells
+    check values, not times).  Prints ``{key: results}``."""
+    from repro_torch.optim import OPTIMIZERS, warmup_cosine
     from repro_torch.parallel import dist as D
     from repro_torch.parallel import sharding as SH
     from repro_torch.train import init_train_state, make_train_step
@@ -2725,25 +2749,36 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lr = 3e-3
-    api = api_mod.build_model(cfg2, device="cuda")
-    opt = adamw(warmup_cosine(lr, 20, 1))
-    state = init_train_state(api, opt, 0)
-    batch = {k: v.cuda() for k, v in _lm_batch(seq, batch_size).items()}
-    state, metrics = make_train_step(api, opt, clip_norm=1.0)(state, batch)
-    ref = (float(metrics["loss"]), float(metrics["grad_norm"]),
-           _tree_to(state.params, "cpu"))
-    del state, metrics, batch
-    torch.cuda.empty_cache()
+    singles = {}
+
+    def single(cfg, capacity, opt_name):
+        """The single-process step of a (config, capacity, optimizer)."""
+        at = (cfg.name, cfg.n_layers, capacity, opt_name)
+        if at not in singles:
+            api = api_mod.build_model(cfg, device="cuda", capacity_factor=capacity)
+            opt = OPTIMIZERS[opt_name](warmup_cosine(lr, 20, 1))
+            state = init_train_state(api, opt, 0)
+            batch = {k: v.cuda() for k, v in _lm_batch(seq, batch_size).items()}
+            state, metrics = make_train_step(api, opt, clip_norm=1.0)(state, batch)
+            singles[at] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                           _tree_to(state.params, "cpu"), api)
+            del state, metrics, batch
+            torch.cuda.empty_cache()
+        return singles[at]
+
     cells, shapes = [], {}
-    for name, spec, comm, chunks, fsdp in specs:
-        plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg2)
+    for name, spec, comm, chunks, fsdp, cfg, capacity, opt_name in specs:
+        cfg = cfg or cfg2
+        plan, mp, dp = train_launch.parse_parallel(spec, 1, cfg)
         plan = dataclasses.replace(plan, dp_axes=("data",),
                                    comm_runtime=comm or plan.comm_runtime,
                                    comm_chunks=chunks, fsdp_axes=("data",) if fsdp else ())
         tensor = plan.mp_kind == "tensor" and mp > 1
         stages = mp if plan.is_pipeline or plan.is_context or tensor else 1
-        run = train_launch.RankRun(cfg=cfg2, plan=plan, steps=1, batch=batch_size,
-                                   seq=seq, lr=lr, return_params=True)
+        run = train_launch.RankRun(cfg=cfg, plan=plan, steps=1, batch=batch_size, seq=seq,
+                                   lr=lr, return_params=True, capacity_factor=capacity,
+                                   optimizer=opt_name)
+        single(cfg, capacity, opt_name)
         shapes.setdefault((dp, stages), []).append(len(cells))
         cells.append((name, plan, mp, dp, stages, tensor, run))
     spawned = _concurrently(*(
@@ -2758,8 +2793,10 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
     results = {}
     for i, (name, plan, mp, dp, stages, tensor, run) in enumerate(cells):
         ranks = per_cell[i]
+        ref = single(run.cfg, run.capacity_factor, run.optimizer)
+        api = ref[3]
         loss, gnorm = ranks[0]["history"][0], ranks[0]["grad_norms"][0]
-        rules = (SH.ShardingRules(cfg2, {"data": dp, "model": mp}, plan)
+        rules = (SH.ShardingRules(run.cfg, {"data": dp, "model": mp}, plan)
                  if tensor or plan.fsdp_axes else None)
         err = 0.0
         for r in ranks:
@@ -2770,16 +2807,21 @@ def ranks_vs_single(train_launch, api_mod, cfg2, batch_size, seq, specs, key):
             else:
                 want = ref[2]
             if plan.fsdp_axes:
-                want = SH.shard_fsdp(want, rules, r["rank"]["data"], SH.param_specs(cfg2, rules))
+                want = SH.shard_fsdp(want, rules, r["rank"]["data"],
+                                     SH.param_specs(run.cfg, rules))
             err = max(err, _max_err(tree_leaves(r["params"]), tree_leaves(want)))
         results[name] = {"loss_rel": abs(loss - ref[0]) / abs(ref[0]),
                          "grad_norm_rel": abs(gnorm - ref[1]) / abs(ref[1]),
                          "params_max_abs": err, "loss": loss, "grad_norm": gnorm,
+                         "arch": run.cfg.name, "optimizer": run.optimizer,
+                         "capacity_factor": run.capacity_factor,
                          "transport": ranks[0]["transport"].describe(dp * stages)}
         if tensor:
             results[name]["replicated_same_bits"] = _replicated_same_bits(
-                [r["params"] for r in ranks], [r["rank"]["data"] for r in ranks], cfg2, rules)
-    out = {key: results, "single": {"loss": ref[0], "grad_norm": ref[1]},
+                [r["params"] for r in ranks], [r["rank"]["data"] for r in ranks], run.cfg,
+                rules)
+    out = {key: results, "single": {f"{a} {n}L cf {c} {o}": {"loss": v[0], "grad_norm": v[1]}
+                                    for (a, n, c, o), v in singles.items()},
            "tol": {"loss_rel": 1e-4, "grad_norm_rel": 1e-4, "params_max_abs": RANK_PARAMS_TOL},
            "spawns": [{"mesh": list(shape), "cells": [cells[i][0] for i in idx]}
                       for shape, idx in shapes.items()]}
@@ -3174,7 +3216,7 @@ def _tp_comm_rank(mesh, d_model):
     return out
 
 
-def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
+def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg, moe_cfg):
     """Phase 20: tensor MP on ranks sharing the card.  (a) Full-width,
     full-depth Llama-3.2-1B through the launcher at ``mp=2`` overlapped (2
     chunks) and gspmd, B 4 x T 2048, 2 steps each, counters set to 0 just
@@ -3209,16 +3251,19 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     single = paper_step(api_mod, cfg64, cell_batch)
     torch.cuda.empty_cache()
 
-    # (a) both runtimes planned by the launcher, one after the other on one
-    # spawn, then on it (a)'s messages alone and (c) (``_tensor_inception_rank``)
+    # (a) both runtimes planned by the launcher and Granite's expert-parallel
+    # plan, one after the other on one spawn, then on it (a)'s messages alone
+    # and (c) (``_tensor_inception_rank``)
     runs = {}
     comms = (("overlapped", ["--comm-chunks", "2"]), ("gspmd", []))
     reset_counters(every)
     summaries, ranks = _launcher_runs(
         train_launch, [["--arch", "llama3_2_1b", "--parallel", f"mp={TP_M}", "--comm-runtime",
                         comm, *extra, "--batch", str(TP_B), "--seq", str(TP_T), "--steps",
-                        str(TP_STEPS)] for comm, extra in comms],
+                        str(TP_STEPS)] for comm, extra in comms] + [EP_ARGV],
         then=_tensor_inception_rank, then_args=(plan, inc_cfg, cfg64, cell_batch, cfg.d_model))
+    ep = check_ep_run(summaries.pop(), moe_cfg)
+    print(json.dumps({"tensor_a_granite_ep": ep}), flush=True)
     for (comm, extra), summary in zip(comms, summaries):
         name = f"(a) llama3_2_1b --parallel mp={TP_M} --comm-runtime {comm} {' '.join(extra)}"
         rec = check_rank_run(summary, name, cfg, steps=TP_STEPS, stages=TP_M, micro=1,
@@ -3234,6 +3279,7 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
 
     # (b) steps on ranks against one process, in f32
     cfg2 = dataclasses.replace(cfg, n_layers=2, vocab_size=32768, dtype="float32")
+    granite2 = dataclasses.replace(moe_cfg, n_layers=2, vocab_size=32768, dtype="float32")
     steps = ranks_vs_single(train_launch, api_mod, cfg2, RING_CELL_B, RING_CELL_T, [
         RankCell("mp=2 gspmd", "mp=2", "gspmd"),
         RankCell("mp=2 overlapped c1", "mp=2", "overlapped", chunks=1),
@@ -3242,7 +3288,16 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
         RankCell("dp=2 fsdp (phase 30 (b))", "dp=2,mp=1", fsdp=True),
         RankCell("dp=2,mp=2 gspmd fsdp (phase 30 (b))", "dp=2,mp=2", "gspmd", fsdp=True),
         RankCell("dp=2,mp=2 overlapped c2 fsdp (phase 30 (b))", "dp=2,mp=2", "overlapped",
-                 chunks=2, fsdp=True)],
+                 chunks=2, fsdp=True),
+        # (b) expert parallelism: Granite's experts over the model axis
+        RankCell("granite mp=2 (EP)", "mp=2", cfg=granite2),
+        RankCell("granite dp=2,mp=2 (EP) cf None", "dp=2,mp=2", cfg=granite2, capacity=None),
+        RankCell("granite dp=2,mp=2 (EP) fsdp cf None", "dp=2,mp=2", fsdp=True, cfg=granite2,
+                 capacity=None),
+        # (c) Adafactor, its statistics over the whole of each cut leaf
+        RankCell("adafactor mp=2", "mp=2", opt="adafactor"),
+        RankCell("adafactor pipe=2", "pipe=2,micro=2,sched=1f1b", opt="adafactor"),
+        RankCell("adafactor dp=2 fsdp", "dp=2,mp=1", fsdp=True, opt="adafactor")],
         "tensor_b")
     torch.cuda.empty_cache()
 
@@ -3273,7 +3328,49 @@ def phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg):
     if not same_bits or not all(e[k] <= rec["tol"][k] for e in errs for k in rec["tol"]):
         raise AssertionError(f"Inception-V3's tensor plan disagrees with the single step: {rec}")
     torch.cuda.empty_cache()
-    return runs, steps, rec
+    return runs, steps, rec, ep
+
+
+EP_ARGV = ["--arch", "granite_moe_1b_a400m", "--parallel", "auto", "--devices", "8", "--batch",
+           str(GRANITE_B), "--seq", str(GRANITE_T), "--steps", str(TP_STEPS)]
+
+
+def check_ep_run(summary, cfg):
+    """Phase 20 (a)'s Granite run (``EP_ARGV``): the planner's 8-card plan,
+    tensor 4 x 2, clamped to 1 DP x a model axis of 2 on ranks sharing the
+    card; each rank's own launches exact, a step: 3 L gmm forward (its 16
+    of 32 experts, ``tc_prefill``), 3 L dx and 3 L dw (``tc_dx``,
+    ``tc_dw``), L flash forward (``tc_prefill``) and L backward calls
+    (``tc``); the losses finite and the same on both ranks.  Returns the
+    run's record with each rank's peak and step ms."""
+    t = summary["transport"]
+    if (t.backend, t.placement, len(summary["ranks"])) != ("gloo", "shared", TP_M):
+        raise AssertionError(f"granite EP: ran on {t} with {len(summary['ranks'])} ranks")
+    per = TP_STEPS * cfg.n_layers
+    want = {**dict.fromkeys(summary["launches"], 0), "flash_attention": per,
+            "flash_attention_bwd": per, "gmm": 3 * per, "gmm_bwd": 6 * per}
+    want_variants = {n: dict.fromkeys(v, 0) for n, v in summary["variants"].items()}
+    want_variants["flash_attention"]["tc_prefill"] = TP_M * per
+    want_variants["flash_attention_bwd"]["tc"] = TP_M * per
+    want_variants["gmm"]["tc_prefill"] = TP_M * 3 * per
+    want_variants["gmm_bwd"].update(tc_dx=TP_M * 3 * per, tc_dw=TP_M * 3 * per)
+    losses = summary["history"]
+    bad = [r["rank"] for r in summary["ranks"] if r["launches"] != want]
+    if bad or summary["variants"] != want_variants:
+        raise AssertionError(f"granite EP: ranks {bad} launched "
+                             f"{[r['launches'] for r in summary['ranks']]} "
+                             f"{summary['variants']}, want {want} a rank, {want_variants}")
+    if len(losses) != TP_STEPS or not all(np.isfinite(losses)) or \
+            any(r["losses"] != losses for r in summary["ranks"]):
+        raise AssertionError(f"granite EP: losses {[r['losses'] for r in summary['ranks']]}")
+    return {"run": " ".join(EP_ARGV), "transport": t.describe(TP_M), "losses": losses,
+            "per_rank_per_step": {n: c // TP_STEPS for n, c in want.items() if c},
+            "launches": summary["launches"], "variant_launches": summary["variants"],
+            "ranks": [{"rank": r["rank"], "stage": r["stage"],
+                       "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
+                       "resident_gib": r["resident_bytes"] / 2**30, "step_ms": r["step_ms"],
+                       "losses": r["losses"], "launches": r["launches"]}
+                      for r in summary["ranks"]]}
 
 
 def _pair_view(mesh):
@@ -4608,8 +4705,9 @@ def main():
     _phase("19 Llama's context plan on a ring of ranks")
     context_run, _, _ = phase_context(train_launch, lc, counters, api_mod, cfg)
 
-    _phase("20 tensor MP on ranks")
-    tp_runs, _, _ = phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg)
+    _phase("20 tensor MP and expert parallelism on ranks")
+    tp_runs, _, _, ep_run = phase_tensor(train_launch, lc, counters, api_mod, cfg, inc_cfg,
+                                         get_config("granite_moe_1b_a400m"))
 
     _phase("21 checkpoints and fault tolerance")
     ckpt_runs = phase_checkpoints(train_launch, api_mod, get_config("smollm_360m"))
@@ -4673,7 +4771,9 @@ def main():
                                                 rnn_tp["gnmt"]["per_step"].items()},
                     f"train rwkv6_7b {RWKV_TP_LAYERS} layers mp=2 (ranks)":
                         {n: c * RNN_TP_STEPS for n, c in rnn_tp["rwkv6_7b"]["per_step"].items()}}
-    paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches}
+    paper_paths = {"train gnmt": gnmt_launches, "train inception_v3": inc_launches,
+                   "train granite_moe_1b_a400m --parallel auto --devices 8 (ranks)":
+                       ep_run["launches"]}
     fsdp_paths = {f"train rwkv6_7b {FSDP_LAYERS} layers {n} (ranks)": run["launches"]
                   for n, run in fsdp_a["runs"].items()}
     lstm_src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
@@ -4784,7 +4884,9 @@ def main():
                                         **_by_path(paper_paths, "gmm")},
                       variant_launches_by_path={
                           "serve granite_moe_1b_a400m": moe_variants["gmm"],
-                          "train granite_moe_1b_a400m": granite_variants["gmm"]}),
+                          "train granite_moe_1b_a400m": granite_variants["gmm"],
+                          "train granite_moe_1b_a400m --parallel auto --devices 8 (ranks)":
+                              ep_run["variant_launches"]["gmm"]}),
         _kernel_entry("gmm_bwd", "src/repro_torch/kernels/csrc/moe_gmm.cu",
                       "src/repro/models/moe.py:92", granite_launches["gmm_bwd"], gmm_bwd_rows,
                       library=gmm_bwd_rows[0]["library"],

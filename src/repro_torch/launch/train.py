@@ -15,6 +15,8 @@
         --comm-runtime overlapped --comm-chunks 2 --batch 4 --seq 2048
     python -m repro_torch.launch.train --arch biglstm --parallel mp=2 \
         --comm-runtime overlapped --comm-chunks 2 --steps 2
+    python -m repro_torch.launch.train --arch granite_moe_1b_a400m --parallel auto \
+        --devices 8 --batch 4 --seq 2048 --steps 2
 
 Feeds the JAX launcher's data (the order-2 Markov LM over min(V, 64)
 symbols) with its optimizer, AdamW over ``warmup_cosine(lr, 20, steps)``
@@ -52,11 +54,13 @@ them.  Rank 0 prints ``[data]``, ``[dist]``, ``[done]`` and the
 then prints each rank's peak device memory, pipeline store high-water mark
 and kernel launches (``[ranks]``, each rank's stage, place on the ring or
 on the model axis, and its memory allocated after its last step: the
-resident state).  Tensor MP trains the dense and RWKV decoders and
+resident state).  Tensor MP trains the dense, MoE and RWKV decoders and
 BigLSTM (``--parallel mp=2``; with ``--comm-runtime overlapped`` BigLSTM's
-layers run JAX's overlapped LSTM layer, and RWKV warns and runs the gspmd
-form, as JAX does); tensor MP of an MoE model raises NotImplementedError
-naming ROADMAP.md Queue 1 item 15 and ``--pipe-runtime ad`` item 6b.  A
+layers run JAX's overlapped LSTM layer, and RWKV and an MoE model warn and
+run the gspmd form, as JAX does); an MoE model's experts are split over the
+model axis (expert parallelism: each rank's on ``gmm``), which must divide
+them.  ``--pipe-runtime ad`` raises NotImplementedError naming ROADMAP.md
+Queue 1 item 6b.  A
 planner's plan that shards the parameters and optimizer state over DP
 (``+fsdp`` in the ``[plan]`` line; its ``("pod", "data")`` narrows to the
 ranks' ``data`` axis) runs so on the ranks (``train.steps``), where the JAX
@@ -119,7 +123,7 @@ from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.api import (build_model, pipeline_applicable, resolve_device,
                                     supports_pipeline)
 from repro_torch.models.transformer import cp_arch_supported
-from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.optim import OPTIMIZERS, warmup_cosine
 from repro_torch.parallel import dist as D
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.train.fault import FaultInjector, parse_fault_schedule, run_supervised
@@ -244,6 +248,13 @@ class RankRun:
     device: str = "cuda"
     seed: int = 0
     return_params: bool = False
+    # an MoE model's expert capacity (None: no drop); a rank's comes from
+    # its own tokens, as in JAX, so DP ranks drop other tokens than one
+    # process does
+    capacity_factor: float | None = 1.25
+    # the optimizer (``optim.OPTIMIZERS``) over the launcher's schedule; the
+    # command line, as JAX's, trains with AdamW
+    optimizer: str = "adamw"
     # checkpoints and faults (the JAX launcher's flags)
     ckpt_dir: str = ""
     ckpt_every: int = 100
@@ -285,12 +296,12 @@ def _train(mesh, run: RankRun) -> dict:
     seeded data, the loop; a rank's kernel counts are summed over the
     ranks.  One process returns the loop's summary with its ``state``."""
     device = resolve_device(run.device) if mesh is None else mesh.device
-    api = build_model(run.cfg, device=device)
+    api = build_model(run.cfg, device=device, capacity_factor=run.capacity_factor)
     lead = mesh is None or mesh.rank == 0
     data = make_lm_dataset(vocab=min(run.cfg.vocab_size, 64), seq_len=run.seq)
     if lead:
         print(f"[data] markov-lm entropy floor = {data.entropy:.4f} nats/token", flush=True)
-    opt = adamw(warmup_cosine(run.lr, 20, run.steps))
+    opt = OPTIMIZERS[run.optimizer](warmup_cosine(run.lr, 20, run.steps))
     step_fn = make_train_step(api, opt, clip_norm=1.0, mesh=mesh, plan=run.plan)
     cuda = device.type == "cuda"
     if cuda:

@@ -30,6 +30,7 @@ place, so ``cache_extract_slot`` returns views of the slot and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -165,15 +166,19 @@ def build_model(cfg: ModelConfig, *, device="cuda", capacity_factor=1.25) -> Mod
         fwd_batch = {k: v for k, v in batch.items() if k != "labels"}
         logits, aux = tf_mod.forward(cfg, params, fwd_batch, mode="train", pctx=pctx,
                                      capacity_factor=capacity_factor)
+        # aux: the blocks' router_aux_loss-weighted load-balance losses
+        share = aux
         if pctx is None:
             loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         elif pctx.is_tensor:
             loss = tensor_mp_loss(logits, batch["labels"], cfg, pctx)
+            # the aux is the global batch's on every rank: each data shard
+            # adds its share, so the sum over the data axes counts it once
+            share = aux / math.prod(pctx.mesh.size(a) for a in pctx.batch_axes if a)
         else:   # this rank's share of the global masked mean: sum over the ranks
             loss = masked_nll_sum(logits, batch["labels"]) / global_label_count(
                 batch["labels"], pctx.mesh)
-        # aux: the blocks' router_aux_loss-weighted load-balance losses
-        return loss + aux, {"loss": loss, "aux": aux}
+        return loss + share, {"loss": loss, "aux": aux}
 
     def prefill(params, batch, pctx=None, capacity: int = 0, window=None):
         fwd_batch = {k: v for k, v in batch.items() if k != "labels"}

@@ -58,6 +58,7 @@ from repro_torch.models.transformer import tp_lookup
 from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import dist as D
 from repro_torch.parallel.pipeline import AD_RUNTIME
+from repro_torch.tree import tree_map
 
 
 def unported(what: str, item: str):
@@ -443,7 +444,7 @@ def biglstm_init(gen: torch.Generator, cfg, *, device=None, keep=None):
 def stack_layer_params(layer_list):
     """Homogeneous per-layer param dicts -> one stacked (L, ...) tree, the
     layout ``parallel.pipeline.stack_to_stages`` partitions into stages."""
-    return {k: torch.stack([lp[k] for lp in layer_list]) for k in layer_list[0]}
+    return tree_map(lambda *ls: torch.stack(ls), *layer_list)
 
 
 def biglstm_stage_fn(cfg):

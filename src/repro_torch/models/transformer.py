@@ -38,7 +38,11 @@ the Megatron decomposition with the collectives written out
   it warns as JAX does and takes the gspmd block.
 
 Attention runs the hand-written flash kernels over the rank's query heads
-(and its KV heads, or a q-aligned slice of the replicated ones).  The
+(and its KV heads, or a q-aligned slice of the replicated ones).  An MoE
+block runs expert parallelism in the MLP's place (``moe.moe_ffn`` over the
+model axis, JAX's shard_map branch: the rank's E/m experts on ``gmm``, the
+partial outputs summed over the axis), in the gspmd block under both
+runtimes, as JAX's overlapped block excludes MoE.  The
 embedding is vocab-parallel and the head vocab-sharded where the rules
 shard them; a leaf the rules replicate is computed whole on every rank, and
 one whose rank-local use makes its gradient a partial sum enters through
@@ -85,7 +89,6 @@ from repro_torch.tree import tree_leaves
 FAMILIES = "ROADMAP.md Queue 1 item 11 (remaining model families)"
 SERVING_TP = ("ROADMAP.md Queue 1 item 7b (the static ServeEngine's prefill and decode "
               "under a ParallelCtx)")
-EXPERT_PARALLEL = "ROADMAP.md Queue 1 item 15 (expert parallelism)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,14 +126,11 @@ def is_tensor_ctx(pctx) -> bool:
 
 
 def tensor_mp_item(cfg) -> Optional[str]:
-    """None where the port runs a tensor-MP train plan of ``cfg`` (the dense
-    and RWKV decoders, the LSTM family, the CNN), else the ROADMAP item that
-    would: MoE item 15 (JAX shards the experts), the other families item
-    11."""
+    """None where the port runs a tensor-MP train plan of ``cfg`` (the dense,
+    MoE and RWKV decoders, the LSTM family, the CNN), else the ROADMAP item
+    that would: the other families, item 11."""
     if cfg.family in ("cnn", "rnn") or cfg.rwkv:
         return None
-    if cfg.is_moe:
-        return EXPERT_PARALLEL
     if (cfg.family == "hybrid" or cfg.encoder_layers or cfg.n_prefix_embeds
             or cfg.attn_logit_softcap or not cfg.n_heads):
         return FAMILIES
@@ -143,8 +143,8 @@ def unported(what: str, item: str):
 
 def check_supported(cfg, *, window: int = 0, pctx=None) -> None:
     """Raise NotImplementedError for any config or mode outside the dense,
-    MoE or RWKV decoder the port runs (on one device, or a dense decoder on
-    a context ring or under tensor MP, with or without a sliding window:
+    MoE or RWKV decoder the port runs (on one device, a dense decoder on a
+    context ring, or under tensor MP, with or without a sliding window:
     other archs under a tensor ctx name ``tensor_mp_item``), and ValueError
     for the CNN and LSTM families, which other modules run, and for a
     context ring over an arch that ``cp_arch_supported`` rejects."""
@@ -494,15 +494,23 @@ def _tp_mlp(p, h, cfg, pctx):
                                 mesh, axis)
 
 
-def tp_block_apply(cfg, p, x, *, pctx, layer: int, window: int = 0):
+def tp_block_apply(cfg, p, x, *, pctx, layer: int, window: int = 0, capacity_factor=1.25):
     """The ``gspmd`` tensor-MP block (and the overlapped runtime's
-    fallback): ``block_apply``'s dense train path with replicated
-    activations, Megatron attention and MLP, one all-reduce after each
-    row-parallel product."""
+    fallback): ``block_apply``'s train path with replicated activations,
+    Megatron attention and MLP, one all-reduce after each row-parallel
+    product.  An MoE block runs the expert-parallel FFN instead of the MLP
+    (``moe.moe_ffn`` over the model axis: the rank's experts on ``gmm``,
+    the partial outputs summed over the axis) and returns (x, aux) where
+    a dense block returns x."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + _tp_attention(p["attn"], h, cfg, pctx, window)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _tp_mlp(p["mlp"], h2, cfg, pctx)
+    if not cfg.is_moe:
+        return x + _tp_mlp(p["mlp"], h2, cfg, pctx)
+    out, aux = moe_mod.moe_ffn(p["moe"], h2, cfg, model_axis=pctx.model_axis,
+                               capacity_factor=capacity_factor, mesh=pctx.mesh,
+                               batch_axes=pctx.batch_axes)
+    return x + out, cfg.router_aux_loss * aux
 
 
 def _self_attention_overlapped(p, x, cfg, *, pctx, layer: int, window: int = 0):
@@ -644,14 +652,16 @@ def _tp_head(cfg, params, x, pctx, *, seq_sharded: bool):
     return logits
 
 
-def tp_forward(cfg, params, tokens, pctx, window: int = 0):
+def tp_forward(cfg, params, tokens, pctx, window: int = 0, capacity_factor=1.25):
     """The train forward of one tensor-MP rank: ``params`` its part, the
-    tokens (B, S) of its data shard.  Returns its logits, (B, S, V/m) where
-    the head is vocab-sharded.  The overlapped runtime runs
-    ``overlapped_block_apply`` where ``overlapped_supported`` holds (the
-    embedding reduce-scattered to this rank's rows, gathered again before
-    the head); anything else runs ``tp_block_apply`` (an RWKV config
-    ``tp_rwkv_block``)."""
+    tokens (B, S) of its data shard.  Returns (logits, aux): its logits,
+    (B, S, V/m) where the head is vocab-sharded, and the blocks' summed
+    router aux loss (0 for a dense model; the global batch's, whole on every
+    rank).  The overlapped runtime runs ``overlapped_block_apply`` where
+    ``overlapped_supported`` holds (the embedding reduce-scattered to this
+    rank's rows, gathered again before the head); anything else runs
+    ``tp_block_apply`` (an RWKV config ``tp_rwkv_block``): an MoE model
+    warns and takes it, as JAX's does."""
     mesh, axis = pctx.mesh, pctx.model_axis
     m = mesh.shape[axis]
     s = tokens.shape[1]
@@ -672,10 +682,15 @@ def tp_forward(cfg, params, tokens, pctx, window: int = 0):
         x = CL.reduce_from_model(x, mesh, axis)
     block = (overlapped_block_apply if overlapped
              else tp_rwkv_block if cfg.rwkv else tp_block_apply)
+    kw = {"capacity_factor": capacity_factor} if cfg.is_moe else {}
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
-        x = block(cfg, layers[i], x, pctx=pctx, layer=i, window=window)
-    return _tp_head(cfg, params, x, pctx, seq_sharded=overlapped)
+        x = block(cfg, layers[i], x, pctx=pctx, layer=i, window=window, **kw)
+        if cfg.is_moe:
+            x, a = x
+            aux = aux + a
+    return _tp_head(cfg, params, x, pctx, seq_sharded=overlapped), aux
 
 
 def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
@@ -698,8 +713,7 @@ def forward(cfg, params, batch, *, mode: str = "train", window_override=None,
                        "serve instead: prefill_chunk_tp, prefill_chunk_cp)", SERVING_TP)
     tokens = batch["tokens"]
     if pctx is not None and pctx.is_tensor:
-        return tp_forward(cfg, params, tokens, pctx, window), torch.zeros(
-            (), dtype=torch.float32, device=tokens.device)
+        return tp_forward(cfg, params, tokens, pctx, window, capacity_factor)
     x = _embed(cfg, params, tokens)
     b, s = tokens.shape
     cache = None

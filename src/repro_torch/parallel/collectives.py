@@ -48,6 +48,11 @@ collective the JAX partitioner would insert is written out as a
   ``ring_all_gather``, inference only): the serving steps' one full
   reassembly of the residual stream before the replicated head, and the
   context-parallel prefill chunk's new K/V rows;
+- ``psum`` (all-reduce forward and backward: a sum each rank uses in its
+  own way, the MoE router's statistics over the data axis) and
+  ``mean_over`` (JAX's ``pmean`` of a value every rank computes alike: the
+  MoE aux loss, counted once across the ranks whose gradients are summed);
+  ``axes_group`` names the one group spanning a set of axes;
 - the tensor-MP recurrences' per-step collectives, ``step_all_reduce`` and
   ``step_all_gather``: one blocking, tagged exchange with every other rank
   of the group (``dist.rnn_message_tag``), summed or concatenated in model
@@ -278,6 +283,58 @@ def scatter_sequence(x, mesh, dim: int = 1, axis: str = "model"):
     if mesh.size(axis) == 1:
         return x
     return _ScatterToModel.apply(x, mesh, axis, dim % x.dim())
+
+
+def axes_group(mesh, axes):
+    """The one group of ``mesh`` whose ranks span the axes ``axes`` (None
+    entries and axes of one rank ignored): the one axis of more than one
+    rank, None where both of the rank mesh's axes have more (every rank), or
+    the first named axis where none has."""
+    live = {a for a in axes if a and mesh.size(a) > 1}
+    if len(live) > 1:
+        return None
+    return next(iter(live)) if live else next(a for a in axes if a)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return D.all_reduce(mesh, x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return D.all_reduce(ctx.mesh, g.contiguous().clone(), ctx.axis), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.n = mesh.size(axis)
+        return D.all_reduce(mesh, x.contiguous().clone(), axis) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def psum(x, mesh, axis: str = "data"):
+    """The sum over ``axis`` of each rank's ``x``, feeding work that differs
+    from rank to rank: all-reduce forward and backward (JAX's ``psum`` and
+    its transpose)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _Psum.apply(x, mesh, axis)
+
+
+def mean_over(x, mesh, axis: str = "model"):
+    """The mean over ``axis`` of ``x``, a value every rank of the group
+    computes alike from inputs whose gradients the group sums (JAX's
+    ``pmean``): all-reduce / n forward, g / n backward, so the group counts
+    the value once."""
+    if mesh.size(axis) == 1:
+        return x
+    return _MeanOver.apply(x, mesh, axis)
 
 
 # ---------------------------------------------------------------------------

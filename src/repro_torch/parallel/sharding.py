@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -283,15 +283,21 @@ GATE_LEAVES = ("wx", "wh")
 
 
 def _gate_major(path, leaf, dim) -> bool:
-    """An LSTM gate leaf (d, 4H) cut over its 4H columns."""
-    return bool(path) and path[-1] in GATE_LEAVES and leaf.dim() == 2 and dim == 1
+    """An LSTM gate leaf (d, 4H), or its Adafactor column statistic (4H,),
+    cut over its 4H columns (its last dim)."""
+    if not path or dim != leaf.dim() - 1:
+        return False
+    if path[-1] == "vc" and len(path) > 1:
+        return path[-2] in GATE_LEAVES and leaf.dim() == 1
+    return path[-1] in GATE_LEAVES and leaf.dim() == 2
 
 
-def shard_params(params, rules: ShardingRules, model_index: int):
+def shard_params(params, rules: ShardingRules, model_index: int, specs=None):
     """Rank ``model_index``'s part of the whole tree ``params``: each leaf
     the rules shard over the model axis cut to its contiguous slice of that
     dim (an LSTM gate leaf to its gate-major columns), a copy; every other
-    leaf as it is."""
+    leaf as it is.  ``specs`` (default ``params``' own) are the tree's, as
+    ``state_specs`` gives an optimizer state's."""
     m = rules.msz
 
     def cut(leaf, spec, path):
@@ -299,13 +305,13 @@ def shard_params(params, rules: ShardingRules, model_index: int):
         if dim is None or m == 1:
             return leaf
         if _gate_major(path, leaf, dim):
-            hm = leaf.shape[1] // (4 * m)
-            return leaf.reshape(leaf.shape[0], 4, m * hm).narrow(
-                2, model_index * hm, hm).reshape(leaf.shape[0], 4 * hm).clone()
+            lead, hm = leaf.shape[:-1], leaf.shape[-1] // (4 * m)
+            return leaf.reshape(*lead, 4, m * hm).narrow(
+                -1, model_index * hm, hm).reshape(*lead, 4 * hm).clone()
         n = leaf.shape[dim] // m
         return leaf.narrow(dim, model_index * n, n).clone()
 
-    return _map_with_spec(cut, params, rules.params_specs(params))
+    return _map_with_spec(cut, params, rules.params_specs(params) if specs is None else specs)
 
 
 def _join_parts(fn, parts: List, specs, path=()):
@@ -332,8 +338,8 @@ def gather_params(parts: List, rules: ShardingRules, specs):
         if dim is None:
             return first
         if _gate_major(path, first, dim):
-            d = first.shape[0]
-            return torch.cat([p.reshape(d, 4, -1) for p in leaves], dim=2).reshape(d, -1)
+            lead = first.shape[:-1]
+            return torch.cat([p.reshape(*lead, 4, -1) for p in leaves], dim=-1).reshape(*lead, -1)
         return torch.cat(list(leaves), dim=dim)
 
     return _join_parts(join, parts, specs)
@@ -369,23 +375,60 @@ def gather_fsdp(parts: List, rules: ShardingRules, specs):
     return _join_parts(join, parts, specs)
 
 
+def leaf_cuts(tree, specs, rules: ShardingRules) -> List[Dict[int, str]]:
+    """For each leaf of ``tree`` (whole, a part or a shard), in
+    ``tree_leaves`` order: the dims that ``specs`` (the whole tree's) cut,
+    each mapped to the rank mesh's axis it is cut over: the model dim over
+    ``"model"`` (a tensor plan's), the fsdp dim over ``"data"``.  The one
+    record of where a rank's part of a leaf lies: the train step's gradient
+    sums, global norm and optimizer cuts read it."""
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return [c for k in sorted(node) for c in walk(node[k], spec[k])]
+        if isinstance(node, (list, tuple)):
+            return [c for n, sp in zip(node, spec) for c in walk(n, sp)]
+        cuts = {}
+        if rules.ms and rules.msz > 1 and rules.model_dim(spec) is not None:
+            cuts[rules.model_dim(spec)] = "model"
+        if rules.fsdp_dim(spec) is not None:
+            cuts[rules.fsdp_dim(spec)] = "data"
+        return [cuts]
+
+    return walk(tree, specs)
+
+
 def fsdp_dims(tree, specs, rules: ShardingRules) -> List[Optional[int]]:
     """For each leaf of ``tree`` (whole, a part or a shard), in
     ``tree_leaves`` order: its fsdp dim under ``specs`` (the whole tree's),
     or None."""
-    from repro_torch.tree import tree_leaves, tree_map
-
-    return tree_leaves(tree_map(lambda _, spec: rules.fsdp_dim(spec), tree, specs))
+    return [next((d for d, a in c.items() if a == "data"), None)
+            for c in leaf_cuts(tree, specs, rules)]
 
 
 def replicated_leaves(params, specs, rules: ShardingRules) -> List[bool]:
     """For each leaf of ``params`` (whole or a rank's part), in
     ``tree_leaves`` order: True where ``specs`` (the whole tree's) replicate
     it over the model axis."""
-    from repro_torch.tree import tree_leaves, tree_map
+    return ["model" not in c.values() for c in leaf_cuts(params, specs, rules)]
 
-    return tree_leaves(tree_map(lambda _, spec: rules.model_dim(spec) is None,
-                                params, specs))
+
+ACC_KEYS = ("v", "vc", "vr")
+
+
+def state_specs(tree, specs):
+    """The spec tree of an optimizer-state tree that mirrors the parameter
+    tree (``specs``, the whole tree's): a parameter-shaped entry (AdamW's
+    ``m``, ``v``) takes its parameter's spec, Adafactor's accumulators
+    JAX's ``opt_specs``: ``vr`` the spec without its last dim, ``vc``
+    without its second-to-last, ``v`` the spec itself."""
+    if isinstance(tree, dict) and isinstance(specs, tuple) and set(tree) <= set(ACC_KEYS):
+        return {k: {"vr": specs[:-1], "vc": specs[:-2] + specs[-1:], "v": specs}[k]
+                for k in tree}
+    if isinstance(tree, dict):
+        return {k: state_specs(tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_specs(t, s) for t, s in zip(tree, specs))
+    return specs
 
 
 # ---------------------------------------------------------------------------

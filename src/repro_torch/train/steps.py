@@ -53,26 +53,34 @@ A plan with ``fsdp_axes`` (pure DP, tensor MP or context; the planner's
 state over DP, as JAX's ``ShardingRules`` place it: the rank holds its data
 shard (``sharding.shard_fsdp``, cut out of its tensor-MP part) of every
 leaf the rules give an fsdp dim, f32 master parameters and AdamW's ``m`` and
-``v`` alike, and the other leaves whole.  A step gathers the shards into
+``v`` alike (Adafactor's ``vr`` and ``vc`` cut as JAX's ``opt_specs`` cut
+them), and the other leaves whole.  A step gathers the shards into
 the rank's working leaves over ``data`` (``collectives.fsdp_all_gather``),
 runs the loss and gradient path above on them, and in place of the sum
 over ``data`` reduce-scatters each sharded leaf's gradient to the shard
 (``collectives.fsdp_grad_sync``, under either runtime: JAX keeps GSPMD's
-sync for fsdp plans); the optimizer then updates the shards.  An optimizer
-that is not elementwise (Adafactor) and a pipelined plan with fsdp raise
-naming ROADMAP.md Queue 1 item 5b.
+sync for fsdp plans); the optimizer then updates the shards.  A pipelined
+plan with fsdp raises naming ROADMAP.md Queue 1 item 5b.
 
-The clip sees the global norm, the single-process one: each rank's sum of
-squares of a leaf is summed over the axes that shard the leaf (``data`` for
-a fsdp shard, ``model`` for a tensor-MP part, and on a pipelined rank over
-the stages, a tied embedding counted once); a leaf that is whole on every
-rank is counted once (a context-parallel rank's gradients are already
-whole).  Tensor MP runs the dense and RWKV decoders, BigLSTM, GNMT and
-Inception-V3; of another arch it raises naming its item (``check_plan``).
+Where a rank's leaves are parts, ``_layout`` records where the rest of each
+lies (``sharding.leaf_cuts``: the axes that cut it; on a pipeline stage the
+stacked layer dim cut over the stages).  The clip sees the global norm,
+the single-process one: each rank's sum of squares of a leaf is summed
+over the axes that cut the leaf (``data`` for a fsdp shard, ``model`` for a
+tensor-MP part, and on a pipelined rank over the stages, a tied embedding
+counted once); a leaf that is whole on every rank is counted once (a
+context-parallel rank's gradients are already whole).  The optimizer gets
+the same record (``optim.LeafCuts``): Adafactor's statistics are the whole
+leaf's.  Tensor MP runs the dense, MoE (expert parallelism) and RWKV
+decoders, BigLSTM, GNMT and Inception-V3; of another arch it raises naming
+its item (``check_plan``).  The ``loss`` metric is the loss function's, as
+JAX's (an MoE model's without its aux loss), summed or averaged as the
+loss is.
 
 Checkpoints hold a state's global form, JAX's layout (``interop.
 param_shapes``: stacked (L, ...) decoder leaves, BigLSTM's list of layer
-dicts, an f32 ``m`` and ``v`` a parameter): ``eval_train_state`` is the
+dicts, an f32 ``m`` and ``v`` a parameter, Adafactor's accumulators a
+parameter): ``eval_train_state`` is the
 ``like`` tree of a restore, ``global_state`` gathers a run's state to its
 writing rank, ``place_state`` cuts a rank's part back out of a restored
 global state, and ``checkpoint_saver`` is the loop's saver on ranks.
@@ -93,8 +101,10 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models.api import ModelApi, cache_extract_slot, cache_insert_slot
 from repro_torch.models.transformer import (ParallelCtx, cp_arch_supported, cp_supported,
                                             is_tensor_ctx, tensor_mp_item, unported)
-from repro_torch.optim.optimizers import (Optimizer, apply_updates, clip_by_global_norm,
-                                          sum_of_squares)
+from repro_torch.optim.optimizers import (LeafCuts, Optimizer, apply_updates,
+                                          clip_by_global_norm, sum_of_squares)
+from repro_torch.models.moe import check_expert_parallel
+from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import dist as D
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.collectives import (DEFAULT_BUCKET_BYTES, all_reduce_grads,
@@ -104,8 +114,7 @@ from repro_torch.parallel.pipeline import AD_RUNTIME, stages_to_stack
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-FSDP_REST = ("ROADMAP.md Queue 1 item 5b (the fsdp plans: Adafactor under fsdp and "
-             "pipelined plans with fsdp)")
+FSDP_REST = "ROADMAP.md Queue 1 item 5b (the fsdp plans: pipelined plans with fsdp)"
 
 
 @dataclasses.dataclass
@@ -118,22 +127,16 @@ class TrainState:
     in_update: bool = False
 
 
-def check_plan(plan, model: int, cfg=None, optimizer=None) -> None:
+def check_plan(plan, model: int, cfg=None) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a plan the
     port's ranks do not run over a ``model`` axis of that size: tensor MP of
-    an arch that ``tensor_mp_item`` names (MoE, the other families; ``cfg``,
-    not checked without one), parameters sharded over DP under an optimizer
-    that is not elementwise (``optimizer``, not checked without one) or
-    across pipeline stages, the ``ad`` pipeline runtime."""
-    if plan.fsdp_axes:
-        if optimizer is not None and not optimizer.elementwise:
-            raise NotImplementedError(
-                f"parameters sharded over DP under an optimizer whose update is not "
-                f"elementwise (Adafactor: its factored statistics reduce over the sharded "
-                f"dim) are not ported to repro_torch yet: {FSDP_REST}")
-        if plan.is_pipeline and model > 1:
-            raise NotImplementedError(f"a pipelined plan with parameters sharded over DP is "
-                                      f"not ported to repro_torch yet: {FSDP_REST}")
+    an arch that ``tensor_mp_item`` names (the other families; ``cfg``, not
+    checked without one), parameters sharded over DP across pipeline stages,
+    the ``ad`` pipeline runtime; and ValueError for a tensor plan whose model
+    axis cannot split an MoE model's experts (``moe.check_expert_parallel``)."""
+    if plan.fsdp_axes and plan.is_pipeline and model > 1:
+        raise NotImplementedError(f"a pipelined plan with parameters sharded over DP is "
+                                  f"not ported to repro_torch yet: {FSDP_REST}")
     if plan.model_axis is None or model == 1:
         return
     if plan.mp_kind == "tensor":
@@ -141,6 +144,8 @@ def check_plan(plan, model: int, cfg=None, optimizer=None) -> None:
         if item is not None:
             raise NotImplementedError(f"tensor MP of {cfg.name} is not ported to "
                                       f"repro_torch yet: {item}")
+        if cfg is not None and cfg.is_moe:
+            check_expert_parallel(cfg, model)
         return
     if plan.runtime == "ad":
         raise NotImplementedError(f"the ad pipeline runtime is not ported to repro_torch "
@@ -198,7 +203,46 @@ def init_train_state(api: ModelApi, optimizer: Optimizer, seed: int = 0, *,
     if frules is not None:
         params = SH.shard_fsdp(params, frules, mesh.data_index,
                                SH.param_specs(api.cfg, frules))
-    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+    return TrainState(params=params, opt_state=optimizer.init(
+        params, _layout(api.cfg, params, mesh, plan)[1]), step=0)
+
+
+def _layout(cfg, params, mesh, plan):
+    """Where the rest of each leaf of this rank's ``params`` lies, in
+    ``tree_leaves`` order: (cuts, opt_cuts).  ``cuts`` maps each leaf's cut
+    dims to the axis each is cut over (``sharding.leaf_cuts``: a tensor-MP
+    part's model dim, a fsdp shard's data dim), None for a pipelined rank
+    or where nothing is cut; ``opt_cuts`` are the optimizer's
+    ``LeafCuts`` (None where every leaf is whole): those cuts, and on a
+    pipeline stage its part of each stacked leaf, the (v, Lc) chunks of the
+    decoder's layer dim folded into one dim cut over the stages, and
+    BigLSTM's stacked layers separate leaves, as one process holds them."""
+    if mesh is None or plan is None:
+        return None, None
+    if _pipelined(plan, mesh):
+        key = "lstm" if cfg.family == "rnn" else "layers"
+        stages = mesh.shape["model"]
+
+        def over_stages(t, dims):
+            return D.all_reduce(mesh, t, "model")
+
+        stacked = (LeafCuts(lead=2) if key == "lstm" else
+                   LeafCuts(parts={0: stages}, sum=over_stages, fold=2))
+        return None, [stacked if k == key else LeafCuts()
+                      for k in sorted(params) for _ in tree_leaves(params[k])]
+    tensor = is_tensor_ctx(_make_pctx(mesh, plan))
+    if not tensor and _fsdp_rules(cfg, mesh, plan) is None:
+        return None, None
+    rules = _rules(cfg, mesh, plan)
+    cuts = SH.leaf_cuts(params, SH.param_specs(cfg, rules), rules)
+
+    def cut_sum(axes):
+        def total(t, dims):
+            return D.all_reduce(mesh, t, CL.axes_group(mesh, [axes[d] for d in dims]))
+        return total
+
+    return cuts, [LeafCuts(parts={d: mesh.size(a) for d, a in c.items()}, sum=cut_sum(c))
+                  for c in cuts]
 
 
 def eval_train_state(api: ModelApi, optimizer: Optimizer) -> TrainState:
@@ -226,8 +270,10 @@ def _shape_leaves(shapes):
 
 
 def _state_trees(state: TrainState) -> dict:
-    """The parameter-shaped trees of a state: the parameters and each entry
-    of the optimizer state (AdamW's ``m`` and ``v``, momentum's ``m``)."""
+    """The trees of a state that mirror the parameter tree: the parameters
+    and each entry of the optimizer state (AdamW's ``m`` and ``v``,
+    momentum's ``m``: parameter-shaped; Adafactor's ``acc``: a dict of its
+    accumulators a parameter, ``sharding.state_specs``)."""
     opt = state.opt_state
     if opt in ((), None):
         return {"params": state.params}
@@ -245,29 +291,69 @@ def _from_trees(trees: dict, state: TrainState) -> TrainState:
     return TrainState(params=trees["params"], opt_state=opt, step=state.step)
 
 
+def _whole_on_stages(path, t) -> bool:
+    """Adafactor's column statistic of a stacked decoder leaf (L, d): (d,),
+    a mean over every layer, whole on every pipeline stage (JAX's ``vc``
+    spec drops the stage-cut dim)."""
+    return path[0] == "layers" and path[-1] == "vc" and t.dim() == 1
+
+
+def _map_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over the leaves of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, tree[k], path + (k,)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_path(fn, t, path + (str(i),)) for i, t in enumerate(tree))
+    return fn(path, tree)
+
+
 def _stages_to_global(parts, cfg, n_stages: int, v: int):
     """The global tree from every stage's part (in stage order): the stage
-    leaves stacked (S, v, Lc, ...) and reassembled as (L, ...), BigLSTM's
-    back into one dict a layer; the embedding from the first stage (a tied
-    one is on the last too, the same bits), the head from the last."""
+    leaves stacked (S, v, Lc, ...) and reassembled as (L, ...) (a leaf
+    ``_whole_on_stages`` from the first stage), BigLSTM's back into one dict
+    a layer; the embedding from the first stage (a tied one is on the last
+    too, the same bits), the head from the last."""
     key = "lstm" if cfg.family == "rnn" else "layers"
     out = {}
     for part in parts:
         for k, t in part.items():
             if k != key and k not in out:
                 out[k] = t
-    stacked = stages_to_stack(tree_map(lambda *ls: torch.stack(ls), parts[0][key],
-                                       *(p[key] for p in parts[1:])), n_stages, v)
+    rest = iter(zip(*(tree_leaves(p[key]) for p in parts[1:])))
+
+    def join(path, t):
+        others = next(rest, ())
+        if _whole_on_stages(path, t):
+            return t
+        return stages_to_stack(torch.stack((t, *others)), n_stages, v)
+
+    stacked = _map_path(join, parts[0][key], (key,))
     if key == "lstm":
         stacked = [tree_map(lambda t, i=i: t[i], stacked) for i in range(cfg.n_layers)]
     out[key] = stacked
     return {k: out[k] for k in sorted(out)}
 
 
+def _stage_part(api, tree, n_stages: int, v: int, stage: int):
+    """``api.pipeline_stage_params`` of a state tree: a leaf
+    ``_whole_on_stages`` kept whole on every stage."""
+    whole = {}
+
+    def stash(path, t):
+        if not _whole_on_stages(path, t):
+            return t
+        whole[path] = t
+        return t.expand(api.cfg.n_layers, *t.shape)      # cut as a stacked leaf, then undone
+
+    part = api.pipeline_stage_params(_map_path(stash, tree), n_stages, v, stage)
+    return _map_path(lambda path, t: whole.get(path, t), part)
+
+
 def _gathered(state: TrainState, mesh, axis: str, join) -> TrainState | None:
     """``state`` joined over this rank's ``axis`` group on the group's first
-    rank (``join(parts)`` a tree of ``_state_trees``, the parts in group
-    order, on the host); None on the others."""
+    rank (``join(parts, tree)`` a tree of ``_state_trees``, from the parts
+    in group order, on the host, and this rank's own); None on the
+    others."""
     trees = _state_trees(state)
     parts = D.gather_tree(mesh, trees, axis)
     if parts is None:
@@ -275,7 +361,7 @@ def _gathered(state: TrainState, mesh, axis: str, join) -> TrainState | None:
     # the peers' parts arrive where the transport carries them: assemble on
     # the host, where the writer reads every leaf anyway
     parts = [tree_map(lambda t: t.detach().cpu(), p) for p in parts]
-    return _from_trees({k: join([p[k] for p in parts]) for k in trees}, state)
+    return _from_trees({k: join([p[k] for p in parts], trees[k]) for k in trees}, state)
 
 
 def global_state(state: TrainState, api: ModelApi, mesh, plan):
@@ -296,8 +382,8 @@ def global_state(state: TrainState, api: ModelApi, mesh, plan):
     frules = _fsdp_rules(api.cfg, mesh, plan)
     if frules is not None:
         specs = SH.param_specs(api.cfg, frules)
-        state = _gathered(state, mesh, "data",
-                          lambda parts: SH.gather_fsdp(parts, frules, specs))
+        state = _gathered(state, mesh, "data", lambda parts, tree: SH.gather_fsdp(
+            parts, frules, SH.state_specs(tree, specs)))
         if state is None:
             return None
     if not (pipelined or tensor):
@@ -305,11 +391,12 @@ def global_state(state: TrainState, api: ModelApi, mesh, plan):
     if mesh.data_index != 0:
         return None
     if pipelined:
-        return _gathered(state, mesh, "model", lambda parts: _stages_to_global(
+        return _gathered(state, mesh, "model", lambda parts, tree: _stages_to_global(
             parts, api.cfg, mesh.shape["model"], max(plan.virtual_stages, 1)))
     rules = _rules(api.cfg, mesh, plan)
     specs = SH.param_specs(api.cfg, rules)
-    return _gathered(state, mesh, "model", lambda parts: SH.gather_params(parts, rules, specs))
+    return _gathered(state, mesh, "model", lambda parts, tree: SH.gather_params(
+        parts, rules, SH.state_specs(tree, specs)))
 
 
 def place_state(state: TrainState, api: ModelApi, mesh=None, plan=None) -> TrainState:
@@ -323,15 +410,17 @@ def place_state(state: TrainState, api: ModelApi, mesh=None, plan=None) -> Train
     trees = _state_trees(state)
     if _pipelined(plan, mesh):
         s, v = mesh.shape["model"], plan.virtual_stages
-        trees = {k: api.pipeline_stage_params(t, s, v, mesh.model_index)
-                 for k, t in trees.items()}
+        trees = {k: _stage_part(api, t, s, v, mesh.model_index) for k, t in trees.items()}
     elif is_tensor_ctx(_make_pctx(mesh, plan)):
         rules = _rules(api.cfg, mesh, plan)
-        trees = {k: SH.shard_params(t, rules, mesh.model_index) for k, t in trees.items()}
+        specs = SH.param_specs(api.cfg, rules)
+        trees = {k: SH.shard_params(t, rules, mesh.model_index, SH.state_specs(t, specs))
+                 for k, t in trees.items()}
     frules = _fsdp_rules(api.cfg, mesh, plan)
     if frules is not None:
         specs = SH.param_specs(api.cfg, frules)
-        trees = {k: SH.shard_fsdp(t, frules, mesh.data_index, specs) for k, t in trees.items()}
+        trees = {k: SH.shard_fsdp(t, frules, mesh.data_index, SH.state_specs(t, specs))
+                 for k, t in trees.items()}
     trees = tree_map(lambda t: t.to(device), trees)
     return _from_trees(trees, state)
 
@@ -399,7 +488,7 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
                                     comm_runtime=pctx.comm_runtime,
                                     comm_chunks=pctx.comm_chunks)
     if plan is not None:
-        check_plan(plan, mesh.shape["model"] if mesh is not None else 1, api.cfg, optimizer)
+        check_plan(plan, mesh.shape["model"] if mesh is not None else 1, api.cfg)
     pipelined = _pipelined(plan, mesh)
     pctx = pctx or _make_pctx(mesh, plan)
     tensor = is_tensor_ctx(pctx)
@@ -419,11 +508,10 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
     # a tied embedding lives on the first and the last stage: count it once
     skip_in_norm = ("embed",) if (pipelined and api.cfg.tie_embeddings
                                   and mesh.model_index == mesh.shape["model"] - 1) else ()
-    replicated, fdims = [], []  # per leaf, in tree_leaves order; set at the first step
+    # per leaf, in tree_leaves order, set at the first step (``_layout``):
+    # the axes each is cut over, the optimizer's cuts, the fsdp dims
+    cuts, opt_cuts, fdims = [], [], []
     frules = _fsdp_rules(api.cfg, mesh, plan)
-    if tensor or frules is not None:
-        rules = _rules(api.cfg, mesh, plan)
-        specs = SH.param_specs(api.cfg, rules)
 
     def grads_of(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -472,38 +560,40 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         return all_reduce_grads(grads, mesh)
 
     def synced_grads(params, batch):
-        """The rank's loss and gradients, summed over DP (and the ring)."""
+        """The rank's metrics and gradients, summed over DP (and the ring);
+        the ``loss`` metric is the loss function's (without the aux loss, as
+        JAX's) summed or averaged as the loss is."""
         if mesh is None:
-            return total_grads(params, batch)
+            return total_grads(params, batch)[1:]
         batch = _dp_shard(batch, mesh)
         if pctx is not None and not tensor:
             batch = _cp_shard(batch, pctx, api.cfg)
         if not pipelined:
             batch = {k: v.to(mesh.device) for k, v in batch.items()}
-        loss, metrics, grads = total_grads(params, batch)
+        _, metrics, grads = total_grads(params, batch)
+        loss = metrics["loss"].detach().clone()
         if tensor:              # shares of the global mean: sum over the data shards
             if dp > 1:
                 grads = data_sum(grads)
-                loss = D.all_reduce(mesh, loss.detach().clone(), "data")
-            for g, rep in zip(tree_leaves(grads), replicated):
-                if rep:         # whole on every rank: give them the same bits
+                loss = D.all_reduce(mesh, loss, "data")
+            for g, c in zip(tree_leaves(grads), cuts):
+                if "model" not in c.values():   # whole on every rank: the same bits
                     D.broadcast(mesh, g, "model")
-            return loss, dict(metrics, loss=loss), grads
+            return dict(metrics, loss=loss), grads
         if pctx is not None:    # shares of the global mean: sum over every rank
             if frules is not None:
                 grads = data_sum(all_reduce_grads(grads, mesh, axis="model"))
             else:
                 all_reduce_grads(grads, mesh, axis=None)
-            loss = D.all_reduce(mesh, loss.detach().clone())
-            return loss, dict(metrics, loss=loss), grads
+            return dict(metrics, loss=D.all_reduce(mesh, loss)), grads
         if dp > 1:
             grads = data_sum(grads)
-            loss = D.all_reduce(mesh, loss.detach().clone(), "data")
+            loss = D.all_reduce(mesh, loss, "data")
             if not pipelined:       # the mean of the shards' mean losses
                 tree_map(lambda g: g.div_(dp), grads)
                 loss = loss / dp
             metrics = dict(metrics, loss=loss)
-        return loss, metrics, grads
+        return metrics, grads
 
     def global_norm(grads) -> torch.Tensor:
         if pipelined:
@@ -512,18 +602,18 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
         # each leaf's squares summed over the axes that shard it, a whole leaf once
         leaves = tree_leaves(grads)
         zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        on_data = fdims or [None] * len(leaves)
-        on_model = [not rep for rep in replicated] if tensor else [False] * len(leaves)
+        axes = [set(c.values()) for c in cuts] if cuts else [set()] * len(leaves)
+        on_data = ["data" in a for a in axes]
+        on_model = ["model" in a for a in axes]
 
         def squares(data: bool, model: bool):
-            sel = [g for g, d, m in zip(leaves, on_data, on_model)
-                   if (d is not None) == data and m == model]
+            sel = [g for g, d, m in zip(leaves, on_data, on_model) if d == data and m == model]
             return (sum_of_squares(sel) if sel else zero).clone()
 
         total = squares(False, False)
         if any(on_model):
             total = D.all_reduce(mesh, squares(False, True), "model") + total
-        if any(d is not None for d in on_data):
+        if any(on_data):
             part = squares(True, False)
             if any(on_model):
                 part = part + D.all_reduce(mesh, squares(True, True), "model")
@@ -532,20 +622,22 @@ def make_train_step(api: ModelApi, optimizer: Optimizer, *, mesh=None, plan=None
 
     def train_step(state: TrainState, batch):
         params = state.params
-        if (tensor or frules is not None) and not replicated:
-            replicated.extend(SH.replicated_leaves(params, specs, rules))
-            if frules is not None:
-                fdims.extend(SH.fsdp_dims(params, specs, rules))
+        if mesh is not None and not opt_cuts:
+            c, oc = _layout(api.cfg, params, mesh, plan)
+            cuts.extend(c or ())
+            opt_cuts.append(oc)
+            fdims.extend(next((d for d, a in x.items() if a == "data"), None) for x in cuts)
         if frules is not None:      # the shards gathered into the working leaves
-            loss, metrics, grads = synced_grads(fsdp_all_gather(params, fdims, mesh), batch)
+            metrics, grads = synced_grads(fsdp_all_gather(params, fdims, mesh), batch)
         else:
-            loss, metrics, grads = synced_grads(params, batch)
+            metrics, grads = synced_grads(params, batch)
         if clip_norm:
             norm = global_norm(grads) if pipelined or tensor or frules is not None else None
             grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=norm)
             metrics = dict(metrics, grad_norm=gnorm)
         state.in_update = True
-        updates, opt_state = optimizer.update(grads, state.opt_state, params, state.step)
+        updates, opt_state = optimizer.update(grads, state.opt_state, params, state.step,
+                                              opt_cuts[0] if opt_cuts else None)
         del grads
         apply_updates(params, updates)
         state.in_update = False

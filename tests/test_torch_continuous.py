@@ -546,15 +546,16 @@ class _Pair:
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    ({"arch": "granite_moe_1b_a400m", "model_axis": "model"}, NotImplementedError,
-     "ROADMAP.md Queue 1 item 15"),
+    ({"arch": "granite_moe_1b_a400m", "model_axis": "model"}, ValueError,
+     "homogeneous dense decoder"),
     ({"model_axis": "model", "context_axis": "model"}, ValueError,
      "one axis beside the data axis"),
     ({"mesh": None, "model_axis": "model"}, ValueError, "none was given")])
 def test_sharded_steps_raise_their_items(port, kw, err, match):
-    """What the sharded steps do not run: an MoE model under tensor MP names
-    item 15 (expert parallelism), and a model and a context axis together,
-    or an axis without a mesh, are refused."""
+    """What the sharded steps do not run: an MoE model under tensor MP (JAX's
+    tick has no sharded MoE either: ``decode_slots_tp_supported``), and a
+    model and a context axis together, or an axis without a mesh, are
+    refused."""
     kw = dict(kw)
     api = port[0]
     if "arch" in kw:

@@ -137,9 +137,15 @@ def test_routing_weights_and_dtype():
 
 
 def test_expert_parallel_is_not_ported():
+    """Expert parallelism runs over a rank mesh (tests/test_torch_moe_ep.py):
+    a model axis without one, ff axes without a model axis and a model axis
+    that does not divide the experts are refused."""
     cfg = t_get_config("granite_moe_1b_a400m").reduced()
     params = TM.moe_init(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros(1, 2, cfg.d_model)
-    for kw in ({"model_axis": "model"}, {"ff_axes": ("data",)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+    for kw, match in (({"model_axis": "model"}, "none was given"),
+                      ({"ff_axes": ("data",)}, "beside a model axis")):
+        with pytest.raises(ValueError, match=match):
             TM.moe_ffn(params, x, cfg, **kw)
+    with pytest.raises(ValueError, match=r"n_experts \(4\) does not divide over 3 ranks"):
+        TM.check_expert_parallel(cfg, 3)

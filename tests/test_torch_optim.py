@@ -109,3 +109,100 @@ def test_schedules_match_jax(name, args):
         np.testing.assert_allclose(float(got), want, rtol=TOL, atol=1e-12)
         np.testing.assert_allclose(float(ts(torch.tensor(step))), want, rtol=TOL,
                                    atol=1e-12)
+
+
+# --- Adafactor on ranks ----------------------------------------------------------
+
+# one step in fp32 against JAX's single-device step: the loss absolute, each
+# parameter and accumulator leaf norm-relative (tests/test_torch_context.py's
+# STEP_TOL)
+ADA_TOL = {"loss": 5e-5, "leaf": 5e-5}
+ADA_LR = 1e-2
+
+
+def _ada_cases():
+    from repro_torch.parallel.plan import ParallelPlan
+
+    pipe = ParallelPlan(model_axis="model", mp_kind="pipeline", microbatches=2)
+    tensor = ParallelPlan(model_axis="model")
+    return (("mp=2", "llama3_2_1b", 1, tensor), ("mp=2 lstm", "biglstm", 1, tensor),
+            ("dp=2,pipe=2", "llama3_2_1b", 2, pipe), ("dp=2,pipe=2 lstm", "biglstm", 2, pipe),
+            ("dp=2,mp=2 fsdp", "llama3_2_1b", 2,
+             ParallelPlan(model_axis="model", fsdp_axes=("data",))))
+
+
+def _ada_batch():
+    rng = np.random.default_rng(7)
+    return {"tokens": rng.integers(0, 1000, (8, 16)), "labels": rng.integers(0, 1000, (8, 16))}
+
+
+def _adafactor_rank(mesh, params):
+    """Every case's step on one rank of a 2 x 2 run (the dp 1 tensor cases
+    on each model pair alone): the loss and, on its writing rank, the
+    gathered global state."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models.api import build_model
+    from repro_torch.train import TrainState, global_state, make_train_step, place_state
+    from test_torch_tensor_mp import _view
+
+    out = {}
+    for name, arch, dp, plan in _ada_cases():
+        cfg = get_config(arch).reduced()
+        api = build_model(cfg, device="cpu")
+        view = _view(mesh, dp)
+        opt = TO.adafactor(TO.constant_lr(ADA_LR))
+        whole = params_from_jax(params[arch], cfg, "cpu")
+        state = place_state(TrainState(whole, opt.init(whole), 0), api, view, plan)
+        state, m = make_train_step(api, opt, mesh=view, plan=plan, clip_norm=1.0)(
+            state, {k: torch.from_numpy(v) for k, v in _ada_batch().items()})
+        g = global_state(state, api, view, plan)
+        out[name] = (float(m["loss"]), None if g is None else
+                     [t.double().numpy() for t in tree_leaves((g.params, g.opt_state))])
+    return out
+
+
+@pytest.fixture(scope="module")
+def adafactor_runs():
+    """JAX's single-device Adafactor step of each arch, then one 2 x 2
+    spawn with every case."""
+    from repro.configs import get_config as j_get_config
+    from repro.models.api import build_model as j_build_model
+    from repro.train import steps as JS
+    from repro_torch.parallel import dist as D
+
+    ref, init = {}, {}
+    for arch in ("llama3_2_1b", "biglstm"):
+        japi = j_build_model(j_get_config(arch).reduced(), remat=False)
+        jparams = japi.init(jax.random.PRNGKey(0))
+        init[arch] = jax.tree.map(np.asarray, jparams)
+        jopt = JO.adafactor(JO.constant_lr(ADA_LR))
+        state = JS.TrainState(params=jparams, opt_state=jopt.init(jparams),
+                              step=jnp.zeros((), jnp.int32))
+        state, m = jax.jit(JS.make_train_step(japi, jopt, clip_norm=1.0))(
+            state, {k: jnp.asarray(v.astype(np.int32)) for k, v in _ada_batch().items()})
+        ref[arch] = (float(m["loss"]), [np.asarray(t, np.float64) for t in
+                                        jax.tree.leaves((state.params, state.opt_state))])
+    ranks = D.spawn_ranks(_adafactor_rank, 4, "cpu", args=(init,), stages=2, threads=1)
+    return ref, ranks
+
+
+@pytest.mark.parametrize("name", [c[0] for c in _ada_cases()])
+def test_adafactor_on_ranks_matches_jax(adafactor_runs, name):
+    """An Adafactor step on ranks whose leaves are cut (tensor MP with the
+    LSTM gates' gate-major cut, a pipeline stage's part of the stacked layers
+    and of BigLSTM's, tensor MP with fsdp) takes each statistic over the
+    whole leaf: the gathered state equals JAX's single-device step."""
+    ref, ranks = adafactor_runs
+    arch = next(c[1] for c in _ada_cases() if c[0] == name)
+    want_loss, want = ref[arch]
+    got = [r[name][1] for r in ranks if r[name][1] is not None]
+    assert got
+    for r in ranks:
+        assert abs(r[name][0] - want_loss) <= ADA_TOL["loss"], (r[name][0], want_loss)
+    for leaves in got:
+        assert len(leaves) == len(want)
+        for g, w in zip(leaves, want):
+            assert g.shape == w.shape
+            err = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
+            assert err <= ADA_TOL["leaf"], (name, g.shape, err)

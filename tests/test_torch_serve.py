@@ -184,14 +184,14 @@ def test_unported_modes_raise(models, case):
     tapi, tparams, tcfg = models["tapi"], models["tparams"], models["tcfg"]
     tok = torch.from_numpy(models["tokens"]).long()
     item = {"biglstm": "ROADMAP.md Queue 1 item 6",
-            "moe": "ROADMAP.md Queue 1 item 15",
+            "moe": "ROADMAP.md Queue 1 item 7b",
             "encdec": "ROADMAP.md Queue 1 item 11"}.get(case, "ROADMAP.md Queue 1")
     with pytest.raises(NotImplementedError, match=item):
-        if case == "moe":     # MoE serves on one device; expert parallelism does not
-            from repro_torch.models import moe as moe_mod
-            moe_mod.moe_ffn(None, torch.zeros(B, S, 8),
-                            t_get_config("granite_moe_1b_a400m").reduced(),
-                            model_axis="model")
+        if case == "moe":     # MoE serves on one device, and trains on ranks
+            from repro_torch.models import transformer as tf_mod
+            tf_mod.decode_step(t_get_config("granite_moe_1b_a400m").reduced(), None,
+                               {"pos": 0}, {"tokens": tok},
+                               pctx=tf_mod.ParallelCtx(mesh=None, model_axis="model"))
         elif case == "encdec":  # every TPU kernel's family serves; whisper does not
             t_build_model(t_get_config("whisper_large_v3").reduced(), device="cpu")
         elif case == "hybrid":

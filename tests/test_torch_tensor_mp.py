@@ -20,10 +20,11 @@ launcher's three cases one each):
   ``mp=2``: loss and gradients against JAX, and the step against the port's
   single step in f64;
 - the launcher trains ``--parallel mp=2`` as one process trains (Llama and
-  BigLSTM overlapped with 2 chunks, RWKV gspmd), and refuses the tensor
-  plan of an MoE model (item 15) and ``--comm-chunks`` without
-  ``overlapped``.  The recurrent families' tensor MP against JAX is
-  ``tests/test_torch_tensor_mp_recurrent.py``.
+  BigLSTM overlapped with 2 chunks, RWKV gspmd), and refuses a tensor plan
+  whose model axis cannot split an MoE model's experts and ``--comm-chunks``
+  without ``overlapped``.  The recurrent families' tensor MP against JAX is
+  ``tests/test_torch_tensor_mp_recurrent.py``, the MoE decoder's
+  ``tests/test_torch_moe_ep.py``.
 
 JAX is imported inside the tests only.
 """
@@ -448,8 +449,8 @@ def test_launcher_trains_a_tensor_spec_on_ranks(capfd, arch, comm, plan_line):
 
 
 @pytest.mark.parametrize("arch,args,err,match", [
-    ("granite_moe_1b_a400m", ("--parallel", "dp=2,mp=2"), NotImplementedError,
-     "ROADMAP.md Queue 1 item 15"),
+    ("granite_moe_1b_a400m", ("--parallel", "dp=2,mp=3"), ValueError,
+     r"n_experts \(4\) does not divide over 3 ranks"),
     ("llama3_2_1b", ("--parallel", "mp=2", "--comm-chunks", "2"), SystemExit,
      "--comm-chunks only applies with --comm-runtime overlapped")])
 def test_launcher_refuses_what_tensor_mp_does_not_run(arch, args, err, match):
@@ -458,17 +459,18 @@ def test_launcher_refuses_what_tensor_mp_does_not_run(arch, args, err, match):
 
 
 def test_unported_tensor_mp_paths_name_their_items():
-    """A caller's tensor ctx over an MoE model names item 15, prefill and
-    decoding under a tensor ctx name item 7b (the serving TP)."""
+    """A caller's tensor ctx over an MoE model builds a step (expert
+    parallelism, tests/test_torch_moe_ep.py); prefill and decoding under a
+    tensor ctx name item 7b (the serving TP)."""
     from repro_torch import optim as TO
     from repro_torch.models.api import build_model
     from repro_torch.models.transformer import ParallelCtx
     from repro_torch.train import make_train_step
 
     api = build_model(t_get_config("granite_moe_1b_a400m").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        make_train_step(api, TO.sgd(TO.constant_lr(0.1)),
-                        pctx=ParallelCtx(mesh=None, model_axis="model"))
+    pair = type("Pair", (), {"shape": {"data": 1, "model": 2}})()
+    assert callable(make_train_step(api, TO.sgd(TO.constant_lr(0.1)),
+                                    pctx=ParallelCtx(mesh=pair, model_axis="model")))
     api = build_model(t_get_config("llama3_2_1b").reduced(), device="cpu")
     pctx = ParallelCtx(mesh=None, model_axis="model", context_axis=None)
     tokens = torch.zeros((1, 8), dtype=torch.long)

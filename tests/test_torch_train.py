@@ -267,11 +267,12 @@ def test_loop_does_not_retry_a_step_that_failed_in_the_update():
 
 def test_train_step_refuses_multi_device_arguments(biglstm):
     """What of a multi-device step is not ported raises naming its ROADMAP
-    item: a tensor-MP plan over an MoE model (item 15: the dense and RWKV
-    decoders', the LSTM family's and the CNN's run,
-    tests/test_torch_tensor_mp.py and tests/test_torch_tensor_mp_recurrent.py),
-    parameters sharded over DP across pipeline stages (item 5b) and the ad
-    pipeline runtime (item 6b).  DP, the scheduled pipeline and context parallelism
+    item: parameters sharded over DP across pipeline stages (item 5b) and
+    the ad pipeline runtime (item 6b).  A tensor-MP plan over an MoE model
+    builds a step (tests/test_torch_moe_ep.py; the dense and RWKV decoders',
+    the LSTM family's and the CNN's, tests/test_torch_tensor_mp.py and
+    tests/test_torch_tensor_mp_recurrent.py), unless its model axis cannot
+    split the experts (ValueError).  DP, the scheduled pipeline and context parallelism
     run on ranks (tests/test_torch_dp.py, tests/test_torch_pipeline_runtime.py,
     tests/test_torch_context.py); a caller's ctx that is no tensor-MP
     ParallelCtx and a context plan over an arch the ring cannot run
@@ -281,8 +282,12 @@ def test_train_step_refuses_multi_device_arguments(biglstm):
     tapi = biglstm[5]
     moe_api = t_build_model(t_get_config("granite_moe_1b_a400m").reduced(), device="cpu")
     mesh = TM_Mesh({"data": 1, "model": 2})
+    assert callable(make_train_step(moe_api, TO.sgd(TO.constant_lr(0.1)), mesh=mesh,
+                                    plan=TPlan()))
+    with pytest.raises(ValueError, match=r"n_experts \(4\) does not divide over 3 ranks"):
+        make_train_step(moe_api, TO.sgd(TO.constant_lr(0.1)),
+                        mesh=TM_Mesh({"data": 1, "model": 3}), plan=TPlan())
     for api, kw, item in (
-            (moe_api, {"mesh": mesh, "plan": TPlan()}, "item 15"),
             (tapi, {"mesh": mesh, "plan": TPlan(mp_kind="pipeline", fsdp_axes=("data",))},
              "item 5b"),
             (tapi, {"mesh": mesh, "plan": TPlan(mp_kind="pipeline", runtime="ad")},
@@ -321,8 +326,9 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
     """What of each multi-device spec is still unported raises naming its
     ROADMAP item: the ad pipeline runtime (item 6b) for the planner's BigLSTM
     plan at 64 H100s and for an explicit pipe= spec.  A dp= spec with its
-    parameters sharded over DP resolves and trains (tests/test_torch_fsdp.py);
-    what is left of item 5, Adafactor under fsdp, raises naming item 5b.  An
+    parameters sharded over DP resolves and trains, under AdamW and
+    Adafactor (tests/test_torch_fsdp.py); what is left of item 5, the same
+    across pipeline stages, raises naming item 5b.  An
     unknown key exits naming the keys the JAX launcher reads.  An
     mp= spec resolves to BigLSTM's tensor plan, which trains
     (tests/test_torch_tensor_mp_recurrent.py); what is left of item 7, the
@@ -335,8 +341,12 @@ def test_parallel_specs_other_than_single_device_raise(spec, item):
 
         plan, mp, dp = _resolve(spec, devices=64)
         assert plan.fsdp_axes == ("data",) and (mp, dp) == (1, 2)
+        api = t_build_model(t_get_config("biglstm").reduced(), device="cpu")
+        assert callable(make_train_step(api, TO.adafactor(TO.constant_lr(0.1)),
+                                        mesh=TM_Mesh({"data": 2, "model": 1}), plan=plan))
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5b"):
-            TL.check_plan(plan, mp, t_get_config("biglstm"), TO.adafactor(TO.constant_lr(0.1)))
+            TL.check_plan(dataclasses.replace(plan, mp_kind="pipeline", model_axis="model"), 2,
+                          t_get_config("biglstm"))
         return
     if item == "items 5-8":
         with pytest.raises(SystemExit, match=r"keys \['zz'\] are unknown: the JAX launcher"):
